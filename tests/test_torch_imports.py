@@ -1,0 +1,109 @@
+"""The port stands alone: no JAX, no JAX package, the card by default.
+
+A fresh interpreter imports every ``repro_torch`` module and ``chip_smoke``
+and must end with neither ``jax`` nor ``repro`` in ``sys.modules``.  Without
+a card, the entry points refuse to fall back to the CPU unless asked, and
+``chip_smoke.py`` exits non-zero without printing a result.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+mods = []
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    mods.append(info.name)
+import chip_smoke
+from repro_torch.core import Program, EGPU_16T
+Program.build(EGPU_16T).create_kernels()
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": mods, "leaked": leaked}))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), str(ROOT)])
+    return env
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["leaked"] == []
+    expected = {"repro_torch.core.runtime", "repro_torch.core.apu",
+                "repro_torch.apps.tinybio", "repro_torch.tinycl",
+                "repro_torch.kernels.fir.ops", "repro_torch.kernels.svm.ops",
+                "repro_torch.kernels.delineate.ops",
+                "repro_torch.kernels.stockham_fft.ops"}
+    assert expected <= set(report["modules"])
+
+
+def test_no_source_line_names_jax():
+    for path in list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            code = line.split("#")[0].strip()
+            if code.startswith(("import ", "from ")):
+                assert "jax" not in code, f"{path}: {line}"
+                assert not code.startswith(("import repro.", "from repro ",
+                                            "from repro.", "import repro ")), \
+                    f"{path}: {line}"
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default is usable")
+    from repro_torch.apps.tinybio import run_tinybio, tinybio_stages
+    from repro_torch.core import APU
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        APU()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_tinybio()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tinybio_stages()
+
+
+def _no_result(stdout: str) -> bool:
+    for line in stdout.splitlines():
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(obj, dict) and ("ok" in obj or "kernels" in obj):
+            return False
+    return True
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert _no_result(out.stdout)
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert _no_result(out.stdout)
