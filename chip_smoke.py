@@ -11,22 +11,34 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them, and builds the CUDA kernels from ``src/repro_torch/csrc`` with the
    toolkit's ``nvcc`` (one process per source, all at once);
-2. each kernel against its plain PyTorch version, on the card, at TinyBio's
-   shapes plus a ragged size, with the tolerance stated beside each check;
-   every call must move the kernel's launch counter by one;
-3. kernel timings at TinyBio's shapes: device time per call from CUDA
-   events around replays of a CUDA graph of many warm calls, for the
+2. each kernel against its plain PyTorch version, on the card, at the main
+   paths' shapes plus ragged sizes, with the tolerance stated beside each
+   check; every call must move the kernel's launch counter by one.  The
+   GeMM's three config tilings must give identical bits;
+3. kernel timings at the main paths' shapes: device time per call from
+   CUDA events around replays of a CUDA graph of many warm calls, for the
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``); the eager cost per call, host
    dispatch included, is logged beside them.  ``bound_ms`` is the least time
-   the card could take, from the bytes and flops of this run's inputs;
-4. the main path — ``run_tinybio`` on the card for the 4T, 8T and 16T
-   configs, in graph and eager mode, at the paper's full workload — with
-   the launch counters reset just before and read just after: each kernel
-   must have launched once per graph offload and twice per eager one.  The
-   decisions of graph and eager must agree bitwise, every report must equal
-   the CPU run's field for field, and every stage's output must match the
-   CPU run's within the stated tolerances;
+   the card could take, from the bytes and operations of this run's inputs.
+   The GeMM is also timed at 2048³, where launch latency no longer hides
+   the kernel's own rate;
+4. the two main paths, each with the launch counters reset just before and
+   read just after:
+
+   * TinyBio — ``run_tinybio`` on the card for the 4T, 8T and 16T configs,
+     in graph and eager mode, at the paper's full workload: each of its
+     kernels must have launched once per graph offload and twice per eager
+     one.  The decisions of graph and eager must agree bitwise, every
+     report must equal the CPU run's field for field, and every stage's
+     output must match the CPU run's within the stated tolerances;
+   * GeMM (paper Fig 3) — the quickstart's 256³ int32 ``APU.offload`` for
+     the 4T, 8T and 16T configs, graph and eager: ``gemm`` must have
+     launched once per graph offload and twice per eager one, the outputs
+     must be exact and every report equal to the CPU run's; then the
+     ports of the Fig-3, transfer and multi-queue benches on the card,
+     their modeled rows equal to the CPU run's;
+
 5. one ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
    {...}}``.
 
@@ -48,8 +60,12 @@ ROOT = Path(__file__).resolve().parent
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# INT32 multiply-adds per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), times the SMs
+# and the card's max SM clock from nvidia-smi give the int32 peak.
+INT32_MAC_PER_CLK_PER_SM = 64
 
-KERNELS = {
+TINYBIO_KERNELS = {
     "fir": ("src/repro_torch/csrc/fir.cu", "src/repro/kernels/fir/fir.py:27"),
     "delineate": ("src/repro_torch/csrc/delineate.cu",
                   "src/repro/kernels/delineate/delineate.py:22"),
@@ -57,6 +73,10 @@ KERNELS = {
                      "src/repro/kernels/stockham_fft/stockham_fft.py:29"),
     "svm": ("src/repro_torch/csrc/svm.cu", "src/repro/kernels/svm/svm.py:22"),
 }
+GEMM_KERNELS = {
+    "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm/gemm.py:27"),
+}
+KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS}
 
 
 class SmokeFailure(RuntimeError):
@@ -72,11 +92,56 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, ops_per_s: float = PEAK_FP32_FLOPS):
+    """(least ms, what bounds it) for moving ``nbytes`` and doing ``flops``
+    operations at ``ops_per_s``."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FP32_FLOPS
+    t_ops = flops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nvidia_smi(query: str) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def device_profile(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: (host wall s, device busy
+    s, device microseconds by kernel name).  Only device-side events
+    (kernels and copies) count — a CPU op's row would count its kernels'
+    time a second time — and busy time is the union of their intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    per_kernel = {}
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t0_us, t1_us = ev.time_range.start, ev.time_range.end
+        spans.append((t0_us, t1_us))
+        per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + (t1_us - t0_us)
+    busy_us, reach = 0.0, -math.inf
+    for t0_us, t1_us in sorted(spans):
+        busy_us += max(0.0, t1_us - max(t0_us, reach))
+        reach = max(reach, t1_us)
+    return wall_s, busy_us * 1e-6, per_kernel
+
+
+def profile_line(what: str, wall_s: float, busy_s: float, per_kernel) -> str:
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    idle = "not measured" if busy_s == 0 else f"{1 - busy_s / wall_s:.4f}"
+    return (f"{what}: wall {wall_s * 1e3:.3f} ms, device busy "
+            f"{busy_s * 1e3:.4f} ms, idle share {idle}; device us by kernel: "
+            + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
 
 
 def call_ms(torch, fn, iters: int, warmup: int = 10) -> float:
@@ -129,11 +194,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     try:
+        from benchmarks_torch import (bench_gemm_overhead, bench_multiqueue,
+                                      bench_transfer)
         from repro_torch.apps import tinybio
-        from repro_torch.core import EGPU_4T, EGPU_8T, EGPU_16T
+        from repro_torch.core import (APU, EGPU_4T, EGPU_8T, EGPU_16T,
+                                      CommandQueue, Context, Device, Program,
+                                      Stage)
         from repro_torch.kernels import common
+        from repro_torch.kernels.gemm.ops import gemm
+        from repro_torch.kernels.gemm.ref import gemm_plain
         from repro_torch.kernels.delineate.ops import delineate
         from repro_torch.kernels.delineate.ref import delineate_ref
         from repro_torch.kernels.fir.ops import fir
@@ -149,19 +220,21 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    # Full fp32 everywhere: the plain SVM's matmul and the conv1d yardstick
-    # would otherwise be allowed TF32.
+    # Full fp32 everywhere: the plain SVM's and GeMM's matmul and the conv1d
+    # yardstick would otherwise be allowed TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
     # -- 1. card and build --------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = nvidia_smi("name,power.limit")
     log(card)
+    max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peak_int32_macs = INT32_MAC_PER_CLK_PER_SM * n_sms * max_sm_mhz * 1e6
+    log(f"int32 multiply-add peak: {INT32_MAC_PER_CLK_PER_SM} per clock per "
+        f"SM x {n_sms} SMs x {max_sm_mhz:.0f} MHz (max SM clock) = "
+        f"{peak_int32_macs / 1e12:.3f} T MAC/s")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     info = common.build_kernels()
@@ -263,7 +336,58 @@ def main() -> int:
                          rtol=1e-4, atol=1e-5), "svm ragged")
     log(f"phase 2: svm ok (max abs err {max_err['svm']:.3g})")
 
-    # -- 3. timings at TinyBio's shapes ------------------------------------
+    # gemm, each case through the tilings of all three configs, which must
+    # give identical bits (compared as int32 words, so -0.0 != +0.0).
+    # int32: exact against the plain version (uint32 wraparound on both
+    # sides).  f32: one in-order fused multiply-add chain per output against
+    # the plain version's matmul (TF32 off): rtol = atol = 2e-4, as
+    # tests/test_kernels.py states for the JAX kernel at these shapes.
+    configs = (EGPU_4T, EGPU_8T, EGPU_16T)
+    knobs = {cfg.name: cfg.cuda_knobs() for cfg in configs}
+
+    def gemm_case(a, b, what):
+        outs = [launched("gemm", lambda k=k: gemm(a, b, k)) for k in knobs.values()]
+        bits = [o.view(torch.int32) for o in outs]
+        check(all(torch.equal(x, bits[0]) for x in bits),
+              f"gemm {what}: the config tilings' outputs differ")
+        want = gemm_plain(a, b)
+        if a.dtype == torch.int32:
+            check(torch.equal(outs[0], want), f"gemm {what}: not exact")
+        else:
+            check(torch.allclose(outs[0], want, rtol=2e-4, atol=2e-4),
+                  f"gemm {what}: error {err(outs[0], want)}")
+        return err(outs[0], want)
+
+    def ints(lo, hi, *shape):
+        return torch.from_numpy(
+            rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+    def floats(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    gemm_err = {}
+    for size in (32, 64, 128, 256):
+        gemm_err[f"int32 {size}"] = gemm_case(
+            ints(-64, 64, size, size), ints(-64, 64, size, size), f"int32 {size}")
+    gemm_err["int32 257x129x65"] = gemm_case(
+        ints(-64, 64, 257, 129), ints(-64, 64, 129, 65), "int32 ragged")
+    aw, bw_ = ints(2 ** 20 - 64, 2 ** 20 + 64, 96, 200), ints(-2 ** 20 - 64, -2 ** 20 + 64, 200, 80)
+    exact = aw.cpu().numpy().astype(np.int64) @ bw_.cpu().numpy().astype(np.int64)
+    check(bool((np.abs(exact) >= 2 ** 31).all()), "gemm wraparound case does not wrap")
+    gemm_err["int32 wraparound"] = gemm_case(aw, bw_, "int32 wraparound")
+    check(np.array_equal(gemm(aw, bw_).cpu().numpy(),
+                         ((exact + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)),
+          "gemm wraparound differs from the int64 product modulo 2^32")
+    for m, k, n in ((8, 8, 8), (100, 70, 50), (128, 128, 128), (257, 129, 65),
+                    (512, 256, 384)):
+        gemm_err[f"f32 {m}x{k}x{n}"] = gemm_case(floats(m, k), floats(k, n),
+                                                 f"f32 {m}x{k}x{n}")
+    max_err["gemm"] = max(v for key, v in gemm_err.items() if key.startswith("int32"))
+    log("phase 2: gemm ok (int32 exact incl. ragged and wraparound; 4T/8T/16T "
+        "tilings bit-identical; max abs err vs plain: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gemm_err.items()) + ")")
+
+    # -- 3. timings at the main paths' shapes ------------------------------
     n, taps = x.numel(), h.numel()
     q, m, d = feats.shape[0], sv_main.shape[0], feats.shape[1]
     bw, bn = w.shape
@@ -310,8 +434,63 @@ def main() -> int:
             f"dispatch: kernel {fmt(eager[0])}, plain {fmt(eager[1])}, "
             f"library {fmt(eager[2])}")
 
-    # -- 4. the main path ------------------------------------------------------
-    configs = (EGPU_4T, EGPU_8T, EGPU_16T)
+    # gemm at the GeMM path's 256^3 int32, once per config's tiling; the
+    # kernels line reports the 16T tiling (the quickstart's config).
+    side = 256
+    ga, gb = ints(-64, 64, side, side), ints(-64, 64, side, side)
+    per_cfg = {name: device_ms(torch, lambda k=k: gemm(ga, gb, k), 100)
+               for name, k in knobs.items()}
+    k16 = knobs[EGPU_16T.name]
+    int_library = None
+    try:
+        torch.matmul(ga[:2, :2], gb[:2, :2])
+    except (NotImplementedError, RuntimeError) as e:
+        log(f"phase 3: gemm int32 library call: none — torch.matmul on CUDA "
+            f"int32 raises {type(e).__name__}: {str(e).splitlines()[0][:80]}")
+    else:
+        int_library = lambda: torch.matmul(ga, gb)
+    g_bound = bound(4.0 * 3 * side * side, float(side) ** 3, peak_int32_macs)
+    rows["gemm"] = dict(
+        ms=per_cfg[EGPU_16T.name],
+        plain_ms=device_ms(torch, lambda: gemm_plain(ga, gb), 5),
+        library_ms=(None if int_library is None
+                    else device_ms(torch, int_library, 100)),
+        bound_ms=g_bound[0], bound_by=g_bound[1])
+    r = rows["gemm"]
+    log(f"phase 3: gemm 256^3 int32: device time per call: kernel "
+        + ", ".join(f"{c} {v:.6f} ms" for c, v in per_cfg.items())
+        + f"; plain {fmt(r['plain_ms'])}, library {fmt(r['library_ms'])}; "
+        f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}, int32 peak); eager "
+        f"call incl. host dispatch: kernel 16T "
+        f"{fmt(call_ms(torch, lambda: gemm(ga, gb, k16), 300))}, plain "
+        f"{fmt(call_ms(torch, lambda: gemm_plain(ga, gb), 30, warmup=3))}")
+    # ... and at 2048^3 with the 16T tiling, where launch latency no longer
+    # hides the kernel's own rate.  int32 exact against the plain version;
+    # f32 against torch.matmul (TF32 off): sums of 2048 products of N(0, 1)
+    # values reach |c| ~ 200, where the two summation orders differ by a few
+    # 1e-5, so rtol 1e-4 and atol 1e-3.
+    big = 2048
+    ba, bb = ints(-64, 64, big, big), ints(-64, 64, big, big)
+    fa, fb = floats(big, big), floats(big, big)
+    check(torch.equal(launched("gemm", lambda: gemm(ba, bb, k16)), gemm_plain(ba, bb)),
+          "gemm int32 2048^3 not exact")
+    check(torch.allclose(launched("gemm", lambda: gemm(fa, fb, k16)),
+                         torch.matmul(fa, fb), rtol=1e-4, atol=1e-3),
+          "gemm f32 2048^3 differs from torch.matmul")
+    big_rows = {}
+    for dtype, (xa, xb, peak, ops) in {
+            "int32": (ba, bb, peak_int32_macs, float(big) ** 3),
+            "f32": (fa, fb, PEAK_FP32_FLOPS, 2.0 * float(big) ** 3)}.items():
+        k_ms = device_ms(torch, lambda: gemm(xa, xb, k16), 10)
+        lib = (None if dtype == "int32"
+               else device_ms(torch, lambda: torch.matmul(fa, fb), 10))
+        b_ms, b_by = bound(4.0 * 3 * big * big, ops, peak)
+        big_rows[dtype] = dict(ms=k_ms, library_ms=lib, bound_ms=b_ms)
+        log(f"phase 3: gemm 2048^3 {dtype} (16T tiling): kernel {k_ms:.6f} ms "
+            f"({ops / (k_ms * 1e-3) / 1e12:.3f} T {'MAC' if dtype == 'int32' else 'FLOP'}/s), "
+            f"library {fmt(lib)}, bound {b_ms:.6f} ms ({b_by})")
+
+    # -- 4a. the TinyBio main path --------------------------------------------
     runs = {}
     torch.cuda.synchronize()
     common.reset_launches()
@@ -326,10 +505,11 @@ def main() -> int:
     launches = dict(common.LAUNCHES)
     expected = len(configs) * (1 + 2)
     for name in KERNELS:
-        check(launches[name] == expected,
-              f"main path launched {name} {launches[name]} times, "
-              f"expected {expected}")
-    log(f"phase 4: main path (3 configs x graph + eager) in {wall:.3f} s "
+        want = expected if name in TINYBIO_KERNELS else 0
+        check(launches[name] == want,
+              f"TinyBio main path launched {name} {launches[name]} times, "
+              f"expected {want}")
+    log(f"phase 4: TinyBio main path (3 configs x graph + eager) in {wall:.3f} s "
         f"(per run: {', '.join(f'{c} {m} {t:.3f} s' for (c, m), t in walls.items())}), "
         f"launches {launches}")
     for cfg in configs:
@@ -372,37 +552,97 @@ def main() -> int:
 
     # where one warm graph offload's time goes: device time by kernel name
     # (torch.profiler) against the host's wall clock
-    from torch.profiler import ProfilerActivity, profile
     tinybio.run_tinybio(EGPU_16T, 0, "graph", device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tinybio.run_tinybio(EGPU_16T, 0, "graph", device="cuda")
+    log("phase 4: " + profile_line(
+        "one warm 16T TinyBio graph offload", *device_profile(
+            torch, lambda: tinybio.run_tinybio(EGPU_16T, 0, "graph",
+                                               device="cuda"))))
+
+    # -- 4b. the GeMM main path (paper Fig 3, the quickstart's offload) -------
+    qa = np.random.default_rng(0).integers(-64, 64, (2, 256, 256)).astype(np.int32)
+    qa, qb = qa[0], qa[1]
+    cp = {"m": 256, "n": 256, "k": 256}
+
+    def gemm_offload(cfg, mode, device):
+        stage = Stage(Program.build(cfg).create_kernel("gemm"), counts_params=cp)
+        return APU(cfg, device=device).offload([stage], (qa, qb), mode=mode)
+
+    gruns, gwalls = {}, {}
+    torch.cuda.synchronize()
+    common.reset_launches()
+    for cfg in configs:
+        for mode in ("graph", "eager"):
+            t0 = time.perf_counter()
+            gruns[cfg.name, mode] = gemm_offload(cfg, mode, "cuda")
+            torch.cuda.synchronize()
+            gwalls[cfg.name, mode] = time.perf_counter() - t0
+    gemm_launches = dict(common.LAUNCHES)
+    for name in KERNELS:
+        want = expected if name in GEMM_KERNELS else 0
+        check(gemm_launches[name] == want,
+              f"GeMM main path launched {name} {gemm_launches[name]} times, "
+              f"expected {want}")
+    launches.update({name: gemm_launches[name] for name in GEMM_KERNELS})
+    log(f"phase 4: GeMM main path (3 configs x graph + eager, 256^3 int32) in "
+        f"{sum(gwalls.values()):.3f} s (per run: "
+        f"{', '.join(f'{c} {m} {t:.3f} s' for (c, m), t in gwalls.items())}), "
+        f"launches {gemm_launches}")
+    exact = qa.astype(np.int64) @ qb.astype(np.int64)
+    for (cfg_name, mode), ((out,), rep) in gruns.items():
+        check(out.data.is_cuda and out.data.dtype == torch.int32
+              and np.array_equal(out.data.cpu().numpy(), exact),
+              f"GeMM offload {cfg_name} {mode}: output is not A @ B")
+        cfg = next(c for c in configs if c.name == cfg_name)
+        _, crep = gemm_offload(cfg, mode, "cpu")
+        check(dataclasses.asdict(rep) == dataclasses.asdict(crep),
+              f"GeMM offload {cfg_name} {mode}: report differs from the CPU run's")
+    rep16 = gruns[EGPU_16T.name, "graph"][1].stages[0]
+    log(f"phase 4: GeMM offloads exact, reports == CPU reports; 16T modeled "
+        f"speed-up {rep16.speedup!r}, energy reduction {rep16.energy_reduction!r}")
+    gemm_offload(EGPU_16T, "graph", "cuda")
+    torch.cuda.synchronize()
+    g_wall, g_busy, g_kernels = device_profile(
+        torch, lambda: gemm_offload(EGPU_16T, "graph", "cuda"))
+    log("phase 4: " + profile_line("one warm 16T GeMM graph offload",
+                                   g_wall, g_busy, g_kernels))
+    # no library product and no plain version on the path: the only
+    # device-side kernel is the hand-written one (besides the copies)
+    library = [k for k in g_kernels
+               if any(t in k.lower() for t in ("sgemm", "xmma", "cutlass",
+                                               "cublas", "gemv", "elementwise",
+                                               "reduce"))]
+    check(not library, f"GeMM offload ran library or plain kernels: {library}")
+    check(any("gemm_kernel" in k for k in g_kernels),
+          "GeMM offload's profile shows no gemm_kernel")
+
+    # the Fig-3, transfer and multi-queue benches on the card, their
+    # modeled numbers equal to the CPU run's
+    check(bench_gemm_overhead.run("cuda") == bench_gemm_overhead.run("cpu"),
+          "bench_gemm_overhead rows differ between the card and the CPU")
+    for bench in (bench_transfer, bench_multiqueue):
+        on_card, on_cpu = bench.run("cuda"), bench.run("cpu")
+        for key in on_cpu:
+            if key not in ("device", "fused_launch_wall_us"):
+                check(on_card[key] == on_cpu[key],
+                      f"{bench.__name__} {key}: {on_card[key]} on the card, "
+                      f"{on_cpu[key]} on the CPU")
+    ctx = Context(Device(EGPU_16T), "cuda")
+    for graph, per_launch in (
+            (bench_transfer._capture_explicit(ctx), 4),
+            (bench_transfer._capture_naive(ctx), 4),
+            (bench_multiqueue._capture(ctx, True), 5)):   # pre + 4 branches
+        scratch = CommandQueue(ctx)
         torch.cuda.synchronize()
-        offload_s = time.perf_counter() - t0
-    # Only the device-side events (kernels and copies): a CPU op's row
-    # would count its kernels' time a second time.  Busy time is the union
-    # of their intervals on the card's clock.
-    from torch.autograd import DeviceType
-    per_kernel = {}
-    spans = []
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        t0_us, t1_us = ev.time_range.start, ev.time_range.end
-        spans.append((t0_us, t1_us))
-        per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + (t1_us - t0_us)
-    busy_us, reach = 0.0, -math.inf
-    for t0_us, t1_us in sorted(spans):
-        busy_us += max(0.0, t1_us - max(t0_us, reach))
-        reach = max(reach, t1_us)
-    busy_s = busy_us * 1e-6
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    log(f"phase 4: one warm 16T graph offload: wall {offload_s * 1e3:.3f} ms, "
-        f"device busy {busy_s * 1e3:.4f} ms, idle share "
-        f"{'not measured' if busy_s == 0 else f'{1 - busy_s / offload_s:.4f}'}; "
-        f"device us by kernel: "
-        + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+        before = dict(common.LAUNCHES)
+        graph.launch(queue=scratch)
+        torch.cuda.synchronize()
+        moved = {k: common.LAUNCHES[k] - before[k] for k in before}
+        check(moved == {k: per_launch if k == "gemm" else 0 for k in before},
+              f"a DAG bench graph launch moved the counters by {moved}")
+    log("phase 4: bench_gemm_overhead rows, bench_transfer and "
+        "bench_multiqueue modeled numbers equal the CPU run's; gemm launches "
+        "4 per transfer-graph launch, 5 per multi-queue graph launch")
 
     # -- 5. summary ---------------------------------------------------------------
     kernels = []

@@ -4,7 +4,8 @@ Public API:
 
 * configs/knobs:  :class:`EGPUConfig`, presets ``EGPU_4T/8T/16T``, ``HOST``,
   DVFS :class:`OperatingPoint`\\ s (``OP_ANCHOR``, ``OPERATING_POINTS``,
-  ``EGPUConfig.at``)
+  ``EGPUConfig.at``), the Hopper projection :class:`KernelKnobs`
+  (``EGPUConfig.cuda_knobs``, :func:`check_smem_budget`)
 * execution model: :class:`NDRange`, :func:`schedule`, :func:`optimal_ndrange`
 * runtime (Tiny-OpenCL subset): :class:`Context`, :class:`Device`,
   :class:`CommandQueue`, :class:`Kernel`, :class:`Buffer`, :class:`Event`,
@@ -18,8 +19,8 @@ Public API:
 
 from .apu import APU, PipelineReport, Stage, StageReport
 from .device import (EGPU_4T, EGPU_8T, EGPU_16T, HOST, OP_ANCHOR,
-                     OPERATING_POINTS, PRESETS, EGPUConfig, OperatingPoint,
-                     env_op_point)
+                     OPERATING_POINTS, PRESETS, EGPUConfig, KernelKnobs,
+                     OperatingPoint, check_smem_budget, env_op_point)
 from .machine import (CAL, PhaseBreakdown, WorkCounts, egpu_time,
                       fuse_breakdowns, host_time, speedup, transfer_time)
 from .ndrange import NDRange, crop_from_groups, pad_to_groups
@@ -36,7 +37,8 @@ from .scheduler import Schedule, optimal_ndrange, schedule
 __all__ = [
     "APU", "PipelineReport", "Stage", "StageReport",
     "EGPU_4T", "EGPU_8T", "EGPU_16T", "HOST", "OP_ANCHOR", "OPERATING_POINTS",
-    "PRESETS", "EGPUConfig", "OperatingPoint", "env_op_point",
+    "PRESETS", "EGPUConfig", "KernelKnobs", "OperatingPoint",
+    "check_smem_budget", "env_op_point",
     "CAL", "PhaseBreakdown", "WorkCounts", "egpu_time", "fuse_breakdowns",
     "host_time", "speedup", "transfer_time",
     "NDRange", "crop_from_groups", "pad_to_groups",

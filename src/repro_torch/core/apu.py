@@ -104,20 +104,32 @@ class PipelineReport:
         return h / self.egpu_fused.total_s
 
 
+def _kernel_nodes(graph: CommandGraph) -> list:
+    """The graph's kernel nodes, one per pipeline stage, in stage order."""
+    return [n for n in graph.nodes if n.kind == "kernel"]
+
+
 class APU:
     """An accelerated processing unit: X-HEEP host + one e-GPU instance.
 
     ``config`` is the modeled e-GPU; ``device`` is the torch device every
     kernel executes on (``"cuda"`` by default, which raises when no card is
     present; ``"cpu"`` runs the kernels' plain PyTorch versions).
+    ``explicit_transfers`` is the default capture shape of
+    :meth:`capture_pipeline`.
     """
 
-    def __init__(self, config: EGPUConfig = EGPU_16T, device: Any = "cuda"):
+    def __init__(self, config: EGPUConfig = EGPU_16T, device: Any = "cuda",
+                 explicit_transfers: bool = False):
         self.egpu = Device(config)
         self.host = Device(HOST)
         self.egpu_ctx = Context(self.egpu, device)
         self.host_ctx = Context(self.host, self.egpu_ctx.torch_device)
         self.device = self.egpu_ctx.torch_device
+        #: captures wrap the pipeline in explicit enqueue_write_buffer /
+        #: enqueue_read_buffer transfer nodes and mark every kernel resident
+        #: (see :meth:`capture_pipeline`)
+        self.explicit_transfers = explicit_transfers
         # This APU's own launch queue: graph offloads bind their events and
         # modeled totals here.
         self.queue = CommandQueue(self.egpu_ctx)
@@ -125,14 +137,17 @@ class APU:
     # -- shared stage wiring -----------------------------------------------
     def wire_pipeline(self, q: CommandQueue, stages: Sequence["Stage"],
                       inputs: Sequence[Any],
-                      resident_chain: bool = True
+                      resident_chain: bool = True,
+                      resident_first: bool = False
                       ) -> Tuple[Tuple[Buffer, ...], list]:
         """Enqueue the stage chain on ``q`` (works eagerly or under capture).
 
         ``resident_chain=True`` applies the paper's §IV-B residency: after
         the first kernel, intermediate data stays in the unified memory /
-        D$ — only stage 0 pays the host->D$ fill.  Returns (final buffers,
-        per-stage events).
+        D$ — only stage 0 pays the host->D$ fill.  ``resident_first=True``
+        waives stage 0's fill too — for captures whose input traffic is
+        carried by explicit ``enqueue_write_buffer`` nodes instead of the
+        per-kernel heuristic.  Returns (final buffers, per-stage events).
         """
         ctx = q.ctx
         bufs = tuple(x if isinstance(x, Buffer) else ctx.create_buffer(x)
@@ -145,7 +160,8 @@ class APU:
             ev = q.enqueue_nd_range(stage.kernel, ndr, bufs + extra,
                                     params=stage.params,
                                     counts_params=stage.counts_params,
-                                    _resident=i > 0 and resident_chain)
+                                    _resident=(resident_first if i == 0
+                                               else resident_chain))
             bufs = ev.outputs
             evs.append(ev)
         return bufs, evs
@@ -173,12 +189,14 @@ class APU:
                     graph: CommandGraph) -> List[Tuple[PhaseBreakdown, float]]:
         """Analytic host-side cost of each stage (no execution needed).
 
-        Per-stage NDRanges are derived from each captured node's recorded
-        input size — exactly the sizes the eager host path would see — so
-        graph and eager host reports can never diverge."""
+        Per-stage NDRanges are derived from each captured kernel node's
+        recorded input size — exactly the sizes the eager host path would
+        see — so graph and eager host reports can never diverge.  Transfer
+        nodes (explicit-transfer captures) are skipped: the host baseline
+        owns the unified memory and pays no bus traffic."""
         hq = CommandQueue(self.host_ctx)
         costs = []
-        for stage, node in zip(stages, graph.nodes):
+        for stage, node in zip(stages, _kernel_nodes(graph)):
             ndr = optimal_ndrange(node.n_items, self.host.config)
             modeled, energy, _counts = hq._model(
                 stage.kernel, ndr, stage.counts_params, resident=False)
@@ -205,7 +223,9 @@ class APU:
 
     # -- CommandGraph path --------------------------------------------------
     def capture_pipeline(self, stages: Sequence["Stage"],
-                         inputs: Sequence[Any]) -> CommandGraph:
+                         inputs: Sequence[Any],
+                         explicit_transfers: Optional[bool] = None
+                         ) -> CommandGraph:
         """Capture the stage chain on the e-GPU queue into a reusable
         :class:`~repro_torch.core.runtime.CommandGraph`.
 
@@ -215,13 +235,34 @@ class APU:
         ``graph.launch_prefix(new_inputs)`` while the per-stage constant
         buffers keep their captured values.  ``graph.n_request_inputs``
         records how many leading externals are pipeline inputs.
+
+        ``explicit_transfers`` (default: the APU's flag) is the host API's
+        explicit capture shape: every pipeline input flows through an
+        ``enqueue_write_buffer`` node, every final output through an
+        ``enqueue_read_buffer`` node, and all kernels are marked resident —
+        data movement is priced by dedicated transfer nodes on the DAG
+        instead of the per-kernel overlap heuristic.
         """
+        if explicit_transfers is None:
+            explicit_transfers = self.explicit_transfers
         q = CommandQueue(self.egpu_ctx)
         with q.capture() as graph:
             bufs = tuple(self.egpu_ctx.create_buffer(x) for x in inputs)
             for b in bufs:
                 graph._slot_of(b)
-            self.wire_pipeline(q, stages, bufs, resident_chain=True)
+            if explicit_transfers:
+                written = []
+                for b in bufs:
+                    dev = Buffer(b.data)        # device-resident destination
+                    q.enqueue_write_buffer(dev, b)
+                    written.append(dev)
+                finals, _ = self.wire_pipeline(q, stages, written,
+                                               resident_chain=True,
+                                               resident_first=True)
+                for out in finals:
+                    q.enqueue_read_buffer(out)
+            else:
+                self.wire_pipeline(q, stages, bufs, resident_chain=True)
         graph.n_request_inputs = len(bufs)
         return graph
 
@@ -237,7 +278,7 @@ class APU:
                         host=h_mod, egpu_energy_j=node.energy_j,
                         host_energy_j=h_en)
             for stage, node, (h_mod, h_en)
-            in zip(stages, graph.nodes, host))
+            in zip(stages, _kernel_nodes(graph), host))
         # Kernels without a counts model still get
         # their functional outputs — just no fused cost to report.
         fused, _ = graph.fused_modeled()

@@ -18,10 +18,17 @@ This module holds:
   fields, so every memoization key that includes the config (program and
   kernel registries) keys on the operating point too.
 
+* :class:`KernelKnobs` — the Hopper projection of those knobs: a CUDA
+  kernel's output-tile shape, its pipeline depth (tiles in flight through
+  shared memory) and its shared-memory budget.  ``EGPUConfig.cuda_knobs()``
+  maps threads → tile width, D$ line → tile height, warps → pipeline depth
+  and D$ size → shared-memory budget, keeping the ratios between the
+  presets that the JAX package's TPU projection keeps;
+  :func:`check_smem_budget` holds a tiling to the budget.
+
 A config is the *modeled* e-GPU; the torch device the kernels execute on is a
 separate argument carried by :class:`~repro_torch.core.runtime.Context` and
-:class:`~repro_torch.core.apu.APU`.  The projection of these knobs onto
-Hopper kernel tiling is not part of this module.
+:class:`~repro_torch.core.apu.APU`.
 
 Configs are plain frozen dataclasses, field for field the same as the JAX
 package's, so the machine model built on them gives identical numbers.
@@ -35,6 +42,20 @@ from typing import Dict, Optional
 
 KIB = 1024
 MIB = 1024 * KIB
+
+#: shared memory one block may use on an H100 (above 48 KB only as opt-in
+#: dynamic shared memory); the presets' 16 KiB D$ maps onto all of it
+HOPPER_SMEM_BLOCK_BYTES = 232_448
+#: the D$ size that maps onto the whole shared-memory budget
+_SMEM_REF_DCACHE_BYTES = 16 * KIB
+#: output-tile rows per 8 B of D$ line, and columns per 2 threads/CU
+CUDA_TILE_ROWS = 16
+CUDA_TILE_COLS = 32
+
+
+def _pow2_floor(x: int) -> int:
+    """The largest power of two <= max(x, 1)."""
+    return 1 << (max(x, 1).bit_length() - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +198,60 @@ class EGPUConfig:
         if self.dcache_bytes % (self.dcache_banks * self.dcache_line_bytes):
             raise ValueError("dcache must divide evenly into banks x lines")
         return self
+
+    # ------------------------------------------------------------------
+    # Hopper projection
+    # ------------------------------------------------------------------
+    def cuda_knobs(self) -> "KernelKnobs":
+        """Project the e-GPU knobs onto the tiling of a Hopper CUDA kernel.
+
+        The *ratios* between configurations are the TPU projection's (the
+        JAX package's ``tpu_knobs``); magnitudes are scaled to an SM's
+        shared memory and warp width, and tiles are powers of two:
+
+        * threads/CU → output-tile width, 32 × threads/2 (32 / 64 / 128
+          columns for 4T / 8T / 16T)
+        * D$ line    → output-tile height, 16 × line/8 B (16 / 32 / 64 rows)
+        * warps/CU   → pipeline depth: K-tiles in flight, max(2, warps)
+        * D$ size    → shared-memory budget, scaled from 16 KiB to the
+          232,448 bytes a block may use (and never above it)
+        """
+        budget = (self.dcache_bytes * HOPPER_SMEM_BLOCK_BYTES
+                  // _SMEM_REF_DCACHE_BYTES)
+        return KernelKnobs(
+            tile_m=CUDA_TILE_ROWS * _pow2_floor(self.dcache_line_bytes // 8),
+            tile_n=CUDA_TILE_COLS * _pow2_floor(self.threads_per_cu // 2),
+            pipeline_depth=max(2, self.warps_per_cu),
+            smem_budget_bytes=min(budget, HOPPER_SMEM_BLOCK_BYTES),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelKnobs:
+    """Hopper kernel tuning knobs derived from an :class:`EGPUConfig`.
+
+    A tiled kernel (``repro_torch.kernels.gemm``) takes its output tile at
+    most ``tile_m`` × ``tile_n``, keeps ``pipeline_depth`` input tiles in
+    flight, and must keep their shared-memory footprint under
+    ``smem_budget_bytes`` (checked by :func:`check_smem_budget`).
+    """
+
+    tile_m: int
+    tile_n: int
+    pipeline_depth: int
+    smem_budget_bytes: int
+
+
+def check_smem_budget(knobs: KernelKnobs, *block_bytes: int) -> None:
+    """Raise if the per-stage shared-memory blocks, times the pipeline depth
+    (every stage holds one of each), exceed the budget."""
+    total = sum(block_bytes) * knobs.pipeline_depth
+    if total > knobs.smem_budget_bytes:
+        raise ValueError(
+            f"shared-memory working set {total / KIB:.1f} KiB exceeds budget "
+            f"{knobs.smem_budget_bytes / KIB:.1f} KiB "
+            f"(blocks={[b / KIB for b in block_bytes]} KiB x depth "
+            f"{knobs.pipeline_depth})")
 
 
 def _preset(name: str, threads: int) -> EGPUConfig:

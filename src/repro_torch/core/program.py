@@ -50,6 +50,7 @@ BUILTIN_FAMILIES: Dict[str, str] = {
     "fir": "repro_torch.kernels.fir.ops",
     "delineate": "repro_torch.kernels.delineate.ops",
     "svm": "repro_torch.kernels.svm.ops",
+    "gemm": "repro_torch.kernels.gemm.ops",
 }
 
 

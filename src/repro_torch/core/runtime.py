@@ -20,25 +20,46 @@ API shape over torch tensors:
 Execution model
 ---------------
 
-The queue is in-order.  ``enqueue_nd_range`` is non-blocking on a CUDA
-device: the kernel is queued on the current CUDA stream and the returned
-:class:`Event` records a ``torch.cuda.Event`` behind it.  ``Event.wait()``
-synchronizes that event and ``CommandQueue.finish()`` drains the queue
-(``clFinish``).
+``enqueue_nd_range`` is non-blocking on a CUDA device: the kernel is queued
+on the current CUDA stream and the returned :class:`Event` records a
+``torch.cuda.Event`` behind it.  ``Event.wait()`` synchronizes that event
+(and, transitively, the events it depends on) and ``CommandQueue.finish()``
+drains the queue (``clFinish``).
 
-``queue.capture()`` records every ``enqueue_nd_range`` issued inside the
-``with`` block into a :class:`CommandGraph` **without executing it**: output
-shapes come from running each executor on ``meta`` tensors, which carry a
-shape and a dtype but no storage.  ``graph.launch(*inputs)`` then replays the
-nodes in order on the current stream.  Per-stage machine-model accounting is
-costed from each node's ``WorkCounts`` at capture time, and
-:meth:`CommandGraph.fused_modeled` reports the chain's modeled latency with
+Ordering follows OpenCL.  An in-order queue (the default) chains every
+command after the previous one.  ``CommandQueue(ctx, out_of_order=True)``
+drops that chain: a command then depends only on its ``wait_events=``
+list, on the commands that produced the buffers it reads (dataflow), and on
+the queue's latest :meth:`~CommandQueue.enqueue_barrier`.
+:meth:`~CommandQueue.enqueue_marker` aggregates events.  Kernels are pure
+functions, so ordering never changes a result: it is a synchronization and
+machine-model contract.
+
+Data movement is first-class: ``enqueue_write_buffer`` /
+``enqueue_read_buffer`` / ``enqueue_copy_buffer`` return events costed as
+transfer-only :class:`PhaseBreakdown`\\ s from the machine model's bus
+parameters.  Under unified memory no byte moves on the card: a write or a
+copy *rebinds* the destination buffer to the source tensor (never writing
+into it), and a read returns the buffer itself.
+
+``queue.capture()`` records every command issued inside the ``with`` block
+into a :class:`CommandGraph` **without executing it**: output shapes come
+from running each executor on ``meta`` tensors, which carry a shape and a
+dtype but no storage.  Each node records its dependency edges (dataflow,
+``wait_events``, the queue's ordering rules); markers and barriers are
+zero-cost nodes and transfers are identity nodes carrying their modeled
+traffic.  ``graph.join(other_queue)`` records a second queue's commands
+(the host's, say) into the same capture.  ``graph.launch(*inputs)`` replays
+the nodes in order on the current stream.  Per-node machine-model
+accounting is costed from each node's ``WorkCounts`` at capture time, and
+:meth:`CommandGraph.fused_modeled` reports the DAG's critical path with
 startup and scheduling paid once.  A launch binds its events and modeled
 totals to the caller's queue (``launch(..., queue=...)``).
 
 Kernels execute functionally (outputs are fresh tensors), so a graph launch
 and the eager path give the same bits.  :class:`Buffer` flags are enforced:
-kernels cannot read write-only buffers.
+kernels and reads cannot read write-only buffers, writes and copies cannot
+write read-only ones.
 """
 
 from __future__ import annotations
@@ -52,7 +73,7 @@ import torch
 
 from .device import EGPUConfig, EGPU_16T, HOST
 from .machine import (PhaseBreakdown, WorkCounts, egpu_time, fuse_breakdowns,
-                      host_time)
+                      host_time, transfer_time)
 from .ndrange import NDRange
 from .power import egpu_energy_j, host_energy_j
 from .scheduler import optimal_ndrange
@@ -88,9 +109,12 @@ class Buffer:
     """A unified-memory buffer with **enforced** CL_MEM-style access flags.
 
     ``flags`` mirror CL_MEM_READ_ONLY / WRITE_ONLY / READ_WRITE: a kernel
-    launch *reads* its argument buffers, so passing a write-only (``"w"``)
-    buffer raises.  Kernels execute functionally (outputs are fresh
-    buffers).
+    launch or an ``enqueue_read_buffer`` *reads* its buffers, so a
+    write-only (``"w"``) buffer raises there; ``enqueue_write_buffer`` and
+    ``enqueue_copy_buffer`` *write* their destination, so a read-only
+    (``"r"``) destination raises.  Kernels execute functionally (outputs are
+    fresh buffers), and a write or copy rebinds the destination to the
+    source tensor, so no command writes into a tensor in place.
     """
 
     def __init__(self, data: Any, flags: str = "rw"):
@@ -131,12 +155,14 @@ class GraphBuffer(Buffer):
     """A symbolic buffer produced while capturing a :class:`CommandGraph`.
 
     Carries only a ``meta`` tensor (shape/dtype/numel all work); the
-    concrete value exists only while the graph is launched.
+    concrete value exists only while the graph is launched.  ``flags`` are
+    the logical source buffer's for a transfer node's output and ``"rw"``
+    for a kernel's, so access control survives capture.
     """
 
-    def __init__(self, aval: torch.Tensor, slot: int):
+    def __init__(self, aval: torch.Tensor, slot: int, flags: str = "rw"):
         self.data = aval
-        self.flags = "rw"          # kernel outputs are fresh rw buffers
+        self.flags = flags
         self.slot = slot
 
     def read(self) -> torch.Tensor:
@@ -368,14 +394,18 @@ class Event:
         self.outputs = outputs
         self.modeled = modeled
         self.energy_j = energy_j
-        #: events this one waits on (the in-order queue's implicit
-        #: predecessor plus dataflow producers); cleared once realized or
-        #: released so a long-lived queue never chains its whole history
+        #: events this one waits on (explicit ``wait_events``, the queue's
+        #: implicit ordering edge, dataflow producers); cleared once realized
+        #: or released so a long-lived queue never chains its whole history
         self.deps = tuple(deps)
         #: the torch.cuda.Event recorded behind this launch (None on CPU)
         self._device_done = device_done
         self._done = False
         self._refcount = 1
+        #: set on events returned during a capture: the graph and the node
+        #: indices the event stands for (what a ``wait_events`` list names)
+        self._graph: Optional["CommandGraph"] = None
+        self._dep_nodes: frozenset = frozenset()
 
     @property
     def done(self) -> bool:
@@ -433,13 +463,32 @@ class Event:
         return self.outputs
 
 
+#: sentinel kernel for marker/barrier events (clEnqueueMarkerWithWaitList /
+#: clEnqueueBarrierWithWaitList) — never executed, carries no cost model
+_MARKER = Kernel(name="marker", executor=lambda: ())
+
+#: sentinel kernels identifying explicit data-movement commands; their
+#: modeled cost is a transfer-only PhaseBreakdown attached per event/node
+_WRITE = Kernel(name="write_buffer", executor=lambda x: (x,))
+_READ = Kernel(name="read_buffer", executor=lambda x: (x,))
+_COPY = Kernel(name="copy_buffer", executor=lambda x: (x,))
+
+
 class CommandQueue:
-    """An in-order command queue bound to one device.
+    """A command queue bound to one device.
 
     Asynchronous OpenCL semantics: enqueue returns once the kernel is queued
     on the CUDA stream, and only ``Event.wait()`` / :meth:`finish`
-    synchronize.  Every launch is implicitly chained after the previous one
-    (OpenCL's default queue semantics).
+    synchronize.
+
+    Ordering (``out_of_order``): an in-order queue (default) implicitly
+    chains every command after the previous one, OpenCL's default queue
+    semantics.  ``out_of_order=True`` is the
+    ``CL_QUEUE_OUT_OF_ORDER_EXEC_MODE_ENABLE`` analogue: commands carry no
+    implicit ordering — dependencies come only from ``wait_events=`` lists,
+    dataflow (consuming a prior event's output buffers), and
+    :meth:`enqueue_barrier` points.  Two commands with neither are
+    unordered (concurrent in the machine model's critical path).
 
     Event lifecycle: the queue keeps every event until
     :meth:`release_events` drops drained ones, folding their modeled
@@ -447,8 +496,10 @@ class CommandQueue:
     / :meth:`total_energy_j` stay exact whatever has been released.
     """
 
-    def __init__(self, ctx: "Context"):
+    def __init__(self, ctx: "Context", out_of_order: bool = False):
         self.ctx = ctx
+        self.out_of_order = out_of_order
+        self._barrier: Optional[Event] = None   # latest eager barrier event
         self._events: List[Event] = []
         self._drained = 0              # finish() watermark: events before
                                        # this index are already waited
@@ -481,32 +532,86 @@ class CommandQueue:
         modeled = egpu_time(cfg, counts, ndr)
         return modeled, egpu_energy_j(cfg, modeled), counts
 
+    def _model_transfer(self, nbytes: float
+                        ) -> Tuple[PhaseBreakdown, float]:
+        """Transfer-only cost of an explicit buffer command on this device."""
+        cfg = self.ctx.device.config
+        modeled = transfer_time(cfg, nbytes)
+        if self.ctx.device.is_host:
+            return modeled, host_energy_j(modeled)
+        return modeled, egpu_energy_j(cfg, modeled)
+
+    def _check_wait_events(self, wait_events: Optional[Sequence[Event]]
+                           ) -> Tuple[Event, ...]:
+        evs = tuple(wait_events or ())
+        for ev in evs:
+            if not isinstance(ev, Event):
+                raise TypeError(
+                    f"wait_events must contain Events, got "
+                    f"{type(ev).__name__}")
+            if ev.released:
+                raise RuntimeError(
+                    "wait_events contains a released Event (use-after-"
+                    "release)")
+            if self._capture is None and ev._graph is not None:
+                raise RuntimeError(
+                    "wait_events contains a capture-time Event; an eager "
+                    "command can only wait events of executed launches")
+        return evs
+
     def _implicit_deps(self) -> Tuple[Event, ...]:
-        """The in-order queue's ordering edge for the next eager launch."""
-        prev = self._events[-1] if self._events else None
-        return (prev,) if prev is not None and not prev.released else ()
+        """The queue's implicit ordering edge for the next eager command:
+        the previous command (in-order) or the latest barrier
+        (out-of-order)."""
+        if not self.out_of_order:
+            prev = self._events[-1] if self._events else None
+            return (prev,) if prev is not None and not prev.released else ()
+        if self._barrier is not None and not self._barrier.released:
+            return (self._barrier,)
+        return ()
+
+    def _eager_deps(self, waits: Tuple[Event, ...],
+                    reads: Sequence[Buffer]) -> Tuple[Event, ...]:
+        """``wait_events`` + the queue's ordering edge + dataflow edges:
+        consuming another command's output buffer orders after it (even on
+        an out-of-order queue, and across queues), so ``wait()`` realizes
+        the producer transitively."""
+        deps = waits + self._implicit_deps()
+        for b in reads:
+            producer = getattr(b, "_event", None)
+            if (producer is not None and not producer._done
+                    and not producer.released and producer not in deps):
+                deps += (producer,)
+        return deps
 
     # -- the OpenCL-subset entry point -------------------------------------
     def enqueue_nd_range(self, kernel: Kernel, ndr: NDRange,
                          args: Sequence[Buffer],
                          params: Optional[Dict[str, Any]] = None,
                          counts_params: Optional[Dict[str, Any]] = None,
+                         wait_events: Optional[Sequence[Event]] = None,
                          _resident: bool = False) -> Event:
         """Launch ``kernel`` over ``ndr`` with buffer ``args`` (non-blocking).
 
         ``params`` are executor kwargs (the paper's kernel-args region);
         ``counts_params`` are the problem sizes handed to the kernel's
         ``counts()`` for the machine model (defaults to ``params``).
+        ``wait_events`` is the OpenCL ``event_wait_list``: events this
+        launch must observe beyond its dataflow inputs.  On an in-order
+        queue it adds edges on top of the implicit chain; on an
+        ``out_of_order`` queue it is the only explicit ordering.
         ``_resident=True`` marks a stage whose inputs are already resident
         in the unified memory / D$ (paper §IV-B pipeline chaining): the
         modeled host<->D$ transfer is waived for it.
 
         Inside a :meth:`capture` block the launch is recorded into the
         active :class:`CommandGraph` instead of executed; the returned
-        event carries symbolic :class:`GraphBuffer` outputs.
+        event carries symbolic :class:`GraphBuffer` outputs and its
+        dependency edges become the node's ``deps``.
         """
         params = params or {}
         cp = counts_params if counts_params is not None else params
+        waits = self._check_wait_events(wait_events)
         for i, b in enumerate(args):
             if not b.readable:
                 raise ValueError(
@@ -515,20 +620,13 @@ class CommandQueue:
                     "arguments (CL_MEM_WRITE_ONLY violation)")
         if self._capture is not None:
             return self._capture._record(self, kernel, ndr, args, params, cp,
-                                         _resident)
+                                         _resident, waits)
         raw = kernel.executor(*[b.data for b in args], **params)
         outs = tuple(Buffer(r) for r in (raw if isinstance(raw, tuple) else (raw,)))
 
         modeled, energy, _counts = self._model(kernel, ndr, cp, _resident)
-        deps = self._implicit_deps()
-        # Dataflow edges: consuming another launch's output buffer is an
-        # ordering edge, so wait() realizes the producer transitively.
-        for b in args:
-            producer = getattr(b, "_event", None)
-            if (producer is not None and not producer._done
-                    and not producer.released and producer not in deps):
-                deps += (producer,)
-        ev = Event(kernel, outs, modeled, energy, deps=deps,
+        ev = Event(kernel, outs, modeled, energy,
+                   deps=self._eager_deps(waits, args),
                    device_done=_record_done(outs))
         for b in outs:
             b._event = ev
@@ -537,6 +635,7 @@ class CommandQueue:
 
     def enqueue_kernel(self, kernel: Kernel, ndr: Optional[NDRange] = None,
                        counts_params: Optional[Dict[str, Any]] = None,
+                       wait_events: Optional[Sequence[Event]] = None,
                        _resident: bool = False) -> Event:
         """clEnqueueNDRangeKernel over the kernel's *staged* arguments.
 
@@ -555,7 +654,168 @@ class CommandQueue:
                                   self.ctx.device.config)
         return self.enqueue_nd_range(kernel, ndr, bufs, params=params,
                                      counts_params=counts_params,
+                                     wait_events=wait_events,
                                      _resident=_resident)
+
+    # -- explicit data movement ---------------------------------------------
+    def _transfer_event(self, kernel: Kernel, outputs: Tuple[Buffer, ...],
+                        nbytes: float, waits: Tuple[Event, ...],
+                        reads: Sequence[Buffer]) -> Event:
+        """Eager transfer command: modeled cost + event-DAG bookkeeping.
+        No device work is queued (unified memory), so the event is realized
+        once its dependencies are."""
+        modeled, energy = self._model_transfer(nbytes)
+        ev = Event(kernel, outputs, modeled, energy,
+                   deps=self._eager_deps(waits, reads))
+        self._events.append(ev)
+        return ev
+
+    @staticmethod
+    def _check_aval_match(what: str, data: torch.Tensor, buf: Buffer) -> None:
+        if tuple(data.shape) != tuple(buf.shape) or data.dtype != buf.dtype:
+            raise ValueError(
+                f"{what}: source {tuple(data.shape)}/{data.dtype} does not "
+                f"match destination buffer {tuple(buf.shape)}/{buf.dtype} "
+                "(sub-buffer offsets are not supported)")
+
+    def enqueue_write_buffer(self, buf: Buffer, src: Any,
+                             wait_events: Optional[Sequence[Event]] = None
+                             ) -> Event:
+        """clEnqueueWriteBuffer: move host data into ``buf`` (host -> D$).
+
+        A first-class command: it returns a real :class:`Event`, is costed
+        as a transfer-only :class:`PhaseBreakdown` from the device's bus
+        parameters, obeys the queue's ordering rules (implicit chain /
+        ``wait_events`` / barriers) and — under :meth:`capture` — records a
+        transfer :class:`GraphNode`, so the DAG critical path can overlap
+        it with compute on independent branches.  ``buf`` must be writable.
+        ``src`` is a :class:`Buffer` or anything ``Context.create_buffer``
+        takes (a numpy array or a tensor elsewhere is copied onto the
+        context's device).  ``buf`` is rebound to the source tensor, never
+        written in place; later commands consuming ``buf`` observe the
+        written value (the event is ``buf``'s new producer).
+        """
+        waits = self._check_wait_events(wait_events)
+        if not buf.writable:
+            raise ValueError(
+                f"enqueue_write_buffer into a read-only buffer "
+                f"(flags={buf.flags!r}) — CL_MEM_READ_ONLY violation")
+        if isinstance(src, Buffer) and not src.readable:
+            raise ValueError(
+                f"enqueue_write_buffer from a write-only source "
+                f"(flags={src.flags!r}) — CL_MEM_WRITE_ONLY violation")
+        if self._capture is not None:
+            return self._capture._record_transfer(self, "write", buf, src,
+                                                  waits)
+        if isinstance(buf, GraphBuffer) or isinstance(src, GraphBuffer):
+            raise RuntimeError(
+                "cannot write GraphBuffers eagerly; they have no storage "
+                "outside their graph's launch")
+        src_buf = src if isinstance(src, Buffer) else self.ctx.create_buffer(src)
+        self._check_aval_match("enqueue_write_buffer", src_buf.data, buf)
+        buf.data = src_buf.data
+        ev = self._transfer_event(_WRITE, (buf,), buf.nbytes, waits,
+                                  (src_buf, buf))
+        buf._event = ev
+        return ev
+
+    def enqueue_read_buffer(self, buf: Buffer,
+                            wait_events: Optional[Sequence[Event]] = None
+                            ) -> Event:
+        """clEnqueueReadBuffer: move ``buf`` to the host (D$ -> host).
+
+        Under unified memory the returned event's output *is* the buffer,
+        on the context's device (no copy is made), but the command is costed
+        as a real transfer over the host bus and takes part in event
+        ordering and graph capture — a capture ending in read commands
+        returns the read-back values as the graph's outputs.  ``buf`` must
+        be readable.
+        """
+        waits = self._check_wait_events(wait_events)
+        if not buf.readable:
+            raise ValueError(
+                f"enqueue_read_buffer from a write-only buffer "
+                f"(flags={buf.flags!r}) — CL_MEM_WRITE_ONLY violation")
+        if self._capture is not None:
+            return self._capture._record_transfer(self, "read", buf, None,
+                                                  waits)
+        if isinstance(buf, GraphBuffer):
+            raise RuntimeError(
+                "cannot read a GraphBuffer eagerly; launch its graph and "
+                "read the outputs instead")
+        return self._transfer_event(_READ, (buf,), buf.nbytes, waits, (buf,))
+
+    def enqueue_copy_buffer(self, src: Buffer, dst: Buffer,
+                            wait_events: Optional[Sequence[Event]] = None
+                            ) -> Event:
+        """clEnqueueCopyBuffer: device-side copy ``src`` -> ``dst``.
+
+        ``src`` must be readable and ``dst`` writable, with matching
+        shape/dtype.  Costed as one bus transfer of ``src.nbytes``; after
+        the event, ``dst`` holds ``src``'s value (kernels never write into
+        a tensor, so the unified-memory copy is an alias).
+        """
+        waits = self._check_wait_events(wait_events)
+        if not src.readable:
+            raise ValueError(
+                f"enqueue_copy_buffer from a write-only source "
+                f"(flags={src.flags!r})")
+        if not dst.writable:
+            raise ValueError(
+                f"enqueue_copy_buffer into a read-only destination "
+                f"(flags={dst.flags!r}) — CL_MEM_READ_ONLY violation")
+        self._check_aval_match("enqueue_copy_buffer", src.data, dst)
+        if self._capture is not None:
+            return self._capture._record_transfer(self, "copy", dst, src,
+                                                  waits)
+        if isinstance(src, GraphBuffer) or isinstance(dst, GraphBuffer):
+            raise RuntimeError(
+                "cannot copy GraphBuffers eagerly; they have no storage "
+                "outside their graph's launch")
+        dst.data = src.data
+        ev = self._transfer_event(_COPY, (dst,), src.nbytes, waits,
+                                  (src, dst))
+        dst._event = ev
+        return ev
+
+    # -- synchronization commands ------------------------------------------
+    def enqueue_marker(self, wait_events: Optional[Sequence[Event]] = None
+                       ) -> Event:
+        """clEnqueueMarkerWithWaitList: an event completing once
+        ``wait_events`` (default: everything enqueued on this queue so far)
+        have completed.  Carries no cost model and no outputs."""
+        return self._enqueue_sync(wait_events, barrier=False)
+
+    def enqueue_barrier(self, wait_events: Optional[Sequence[Event]] = None
+                        ) -> Event:
+        """clEnqueueBarrierWithWaitList: like :meth:`enqueue_marker`, but
+        also an ordering point — every *subsequent* command on an
+        ``out_of_order`` queue implicitly depends on it (in-order queues
+        already chain, so there it only returns the aggregate event)."""
+        return self._enqueue_sync(wait_events, barrier=True)
+
+    def _enqueue_sync(self, wait_events: Optional[Sequence[Event]],
+                      barrier: bool) -> Event:
+        # OpenCL: an empty wait list means "all previously enqueued
+        # commands", same as passing none at all.
+        waits = self._check_wait_events(wait_events) or None
+        if self._capture is not None:
+            return self._capture._record_sync(self, waits, barrier)
+        if waits:
+            # The queue's ordering rules still apply to the marker itself
+            # (in-order: chained after the previous command; out-of-order:
+            # after the latest barrier).
+            deps = waits + self._implicit_deps()
+        else:
+            # Events before the finish()/drain() watermark are already
+            # realized and contribute nothing.
+            deps = tuple(e for e in self._events[self._drained:]
+                         if not e.released)
+        ev = Event(_MARKER, (), None, None, deps=deps)
+        self._events.append(ev)
+        if barrier:
+            self._barrier = ev
+        return ev
 
     # -- graph capture ------------------------------------------------------
     def capture(self) -> "CommandGraph":
@@ -645,7 +905,7 @@ class CommandQueue:
 
 @dataclasses.dataclass
 class GraphNode:
-    """One captured launch: kernel + wiring + capture-time machine model."""
+    """One captured command: kernel + wiring + capture-time machine model."""
 
     kernel: Kernel
     call: Callable[..., Any]            # executor with params pre-bound
@@ -656,34 +916,59 @@ class GraphNode:
     energy_j: Optional[float]
     n_items: int = 0                    # first input's element count (the
                                         # NDRange sizing the eager path uses)
-    #: indices of earlier nodes this one depends on (dataflow slots + the
-    #: in-order queue's chain) — the edges the critical-path model walks
+    #: indices of earlier nodes this one depends on (dataflow slots +
+    #: wait_events + the enqueueing queue's ordering rules) — the edges of
+    #: the dependency DAG the critical-path model walks
     deps: Tuple[int, ...] = ()
+    #: node class: "kernel", "sync" (marker/barrier), or an explicit
+    #: transfer command — "write" / "read" / "copy"
+    kind: str = "kernel"
+    #: bytes moved over the host bus (transfer nodes only)
+    nbytes: float = 0.0
+    #: the WorkCounts this node was priced with at capture (resident
+    #: adjustment applied; ``None`` for sync/transfer nodes)
+    counts: Optional[WorkCounts] = None
+    #: slots whose logical buffer this (write/copy) node's output rebinds —
+    #: the destination's previous value.  Slots are single-assignment, so
+    #: without this the overwrite relationship is gone after capture
+    overwrites: Tuple[int, ...] = ()
+
+    @property
+    def is_transfer(self) -> bool:
+        return self.kind in ("write", "read", "copy")
 
 
 class CommandGraph:
-    """A captured kernel chain, replayed in order on launch.
+    """A captured command DAG, replayed in order on launch.
 
-    Built by :meth:`CommandQueue.capture`.  While capturing, every
-    ``enqueue_nd_range`` appends a :class:`GraphNode`: inputs are resolved to
-    *slots* — either graph-external buffers (concrete data seen during
-    capture) or earlier nodes' outputs — and output shapes come from the
-    executor run on ``meta`` tensors, so nothing executes.  Each node also
-    records its dependency edges: dataflow and the in-order chain.
+    Built by :meth:`CommandQueue.capture`.  While capturing, every command
+    appends a :class:`GraphNode`: inputs are resolved to *slots* — either
+    graph-external buffers (concrete data seen during capture) or earlier
+    nodes' outputs — and output shapes come from the executor run on
+    ``meta`` tensors, so nothing executes.  Each node also records its
+    dependency edges: dataflow (consuming an earlier node's output slot),
+    explicit ``wait_events``, and the enqueueing queue's ordering rules
+    (implicit chaining on in-order queues, barrier points on out-of-order
+    ones).  Markers and barriers are recorded as zero-cost, output-less
+    nodes, so OpenCL's transitive ordering falls out of the DAG structure.
+    :meth:`join` records commands from *additional* queues (e.g. the
+    host's) into the same capture.
 
-    :meth:`launch` replays all nodes; the graph's outputs are the final
-    node's outputs.  Launches bind to the *caller's* queue
-    (``launch(..., queue=...)``): events and modeled totals land on the
-    queue that launched, not the one that captured.
+    :meth:`launch` replays all nodes; the graph's outputs are the trailing
+    read nodes' outputs, or else the last node with outputs.  Launches bind
+    to the *caller's* queue (``launch(..., queue=...)``): events and modeled
+    totals land on the queue that launched, not the one that captured.
 
     Per-node ``modeled`` / ``energy_j`` come from the captured schedule
-    (``WorkCounts`` at capture time) on the capturing queue's device, giving
-    the same per-stage Fig-3/Fig-4 accounting as eager dispatch;
-    :meth:`fused_modeled` walks the dependency DAG's critical path.
+    (``WorkCounts`` at capture time) on the enqueueing queue's device,
+    giving the same per-stage Fig-3/Fig-4 accounting as eager dispatch;
+    :meth:`fused_modeled` walks the dependency DAG's critical path, so
+    concurrent branches overlap instead of summing.
     """
 
     def __init__(self, queue: CommandQueue):
         self.queue = queue                     # home queue: default binding
+        self.queues: List[CommandQueue] = [queue]
         self.nodes: List[GraphNode] = []
         self._n_slots = 0
         self._ext_slots: List[int] = []        # slot index of each external
@@ -692,6 +977,10 @@ class CommandGraph:
         self._buf_slot: Dict[int, int] = {}    # id(Buffer) -> slot
         self._bufs_alive: List[Buffer] = []    # keep ids stable during capture
         self._slot_producer: Dict[int, int] = {}   # slot -> producing node
+        self._slot_readers: Dict[int, List[int]] = {}  # slot -> consumer nodes
+        self._queue_nodes: Dict[int, List[int]] = {}   # id(queue) -> nodes
+        self._last_node: Dict[int, int] = {}   # id(queue) -> last node idx
+        self._barrier_node: Dict[int, int] = {}  # out-of-order barrier point
         self._sealed = False
         self._fused_memo: Optional[Tuple[Optional[PhaseBreakdown], float]] = None
         #: how many leading externals are pipeline inputs (set by
@@ -706,11 +995,30 @@ class CommandGraph:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        if self.queue._capture is self:
-            self.queue._capture = None
+        for q in self.queues:                  # joined queues too
+            if q._capture is self:
+                q._capture = None
         # Only a capture body that completed cleanly yields a launchable
         # graph; an exception mid-capture leaves a truncated chain.
         self._sealed = exc_type is None
+
+    def join(self, queue: CommandQueue) -> "_GraphJoin":
+        """Record commands on another queue into this capture.
+
+        Use as a context manager *inside* the capture block to build a
+        multi-queue graph (host + e-GPU nodes in one capture)::
+
+            with egpu_q.capture() as graph:
+                pre = egpu_q.enqueue_nd_range(k_pre, ndr, (a,))
+                with graph.join(host_q):
+                    post = host_q.enqueue_nd_range(k_post, ndr_h, pre.outputs,
+                                                   wait_events=[pre])
+
+        Each node is costed with its *own* queue's device model (the host
+        node above uses the scalar-host machine model), and cross-queue
+        ``wait_events`` become ordinary DAG edges.
+        """
+        return _GraphJoin(self, queue)
 
     def _slot_of(self, buf: Buffer) -> int:
         slot = self._buf_slot.get(id(buf))
@@ -731,9 +1039,28 @@ class CommandGraph:
         self._n_slots += 1
         return s
 
+    def _dep_nodes_of(self, ev: Event) -> frozenset:
+        """Node indices an event stands for (capture-time events only)."""
+        if ev._graph is not self:
+            raise RuntimeError(
+                "wait_events during capture must be events returned by this "
+                "capture (eager or foreign-graph events have no node "
+                "identity here)")
+        return ev._dep_nodes
+
+    def _node_event(self, kernel: Kernel, outs: Tuple[Buffer, ...],
+                    modeled: Optional[PhaseBreakdown],
+                    energy: Optional[float], idx: int) -> Event:
+        """The capture-time event standing for node ``idx``."""
+        ev = Event(kernel, outs, modeled, energy)
+        ev._graph = self
+        ev._dep_nodes = frozenset((idx,))
+        return ev
+
     def _record(self, queue: CommandQueue, kernel: Kernel, ndr: NDRange,
                 args: Sequence[Buffer], params: Dict[str, Any],
-                counts_params: Dict[str, Any], resident: bool) -> Event:
+                counts_params: Dict[str, Any], resident: bool,
+                wait_events: Tuple[Event, ...] = ()) -> Event:
         in_slots = tuple(self._slot_of(b) for b in args)
         in_avals = tuple(_meta_like(b.data) for b in args)
 
@@ -748,30 +1075,161 @@ class CommandGraph:
                     f"kernel {kernel.name!r} returned a {a.device} tensor "
                     "for meta inputs; executors must keep meta in, meta out")
         out_slots = tuple(self._new_slot() for _ in out_avals)
-        modeled, energy, _counts = queue._model(kernel, ndr, counts_params,
-                                                resident)
+        # Cost the node on the ENQUEUEING queue's device: a multi-queue
+        # capture mixes host and e-GPU nodes, each with its own model.
+        modeled, energy, counts = queue._model(kernel, ndr, counts_params,
+                                               resident)
 
-        # Dependency edges: dataflow + the in-order chain.
+        # Dependency edges: dataflow + wait_events + queue ordering.
         deps = set()
         for s in in_slots:
             producer = self._slot_producer.get(s)
             if producer is not None:
                 deps.add(producer)
-        if self.nodes:
-            deps.add(len(self.nodes) - 1)
-        idx = len(self.nodes)
-        self.nodes.append(
-            GraphNode(kernel, call, in_slots, out_slots, out_avals, modeled,
-                      energy,
-                      n_items=int(args[0].data.numel()) if args else 0,
-                      deps=tuple(sorted(deps))))
+        for ev in wait_events:
+            deps.update(self._dep_nodes_of(ev))
+        deps.update(self._queue_order_deps(queue))
+        idx = self._append_node(
+            queue, GraphNode(kernel, call, in_slots, out_slots, out_avals,
+                             modeled, energy,
+                             n_items=int(args[0].data.numel()) if args else 0,
+                             deps=tuple(sorted(deps)), counts=counts))
+        for s in in_slots:
+            self._slot_readers.setdefault(s, []).append(idx)
         for s in out_slots:
             self._slot_producer[s] = idx
         outs = tuple(GraphBuffer(a, s) for a, s in zip(out_avals, out_slots))
         for b in outs:
             self._buf_slot[id(b)] = b.slot
             self._bufs_alive.append(b)
-        return Event(kernel, outs, modeled, energy)
+        return self._node_event(kernel, outs, modeled, energy, idx)
+
+    def _queue_order_deps(self, queue: CommandQueue) -> Tuple[int, ...]:
+        """The enqueueing queue's implicit ordering edge for the next node:
+        its previous command (in-order) or its latest barrier node
+        (out-of-order).  One edge — earlier constraints flow transitively
+        through the chain / barrier nodes."""
+        qid = id(queue)
+        if not queue.out_of_order:
+            last = self._last_node.get(qid)
+            return () if last is None else (last,)
+        bar = self._barrier_node.get(qid)
+        return () if bar is None else (bar,)
+
+    def _append_node(self, queue: CommandQueue, node: GraphNode) -> int:
+        qid = id(queue)
+        idx = len(self.nodes)
+        self.nodes.append(node)
+        self._queue_nodes.setdefault(qid, []).append(idx)
+        self._last_node[qid] = idx
+        return idx
+
+    def _record_sync(self, queue: CommandQueue,
+                     wait_events: Optional[Tuple[Event, ...]],
+                     barrier: bool) -> Event:
+        """Capture-time marker/barrier: a zero-cost :class:`GraphNode`.
+
+        Recording sync commands as real (modeled-``None``, output-less)
+        nodes makes OpenCL's transitivity structural: a later marker's
+        default wait list ("all previously enqueued commands") includes
+        earlier sync nodes and hence — through *their* edges — cross-queue
+        dependencies; a new barrier chains to the previous barrier node, so
+        every earlier barrier's constraint keeps reaching later launches
+        with O(1) edges per node.  The critical-path model treats them as
+        zero-cost pass-throughs."""
+        qid = id(queue)
+        deps = set(self._queue_order_deps(queue))
+        if not wait_events:
+            # None or empty: all commands enqueued on this queue so far
+            # (sync nodes included — that's what carries transitivity).
+            deps.update(self._queue_nodes.get(qid, ()))
+        else:
+            # _queue_order_deps already chained this command after the
+            # queue's latest barrier (out-of-order) or predecessor
+            # (in-order), so an earlier barrier's constraint persists
+            # alongside the explicit list.
+            for e in wait_events:
+                deps.update(self._dep_nodes_of(e))
+        idx = self._append_node(
+            queue, GraphNode(_MARKER, lambda: (), (), (), (), None, None,
+                             deps=tuple(sorted(deps)), kind="sync"))
+        if barrier:
+            self._barrier_node[qid] = idx
+        return self._node_event(_MARKER, (), None, None, idx)
+
+    def _record_transfer(self, queue: CommandQueue, kind: str, buf: Buffer,
+                         src: Any, wait_events: Tuple[Event, ...]) -> Event:
+        """Capture an explicit transfer command as a real :class:`GraphNode`.
+
+        The node's ``call`` is identity (under unified memory the data never
+        moves), but it carries the transfer-only machine model and full
+        dependency edges, so ``fused_modeled()``'s critical path prices the
+        traffic and can overlap it with compute on independent branches.
+
+        Slot wiring per command:
+
+        * ``write``: the host source becomes an input slot (an *external*
+          when it is fresh data, moved onto the queue's device first, so a
+          launch never mixes devices); the destination buffer is
+          **rebound** to the node's output slot, so later consumers of
+          ``buf`` depend on the write.  The old binding (if any)
+          contributes write-after-read/write ordering edges.
+        * ``read``: consumes the buffer's current slot, produces a fresh
+          slot holding the host copy; the buffer keeps its binding.
+        * ``copy``: consumes the source's slot, rebinds the destination.
+        """
+        if kind == "write":
+            src_buf = (src if isinstance(src, Buffer)
+                       else queue.ctx.create_buffer(src))
+            CommandQueue._check_aval_match("enqueue_write_buffer",
+                                           src_buf.data, buf)
+            in_buf, rebind, sentinel = src_buf, buf, _WRITE
+        elif kind == "read":
+            in_buf, rebind, sentinel = buf, None, _READ
+        else:
+            in_buf, rebind, sentinel = src, buf, _COPY
+        in_slot = self._slot_of(in_buf)
+        aval = _meta_like(in_buf.data)
+        nbytes = float(aval.numel() * aval.element_size())
+        modeled, energy = queue._model_transfer(nbytes)
+
+        deps = set()
+        overwrites: Tuple[int, ...] = ()
+        producer = self._slot_producer.get(in_slot)
+        if producer is not None:
+            deps.add(producer)
+        if rebind is not None:
+            # write-after-write on the destination's old producer, plus
+            # write-after-read on every node that consumed the old value —
+            # an overwrite must not model as concurrent with readers of the
+            # value it replaces
+            prev_slot = self._buf_slot.get(id(rebind))
+            if prev_slot is not None:
+                prev_producer = self._slot_producer.get(prev_slot)
+                if prev_producer is not None:
+                    deps.add(prev_producer)
+                deps.update(self._slot_readers.get(prev_slot, ()))
+                overwrites = (prev_slot,)
+        for ev in wait_events:
+            deps.update(self._dep_nodes_of(ev))
+        deps.update(self._queue_order_deps(queue))
+
+        out_slot = self._new_slot()
+        idx = self._append_node(
+            queue, GraphNode(sentinel, lambda x: (x,), (in_slot,),
+                             (out_slot,), (aval,), modeled, energy,
+                             n_items=int(aval.numel()),
+                             deps=tuple(sorted(deps)), kind=kind,
+                             nbytes=nbytes, overwrites=overwrites))
+        self._slot_readers.setdefault(in_slot, []).append(idx)
+        self._slot_producer[out_slot] = idx
+        if rebind is not None:
+            self._buf_slot[id(rebind)] = out_slot
+            self._bufs_alive.append(rebind)
+        out = GraphBuffer(aval, out_slot, flags=buf.flags)
+        self._buf_slot[id(out)] = out_slot
+        self._bufs_alive.append(out)
+        return self._node_event(sentinel, (out,), modeled, energy, idx)
 
     # -- accounting ---------------------------------------------------------
     @property
@@ -828,23 +1286,39 @@ class CommandGraph:
 
     # -- launch -------------------------------------------------------------
     def _output_slots(self) -> Tuple[int, ...]:
-        """The slots a launch returns: the last node's outputs."""
+        """The slots a launch returns.
+
+        Trailing ``read_buffer`` nodes define the outputs (a capture ending
+        in explicit reads returns the read-back values, one per read, in
+        enqueue order — markers/barriers in between are ignored); otherwise
+        the last node with outputs, so a trailing marker/barrier never eats
+        them.
+        """
+        reads: List[GraphNode] = []
+        for node in reversed(self.nodes):
+            if node.kind == "read":
+                reads.append(node)
+            elif node.out_slots:
+                break
+        if reads:
+            return tuple(s for n in reversed(reads) for s in n.out_slots)
         return next(n.out_slots for n in reversed(self.nodes) if n.out_slots)
 
     def launch(self, *inputs: Any,
                queue: Optional[CommandQueue] = None) -> Tuple[Buffer, ...]:
-        """Replay the captured chain (non-blocking on a CUDA device).
+        """Replay the captured DAG (non-blocking on a CUDA device).
 
         ``inputs`` replace the graph's external buffers in capture order
         (shapes, dtypes and devices must match); with no inputs the tensors
-        captured at record time are reused.  The nodes run in order on the
-        current stream.  Returns the final node's outputs as fresh buffers.
+        captured at record time are reused.  The nodes run in capture order
+        on the current stream.  Returns the graph's outputs (the trailing
+        reads' values, else the last node with outputs) as fresh buffers.
 
         **Launch-time queue binding**: per-node modeled events are appended
         to ``queue`` — the *caller's* queue — defaulting to the capture
         queue for one-shot use.
         """
-        if self.queue._capture is self:
+        if any(q._capture is self for q in self.queues):
             raise RuntimeError("cannot launch while still capturing")
         if not self._sealed:
             raise RuntimeError(
@@ -918,6 +1392,34 @@ class CommandGraph:
                            queue=queue)
 
 
+class _GraphJoin:
+    """Context manager adding a second queue to an active capture."""
+
+    def __init__(self, graph: CommandGraph, queue: CommandQueue):
+        self._graph = graph
+        self._queue = queue
+        self._attached = False
+
+    def __enter__(self) -> CommandGraph:
+        graph, queue = self._graph, self._queue
+        if graph.queue._capture is not graph:
+            raise RuntimeError("join() is only valid inside an active capture")
+        if queue._capture is not None and queue._capture is not graph:
+            raise RuntimeError("queue is already capturing another graph")
+        # Only detach on exit what THIS join attached: joining a queue that
+        # is already capturing the graph (the capture's own queue, or a
+        # nested join) must not end its capture when the inner block closes.
+        self._attached = queue._capture is None
+        queue._capture = graph
+        if all(q is not queue for q in graph.queues):
+            graph.queues.append(queue)
+        return graph
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._attached and self._queue._capture is self._graph:
+            self._queue._capture = None
+
+
 class Device:
     """One modeled compute device: an e-GPU instance or the scalar host."""
 
@@ -945,6 +1447,8 @@ class Context:
         device is adopted as-is (it already lives in the unified memory);
         anything else (a numpy array, a Python scalar, a tensor elsewhere)
         is copied onto the device."""
-        if isinstance(data, torch.Tensor) and data.device == self.torch_device:
-            return Buffer(data, flags)
-        return Buffer(torch.as_tensor(data).to(self.torch_device), flags)
+        if isinstance(data, torch.Tensor):
+            return Buffer(data.to(self.torch_device), flags)
+        # torch.tensor copies (torch.as_tensor would alias a numpy array's
+        # memory on the CPU, so a later host edit would reach the buffer)
+        return Buffer(torch.tensor(data, device=self.torch_device), flags)

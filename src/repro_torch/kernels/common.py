@@ -44,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: adds one where it launches (through :func:`launch`) and nowhere else;
 #: the plain versions never count.
 LAUNCHES: Dict[str, int] = {"fir": 0, "delineate": 0, "stockham_fft": 0,
-                            "svm": 0}
+                            "svm": 0, "gemm": 0}
 
 
 def reset_launches() -> None:

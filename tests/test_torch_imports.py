@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no JAX package, the card by default.
 
-A fresh interpreter imports every ``repro_torch`` module and ``chip_smoke``
-and must end with neither ``jax`` nor ``repro`` in ``sys.modules``.  Without
+A fresh interpreter imports every ``repro_torch`` and ``benchmarks_torch``
+module and ``chip_smoke`` and must end with neither ``jax`` nor ``repro``
+in ``sys.modules``; the port's examples import neither either.  Without
 a card, the entry points refuse to fall back to the CPU unless asked, and
 ``chip_smoke.py`` exits non-zero without printing a result.
 """
@@ -18,14 +19,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
+if str(ROOT) not in sys.path:              # the benchmark package
+    sys.path.insert(0, str(ROOT))
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
-import repro_torch
+import benchmarks_torch, repro_torch
 mods = []
-for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    importlib.import_module(info.name)
-    mods.append(info.name)
+for pkg in (repro_torch, benchmarks_torch):
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(info.name)
+        mods.append(info.name)
 import chip_smoke
 from repro_torch.core import Program, EGPU_16T
 Program.build(EGPU_16T).create_kernels()
@@ -52,12 +56,22 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.apps.tinybio", "repro_torch.tinycl",
                 "repro_torch.kernels.fir.ops", "repro_torch.kernels.svm.ops",
                 "repro_torch.kernels.delineate.ops",
-                "repro_torch.kernels.stockham_fft.ops"}
+                "repro_torch.kernels.stockham_fft.ops",
+                "repro_torch.kernels.gemm.ops", "repro_torch.kernels.gemm.gemm",
+                "benchmarks_torch.bench_gemm_overhead",
+                "benchmarks_torch.bench_transfer",
+                "benchmarks_torch.bench_multiqueue",
+                "benchmarks_torch.bench_tinybio"}
     assert expected <= set(report["modules"])
 
 
 def test_no_source_line_names_jax():
-    for path in list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    paths = (list((SRC / "repro_torch").rglob("*.py"))
+             + list((ROOT / "benchmarks_torch").rglob("*.py"))
+             + list((ROOT / "examples").glob("*_torch.py"))
+             + [ROOT / "chip_smoke.py"])
+    assert len([p for p in paths if p.parent.name == "examples"]) == 2
+    for path in paths:
         for line in path.read_text().splitlines():
             code = line.split("#")[0].strip()
             if code.startswith(("import ", "from ")):
@@ -78,6 +92,11 @@ def test_entry_points_default_to_the_card():
         run_tinybio()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tinybio_stages()
+    from benchmarks_torch import bench_gemm_overhead, bench_transfer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_gemm_overhead.run()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_transfer.run()
 
 
 def _no_result(stdout: str) -> bool:

@@ -17,6 +17,7 @@ from repro.core import power as jp
 from repro.core import scheduler as js
 from repro.kernels.delineate.ref import counts as j_delineate_counts
 from repro.kernels.fir.ref import counts as j_fir_counts
+from repro.kernels.gemm.ref import counts as j_gemm_counts
 from repro.kernels.stockham_fft.ref import counts as j_fft_counts
 from repro.kernels.svm.ref import counts as j_svm_counts
 from repro_torch.core import device as tdev
@@ -26,6 +27,7 @@ from repro_torch.core import power as tp
 from repro_torch.core import scheduler as ts
 from repro_torch.kernels.delineate.ref import counts as t_delineate_counts
 from repro_torch.kernels.fir.ref import counts as t_fir_counts
+from repro_torch.kernels.gemm.ref import counts as t_gemm_counts
 from repro_torch.kernels.stockham_fft.ref import counts as t_fft_counts
 from repro_torch.kernels.svm.ref import counts as t_svm_counts
 
@@ -42,6 +44,8 @@ FAMILIES = {
                      [dict(n=512), dict(n=64, itemsize=2)]),
     "svm": (j_svm_counts, t_svm_counts,
             [dict(q=128, m=256, d=36), dict(q=10, m=300, d=7, rbf=False)]),
+    "gemm": (j_gemm_counts, t_gemm_counts,
+             [dict(m=256, n=256, k=256), dict(m=33, n=70, k=5, itemsize=1)]),
     # TinyBio's stage 3 prices one FFT counts() scaled by the window count
     "tinybio.fft_features": (
         lambda **kw: j_fft_counts(**kw).scaled(128),

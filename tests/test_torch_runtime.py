@@ -284,7 +284,8 @@ def test_kernel_arg_info_set_args_and_enqueue_kernel():
 
 def test_program_registry_memoizes_and_lists_only_ported_families():
     from repro_torch.core.program import BUILTIN_FAMILIES
-    assert sorted(BUILTIN_FAMILIES) == ["delineate", "fir", "stockham_fft", "svm"]
+    assert sorted(BUILTIN_FAMILIES) == ["delineate", "fir", "gemm",
+                                        "stockham_fft", "svm"]
     p1, p2 = Program.build(EGPU_16T), Program.build(EGPU_16T)
     assert p1 is p2
     k = p1.create_kernel("stockham_fft")
@@ -293,7 +294,7 @@ def test_program_registry_memoizes_and_lists_only_ported_families():
     assert k is not Program.build(tcore.EGPU_8T).create_kernel(
         "stockham_fft")
     with pytest.raises(KeyError, match="unknown kernel family"):
-        p1.create_kernel("gemm")
+        p1.create_kernel("flash_attention")
 
 
 # -- devices and NDRange ---------------------------------------------------------------------
