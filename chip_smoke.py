@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version, on the card, at the main
    paths' shapes plus ragged sizes, with the tolerance stated beside each
    check; every call must move the kernel's launch counter by one.  The
-   GeMM's three config tilings must give identical bits;
+   GeMM's three config tilings must give identical bits.  Flash attention
+   runs qwen's prefill shape, a ragged S = T = 300, a suffix with
+   ``q_offset``, a non-causal case and Dk = 96 / Dv = 64 in float32;
 3. kernel timings at the main paths' shapes: device time per call from
    CUDA events around replays of a CUDA graph of many warm calls, for the
    kernel, its plain version and, where one PyTorch call computes the same
@@ -22,7 +24,8 @@ Phases (any failure exits non-zero and prints no result line):
    dispatch included, is logged beside them.  ``bound_ms`` is the least time
    the card could take, from the bytes and operations of this run's inputs.
    The GeMM is also timed at 2048³, where launch latency no longer hides
-   the kernel's own rate;
+   the kernel's own rate; flash attention at qwen's prefill shape and at
+   B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -39,7 +42,22 @@ Phases (any failure exits non-zero and prints no result line):
      ports of the Fig-3, transfer and multi-queue benches on the card,
      their modeled rows equal to the CPU run's;
 
-5. one ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
+5. the LM serving path (qwen2.5-3b at full width and depth, bf16, random
+   weights from ``init_params(seed=0)`` on the card): ``greedy_generate``
+   answers 4 requests of 256-token prompts with 16 new tokens each, with
+   the launch counters reset just before and read just after:
+   ``flash_attention`` must launch once per layer per prefill and never in
+   a decode step, the tokens must repeat on a second run, and a
+   ``torch.profiler`` trace of one prefill must show the hand-written
+   kernel and no library attention kernel.  Prefill and per-step decode
+   walls, tokens/s, the device's busy and idle share of one prefill and one
+   decode step, and peak device memory are printed;
+   5b. the card against the CPU: a 2-layer cut of qwen2.5-3b at full width
+   in float32, the same parameters on both, prefill of 2 × 64 tokens and
+   4 decode steps teacher-forced from the CPU's tokens: logits within the
+   stated tolerances, greedy tokens equal;
+
+6. one ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
    {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -60,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 # INT32 multiply-adds per clock per SM (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0), times the SMs
 # and the card's max SM clock from nvidia-smi give the int32 peak.
@@ -76,7 +95,19 @@ TINYBIO_KERNELS = {
 GEMM_KERNELS = {
     "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm/gemm.py:27"),
 }
-KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS}
+LM_KERNELS = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:29"),
+}
+KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS}
+# the LM path's geometry (qwen2.5-3b) and its serving run
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 256, 16, 512
+# the hand-written flash-attention kernels (csrc/flash_attention.cu), and
+# names of library attention kernels the LM path must not run
+FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_mma_kernel<")
+LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
+                     "flash_fwd")
 
 
 class SmokeFailure(RuntimeError):
@@ -198,6 +229,7 @@ def main() -> int:
     try:
         from benchmarks_torch import (bench_gemm_overhead, bench_multiqueue,
                                       bench_transfer)
+        from repro_torch.configs import get as get_arch
         from repro_torch.apps import tinybio
         from repro_torch.core import (APU, EGPU_4T, EGPU_8T, EGPU_16T,
                                       CommandQueue, Context, Device, Program,
@@ -213,6 +245,13 @@ def main() -> int:
         from repro_torch.kernels.stockham_fft.ref import stockham_fft_ref
         from repro_torch.kernels.svm.ops import svm_decision
         from repro_torch.kernels.svm.ref import svm_decision_ref
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+        from repro_torch.models.params import init_params, map_tree
+        from repro_torch.models.transformer import (Transformer, decode_step,
+                                                    model_spec, prefill)
+        from repro_torch.train.serve import (greedy_generate, make_decode_step,
+                                             make_prefill_step)
     except ImportError as e:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: {e}",
               file=sys.stderr)
@@ -387,6 +426,56 @@ def main() -> int:
         "tilings bit-identical; max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in gemm_err.items()) + ")")
 
+    # flash_attention against its plain version (the JAX package's blocked
+    # online softmax, what JAX runs off a TPU), at the LM path's geometry.
+    # Both compute in f32 and sum in another order: float32 within 1e-5 of
+    # max |out|; bfloat16 outputs, which both round from f32, within one
+    # bf16 ulp of each value plus the same 1e-5 of max |out|.  v is a
+    # strided (B, T, KVH, D) -> (B, KVH, T, D) view, as the model passes it.
+    def qkv(b, h, kvh, s, t, dk, dv, dtype):
+        def arr(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+        return (arr(b, h, s, dk), arr(b, kvh, t, dk),
+                arr(b, t, kvh, dv).transpose(1, 2))
+
+    def flash_case(what, dims, dtype, **kw):
+        q, k, v = qkv(*dims, dtype)
+        got = launched("flash_attention", lambda: flash_attention(q, k, v, **kw))
+        want = flash_attention_plain(q, k, v, **kw)
+        check(got.shape == want.shape and got.dtype == dtype,
+              f"flash_attention {what}: shape or dtype")
+        g, w = got.float(), want.float()
+        tol = 1e-5 * float(w.abs().max())
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+        check(bool(((g - w).abs() <= tol).all()) and bool(torch.isfinite(g).all()),
+              f"flash_attention {what}: error {err(got, want)}")
+        return err(got, want)
+
+    bf16 = torch.bfloat16
+    lm_cfg = get_arch(LM_ARCH)
+    lm_h, lm_kvh, lm_d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
+    fa_err = {
+        "prefill B=4 S=T=256 bf16": flash_case(
+            "prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d, lm_d), bf16),
+        "ragged S=T=300 bf16": flash_case(
+            "ragged", (2, lm_h, lm_kvh, 300, 300, lm_d, lm_d), bf16),
+        "suffix S=64 T=512 q_offset=448 bf16": flash_case(
+            "suffix", (2, lm_h, lm_kvh, 64, 512, lm_d, lm_d), bf16, q_offset=448),
+        "non-causal S=256 T=512 bf16": flash_case(
+            "non-causal", (2, lm_h, lm_kvh, 256, 512, lm_d, lm_d), bf16, causal=False),
+        "prefill geometry f32": flash_case(
+            "f32", (2, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d, lm_d), torch.float32),
+        "Dk=96 Dv=64 f32": flash_case(
+            "Dk=96 Dv=64", (2, 8, 4, 200, 200, 96, 64), torch.float32),
+        "Dk=Dv=32 S=T=77 f32": flash_case(
+            "Dk=Dv=32", (1, 4, 4, 77, 77, 32, 32), torch.float32),
+    }
+    max_err["flash_attention"] = fa_err["prefill B=4 S=T=256 bf16"]
+    log("phase 2: flash_attention ok (max abs err vs plain: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
+
     # -- 3. timings at the main paths' shapes ------------------------------
     n, taps = x.numel(), h.numel()
     q, m, d = feats.shape[0], sv_main.shape[0], feats.shape[1]
@@ -489,6 +578,40 @@ def main() -> int:
         log(f"phase 3: gemm 2048^3 {dtype} (16T tiling): kernel {k_ms:.6f} ms "
             f"({ops / (k_ms * 1e-3) / 1e12:.3f} T {'MAC' if dtype == 'int32' else 'FLOP'}/s), "
             f"library {fmt(lib)}, bound {b_ms:.6f} ms ({b_by})")
+
+    # flash_attention at qwen's prefill shape (the kernels line reports it)
+    # and at B=1, S=T=4096.  Bound: q, k, v read once and the output
+    # written once in bf16 over 3.35 TB/s, against 2 (Dk + Dv) flops for
+    # each (q, k) pair the causal mask keeps over the bf16 peak.
+    def fa_bound(b, h, kvh, s, t, dk, dv):
+        nbytes = 2.0 * (b * h * s * dk + b * kvh * t * (dk + dv) + b * h * s * dv)
+        pairs = sum(min(t, i + 1) for i in range(s))
+        return bound(nbytes, 2.0 * b * h * pairs * (dk + dv), PEAK_BF16_FLOPS)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    fa_rows = {}
+    for label, b_, s_, per_graph in (("prefill", LM_BATCH, LM_PROMPT, 50),
+                                     ("long", 1, 4096, 3)):
+        dims = (b_, lm_h, lm_kvh, s_, s_, lm_d, lm_d)
+        q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
+        check(err(sdpa(q, k, v), flash_attention_plain(q, k, v)) <= 5e-2,
+              f"SDPA differs from the plain version at {label}")
+        b_ms, b_by = fa_bound(*dims)
+        fa_rows[label] = dict(
+            ms=device_ms(torch, lambda: flash_attention(q, k, v), per_graph),
+            plain_ms=device_ms(torch, lambda: flash_attention_plain(q, k, v), 1),
+            library_ms=device_ms(torch, lambda: sdpa(q, k, v), per_graph),
+            bound_ms=b_ms, bound_by=b_by)
+        r = fa_rows[label]
+        log(f"phase 3: flash_attention {label} B={b_} H={lm_h} KVH={lm_kvh} "
+            f"S=T={s_} D={lm_d} bf16 causal: device time per call: kernel "
+            f"{fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library (SDPA) "
+            f"{fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); kernel "
+            f"{r['ms'] / b_ms:.1f}x its bound, {r['ms'] / r['library_ms']:.2f}x SDPA")
+    rows["flash_attention"] = fa_rows["prefill"]
 
     # -- 4a. the TinyBio main path --------------------------------------------
     runs = {}
@@ -644,7 +767,151 @@ def main() -> int:
         "bench_multiqueue modeled numbers equal the CPU run's; gemm launches "
         "4 per transfer-graph launch, 5 per multi-queue graph launch")
 
-    # -- 5. summary ---------------------------------------------------------------
+    # -- 5. the LM serving path: qwen2.5-3b, full width and depth, bf16 -----
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(lm_cfg, init_params(model_spec(lm_cfg), 0, device=dev))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 5: {LM_ARCH}: {lm_cfg.n_layers} layers, d_model "
+        f"{lm_cfg.d_model}, {lm_h} heads over {lm_kvh} kv heads of {lm_d}, "
+        f"d_ff {lm_cfg.d_ff}, vocab {lm_cfg.vocab} (padded "
+        f"{lm_cfg.vocab_padded}); {n_params} parameters in {lm_cfg.dtype}, "
+        f"initialised from seed 0 on the card in {time.perf_counter() - t0:.3f} s")
+    prompt = np.random.default_rng(0).integers(
+        0, lm_cfg.vocab, (LM_BATCH, LM_PROMPT))
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(model, prompt, LM_NEW, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    lm_launches = dict(common.LAUNCHES)
+    for name in KERNELS:
+        want = lm_cfg.n_layers if name in LM_KERNELS else 0
+        check(lm_launches[name] == want,
+              f"LM main path launched {name} {lm_launches[name]} times, "
+              f"expected {want} (one per layer of the prefill, none per "
+              f"decode step)")
+    launches.update({name: lm_launches[name] for name in LM_KERNELS})
+    check(tokens.is_cuda and tokens.dtype == torch.int32
+          and tokens.shape == (LM_BATCH, LM_NEW)
+          and bool(((tokens >= 0) & (tokens < lm_cfg.vocab)).all()),
+          "greedy tokens are not (4, 16) int32 ids below the vocabulary")
+    t0 = time.perf_counter()
+    again = greedy_generate(model, prompt, LM_NEW, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    check(torch.equal(tokens, again), "greedy tokens differ on a second run")
+    log(f"phase 5: greedy_generate {LM_BATCH} x {LM_PROMPT}-token prompts, "
+        f"{LM_NEW} new tokens each, max_len {LM_MAX_LEN}: first run "
+        f"{first_wall:.3f} s, second {warm_wall:.3f} s, "
+        f"{LM_BATCH * LM_NEW / warm_wall:.1f} tokens/s; launches {lm_launches}; "
+        f"same tokens on both runs; first request's tokens "
+        f"{tokens[0].tolist()}")
+
+    # the steps one at a time: prefill moves flash_attention by one launch
+    # per layer, a decode step by none
+    prefill_step = make_prefill_step(lm_cfg, LM_MAX_LEN)
+    decode_fn = make_decode_step(lm_cfg)
+    ptoks = {"tokens": torch.from_numpy(prompt).to(dev)}
+    before = common.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(model, ptoks)
+    torch.cuda.synchronize()
+    prefill_wall = time.perf_counter() - t0
+    check(common.LAUNCHES["flash_attention"] - before == lm_cfg.n_layers,
+          "a prefill did not launch flash_attention once per layer")
+    check(logits.shape == (LM_BATCH, lm_cfg.vocab_padded)
+          and bool(torch.isfinite(logits[:, :lm_cfg.vocab]).all())
+          and bool((logits[:, lm_cfg.vocab:] == -1e30).all()),
+          "prefill logits: shape, finiteness or padding columns")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    steps = [tok]
+    before = common.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    for i in range(LM_NEW - 1):
+        tok, _, cache = decode_fn(model, cache, tok, LM_PROMPT + i)
+        steps.append(tok)
+    torch.cuda.synchronize()
+    decode_wall = (time.perf_counter() - t0) / (LM_NEW - 1)
+    check(common.LAUNCHES["flash_attention"] == before,
+          "a decode step launched flash_attention")
+    check(torch.equal(torch.stack(steps, 1), tokens),
+          "prefill + decode steps differ from greedy_generate")
+    log(f"phase 5: prefill wall {prefill_wall * 1e3:.3f} ms "
+        f"({LM_BATCH * LM_PROMPT} prompt tokens), decode step wall "
+        f"{decode_wall * 1e3:.3f} ms (mean of {LM_NEW - 1}, {LM_BATCH} "
+        f"sequences)")
+    p_wall, p_busy, p_kernels = device_profile(
+        torch, lambda: prefill_step(model, ptoks))
+    log("phase 5: " + profile_line("one prefill", p_wall, p_busy, p_kernels))
+    library = [k for k in p_kernels
+               if any(t in k.lower() for t in LIBRARY_ATTENTION)]
+    check(not library, f"the prefill ran library attention kernels: {library}")
+    ours = [k for k in p_kernels if any(n in k for n in FLASH_KERNEL_NAMES)]
+    check(bool(ours), "the prefill's profile shows no hand-written "
+          "flash-attention kernel")
+    d_wall, d_busy, d_kernels = device_profile(
+        torch, lambda: decode_fn(model, cache, tok, LM_PROMPT + LM_NEW - 1))
+    log("phase 5: " + profile_line("one decode step", d_wall, d_busy, d_kernels))
+    log(f"phase 5: hand-written attention kernels in the prefill: {ours}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+        f"GiB (the f32 init tree beside the bf16 model included)")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+
+    # -- 5b. the card against the CPU: a 2-layer cut at full width, f32 ----
+    # The same parameters (drawn on the CPU, then copied to the card), the
+    # same prompts; decode teacher-forced from the CPU run's tokens.  The
+    # card's f32 matmuls (TF32 off) and the kernel sum in another order than
+    # the CPU's matmuls and the plain version: prefill logits within 1e-4 of
+    # max |logit|; decode within 1e-2, since a key that differs in its last
+    # bits can round to the neighbouring bf16 value in the cache (the CPU
+    # tests hold the port to the JAX package with the same tolerances).
+    cut = dataclasses.replace(lm_cfg, n_layers=2, dtype="float32")
+    tree = init_params(model_spec(cut), 0, device="cpu")
+    on_cpu = Transformer(cut, tree)
+    on_card = Transformer(cut, map_tree(lambda t: t.to(dev), tree))
+    prompt2 = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cut.vocab, (2, 64)))
+
+    def run_cut(m, device, feed=None):
+        """Prefill + 4 decode steps; each step is fed ``feed[i]`` or, with
+        no feed, this run's own greedy token.  -> (logits, tokens) on the
+        CPU."""
+        lg, c = prefill(m, {"tokens": prompt2.to(device)}, 128)
+        out_logits, out_tokens = [lg.cpu()], [torch.argmax(lg, -1).cpu()]
+        for i in range(4):
+            tok_in = out_tokens[-1] if feed is None else feed[i]
+            lg, c = decode_step(m, c, tok_in.to(device), 64 + i)
+            out_logits.append(lg.cpu())
+            out_tokens.append(torch.argmax(lg, -1).cpu())
+        return out_logits, out_tokens
+
+    cpu_logits, cpu_tokens = run_cut(on_cpu, "cpu")
+    before = common.LAUNCHES["flash_attention"]
+    card_logits, card_tokens = run_cut(on_card, dev, feed=cpu_tokens)
+    check(common.LAUNCHES["flash_attention"] - before == cut.n_layers,
+          "the 2-layer card run did not launch flash_attention per layer")
+    cut_err = []
+    for i, (g, w) in enumerate(zip(card_logits, cpu_logits)):
+        rtol = 1e-4 if i == 0 else 1e-2
+        scale = float(w[:, :cut.vocab].abs().max())
+        e = err(g[:, :cut.vocab], w[:, :cut.vocab])
+        cut_err.append(e / scale)
+        check(e <= rtol * scale, f"card vs CPU logits, step {i}: error {e} "
+              f"against max |logit| {scale}")
+    check(all(torch.equal(g, w) for g, w in zip(card_tokens, cpu_tokens)),
+          "card and CPU greedy tokens differ")
+    log("phase 5b: 2-layer full-width f32 cut, card vs CPU: greedy tokens "
+        "equal over prefill + 4 decode steps; logits error / max |logit| "
+        + ", ".join(f"{e:.3g}" for e in cut_err))
+    del on_card
+    torch.cuda.empty_cache()
+
+    # -- 6. summary ---------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -1,0 +1,56 @@
+"""The CUDA flash-attention kernel (``csrc/flash_attention.cu``) and its
+binding.
+
+``csrc/flash_attention.cu`` replaces the TPU kernel
+``src/repro/kernels/flash_attention/flash_attention.py:_flash_kernel``.
+One block per (batch, head, tile of 64 q rows) runs the whole kv loop
+itself, streaming kv tiles through shared memory with the online softmax
+state in f32 registers; the kv head is read in place (GQA), causal tiles
+above the diagonal are skipped and the ragged tails are masked in the
+kernel, so nothing is padded.  bfloat16 at the head dims of
+``MMA_HEAD_DIMS`` runs on the tensor cores (``mma.sync``); float32 and the
+other head dims run f32 FMAs on the CUDA cores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..common import launch, ptr, stream_of
+
+#: (Dk, Dv) pairs the tensor-core (bf16) kernel is compiled for
+MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64))
+#: Dv values csrc/flash_attention.cu is compiled for (each thread's output
+#: strip is Dv / 16 registers wide)
+COMPILED_DV = (32, 64, 96, 128)
+#: Dk: any multiple of 4 up to this (a loop bound; Qs and Ks grow with it)
+MAX_DK = 256
+DTYPES = (torch.float32, torch.bfloat16)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I,
+         _I, _I, _P]
+_SYMBOL = {torch.float32: "repro_flash_attention_f32",
+           torch.bfloat16: "repro_flash_attention_bf16"}
+
+
+def supports_head_dims(dk: int, dv: int) -> bool:
+    return 0 < dk <= MAX_DK and dk % 4 == 0 and dv in COMPILED_DV
+
+
+def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, *, causal: bool, scale: float,
+                           q_offset: int) -> None:
+    """Launch the kernel on CUDA tensors of one dtype, q (B,H,S,Dk), k
+    (B,KVH,T,Dk), v (B,KVH,T,Dv), each with a contiguous last axis, into the
+    contiguous ``out`` (B,H,S,Dv), on the current stream."""
+    b, h, s, dk = q.shape
+    kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    launch("flash_attention", _SYMBOL[q.dtype], _ARGS, ptr(q), ptr(k), ptr(v),
+           ptr(out), b, h, kvh, s, t, dk, dv, ctypes.cast(strides, _P),
+           float(scale), int(causal), int(q_offset), q.device.index,
+           stream_of(q))

@@ -1,0 +1,173 @@
+"""Shared neural building blocks: norms, MLPs, rotary embedding, embeddings.
+
+The JAX package's ``models/layers.py`` in PyTorch.  Functions take
+``(p, x, cfg)`` where ``p`` is a mapping of tensors (a plain dict, or the
+``nn.ParameterDict`` a :class:`~repro_torch.models.transformer.Transformer`
+layer holds), so the same function runs a test's dict and the model.
+
+Dtypes follow the JAX package: matmuls, the bias add, the MLP and the
+logits product run in the config compute dtype (``cdtype``: bf16 at full
+width, f32 in ``reduced()``); norms and softmax in f32.  The JAX package
+casts its f32 weights to ``cdtype`` at every call; the model keeps its
+matmul weights, biases and embedding in ``cdtype`` already (cast once at
+load: the same bits), so the ``.to`` calls here are no-ops on its weights.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .params import ParamSpec, dense_spec
+
+#: logits of the vocabulary's padding columns (and the attention sentinel)
+NEG_INF = -1e30
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def mul_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x * c`` with ``c`` rounded to ``x``'s dtype first, as JAX treats a
+    Python scalar (weak type); torch would multiply by the f32 value."""
+    if c == 1.0:
+        return x
+    return x * torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def norm_spec(cfg: ModelConfig, stacked: int = 0) -> Dict[str, ParamSpec]:
+    shape = (stacked, cfg.d_model) if stacked else (cfg.d_model,)
+    axes = ("layers", "embed") if stacked else ("embed",)
+    out = {"scale": ParamSpec(shape, axes, "ones")}
+    if cfg.norm == "layernorm":
+        out["bias"] = ParamSpec(shape, axes, "zeros")
+    return out
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps)
+        y = y * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / MLP
+# ---------------------------------------------------------------------------
+def matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cdtype(cfg)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+def act_fn(cfg: ModelConfig):
+    # jax.nn.gelu defaults to the tanh approximation
+    if cfg.act == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    return F.silu
+
+
+def mlp_spec(cfg: ModelConfig, d_ff: int, stacked: int = 0):
+    d = cfg.d_model
+    out = {
+        "wi": dense_spec(d, d_ff, ("embed", "mlp"), stacked=stacked),
+        "wo": dense_spec(d_ff, d, ("mlp", "embed"), stacked=stacked),
+    }
+    if cfg.gated_mlp:
+        out["wg"] = dense_spec(d, d_ff, ("embed", "mlp"), stacked=stacked)
+    return out
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated MLP wo( act(x wg) * (x wi) ), or the classic wo( act(x wi) )."""
+    if cfg.gated_mlp:
+        g = act_fn(cfg)(matmul(x, p["wg"], cfg))
+        h = g * matmul(x, p["wi"], cfg)
+    else:
+        h = act_fn(cfg)(matmul(x, p["wi"], cfg))
+    return matmul(h, p["wo"], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rotary(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                 rotary_pct: float = 1.0) -> torch.Tensor:
+    """x (..., S, D); positions (S,) or (B, S).  Rotates the first
+    ``rotary_pct * D`` channels (pairwise halves convention).  The angles,
+    cos and sin are f32, so a bf16 ``x`` is rotated in f32 (bf16 x f32
+    promotes to f32 in both frameworks) and cast back."""
+    d = x.shape[-1]
+    rd = int(d * rotary_pct)
+    rd -= rd % 2
+    if rd == 0:
+        return x
+    xr, xp = x[..., :rd], x[..., rd:]
+    freqs = rope_frequencies(rd, theta, x.device)             # (rd/2,)
+    ang = positions[..., None].float() * freqs                # (..., S, rd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    while cos.dim() < xr.dim():                               # add head axis
+        cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)
+    x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+def embed_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    out = {"embedding": ParamSpec((cfg.vocab_padded, cfg.d_model),
+                                  ("vocab", "embed"), "normal",
+                                  cfg.d_model ** -0.5)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = dense_spec(cfg.d_model, cfg.vocab_padded,
+                                    ("embed", "vocab"))
+    return out
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token ids must lie in [0, vocab_padded): torch indexing raises where
+    a JAX gather would clamp (the serving path only feeds argmax ids)."""
+    x = p["embedding"].to(cdtype(cfg))[tokens.long()]
+    return mul_scalar(x, cfg.scale_emb)
+
+
+def logits_from_hidden(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = p.get("lm_head")
+    if w is None:
+        w = p["embedding"].T
+    logits = matmul(h, w, cfg).float()
+    if cfg.logit_scale_base:
+        logits = logits / (cfg.d_model / cfg.logit_scale_base)
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, NEG_INF)
+    return logits
+
+
+def residual_scale(cfg: ModelConfig) -> float:
+    """MiniCPM depth-scaled residuals: each block output is multiplied by
+    scale_depth / sqrt(n_layers)."""
+    if cfg.scale_depth:
+        return cfg.scale_depth / math.sqrt(cfg.n_layers)
+    return 1.0

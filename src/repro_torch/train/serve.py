@@ -1,0 +1,83 @@
+"""Serving steps: batched prefill and single-token greedy decode.
+
+The JAX package's ``train/serve.py`` in PyTorch.  The steps take the port's
+model (:class:`~repro_torch.models.transformer.Transformer`) where the JAX
+steps take a parameter tree, and run on the model's device: build the model
+on the card (the default of ``init_params`` and ``params_from_jax``) or on
+the CPU with ``device="cpu"``, where the flash-attention wrapper runs its
+plain version.  Encoder archs (hubert) have no prefill/decode; their
+``encode`` step needs ``forward``, which comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.config import ModelConfig
+from ..models.transformer import Transformer, decode_step, prefill
+
+
+def _check_model(model: Transformer, cfg: ModelConfig) -> None:
+    if model.cfg != cfg:
+        raise ValueError(f"the step was made for {cfg.name}, the model is "
+                         f"{model.cfg.name}")
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int,
+                      cache_dtype=torch.bfloat16) -> Callable:
+    """(model, {"tokens": (B, S)}) -> (last-token logits (B, Vp), cache)."""
+    if cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name} is encoder-only: its encode step needs forward(), "
+            "which comes with the training slice (ROADMAP.md queue 1, next step 7)")
+
+    def prefill_step(model, inputs):
+        _check_model(model, cfg)
+        return prefill(model, inputs, max_len, cache_dtype)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, return_logits: bool = True) -> Callable:
+    """One decode step: (model, cache, tokens, pos) -> next tokens.
+
+    ``return_logits=True`` returns (next (B,) int32, logits (B, Vp), cache);
+    ``return_logits=False`` is the serving fast path, (next, cache), which
+    hands no ``(B, vocab)`` logits back to the caller.  The cache is
+    updated in place.  ``argmax`` takes the first maximum, as in JAX.
+    """
+    if not return_logits:
+        def greedy_step(model, cache, tokens, pos):
+            _check_model(model, cfg)
+            logits, new_cache = decode_step(model, cache, tokens, pos)
+            return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
+
+        return greedy_step
+
+    def serve_step(model, cache, tokens, pos):
+        _check_model(model, cfg)
+        logits, new_cache = decode_step(model, cache, tokens, pos)
+        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_tokens, logits, new_cache
+
+    return serve_step
+
+
+def greedy_generate(model: Transformer, prompt, max_new: int,
+                    max_len: int) -> torch.Tensor:
+    """Greedy decoding (prefill + ``max_new - 1`` decode steps) of a
+    (B, S) prompt of token ids (numpy or tensor), on the model's device;
+    -> (B, max_new) int32 tokens."""
+    cfg = model.cfg
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    s = prompt.shape[1]
+    logits, cache = make_prefill_step(cfg, max_len)(model, {"tokens": prompt})
+    step_fn = make_decode_step(cfg)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok]
+    for i in range(max_new - 1):
+        tok, _, cache = step_fn(model, cache, tok, s + i)
+        out.append(tok)
+    return torch.stack(out, dim=1)

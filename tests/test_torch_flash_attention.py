@@ -1,0 +1,198 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+The same numpy inputs, made from a seed, go through the JAX op
+(``impl="xla"``, the path JAX takes on every backend but a TPU;
+``impl="pallas"``, the TPU kernel in interpret mode, at sizes of 256 or
+less; and ``mha_ref``) and through the port's wrapper on CPU tensors, which
+runs the kernel's plain PyTorch version (``flash_attention_plain``).
+
+Tolerance in float32: 2e-5 absolute on outputs of magnitude about 1 (the
+same f32 online softmax, summed in another order).  In bfloat16 both
+packages round the same f32 result, so outputs differ by at most one bf16
+ulp of the output (2^-7 relative).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import mha_ref as j_mha_ref
+from repro_torch.kernels.common import LAUNCHES
+from repro_torch.kernels.flash_attention.flash_attention import (
+    COMPILED_DV, MMA_HEAD_DIMS, supports_head_dims)
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (causal_pairs,
+                                                     flash_attention_plain,
+                                                     mha_ref, repeat_kv)
+
+F32_ATOL = 2e-5
+
+
+def _qkv(seed, b, h, kvh, s, t, dk, dv=None):
+    rng = np.random.default_rng(seed)
+    dv = dk if dv is None else dv
+    return (rng.standard_normal((b, h, s, dk)).astype(np.float32),
+            rng.standard_normal((b, kvh, t, dk)).astype(np.float32),
+            rng.standard_normal((b, kvh, t, dv)).astype(np.float32))
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _j(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+# the shapes of tests/test_kernels.py: GQA group 1, 2 and 8
+@pytest.mark.parametrize("b,h,kvh,s,d", [(1, 4, 4, 128, 32), (2, 4, 2, 256, 64),
+                                         (1, 8, 1, 512, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_jax_xla_and_mha_ref(b, h, kvh, s, d, causal):
+    arrs = _qkv(0, b, h, kvh, s, s, d)
+    got = flash_attention(*_t(*arrs), causal=causal).numpy()
+    want = np.asarray(j_flash(*_j(*arrs), causal=causal, impl="xla"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+    oracle = np.asarray(j_mha_ref(*_j(*arrs), causal=causal))
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=F32_ATOL)
+    np.testing.assert_allclose(mha_ref(*_t(*arrs), causal=causal).numpy(),
+                               oracle, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("causal,s,bq,bk", [(True, 256, 128, 128),
+                                            (False, 256, 128, 128),
+                                            (True, 200, 64, 128)])
+def test_plain_matches_pallas_interpret(causal, s, bq, bk):
+    arrs = _qkv(1, 1, 4, 2, s, s, 64)
+    got = flash_attention(*_t(*arrs), causal=causal, bq=bq, bk=bk).numpy()
+    want = np.asarray(j_flash(*_j(*arrs), causal=causal, impl="pallas",
+                              bq=bq, bk=bk))
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+def test_q_offset_decode_suffix():
+    """q as a suffix of the sequence (chunked prefill)."""
+    arrs = _qkv(2, 1, 4, 4, 64, 256, 32)
+    got = flash_attention(*_t(*arrs), causal=True, q_offset=192).numpy()
+    for want in (j_flash(*_j(*arrs), causal=True, q_offset=192, impl="xla"),
+                 j_mha_ref(*_j(*arrs), causal=True, q_offset=192)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=F32_ATOL)
+    got_b = flash_attention(*_t(*arrs), causal=True, q_offset=192, bq=32,
+                            bk=64).numpy()
+    np.testing.assert_allclose(got_b, got, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("dk,dv", [(96, 64), (64, 32)])
+def test_dk_differs_from_dv(dk, dv):
+    arrs = _qkv(3, 1, 4, 4, 128, 128, dk, dv)
+    got = flash_attention(*_t(*arrs), causal=True)
+    assert got.shape == (1, 4, 128, dv)
+    want = np.asarray(j_flash(*_j(*arrs), causal=True, impl="xla"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("s,bq,bk", [(300, 512, 512), (300, 128, 128),
+                                     (1000, 512, 512)])
+def test_ragged_sequence(s, bq, bk):
+    arrs = _qkv(4, 1, 4, 2, s, s, 32)
+    got = flash_attention(*_t(*arrs), causal=True, bq=bq, bk=bk).numpy()
+    want = np.asarray(j_flash(*_j(*arrs), causal=True, impl="xla", bq=bq, bk=bk))
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+    np.testing.assert_allclose(got, np.asarray(j_mha_ref(*_j(*arrs))),
+                               rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_within_one_ulp(causal):
+    arrs = _qkv(5, 2, 4, 2, 128, 128, 64)
+    bf = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    got = flash_attention(*bf, causal=causal)
+    assert got.dtype == torch.bfloat16
+    want = j_flash(*(jnp.asarray(a, jnp.bfloat16) for a in arrs),
+                   causal=causal, impl="xla")
+    got32 = got.float().numpy()
+    want32 = np.asarray(want.astype(jnp.float32))
+    ulp = 2.0 ** -7 * np.maximum(np.abs(got32), np.abs(want32))
+    assert (np.abs(got32 - want32) <= ulp).all()
+
+
+def test_non_causal_needs_a_dividing_kv_block():
+    arrs = _qkv(6, 1, 2, 2, 64, 300, 32)
+    with pytest.raises(ValueError, match="T % bk"):
+        j_flash(*_j(*arrs), causal=False, impl="xla", bk=128)
+    with pytest.raises(ValueError, match="T % bk"):
+        flash_attention(*_t(*arrs), causal=False, bk=128)
+    meta = tuple(torch.empty(a.shape, device="meta") for a in arrs)
+    with pytest.raises(ValueError, match="T % bk"):
+        flash_attention(*meta, causal=False, bk=128)
+    # min(bk, T) = T divides T: allowed, as in the JAX wrapper
+    got = flash_attention(*_t(*arrs), causal=False).numpy()
+    want = np.asarray(j_flash(*_j(*arrs), causal=False, impl="xla"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+def test_meta_inputs_give_meta_outputs_without_launching():
+    before = dict(LAUNCHES)
+    q = torch.empty(2, 16, 300, 96, device="meta", dtype=torch.bfloat16)
+    k = torch.empty(2, 2, 300, 96, device="meta", dtype=torch.bfloat16)
+    v = torch.empty(2, 2, 300, 64, device="meta", dtype=torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True, bq=128, bk=128)
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (2, 16, 300, 64), torch.bfloat16)
+    assert LAUNCHES == before
+
+
+def test_cpu_runs_never_count_launches():
+    before = dict(LAUNCHES)
+    arrs = _qkv(7, 1, 4, 2, 64, 64, 32)
+    flash_attention(*_t(*arrs), causal=True)
+    flash_attention(*_t(*arrs), causal=False)
+    assert LAUNCHES == before
+    assert "flash_attention" in LAUNCHES
+
+
+def test_wrapper_rejects_shapes_that_do_not_fit():
+    q, k, v = _t(*_qkv(8, 1, 4, 3, 16, 16, 32))    # 3 kv heads do not divide 4
+    with pytest.raises(ValueError, match="shapes do not fit"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="takes q"):
+        flash_attention(q[0], k[0], v[0])
+
+
+def test_kernel_head_dims():
+    for d in (32, 64, 96, 128):
+        assert supports_head_dims(d, d)
+    assert supports_head_dims(96, 64) and supports_head_dims(192, 128)
+    assert not supports_head_dims(80, 80)          # hubert's 80: Dv not compiled
+    assert not supports_head_dims(256, 256) and not supports_head_dims(30, 32)
+    assert COMPILED_DV == (32, 64, 96, 128)
+    # the bf16 tensor-core kernel's pairs are a subset of what the wrapper takes
+    assert all(supports_head_dims(dk, dv) for dk, dv in MMA_HEAD_DIMS)
+    assert (128, 128) in MMA_HEAD_DIMS            # qwen2.5-3b's heads
+
+
+def test_causal_pairs_and_repeat_kv_follow_the_reference():
+    from repro.kernels.flash_attention.ops import _causal_pairs
+    for args in ((4, 4, 64, 64, 0), (2, 8, 32, 32, 192), (3, 2, 100, 150, 0)):
+        assert causal_pairs(*args) == _causal_pairs(*args)
+    x = torch.arange(2 * 2 * 3 * 4, dtype=torch.float32).reshape(2, 2, 3, 4)
+    r = repeat_kv(x, 3)
+    assert r.shape == (2, 6, 3, 4)
+    assert torch.equal(r[:, 4], x[:, 1]) and torch.equal(r[:, 2], x[:, 0])
+
+
+def test_rows_that_see_no_key_stay_finite():
+    """The -1e30 sentinel (not -inf): a q row with no visible key
+    (q_offset < 0) stays finite, as in the JAX package's blocked paths,
+    where mha_ref's -inf gives NaN."""
+    arrs = _qkv(9, 1, 2, 2, 8, 8, 32)
+    out = flash_attention_plain(*_t(*arrs), causal=True, q_offset=-4)
+    ref = mha_ref(*_t(*arrs), causal=True, q_offset=-4)
+    assert torch.isnan(ref[:, :, :4]).all()
+    assert torch.isfinite(out).all()
+    want = np.asarray(j_flash(*_j(*arrs), causal=True, q_offset=-4, impl="xla"))
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=F32_ATOL)
+    torch.testing.assert_close(out[:, :, 4:], ref[:, :, 4:], rtol=0,
+                               atol=F32_ATOL)

@@ -61,7 +61,15 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "benchmarks_torch.bench_gemm_overhead",
                 "benchmarks_torch.bench_transfer",
                 "benchmarks_torch.bench_multiqueue",
-                "benchmarks_torch.bench_tinybio"}
+                "benchmarks_torch.bench_tinybio",
+                "repro_torch.configs", "repro_torch.configs.qwen2_5_3b",
+                "repro_torch.models.config", "repro_torch.models.params",
+                "repro_torch.models.layers", "repro_torch.models.attention",
+                "repro_torch.models.transformer", "repro_torch.models.convert",
+                "repro_torch.train.serve",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.flash_attention.flash_attention"}
     assert expected <= set(report["modules"])
 
 
@@ -97,6 +105,11 @@ def test_entry_points_default_to_the_card():
         bench_gemm_overhead.run()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_transfer.run()
+    from repro_torch.configs import get
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import model_spec
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(model_spec(get("qwen2.5-3b").reduced()), 0)
 
 
 def _no_result(stdout: str) -> bool:
