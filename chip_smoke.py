@@ -16,7 +16,15 @@ Phases (any failure exits non-zero and prints no result line):
    check; every call must move the kernel's launch counter by one.  The
    GeMM's three config tilings must give identical bits.  Flash attention
    runs qwen's prefill shape, a ragged S = T = 300, a suffix with
-   ``q_offset``, a non-causal case and Dk = 96 / Dv = 64 in float32;
+   ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and rows
+   that see no key (``q_offset = -16``).  ``rwkv6_scan`` runs bf16 and f32
+   inputs with ``state0`` absent, zero and random at T = 1, 256 and 300 and
+   D = 64 and 32; ``decode_attention`` qwen's decode shape in bf16, a
+   ragged MHA T = 300 in f32, an MQA group at Dk = Dv = 256 and
+   ``partial=True`` over 4 T-shards combined against the full result;
+   ``mamba_scan`` jamba's width (Dm = 16384, N = 16, B = 4, T = 256) with
+   the dtypes the jamba block passes under bf16, a ragged T = 100 and a
+   ``state0``;
 3. kernel timings at the main paths' shapes: device time per call from
    CUDA events around replays of a CUDA graph of many warm calls, for the
    kernel, its plain version and, where one PyTorch call computes the same
@@ -26,6 +34,10 @@ Phases (any failure exits non-zero and prints no result line):
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
    B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
+   ``rwkv6_scan`` at rwkv6-3b's prefill (B = 4, T = 256) and decode-step
+   (T = 1) shapes, with B = 1, T = 4096 beside them; ``decode_attention``
+   at qwen's decode shape and at T = 32768, against SDPA with one query;
+   ``mamba_scan``'s kernel at jamba's width;
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -41,6 +53,12 @@ Phases (any failure exits non-zero and prints no result line):
      must be exact and every report equal to the CPU run's; then the
      ports of the Fig-3, transfer and multi-queue benches on the card,
      their modeled rows equal to the CPU run's;
+   * 4c. the registry's ``decode_attention`` and ``mamba_scan`` families
+     (the JAX package reaches these two kernels only through the registry):
+     ``Program.build(cfg).create_kernel(...)`` for 4T, 8T and 16T, through a
+     ``CommandQueue`` and ``APU.offload`` (graph and eager): each result
+     equal to the op's, each report equal to the CPU run's, and each kernel
+     launched once per enqueue and graph offload and twice per eager one;
 
 5. the LM serving path (qwen2.5-3b at full width and depth, bf16, random
    weights from ``init_params(seed=0)`` on the card): ``greedy_generate``
@@ -57,8 +75,18 @@ Phases (any failure exits non-zero and prints no result line):
    4 decode steps teacher-forced from the CPU's tokens: logits within the
    stated tolerances, greedy tokens equal;
 
-6. one ``{"kernels": [...]}`` line, then, last, ``{"ok": true, "device":
-   {...}}``.
+6. the rwkv serving path (rwkv6-3b at full width and depth: 32 layers,
+   d_model 2560, 40 heads of 64, bf16, random weights from seed 0 on the
+   card): ``greedy_generate`` answers 4 requests of 256-token prompts with
+   16 new tokens each; ``rwkv6_scan`` must launch once per layer in the
+   prefill and in every decode step, and no other kernel of ours; the
+   tokens must repeat on a second run.  Walls, tokens/s, the device's idle
+   share of one prefill and one decode step, and peak memory are printed;
+   6b. the card against the CPU: a 2-layer cut of rwkv6-3b at full width in
+   float32, as in 5b;
+
+7. one ``{"kernels": [...]}`` line for all nine kernels, then, last,
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -99,10 +127,26 @@ LM_KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:29"),
 }
-KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS}
+REGISTRY_KERNELS = {
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/decode_attention.py:29"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan/mamba_scan.py:26"),
+}
+RWKV_KERNELS = {
+    "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:34"),
+}
+KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS, **REGISTRY_KERNELS,
+           **RWKV_KERNELS}
 # the LM path's geometry (qwen2.5-3b) and its serving run
 LM_ARCH = "qwen2.5-3b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 256, 16, 512
+# the rwkv serving path (rwkv6-3b) and its run; jamba gives mamba_scan
+# its width (d_inner, d_state)
+RWKV_ARCH = "rwkv6-3b"
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_MAX_LEN = 4, 256, 16, 512
+MAMBA_ARCH = "jamba-1.5-large-398b"
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_mma_kernel<")
@@ -247,6 +291,14 @@ def main() -> int:
         from repro_torch.kernels.svm.ref import svm_decision_ref
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+        from repro_torch.kernels.decode_attention.ops import (combine_partials,
+                                                              decode_attention)
+        from repro_torch.kernels.decode_attention.ref import (
+            decode_attention_partial_ref, decode_attention_ref)
+        from repro_torch.kernels.mamba_scan.ops import mamba_scan, selective_scan
+        from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
+        from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+        from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
         from repro_torch.models.params import init_params, map_tree
         from repro_torch.models.transformer import (Transformer, decode_step,
                                                     model_spec, prefill)
@@ -471,10 +523,150 @@ def main() -> int:
             "Dk=96 Dv=64", (2, 8, 4, 200, 200, 96, 64), torch.float32),
         "Dk=Dv=32 S=T=77 f32": flash_case(
             "Dk=Dv=32", (1, 4, 4, 77, 77, 32, 32), torch.float32),
+        # rows 0..15 see no key: the kernel's final pass gives them what
+        # the plain version's blocking gives them
+        "no-key rows S=64 T=512 q_offset=-16 bf16": flash_case(
+            "no-key rows", (2, lm_h, lm_kvh, 64, 512, lm_d, lm_d), bf16,
+            q_offset=-16),
+        "no-key rows S=64 T=512 q_offset=-16 f32": flash_case(
+            "no-key rows f32", (2, lm_h, lm_kvh, 64, 512, lm_d, lm_d),
+            torch.float32, q_offset=-16),
     }
     max_err["flash_attention"] = fa_err["prefill B=4 S=T=256 bf16"]
     log("phase 2: flash_attention ok (max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
+
+    # The three scans and decode attention against their plain versions.
+    # Both sides compute in f32 and sum in another order (the rwkv kernel
+    # walks the steps one by one, its plain version the chunked log-decay
+    # form; measured on the CPU the two differ by under 1e-6 of max |y|):
+    # float32 outputs and every f32 state within 1e-5 of their largest
+    # magnitude; bfloat16 outputs, which both round from f32, within one
+    # bf16 ulp of each value plus the same 1e-5.
+    def agree(what, got, want):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{what}: shape or dtype {tuple(got.shape)} {got.dtype} vs "
+              f"{tuple(want.shape)} {want.dtype}")
+        g, w = got.float(), want.float()
+        tol = 1e-5 * float(w.abs().max())
+        if got.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+        check(bool(((g - w).abs() <= tol).all()) and bool(torch.isfinite(g).all()),
+              f"{what}: error {err(got, want)}")
+        return err(got, want)
+
+    def normal(*shape, dtype=torch.float32, sc=1.0):
+        return torch.from_numpy(
+            (sc * rng.standard_normal(shape)).astype(np.float32)).to(dev, dtype)
+
+    rw_cfg = get_arch(RWKV_ARCH)
+    rw_h, rw_d = rw_cfg.rwkv_heads, rw_cfg.rwkv_head_dim
+
+    def rwkv_inputs(b, h, t, d, dtype):
+        """r/k/v in ``dtype``, w = exp(-exp(w_log)) in f32 with w_log around
+        the spec's w0 = -1, as the model makes them; u f32."""
+        r, k, v = (normal(b, h, t, d, dtype=dtype, sc=0.5) for _ in range(3))
+        w = torch.exp(-torch.exp(normal(b, h, t, d, sc=0.5) - 1.0))
+        return r, k, v, w, normal(h, d, sc=0.5)
+
+    rw_err = {}
+    for dtype in (bf16, torch.float32):
+        for b_, h_, t_, d_ in ((RWKV_BATCH, rw_h, RWKV_PROMPT, rw_d),
+                               (RWKV_BATCH, rw_h, 1, rw_d), (2, 8, 300, rw_d),
+                               (2, 8, 300, 32), (2, 8, 1, 32),
+                               (2, 8, 256, 32)):
+            ins = rwkv_inputs(b_, h_, t_, d_, dtype)
+            for state in ("absent", "zero", "random"):
+                s0 = {"absent": None,
+                      "zero": torch.zeros(b_, h_, d_, d_, device=dev),
+                      "random": normal(b_, h_, d_, d_)}[state]
+                got = launched("rwkv6_scan", lambda: rwkv6_scan(*ins, s0))
+                want = rwkv6_scan_plain(*ins, s0)
+                what = (f"rwkv6_scan {str(dtype)[6:]} B={b_} H={h_} T={t_} "
+                        f"D={d_} state0 {state}")
+                rw_err[what] = max(agree(what, got[0], want[0]),
+                                   agree(what + " state", got[1], want[1]))
+    max_err["rwkv6_scan"] = max(v_ for k_, v_ in rw_err.items()
+                                if f"H={rw_h} T={RWKV_PROMPT}" in k_ and "bfloat16" in k_)
+    log(f"phase 2: rwkv6_scan ok ({len(rw_err)} cases: bf16 and f32, state0 "
+        f"absent, zero and random, T = 1, 256, 300, D = {rw_d} and 32; max abs "
+        f"err vs plain {max(rw_err.values()):.3g}, at the prefill shape "
+        f"{max_err['rwkv6_scan']:.3g})")
+
+    # decode attention: qwen's decode shape in bf16, a ragged MHA T in f32,
+    # and partial=True over 4 T-shards combined against the full result
+    def decode_case(what, b_, h_, kvh_, t_, d_, dtype):
+        q = normal(b_, h_, d_, dtype=dtype)
+        k = normal(b_, kvh_, t_, d_, dtype=dtype)
+        v = normal(b_, t_, kvh_, d_, dtype=dtype).transpose(1, 2)
+        e = agree(f"decode_attention {what}",
+                  launched("decode_attention", lambda: decode_attention(q, k, v)),
+                  decode_attention_ref(q, k, v))
+        cuts = [i * t_ // 4 for i in range(5)]
+        parts = [launched("decode_attention", lambda a=a, z=z: decode_attention(
+            q, k[:, :, a:z], v[:, :, a:z], partial=True))
+            for a, z in zip(cuts, cuts[1:])]
+        for (acc, m_, l_), a, z in zip(parts, cuts, cuts[1:]):
+            pa, pm, pl = decode_attention_partial_ref(q, k[:, :, a:z], v[:, :, a:z])
+            for name, g, w_ in (("acc", acc, pa), ("m", m_, pm), ("l", l_, pl)):
+                agree(f"decode_attention {what} partial {name}", g, w_)
+        full_acc, _, full_l = decode_attention_partial_ref(q, k, v)
+        merged = combine_partials(parts)[0]
+        agree(f"decode_attention {what} 4 shards combined", merged, full_acc / full_l)
+        return e
+
+    da_err = {
+        "qwen decode B=4 H=16 KVH=2 T=512 D=128 bf16": decode_case(
+            "decode", LM_BATCH, lm_h, lm_kvh, LM_MAX_LEN, lm_d, bf16),
+        "MHA B=2 H=KVH=8 T=300 D=128 f32": decode_case(
+            "MHA", 2, 8, 8, 300, lm_d, torch.float32),
+        "MQA B=1 H=12 KVH=1 T=77 Dk=Dv=256 f32": decode_case(
+            "MQA", 1, 12, 1, 77, 256, torch.float32),
+        "B=2 H=6 KVH=2 T=33 D=48 bf16": decode_case(
+            "D=48", 2, 6, 2, 33, 48, bf16),
+    }
+    max_err["decode_attention"] = da_err["qwen decode B=4 H=16 KVH=2 T=512 D=128 bf16"]
+    log("phase 2: decode_attention ok (partial over 4 T-shards combined "
+        "equals the full result in every case; max abs err vs plain: "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in da_err.items()) + ")")
+
+    # mamba_scan at jamba's width with the dtypes the jamba block passes
+    # under bf16 (x bf16; delta, a, b, c, d f32; models/mamba.py:80-90).
+    # d = 0 in the bf16 cases, so y is the scan's own output (the skip term
+    # is the wrapper's plain PyTorch on both sides); the f32 case keeps d.
+    mb_cfg = get_arch(MAMBA_ARCH)
+    mb_dm, mb_n = mb_cfg.mamba_d_inner, mb_cfg.mamba_d_state
+
+    def ssm_inputs(b_, t_, dm, n_, dtype):
+        x_ = normal(b_, t_, dm, dtype=dtype, sc=0.5)
+        delta = normal(b_, t_, dm, sc=0.3).abs() + 0.1
+        a_ = -(normal(dm, n_).abs() + 0.1)
+        return x_, delta, a_, normal(b_, t_, n_, sc=0.5), normal(b_, t_, n_, sc=0.5)
+
+    def mamba_plain(x_, delta, a_, bm, cm, d_, s0):
+        yp, hp = mamba_scan_plain(x_, delta, a_, bm, cm, s0)
+        return yp + (x_.float() * d_[None, None].float()).to(yp.dtype), hp
+
+    mb_err = {}
+    for what, (b_, t_, dm, n_, dtype, with_d, with_s0) in {
+            f"jamba width B=4 T=256 Dm={mb_dm} N={mb_n} x bf16": (
+                4, 256, mb_dm, mb_n, bf16, False, False),
+            f"jamba width B=4 T=256 state0 x bf16": (
+                4, 256, mb_dm, mb_n, bf16, False, True),
+            "ragged B=2 T=100 Dm=300 N=16 x bf16 state0": (
+                2, 100, 300, 16, bf16, False, True),
+            "B=2 T=100 Dm=300 N=8 f32 with D": (2, 100, 300, 8, torch.float32, True, True),
+            "B=1 T=7 Dm=64 N=2 f32": (1, 7, 64, 2, torch.float32, True, False)}.items():
+        ins = ssm_inputs(b_, t_, dm, n_, dtype)
+        d_ = normal(dm) if with_d else torch.zeros(dm, device=dev)
+        s0 = normal(b_, dm, n_) if with_s0 else None
+        got = launched("mamba_scan", lambda: mamba_scan(*ins, d_, s0))
+        want = mamba_plain(*ins, d_, s0)
+        mb_err[what] = max(agree(f"mamba_scan {what}", got[0], want[0]),
+                           agree(f"mamba_scan {what} state", got[1], want[1]))
+    max_err["mamba_scan"] = mb_err[f"jamba width B=4 T=256 Dm={mb_dm} N={mb_n} x bf16"]
+    log("phase 2: mamba_scan ok (max abs err vs plain: "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in mb_err.items()) + ")")
 
     # -- 3. timings at the main paths' shapes ------------------------------
     n, taps = x.numel(), h.numel()
@@ -612,6 +804,94 @@ def main() -> int:
             f"{fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); kernel "
             f"{r['ms'] / b_ms:.1f}x its bound, {r['ms'] / r['library_ms']:.2f}x SDPA")
     rows["flash_attention"] = fa_rows["prefill"]
+
+    # rwkv6_scan at rwkv6-3b's prefill shape (state0 absent, as the prefill
+    # passes it) and one decode step (T = 1 from a state), with B = 1,
+    # T = 4096 logged beside them.  Bound: r, k, v (bf16) and w (f32) read
+    # once, u and any state0 read once, y (bf16) and the f32 state written
+    # once, against 5 D^2 f32 flops per step and head (rwkv6_scan's counts).
+    # No single PyTorch call computes the scan: library none.
+    def rwkv_bound(b_, t_, with_state):
+        n_in = b_ * rw_h * t_ * rw_d
+        state = 4.0 * b_ * rw_h * rw_d * rw_d
+        nbytes = (n_in * (3 * 2 + 4 + 2) + 4.0 * rw_h * rw_d + state
+                  + (state if with_state else 0.0))
+        return bound(nbytes, 5.0 * n_in * rw_d)
+
+    rw_rows = {}
+    for label, b_, t_, with_state, per_graph in (
+            ("prefill", RWKV_BATCH, RWKV_PROMPT, False, 50),
+            ("decode step", RWKV_BATCH, 1, True, 100),
+            ("long", 1, 4096, False, 3)):
+        ins = rwkv_inputs(b_, rw_h, t_, rw_d, bf16)
+        s0 = normal(b_, rw_h, rw_d, rw_d) if with_state else None
+        b_ms, b_by = rwkv_bound(b_, t_, with_state)
+        rw_rows[label] = dict(
+            ms=device_ms(torch, lambda: rwkv6_scan(*ins, s0), per_graph),
+            plain_ms=device_ms(torch, lambda: rwkv6_scan_plain(*ins, s0),
+                               max(1, per_graph // 10)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        r = rw_rows[label]
+        log(f"phase 3: rwkv6_scan {label} B={b_} H={rw_h} T={t_} D={rw_d} "
+            f"(r/k/v bf16, w f32{', from a state' if with_state else ''}): "
+            f"device time per call: kernel {fmt(r['ms'])}, plain "
+            f"{fmt(r['plain_ms'])}, library none; bound {b_ms:.6f} ms ({b_by}); "
+            f"kernel {r['ms'] / b_ms:.1f}x its bound")
+    rows["rwkv6_scan"] = rw_rows["prefill"]
+
+    # decode_attention at qwen's decode shape (the cache of the LM path's
+    # max_len), T = 32768 logged beside it; the library call is SDPA with
+    # one query and enable_gqa.  Bound: q, k, v read once and out written
+    # once in bf16, against 2 (Dk + Dv) flops per (head, key) at the bf16 peak.
+    def sdpa_one(q, k, v):
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              enable_gqa=True)[:, :, 0]
+
+    da_rows = {}
+    for label, t_, per_graph in (("decode", LM_MAX_LEN, 100), ("long", 32768, 10)):
+        q = normal(LM_BATCH, lm_h, lm_d, dtype=bf16)
+        k, v = (normal(LM_BATCH, lm_kvh, t_, lm_d, dtype=bf16) for _ in range(2))
+        check(err(sdpa_one(q, k, v), decode_attention_ref(q, k, v)) <= 5e-2,
+              f"SDPA differs from the plain decode attention at T={t_}")
+        b_ms, b_by = bound(
+            2.0 * (2 * LM_BATCH * lm_h * lm_d + 2 * LM_BATCH * lm_kvh * t_ * lm_d),
+            2.0 * LM_BATCH * lm_h * t_ * 2 * lm_d, PEAK_BF16_FLOPS)
+        da_rows[label] = dict(
+            ms=device_ms(torch, lambda: decode_attention(q, k, v), per_graph),
+            plain_ms=device_ms(torch, lambda: decode_attention_ref(q, k, v),
+                               max(1, per_graph // 10)),
+            library_ms=device_ms(torch, lambda: sdpa_one(q, k, v), per_graph),
+            bound_ms=b_ms, bound_by=b_by)
+        r = da_rows[label]
+        log(f"phase 3: decode_attention {label} B={LM_BATCH} H={lm_h} "
+            f"KVH={lm_kvh} T={t_} D={lm_d} bf16: device time per call: kernel "
+            f"{fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library (SDPA, one "
+            f"query) {fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); "
+            f"kernel {r['ms'] / b_ms:.1f}x its bound, "
+            f"{r['ms'] / r['library_ms']:.2f}x SDPA")
+    rows["decode_attention"] = da_rows["decode"]
+
+    # mamba_scan's kernel (selective_scan: the scan without the D x skip,
+    # which the op adds in plain PyTorch as the JAX op does) at jamba's
+    # width, B = 4, T = 256, with the dtypes the jamba block passes under
+    # bf16.  Bound: x (bf16), delta (f32), a, b, c (f32) read once, y (bf16)
+    # and the f32 state written once, against 6 N flops per step and
+    # channel (mamba_scan's counts).  Library none.
+    ins = ssm_inputs(4, 256, mb_dm, mb_n, bf16)
+    elems = 4 * 256 * mb_dm
+    mb_bound = bound(elems * (2 + 4 + 2) + 4.0 * (mb_dm * mb_n + 2 * 4 * 256 * mb_n
+                                                  + 4 * mb_dm * mb_n),
+                     6.0 * elems * mb_n)
+    rows["mamba_scan"] = dict(
+        ms=device_ms(torch, lambda: selective_scan(*ins), 20),
+        plain_ms=device_ms(torch, lambda: mamba_scan_plain(*ins), 1),
+        library_ms=None, bound_ms=mb_bound[0], bound_by=mb_bound[1])
+    r = rows["mamba_scan"]
+    log(f"phase 3: mamba_scan B=4 T=256 Dm={mb_dm} N={mb_n} (x bf16, the rest "
+        f"f32): device time per call: kernel {fmt(r['ms'])}, plain "
+        f"{fmt(r['plain_ms'])}, library none; bound "
+        f"{mb_bound[0]:.6f} ms ({mb_bound[1]}); kernel "
+        f"{r['ms'] / mb_bound[0]:.1f}x its bound")
 
     # -- 4a. the TinyBio main path --------------------------------------------
     runs = {}
@@ -767,6 +1047,74 @@ def main() -> int:
         "bench_multiqueue modeled numbers equal the CPU run's; gemm launches "
         "4 per transfer-graph launch, 5 per multi-queue graph launch")
 
+    # -- 4c. the registry's decode_attention and mamba_scan families -------
+    # Program.build(cfg).create_kernel(family) for 4T, 8T and 16T, each
+    # enqueued once through a CommandQueue and offloaded through APU.offload
+    # in graph and eager mode, with the launch counters reset just before
+    # and read just after: each family launched once per queue enqueue and
+    # graph offload, twice per eager one (its e-GPU and host contexts), and
+    # no other kernel.  Both kernels are deterministic, so every result
+    # equals the op's bit for bit; every modeled report equals the CPU run's
+    # (the same inputs, copied to the CPU) float for float.
+    reg_inputs = {
+        "decode_attention": (
+            (normal(LM_BATCH, lm_h, lm_d, dtype=bf16),
+             normal(LM_BATCH, lm_kvh, LM_MAX_LEN, lm_d, dtype=bf16),
+             normal(LM_BATCH, lm_kvh, LM_MAX_LEN, lm_d, dtype=bf16)),
+            {"b": LM_BATCH, "h": lm_h, "t": LM_MAX_LEN, "dk": lm_d, "dv": lm_d,
+             "itemsize": 2}),
+        "mamba_scan": (
+            ssm_inputs(2, 128, mb_dm, mb_n, bf16) + (normal(mb_dm),),
+            {"bsz": 2, "t": 128, "dm": mb_dm, "n": mb_n}),
+    }
+    reg_ops = {"decode_attention": decode_attention, "mamba_scan": mamba_scan}
+    reg_runs = {}
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    for family, (ins, cp) in reg_inputs.items():
+        for cfg in configs:
+            kern = Program.build(cfg).create_kernel(family)
+            queue = CommandQueue(Context(Device(cfg), "cuda"))
+            kern.set_args(*ins)
+            reg_runs[family, cfg.name, "queue"] = (
+                queue.enqueue_kernel(kern, counts_params=cp).wait(), None)
+            for mode in ("graph", "eager"):
+                reg_runs[family, cfg.name, mode] = APU(cfg, device="cuda").offload(
+                    [Stage(kern, counts_params=cp)], ins, mode=mode)
+    torch.cuda.synchronize()
+    reg_wall = time.perf_counter() - t0
+    reg_launches = dict(common.LAUNCHES)
+    for name in KERNELS:
+        want = len(configs) * (1 + 1 + 2) if name in REGISTRY_KERNELS else 0
+        check(reg_launches[name] == want,
+              f"the registry phase launched {name} {reg_launches[name]} times, "
+              f"expected {want}")
+    launches.update({name: reg_launches[name] for name in REGISTRY_KERNELS})
+    for family, (ins, cp) in reg_inputs.items():
+        direct = reg_ops[family](*ins)
+        direct = direct if isinstance(direct, tuple) else (direct,)
+        cpu_ins = tuple(t.cpu() for t in ins)
+        for cfg in configs:
+            for mode in ("queue", "graph", "eager"):
+                outs, rep = reg_runs[family, cfg.name, mode]
+                check(len(outs) == len(direct) and all(
+                    o.data.is_cuda and torch.equal(o.data, d_)
+                    for o, d_ in zip(outs, direct)),
+                    f"{family} {cfg.name} {mode}: result differs from the op's")
+                if rep is None:
+                    continue
+                cpu_kern = Program.build(cfg).create_kernel(family)
+                _, crep = APU(cfg, device="cpu").offload(
+                    [Stage(cpu_kern, counts_params=cp)], cpu_ins, mode=mode)
+                check(dataclasses.asdict(rep) == dataclasses.asdict(crep),
+                      f"{family} {cfg.name} {mode}: report differs from the CPU run's")
+        rep16 = reg_runs[family, EGPU_16T.name, "graph"][1].stages[0]
+        log(f"phase 4c: registry family {family} (4T/8T/16T; queue, graph and "
+            f"eager): results equal the op's, reports == CPU reports; 16T "
+            f"modeled speed-up {rep16.speedup!r}")
+    log(f"phase 4c: registry phase in {reg_wall:.3f} s, launches {reg_launches}")
+
     # -- 5. the LM serving path: qwen2.5-3b, full width and depth, bf16 -----
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -911,7 +1259,142 @@ def main() -> int:
     del on_card
     torch.cuda.empty_cache()
 
-    # -- 6. summary ---------------------------------------------------------------
+    # -- 6. the rwkv serving path: rwkv6-3b, full width and depth, bf16 ----
+    # 32 layers of 40 heads of 64, random weights from seed 0 on the card
+    # (the qwen model above is freed first).  rwkv6_scan must launch once
+    # per layer in the prefill and once per layer in every decode step, and
+    # no other kernel of ours.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rw_model = Transformer(rw_cfg, init_params(model_spec(rw_cfg), 0, device=dev))
+    torch.cuda.synchronize()
+    rw_params = sum(p_.numel() for p_ in rw_model.parameters())
+    log(f"phase 6: {RWKV_ARCH}: {rw_cfg.n_layers} layers, d_model "
+        f"{rw_cfg.d_model}, {rw_h} heads of {rw_d}, d_ff {rw_cfg.d_ff}, vocab "
+        f"{rw_cfg.vocab}; {rw_params} parameters in the model's tree "
+        f"(ModelConfig.param_count() says {rw_cfg.param_count()}: it counts "
+        f"the decay lora at rank 32, the spec at 64), {rw_cfg.dtype}, "
+        f"initialised from seed 0 on the card in {time.perf_counter() - t0:.3f} s")
+    rw_prompt = np.random.default_rng(0).integers(
+        0, rw_cfg.vocab, (RWKV_BATCH, RWKV_PROMPT))
+    n_layers = rw_cfg.n_layers
+
+    def only_rwkv(moved, want, what):
+        for name in KERNELS:
+            expect = want if name in RWKV_KERNELS else 0
+            check(moved[name] == expect,
+                  f"{what} launched {name} {moved[name]} times, expected {expect}")
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    rw_tokens = greedy_generate(rw_model, rw_prompt, RWKV_NEW, RWKV_MAX_LEN)
+    torch.cuda.synchronize()
+    rw_first = time.perf_counter() - t0
+    rw_launches = dict(common.LAUNCHES)
+    only_rwkv(rw_launches, n_layers * RWKV_NEW,
+              "the rwkv main path (one prefill and 15 decode steps)")
+    launches.update({name: rw_launches[name] for name in RWKV_KERNELS})
+    check(rw_tokens.is_cuda and rw_tokens.dtype == torch.int32
+          and rw_tokens.shape == (RWKV_BATCH, RWKV_NEW)
+          and bool(((rw_tokens >= 0) & (rw_tokens < rw_cfg.vocab)).all()),
+          "rwkv greedy tokens are not (4, 16) int32 ids below the vocabulary")
+    t0 = time.perf_counter()
+    rw_again = greedy_generate(rw_model, rw_prompt, RWKV_NEW, RWKV_MAX_LEN)
+    torch.cuda.synchronize()
+    rw_warm = time.perf_counter() - t0
+    check(torch.equal(rw_tokens, rw_again), "rwkv greedy tokens differ on a second run")
+    log(f"phase 6: greedy_generate {RWKV_BATCH} x {RWKV_PROMPT}-token prompts, "
+        f"{RWKV_NEW} new tokens each: first run {rw_first:.3f} s, second "
+        f"{rw_warm:.3f} s, {RWKV_BATCH * RWKV_NEW / rw_warm:.1f} tokens/s; "
+        f"launches {rw_launches}; same tokens on both runs; first request's "
+        f"tokens {rw_tokens[0].tolist()}")
+
+    # the steps one at a time: the prefill and each decode step move
+    # rwkv6_scan by one launch per layer
+    rw_prefill_step = make_prefill_step(rw_cfg, RWKV_MAX_LEN)
+    rw_decode_fn = make_decode_step(rw_cfg)
+    rw_ptoks = {"tokens": torch.from_numpy(rw_prompt).to(dev)}
+    before = dict(common.LAUNCHES)
+    t0 = time.perf_counter()
+    rw_logits, rw_cache = rw_prefill_step(rw_model, rw_ptoks)
+    torch.cuda.synchronize()
+    rw_prefill_wall = time.perf_counter() - t0
+    only_rwkv({k_: common.LAUNCHES[k_] - before[k_] for k_ in before}, n_layers,
+              "an rwkv prefill")
+    check(rw_logits.shape == (RWKV_BATCH, rw_cfg.vocab_padded)
+          and bool(torch.isfinite(rw_logits[:, :rw_cfg.vocab]).all()),
+          "rwkv prefill logits: shape or finiteness")
+    tok = torch.argmax(rw_logits, -1).to(torch.int32)
+    steps = [tok]
+    step_walls = []
+    for i in range(RWKV_NEW - 1):
+        before = dict(common.LAUNCHES)
+        t0 = time.perf_counter()
+        tok, _, rw_cache = rw_decode_fn(rw_model, rw_cache, tok, RWKV_PROMPT + i)
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+        only_rwkv({k_: common.LAUNCHES[k_] - before[k_] for k_ in before},
+                  n_layers, f"rwkv decode step {i}")
+        steps.append(tok)
+    check(torch.equal(torch.stack(steps, 1), rw_tokens),
+          "rwkv prefill + decode steps differ from greedy_generate")
+    rw_decode_wall = sum(step_walls) / len(step_walls)
+    log(f"phase 6: prefill wall {rw_prefill_wall * 1e3:.3f} ms "
+        f"({RWKV_BATCH * RWKV_PROMPT} prompt tokens), decode step wall "
+        f"{rw_decode_wall * 1e3:.3f} ms (mean of {RWKV_NEW - 1}, {RWKV_BATCH} "
+        f"sequences); {n_layers} rwkv6_scan launches per prefill and per step")
+    rp_wall, rp_busy, rp_kernels = device_profile(
+        torch, lambda: rw_prefill_step(rw_model, rw_ptoks))
+    log("phase 6: " + profile_line("one rwkv prefill", rp_wall, rp_busy, rp_kernels))
+    check(any("rwkv6_kernel" in k_ for k_ in rp_kernels),
+          "the rwkv prefill's profile shows no rwkv6_kernel")
+    rd_wall, rd_busy, rd_kernels = device_profile(
+        torch, lambda: rw_decode_fn(rw_model, rw_cache, tok,
+                                    RWKV_PROMPT + RWKV_NEW - 1))
+    log("phase 6: " + profile_line("one rwkv decode step", rd_wall, rd_busy, rd_kernels))
+    check(any("rwkv6_kernel" in k_ for k_ in rd_kernels),
+          "the rwkv decode step's profile shows no rwkv6_kernel")
+    log(f"phase 6: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (the f32 init "
+        f"tree beside the bf16 model included)")
+    del rw_model, rw_cache, rw_logits
+    torch.cuda.empty_cache()
+
+    # -- 6b. the card against the CPU: a 2-layer rwkv cut at full width, f32
+    # The same parameters on both, the same prompts; decode teacher-forced
+    # from the CPU run's tokens.  The tolerances of phase 5b: prefill logits
+    # within 1e-4 of max |logit|, decode within 1e-2.
+    rw_cut = dataclasses.replace(rw_cfg, n_layers=2, dtype="float32")
+    rw_tree = init_params(model_spec(rw_cut), 0, device="cpu")
+    rw_cpu = Transformer(rw_cut, rw_tree)
+    rw_card = Transformer(rw_cut, map_tree(lambda t: t.to(dev), rw_tree))
+    # run_cut (phase 5b) reads prompt2 when called: ids below rwkv's vocab
+    prompt2 = torch.from_numpy(np.random.default_rng(1).integers(
+        0, rw_cut.vocab, (2, 64)))
+    before = common.LAUNCHES["rwkv6_scan"]
+    cpu_logits, cpu_tokens = run_cut(rw_cpu, "cpu")
+    card_logits, card_tokens = run_cut(rw_card, dev, feed=cpu_tokens)
+    check(common.LAUNCHES["rwkv6_scan"] - before == rw_cut.n_layers * 5,
+          "the 2-layer rwkv card run did not launch rwkv6_scan per layer and step")
+    rw_cut_err = []
+    for i, (g, w_) in enumerate(zip(card_logits, cpu_logits)):
+        rtol = 1e-4 if i == 0 else 1e-2
+        scale = float(w_[:, :rw_cut.vocab].abs().max())
+        e = err(g[:, :rw_cut.vocab], w_[:, :rw_cut.vocab])
+        rw_cut_err.append(e / scale)
+        check(e <= rtol * scale, f"rwkv card vs CPU logits, step {i}: error {e} "
+              f"against max |logit| {scale}")
+    check(all(torch.equal(g, w_) for g, w_ in zip(card_tokens, cpu_tokens)),
+          "rwkv card and CPU greedy tokens differ")
+    log("phase 6b: 2-layer full-width f32 rwkv cut, card vs CPU: greedy tokens "
+        "equal over prefill + 4 decode steps; logits error / max |logit| "
+        + ", ".join(f"{e:.3g}" for e in rw_cut_err))
+    del rw_card
+    torch.cuda.empty_cache()
+
+    # -- 7. summary ---------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -44,13 +44,15 @@ from .runtime import Kernel
 
 #: built-in kernel families -> module whose import registers them.  Imports
 #: are lazy (first ``Program.build``) so ``import repro_torch.core`` stays
-#: light.  Only the families that have a Hopper kernel are listed.
+#: light.  The JAX package's seven families, each with a Hopper kernel.
 BUILTIN_FAMILIES: Dict[str, str] = {
+    "gemm": "repro_torch.kernels.gemm.ops",
     "stockham_fft": "repro_torch.kernels.stockham_fft.ops",
     "fir": "repro_torch.kernels.fir.ops",
     "delineate": "repro_torch.kernels.delineate.ops",
     "svm": "repro_torch.kernels.svm.ops",
-    "gemm": "repro_torch.kernels.gemm.ops",
+    "mamba_scan": "repro_torch.kernels.mamba_scan.ops",
+    "decode_attention": "repro_torch.kernels.decode_attention.ops",
 }
 
 

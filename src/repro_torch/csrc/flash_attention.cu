@@ -24,6 +24,16 @@
 // alpha + rowsum p, acc = acc * alpha + p @ v; at the end acc / l, with
 // l == 0 read as 1 (the TPU kernel's guard).
 //
+// Rows that see no key (causal, q_offset + i < 0) take what the plain
+// version gives them, and with it both JAX paths: in each kv block of the
+// plain version's blocking (bq = min(512, S), bk = min(512, T)) that such a
+// row's q block visits, every score is the sentinel, so p = 1 on every
+// column and the row is the mean of v over the first (jmax + 1) * bk
+// columns of T padded with zero rows, where jmax = min(ceil(T / bk) - 1,
+// floor((q_offset + (i / bq + 1) * bq - 1) / bk)); 0 when jmax < 0.  The
+// main kernels do not special-case these rows; no_key_rows_kernel, launched
+// after them only when q_offset < 0, overwrites them.
+//
 // Two kernels compute this, chosen by dtype and head dims:
 //
 // * flash_mma_kernel, for bfloat16 at (Dk, Dv) in {(32, 32), (64, 64),
@@ -539,23 +549,36 @@ int launch_dv(const Args& a, cudaStream_t stream) {
   return REPRO_LAUNCH_STATUS();
 }
 
-// Head dims this file takes: Dk any multiple of 4 from 4 to 256 (a loop
-// bound), Dv in {32, 64, 96, 128} (the size of each thread's output strip;
-// repro_torch/kernels/flash_attention/flash_attention.py lists the same).
+// The rows i < min(S, -q_offset) of a causal call: see the note at the top.
+// One block per (row, head, batch); threads across the Dv columns.
 template <typename T>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
-                 int h, int kvh, int s, int t, int dk, int dv,
-                 const long long* strides, float scale, int causal,
-                 int q_offset, int device, void* stream_ptr) {
-  REPRO_SET_DEVICE(device);
-  if (b <= 0 || h <= 0 || s <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || dk <= 0 || dk % 4 != 0 || dk > 256)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, o, b, h, kvh, s, t, dk,
-         strides[0], strides[1], strides[2], strides[3], strides[4],
-         strides[5], strides[6], strides[7], strides[8],
-         scale, causal, q_offset};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+__global__ void __launch_bounds__(kThreads) no_key_rows_kernel(Args a, int dv,
+                                                               int bq, int bk) {
+  const int i = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
+  const int hi = a.q_offset + (i / bq + 1) * bq - 1;   // last row of i's q block
+  const int nk = (a.t + bk - 1) / bk;
+  const int jmax = hi < 0 ? -1 : min(nk - 1, hi / bk);
+  const int cols = (jmax + 1) * bk;                    // columns visited, padding included
+  const int n = min(a.t, cols);                        // real rows of v among them
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + (hh / (a.h / a.kvh)) * a.v_sh;
+  T* o = static_cast<T*>(a.o) + ((static_cast<long long>(b) * a.h + hh) * a.s + i) * dv;
+  for (int c = threadIdx.x; c < dv; c += kThreads) {
+    float sum = 0.f;
+    for (int j = 0; j < n; ++j) sum += to_f32(v[j * a.v_ss + c]);
+    store_as(o + c, cols > 0 ? sum / static_cast<float>(cols) : 0.f);
+  }
+}
+
+template <typename T>
+int launch_no_key_rows(const Args& a, int dv, int bq, int bk, cudaStream_t stream) {
+  const int rows = a.s < -a.q_offset ? a.s : -a.q_offset;
+  if (rows <= 0 || bq <= 0 || bk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  no_key_rows_kernel<T><<<dim3(rows, a.h, a.b), kThreads, 0, stream>>>(a, dv, bq, bk);
+  return REPRO_LAUNCH_STATUS();
+}
+
+template <typename T>
+int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     // the head dims the tensor-core kernel is compiled for
     if (dk == 128 && dv == 128) return launch_mma<128, 128>(a, st);
@@ -573,26 +596,50 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
   }
 }
 
+// Head dims this file takes: Dk any multiple of 4 from 4 to 256 (a loop
+// bound), Dv in {32, 64, 96, 128} (the size of each thread's output strip;
+// repro_torch/kernels/flash_attention/flash_attention.py lists the same).
+template <typename T>
+int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
+                 int h, int kvh, int s, int t, int dk, int dv,
+                 const long long* strides, float scale, int causal,
+                 int q_offset, int bq, int bk, int device, void* stream_ptr) {
+  REPRO_SET_DEVICE(device);
+  if (b <= 0 || h <= 0 || s <= 0) return 0;
+  if (kvh <= 0 || h % kvh != 0 || dk <= 0 || dk % 4 != 0 || dk > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k, v, o, b, h, kvh, s, t, dk,
+         strides[0], strides[1], strides[2], strides[3], strides[4],
+         strides[5], strides[6], strides[7], strides[8],
+         scale, causal, q_offset};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  const int err = launch_main<T>(a, dk, dv, st);
+  if (err != 0 || !causal || q_offset >= 0) return err;
+  return launch_no_key_rows<T>(a, dv, bq, bk, st);
+}
+
 }  // namespace
 
 // strides: 9 element strides, (batch, head, sequence) of q, then k, then v.
+// bq, bk: the plain version's blocks (min(512, S), min(512, T) by default),
+// which decide what a row that sees no key gets.
 REPRO_API int repro_flash_attention_f32(const void* q, const void* k,
                                         const void* v, void* o, int b, int h,
                                         int kvh, int s, int t, int dk, int dv,
                                         const long long* strides, float scale,
-                                        int causal, int q_offset, int device,
-                                        void* stream) {
+                                        int causal, int q_offset, int bq,
+                                        int bk, int device, void* stream) {
   return launch_flash<float>(q, k, v, o, b, h, kvh, s, t, dk, dv, strides,
-                             scale, causal, q_offset, device, stream);
+                             scale, causal, q_offset, bq, bk, device, stream);
 }
 
 REPRO_API int repro_flash_attention_bf16(const void* q, const void* k,
                                          const void* v, void* o, int b, int h,
                                          int kvh, int s, int t, int dk, int dv,
                                          const long long* strides, float scale,
-                                         int causal, int q_offset, int device,
-                                         void* stream) {
+                                         int causal, int q_offset, int bq,
+                                         int bk, int device, void* stream) {
   return launch_flash<__nv_bfloat16>(q, k, v, o, b, h, kvh, s, t, dk, dv,
-                                     strides, scale, causal, q_offset, device,
-                                     stream);
+                                     strides, scale, causal, q_offset, bq, bk,
+                                     device, stream);
 }

@@ -1,0 +1,88 @@
+"""Dispatching wrapper for the decode-attention kernel + TinyCL registration.
+
+``decode_attention(q, k, v)`` launches ``csrc/decode_attention.cu`` (which
+replaces the TPU kernel
+``src/repro/kernels/decode_attention/decode_attention.py:_decode_kernel``)
+on CUDA tensors and runs :func:`~repro_torch.kernels.decode_attention.ref.
+decode_attention_ref` (the JAX package's XLA path) on CPU and ``meta``
+tensors.  The family is reached through the registry, as in the JAX
+package; no model calls it (dense decode uses plain products).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.device import EGPU_16T, EGPUConfig
+from ...core.program import kernel_family
+from ...core.runtime import Kernel
+from ..common import check_dtype, on_card
+from .decode_attention import DTYPES, MAX_HEAD_DIM, launch_decode_attention
+from .ref import (combine_partials, counts, decode_attention_partial_ref,
+                  decode_attention_ref)
+
+__all__ = ["decode_attention", "combine_partials", "counts",
+           "decode_attention_partial_ref", "decode_attention_ref",
+           "build_kernel"]
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: float | None = None, partial: bool = False):
+    """One-token attention q (B,H,Dk) against cache k/v (B,KVH,T,D*), KVH
+    dividing H.
+
+    Returns out (B,H,Dv) in q's dtype; with ``partial=True`` the
+    unnormalized (acc (B,H,Dv) f32, m (B,H,1) f32, l (B,H,1) f32) that
+    :func:`combine_partials` merges across T-shards.  On the card q, k and v
+    share a dtype (float32 or bfloat16), Dk and Dv are at most 256, and k
+    and v may be strided views whose last axis is contiguous.
+    """
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("decode_attention takes q (B,H,Dk), k (B,KVH,T,Dk), "
+                         "v (B,KVH,T,Dv)")
+    b, h, dk = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    if (k.shape[0] != b or v.shape[:3] != k.shape[:3] or k.shape[3] != dk
+            or kvh == 0 or h % kvh or t == 0):
+        raise ValueError(
+            f"decode_attention shapes do not fit (T >= 1, KVH divides H): "
+            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not on_card(q, k, v):
+        if partial:
+            return decode_attention_partial_ref(q, k, v, scale=scale)
+        return decode_attention_ref(q, k, v, scale=scale)
+    check_dtype("decode_attention q", q, DTYPES)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention inputs must share a dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    dv = v.shape[3]
+    if dk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"the decode-attention kernel takes Dk and Dv up to "
+                         f"{MAX_HEAD_DIM}; got Dk={dk}, Dv={dv}")
+    if any(x.stride(-1) != 1 for x in (q, k, v)):
+        raise ValueError("decode_attention: the kernel takes a contiguous "
+                         "last axis")
+    scale = (dk ** -0.5) if scale is None else scale
+    out = torch.empty((b, h, dv), dtype=torch.float32 if partial else q.dtype,
+                      device=q.device)
+    m = l = None
+    if partial:
+        m = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
+        l = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
+    if out.numel():
+        launch_decode_attention(q, k, v, out, m, l, scale=scale,
+                                partial=partial)
+    return (out, m, l) if partial else out
+
+
+@kernel_family("decode_attention")
+def build_kernel(config: EGPUConfig = EGPU_16T, *,
+                 scale: float | None = None) -> Kernel:
+    """TinyCL kernel object: one-token attention q (B,H,Dk) x cache k/v
+    (B,KVH,T,D*) -> (B,H,Dv)."""
+    return Kernel(
+        name="decode_attention",
+        executor=lambda q, k, v: decode_attention(q, k, v, scale=scale),
+        counts=lambda b, h, t, dk, dv, itemsize=2: counts(b, h, t, dk, dv,
+                                                          itemsize),
+    )

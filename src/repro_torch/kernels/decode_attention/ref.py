@@ -1,0 +1,62 @@
+"""Plain PyTorch versions + structural work counts for decode attention.
+
+Decode attends one new query per sequence against the full KV cache:
+q (B, H, Dk) x k/v (B, KVH, T, D*) -> (B, H, Dv).  The partial-softmax form
+(acc, m, l) combines seq-sharded shards (flash-decoding): each shard
+reduces its KV slice, then shards merge with :func:`combine_partials`, an
+exact algebraic identity.
+
+These are the JAX package's ``kernels/decode_attention/ref.py``.  Its XLA
+path (``ops.decode_attention`` off a TPU) is :func:`decode_attention_ref`
+itself, so the ref functions are the kernel's plain versions: the wrapper
+``ops.decode_attention`` runs them for CPU and ``meta`` tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.machine import WorkCounts
+from ..flash_attention.ref import repeat_kv
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: float | None = None) -> torch.Tensor:
+    out, m, l = decode_attention_partial_ref(q, k, v, scale=scale)
+    return (out / l).to(q.dtype)
+
+
+def decode_attention_partial_ref(q, k, v, *, scale=None):
+    """Unnormalized partial: returns (acc (B,H,Dv) f32, m (B,H,1), l (B,H,1))."""
+    b, h, dk = q.shape
+    kvh = k.shape[1]
+    group = h // kvh
+    k = repeat_kv(k, group)
+    v = repeat_kv(v, group)
+    scale = (dk ** -0.5) if scale is None else scale
+    s = torch.einsum("bhd,bhtd->bht", q.float(), k.float()) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bht,bhtd->bhd", p, v.float())
+    return acc, m, l
+
+
+def combine_partials(parts):
+    """Merge [(acc, m, l), ...] partials from seq shards — exact."""
+    acc, m, l = parts[0]
+    for acc2, m2, l2 in parts[1:]:
+        mn = torch.maximum(m, m2)
+        w1, w2 = torch.exp(m - mn), torch.exp(m2 - mn)
+        acc = acc * w1 + acc2 * w2
+        l = l * w1 + l2 * w2
+        m = mn
+    return acc / l, m, l
+
+
+def counts(b: int, h: int, t: int, dk: int, dv: int,
+           itemsize: int = 2) -> WorkCounts:
+    macs = float(b) * h * t * (dk + dv)
+    io = float(b) * t * (dk + dv) * itemsize      # the KV-cache read dominates
+    return WorkCounts(ops=2.0 * macs, dcache_bytes=io, host_bytes=io,
+                      working_set=io)

@@ -31,7 +31,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I,
-         _I, _I, _P]
+         _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_flash_attention_f32",
            torch.bfloat16: "repro_flash_attention_bf16"}
 
@@ -42,15 +42,17 @@ def supports_head_dims(dk: int, dv: int) -> bool:
 
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, *, causal: bool, scale: float,
-                           q_offset: int) -> None:
+                           q_offset: int, bq: int, bk: int) -> None:
     """Launch the kernel on CUDA tensors of one dtype, q (B,H,S,Dk), k
     (B,KVH,T,Dk), v (B,KVH,T,Dv), each with a contiguous last axis, into the
-    contiguous ``out`` (B,H,S,Dv), on the current stream."""
+    contiguous ``out`` (B,H,S,Dv), on the current stream.  ``bq`` and ``bk``
+    are the plain version's blocks: with ``q_offset < 0`` they decide what a
+    row that sees no key gets, and a final pass writes those rows."""
     b, h, s, dk = q.shape
     kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     launch("flash_attention", _SYMBOL[q.dtype], _ARGS, ptr(q), ptr(k), ptr(v),
            ptr(out), b, h, kvh, s, t, dk, dv, ctypes.cast(strides, _P),
-           float(scale), int(causal), int(q_offset), q.device.index,
-           stream_of(q))
+           float(scale), int(causal), int(q_offset), int(bq), int(bk),
+           q.device.index, stream_of(q))

@@ -32,7 +32,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keeps ``q_offset + i >= j``).  ``bq`` and ``bk`` are the plain version's
     blocks, clamped to S and T as the JAX wrapper clamps them; the kernel
     tiles by itself, but every device keeps the JAX wrapper's rule that
-    non-causal attention needs ``min(bk, T)`` to divide T (``ValueError``).
+    non-causal attention needs ``min(bk, T)`` to divide T (``ValueError``),
+    and a row that sees no key (``q_offset < 0``) gets what the plain
+    version's blocking gives it.
     On the card q, k and v share a dtype (float32 or bfloat16), Dk is a
     multiple of 4 up to 256, Dv one of 32, 64, 96, 128, and each may be a
     strided view whose last axis is contiguous.
@@ -48,7 +50,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention shapes do not fit: q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     scale = (dk ** -0.5) if scale is None else scale
-    block_sizes(s, t, bq, bk, causal)            # the JAX wrapper's rule
+    bq_, bk_ = block_sizes(s, t, bq, bk, causal)     # the JAX wrapper's rule
     if not on_card(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, bq=bq, bk=bk)
@@ -67,5 +69,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
     if out.numel():
         launch_flash_attention(q, k, v, out, causal=causal, scale=scale,
-                               q_offset=q_offset)
+                               q_offset=q_offset, bq=bq_, bk=bk_)
     return out

@@ -1,0 +1,44 @@
+"""The CUDA RWKV-6 WKV kernel (``csrc/rwkv6_scan.cu``) and its binding.
+
+``csrc/rwkv6_scan.cu`` replaces the TPU kernel
+``src/repro/kernels/rwkv6_scan/rwkv6_scan.py:_rwkv6_kernel``.  One block
+per (batch, head) walks the recurrence step by step with the D x D f32
+state in registers, seeded from ``state0`` or from zeros; r, k, v and w of
+32 steps at a time are staged in shared memory; any T works unpadded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..common import launch, ptr, stream_of
+
+#: head dims the kernel is compiled for (D / 4 state rows per thread)
+COMPILED_D = (32, 64)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P]
+#: (dtype of r, k and v; dtype of w) -> entry point
+_SYMBOL = {(torch.float32, torch.float32): "repro_rwkv6_scan_f32",
+           (torch.bfloat16, torch.float32): "repro_rwkv6_scan_bf16",
+           (torch.bfloat16, torch.bfloat16): "repro_rwkv6_scan_bf16w"}
+DTYPES = tuple(_SYMBOL)
+
+
+def launch_rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor,
+                      state0: Optional[torch.Tensor], y: torch.Tensor,
+                      state: torch.Tensor) -> None:
+    """Launch on CUDA tensors r/k/v/w (B,H,T,D) with a contiguous last axis,
+    the contiguous f32 ``u`` (H,D) and ``state0`` (B,H,D,D) or None, into
+    the contiguous ``y`` (B,H,T,D) and f32 ``state`` (B,H,D,D), on the
+    current stream."""
+    b, h, t, d = r.shape
+    strides = (ctypes.c_longlong * 12)(*r.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *w.stride()[:3])
+    launch("rwkv6_scan", _SYMBOL[r.dtype, w.dtype], _ARGS, ptr(r), ptr(k),
+           ptr(v), ptr(w), ptr(u), ptr(state0), ptr(y), ptr(state), b, h, t,
+           d, ctypes.cast(strides, _P), r.device.index, stream_of(r))

@@ -146,9 +146,14 @@ def embed_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Token ids must lie in [0, vocab_padded): torch indexing raises where
-    a JAX gather would clamp (the serving path only feeds argmax ids)."""
-    x = p["embedding"].to(cdtype(cfg))[tokens.long()]
+    """Rows of the embedding for token ids, with the JAX gather's index
+    rule: a negative id wraps once (``id + V``, V the embedding's rows),
+    then the id is clamped to ``[0, V - 1]``."""
+    emb = p["embedding"]
+    n_rows = emb.shape[0]
+    ids = tokens.long()
+    ids = torch.where(ids < 0, ids + n_rows, ids).clamp(0, n_rows - 1)
+    x = emb.to(cdtype(cfg))[ids]
     return mul_scalar(x, cfg.scale_emb)
 
 

@@ -1,10 +1,11 @@
 """The model stack: embed → one module per layer → norm → logits.
 
 The JAX package's ``models/transformer.py`` in PyTorch, for the serving
-path of dense decoder stacks: blocks of kind ``attn`` with a ``dense`` MLP
-and no modality frontend (qwen2.5-3b, stablelm-1.6b, minicpm-2b,
-mistral-large-123b).  Other block kinds, MoE MLPs and frontends raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+path of decoder stacks with no modality frontend whose blocks are ``attn``
+with a ``dense`` MLP (qwen2.5-3b, stablelm-1.6b, minicpm-2b,
+mistral-large-123b) or ``rwkv`` carrying its own channel-mix (rwkv6-3b).
+Other block kinds, MoE MLPs and frontends raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports them.
 
 The JAX package stacks each block position's weights over ``n_groups`` and
 scans them; here :class:`Transformer` unstacks them into one
@@ -25,6 +26,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch import nn
 
+from ..core.runtime import resolve_device
 from .attention import (attend_decode, attend_full, attn_spec,
                         cache_from_prefill)
 from .config import ModelConfig
@@ -32,22 +34,30 @@ from .layers import (apply_mlp, apply_norm, cdtype, embed_spec, embed_tokens,
                      logits_from_hidden, mlp_spec, mul_scalar, norm_spec,
                      residual_scale)
 from .params import leaves_with_path
+from .rwkv import (F32_LEAVES, init_rwkv_state, rwkv_channel_mix, rwkv_spec,
+                   rwkv_time_mix)
 
 #: what the port does not build yet, and the ROADMAP.md item that ports it
 UNPORTED = {
     "mla": "ROADMAP.md queue 1, next step 4 (MLA + MoE, deepseek)",
     "moe": "ROADMAP.md queue 1, next step 4 (MLA + MoE, deepseek)",
     "mamba": "ROADMAP.md queue 1, next step 5 (mamba_scan, jamba)",
-    "rwkv": "ROADMAP.md queue 1, next step 6 (rwkv6_scan, rwkv6-3b)",
     "vision": "ROADMAP.md queue 1, next step 8 (frontends)",
     "audio": "ROADMAP.md queue 1, next step 8 (frontends)",
 }
 
 
+#: (block kind, mlp kind) pairs the port builds
+PORTED = {("attn", "dense"), ("rwkv", "none")}
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for an arch this slice does not build."""
-    kinds = [("block", k) for k in cfg.block_pattern if k != "attn"]
-    kinds += [("mlp", k) for k in cfg.mlp_pattern if k != "dense"]
+    blocks = {kind for kind, _ in PORTED}
+    pairs = list(zip(cfg.block_pattern, cfg.mlp_pattern))
+    kinds = [("block", k) for k, _ in pairs if k not in blocks]
+    kinds += [("mlp", m) for k, m in pairs
+              if k in blocks and (k, m) not in PORTED]
     if cfg.frontend != "none":
         kinds.append(("frontend", cfg.frontend))
     if cfg.first_layer_dense:
@@ -62,7 +72,11 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # Parameter tree
 # ---------------------------------------------------------------------------
-def _position_spec(cfg: ModelConfig, stacked: int):
+def _position_spec(cfg: ModelConfig, kind: str, stacked: int):
+    if kind == "rwkv":
+        return {"norm1": norm_spec(cfg, stacked),
+                "block": rwkv_spec(cfg, stacked),
+                "norm2": norm_spec(cfg, stacked)}   # channel-mix pre-norm
     return {"norm1": norm_spec(cfg, stacked),
             "block": attn_spec(cfg, stacked),
             "norm2": norm_spec(cfg, stacked),
@@ -76,14 +90,16 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return {
         "embed": embed_spec(cfg),
         "final_norm": norm_spec(cfg),
-        "blocks": {f"pos{i}": _position_spec(cfg, cfg.n_groups)
-                   for i in range(cfg.period)},
+        "blocks": {f"pos{i}": _position_spec(cfg, kind, cfg.n_groups)
+                   for i, kind in enumerate(cfg.block_pattern)},
     }
 
 
-def _is_norm(path: str) -> bool:
-    """True for a leaf of a norm (kept in float32): its parent key names one."""
-    return "norm" in re.findall(r"\['([^']*)'\]", path)[-2]
+def _keeps_f32(path: str) -> bool:
+    """True for a leaf kept in float32: a norm's (its parent key names one)
+    or one the rwkv block widens to f32 (``rwkv.F32_LEAVES``)."""
+    keys = re.findall(r"\['([^']*)'\]", path)
+    return "norm" in keys[-2] or keys[-1] in F32_LEAVES
 
 
 class Transformer(nn.Module):
@@ -94,8 +110,10 @@ class Transformer(nn.Module):
 
     The tree's ``(n_groups, ...)`` block leaves are unstacked into
     ``layers[l]`` (group ``l // period``, position ``l % period``).
-    Matmul weights, biases and the embedding are cast once to the compute
-    dtype ``cfg.dtype``; norm parameters are kept in float32.  Raises
+    Matmul weights, biases, the embedding and the rwkv mixing coefficients
+    are cast once to the compute dtype ``cfg.dtype``; norm parameters and
+    the rwkv leaves the JAX block widens (``w0``, ``u_bonus``, ``ln_x``)
+    are kept in float32.  Raises
     ``ValueError`` on a missing leaf, a leaf it did not consume, or a
     shape that differs from the spec.  The module lives on the tree's
     device and holds no gradients.
@@ -119,7 +137,7 @@ class Transformer(nn.Module):
         dt = cdtype(cfg)
 
         def param(path: str, t: torch.Tensor) -> nn.Parameter:
-            return nn.Parameter(t.to(torch.float32 if _is_norm(path) else dt),
+            return nn.Parameter(t.to(torch.float32 if _keeps_f32(path) else dt),
                                 requires_grad=False)
 
         def pdict(prefix: str, tree: Dict[str, Any], pick=lambda t: t):
@@ -160,18 +178,36 @@ def embed_inputs(model: Transformer, inputs: Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 # One layer (shared by the prefill and decode bodies)
 # ---------------------------------------------------------------------------
-def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, *,
+def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                     mode: str = "prefill", cache=None, pos=None):
-    """One ``attn`` + ``dense`` layer. Returns (x, new_cache): the prefill's
-    (k, v), or the decode step's cache (written in place)."""
+    """One layer of block ``kind``.  Returns (x, new_cache): for ``attn``
+    the prefill's (k, v) or the decode step's cache (written in place); for
+    ``rwkv`` the state (tlast, wkv, clast) after the prefill, or the decode
+    step's cache (written in place)."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     rs = residual_scale(cfg)
     h = apply_norm(p["norm1"], x, cfg)
+    if kind == "rwkv":
+        # the JAX prefill seeds every layer with init_rwkv_state's zeros;
+        # None is the same state (the kernel starts from zeros)
+        tlast, wkv, clast = cache if mode == "decode" else (None, None, None)
+        out, (tlast2, wkv2) = rwkv_time_mix(
+            p["block"], h, cfg, state=(tlast, wkv), return_state=True)
+        x = x + mul_scalar(out, rs)
+        h2 = apply_norm(p["norm2"], x, cfg)
+        out2, clast2 = rwkv_channel_mix(p["block"], h2, cfg, last_x=clast,
+                                        return_state=True)
+        x = x + mul_scalar(out2, rs)
+        if mode == "prefill":
+            return x, (tlast2, wkv2, clast2)
+        for leaf, new in zip(cache, (tlast2, wkv2, clast2)):
+            leaf.copy_(new)
+        return x, cache
     if mode == "decode":
         out, new_cache = attend_decode(p["block"], h, cache, pos, cfg)
-    elif mode == "prefill":
-        out, new_cache = attend_full(p["block"], h, cfg, return_kv=True)
     else:
-        raise ValueError(f"unknown mode {mode!r}")
+        out, new_cache = attend_full(p["block"], h, cfg, return_kv=True)
     x = x + mul_scalar(out, rs)
     h2 = apply_norm(p["norm2"], x, cfg)
     x = x + mul_scalar(apply_mlp(p["mlp"], h2, cfg), rs)
@@ -183,13 +219,29 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """Cache tree in the JAX layout: {"pos{i}": {"k", "v"}}, each (n_groups,
-    B, KVH, max_len, hd)."""
+    """Cache tree in the JAX layout, on ``device`` (default: the card):
+    ``{"pos{i}": ...}`` stacked over ``n_groups``, ``{"k", "v"}`` each
+    (G, B, KVH, max_len, hd) for an ``attn`` position, ``(tlast (G, B, D)
+    dtype, wkv (G, B, H, hd, hd) f32, clast (G, B, D) dtype)`` for an
+    ``rwkv`` one (whose state ``max_len`` does not size)."""
     check_supported(cfg)
-    shape = (cfg.n_groups, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {f"pos{i}": {name: torch.zeros(shape, dtype=dtype, device=device)
-                        for name in ("k", "v")}
-            for i in range(cfg.period)}
+    if device is not None and torch.device(device).type == "meta":
+        dev = torch.device("meta")
+    else:
+        dev = resolve_device("cuda" if device is None else device)
+    g = cfg.n_groups
+    cache: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "rwkv":
+            cache[f"pos{i}"] = tuple(
+                t.expand((g,) + t.shape).contiguous()
+                for t in init_rwkv_state(cfg, batch, dtype, dev))
+        else:
+            shape = (g, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+            cache[f"pos{i}"] = {
+                name: torch.zeros(shape, dtype=dtype, device=dev)
+                for name in ("k", "v")}
+    return cache
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
@@ -198,17 +250,44 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     return init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
+#: logical axes of each cache leaf kind (mirrors init_cache, before the
+#: leading "layers" axis)
+_CACHE_AXES = {
+    "attn": {"k": ("batch", "kv_heads", "kv_seq", None),
+             "v": ("batch", "kv_heads", "kv_seq", None)},
+    "rwkv": (("batch", None), ("batch", "heads", None, None),
+             ("batch", None)),
+}
+
+
 def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """Logical axes of every cache leaf, matching :func:`cache_struct`."""
     check_supported(cfg)
-    axes = ("layers", "batch", "kv_heads", "kv_seq", None)
-    return {f"pos{i}": {"k": axes, "v": axes} for i in range(cfg.period)}
+    out: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        axes = _CACHE_AXES[kind]
+        out[f"pos{i}"] = ({k: ("layers",) + a for k, a in axes.items()}
+                          if isinstance(axes, dict)
+                          else tuple(("layers",) + a for a in axes))
+    return out
 
 
-def _layer_cache(cache: Dict[str, Any], cfg: ModelConfig, layer: int
-                 ) -> Dict[str, torch.Tensor]:
+def _layer_cache(cache: Dict[str, Any], cfg: ModelConfig, layer: int):
+    """Layer ``layer``'s slice of every leaf of its position's cache (views,
+    so writes reach the cache)."""
     g, i = divmod(layer, cfg.period)
-    return {name: t[g] for name, t in cache[f"pos{i}"].items()}
+    leaves = cache[f"pos{i}"]
+    if isinstance(leaves, dict):
+        return {name: t[g] for name, t in leaves.items()}
+    return tuple(t[g] for t in leaves)
+
+
+def _stack(caches: List[Any]) -> Any:
+    """Per-layer caches of one position stacked over the groups."""
+    if isinstance(caches[0], dict):
+        return {name: torch.stack([c[name] for c in caches])
+                for name in caches[0]}
+    return tuple(torch.stack(leaves) for leaves in zip(*caches))
 
 
 # ---------------------------------------------------------------------------
@@ -217,19 +296,23 @@ def _layer_cache(cache: Dict[str, Any], cfg: ModelConfig, layer: int
 @torch.no_grad()
 def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], max_len: int,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Process the prompt; -> (last-token logits (B, Vp) f32, cache at S)."""
+    """Process the prompt; -> (last-token logits (B, Vp) f32, cache at S).
+    An ``attn`` position's cache is (k, v) padded to ``max_len`` in
+    ``cache_dtype``; an ``rwkv`` position's is its state as the block
+    leaves it (the shifts in the compute dtype, wkv in f32), as in the
+    JAX package."""
     cfg = model.cfg
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no prefill/decode")
     x = embed_inputs(model, inputs)
-    per_pos: List[List[Dict[str, torch.Tensor]]] = [[] for _ in range(cfg.period)]
+    per_pos: List[List[Any]] = [[] for _ in range(cfg.period)]
     for layer, p in enumerate(model.layers):
-        x, (k, v) = _apply_position(p, x, cfg, mode="prefill")
-        per_pos[layer % cfg.period].append(
-            cache_from_prefill(cfg, k, v, max_len, cache_dtype))
-    cache = {f"pos{i}": {name: torch.stack([c[name] for c in caches])
-                         for name in ("k", "v")}
-             for i, caches in enumerate(per_pos)}
+        kind = cfg.block_pattern[layer % cfg.period]
+        x, c = _apply_position(p, x, cfg, kind, mode="prefill")
+        if kind == "attn":
+            c = cache_from_prefill(cfg, c[0], c[1], max_len, cache_dtype)
+        per_pos[layer % cfg.period].append(c)
+    cache = {f"pos{i}": _stack(caches) for i, caches in enumerate(per_pos)}
     x = apply_norm(model.final_norm, x, cfg)
     logits = logits_from_hidden(model.embed, x[:, -1:], cfg)[:, 0]
     return logits, cache
@@ -249,7 +332,8 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     x = embed_tokens(model.embed, tokens[:, None], cfg)
     for layer, p in enumerate(model.layers):
-        x, _ = _apply_position(p, x, cfg, mode="decode",
+        x, _ = _apply_position(p, x, cfg, cfg.block_pattern[layer % cfg.period],
+                               mode="decode",
                                cache=_layer_cache(cache, cfg, layer), pos=pos)
     x = apply_norm(model.final_norm, x, cfg)
     logits = logits_from_hidden(model.embed, x, cfg)[:, 0]

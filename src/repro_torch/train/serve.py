@@ -5,8 +5,12 @@ model (:class:`~repro_torch.models.transformer.Transformer`) where the JAX
 steps take a parameter tree, and run on the model's device: build the model
 on the card (the default of ``init_params`` and ``params_from_jax``) or on
 the CPU with ``device="cpu"``, where the flash-attention wrapper runs its
-plain version.  Encoder archs (hubert) have no prefill/decode; their
-``encode`` step needs ``forward``, which comes with the training slice.
+plain version.  The steps serve every arch the model builds: a dense
+stack's cache is its KV cache (``max_len`` rows), an rwkv stack's the
+per-layer state, which ``max_len`` does not size; either is updated in
+place by a decode step.  Encoder archs (hubert) have no prefill/decode;
+their ``encode`` step needs ``forward``, which comes with the training
+slice.
 """
 
 from __future__ import annotations

@@ -196,3 +196,51 @@ def test_rows_that_see_no_key_stay_finite():
     np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=F32_ATOL)
     torch.testing.assert_close(out[:, :, 4:], ref[:, :, 4:], rtol=0,
                                atol=F32_ATOL)
+
+
+def _no_key_rows_rule(v, s, t, q_offset, h, bq=512, bk=512):
+    """What the plain version gives a row i that sees no key (q_offset + i
+    < 0): in each kv block its q block visits every score is the sentinel,
+    so p = 1 on every column, and the row is the mean of v over the first
+    (jmax + 1) * bk columns of T padded with zero rows; 0 when jmax < 0.
+    csrc/flash_attention.cu's final pass writes exactly this."""
+    bq, bk = min(bq, s), min(bk, t)
+    nk = -(-t // bk)
+    group = h // v.shape[1]
+    rows = []
+    for i in range(min(s, -q_offset)):
+        hi = q_offset + (i // bq + 1) * bq - 1
+        jmax = min(nk - 1, hi // bk)
+        cols = (jmax + 1) * bk
+        if jmax < 0:
+            rows.append(np.zeros(v.shape[:2] + v.shape[3:], np.float64))
+        else:
+            rows.append(v[:, :, :min(t, cols)].astype(np.float64).sum(2) / cols)
+    out = np.stack(rows, axis=2)                       # (B, KVH, rows, Dv)
+    return np.repeat(out, group, axis=1)
+
+
+@pytest.mark.parametrize("s,t,q_offset,bq,bk", [
+    (8, 8, -4, 512, 512), (64, 512, -16, 512, 512), (128, 512, -100, 512, 512),
+    (100, 300, -37, 32, 64), (80, 200, -40, 16, 64), (40, 96, -20, 16, 32)])
+def test_rows_that_see_no_key_match_jax_and_the_rule(s, t, q_offset, bq, bk):
+    """q_offset < 0: the plain version agrees with the JAX XLA path on the
+    rows that see no key (and on the others), and those rows follow the
+    closed-form rule that the kernel's final pass computes.  Some q blocks
+    see no key at all (their rows are 0); the JAX path cannot run a call in
+    which no q block sees a key, so every case keeps one that does."""
+    arrs = _qkv(10 + s, 2, 4, 2, s, t, 32, 48)
+    kw = dict(causal=True, q_offset=q_offset, bq=bq, bk=bk)
+    out = flash_attention(*_t(*arrs), **kw).numpy()
+    want = np.asarray(j_flash(*_j(*arrs), impl="xla", **kw))
+    np.testing.assert_allclose(out, want, rtol=0, atol=F32_ATOL)
+    rows = min(s, -q_offset)
+    rule = _no_key_rows_rule(arrs[2], s, t, q_offset, 4, bq, bk)
+    np.testing.assert_allclose(out[:, :, :rows], rule, rtol=0, atol=F32_ATOL)
+    # bf16: both round the same f32 values
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    got = flash_attention(*bf, **kw).float().numpy()
+    jwant = np.asarray(j_flash(*(jnp.asarray(a, jnp.bfloat16) for a in arrs),
+                               impl="xla", **kw).astype(jnp.float32))
+    assert (np.abs(got - jwant) <= 2.0 ** -7 * np.maximum(np.abs(got), np.abs(jwant))
+            + F32_ATOL).all()

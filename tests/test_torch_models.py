@@ -121,8 +121,8 @@ def test_configs_are_the_reference_configs():
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-236b", "jamba-1.5-large-398b",
-                                  "moonshot-v1-16b-a3b", "rwkv6-3b",
-                                  "paligemma-3b", "hubert-xlarge"])
+                                  "moonshot-v1-16b-a3b", "paligemma-3b",
+                                  "hubert-xlarge"])
 def test_unported_archs_raise_naming_the_roadmap(name):
     cfg = configs.get(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -132,7 +132,7 @@ def test_unported_archs_raise_naming_the_roadmap(name):
 
 
 # -- params -------------------------------------------------------------------
-@pytest.mark.parametrize("name", ARCHS + ("mistral-large-123b",))
+@pytest.mark.parametrize("name", ARCHS + ("mistral-large-123b", "rwkv6-3b"))
 def test_spec_matches_the_reference_spec(name):
     cfg = configs.get(name).reduced()
     jspec = j_model_spec(cfg)
@@ -215,6 +215,21 @@ def test_init_params_needs_a_card_unless_asked_for_the_cpu():
     assert init_params(spec, 0, device="cpu")["embed"]["embedding"].device.type == "cpu"
 
 
+def test_init_cache_defaults_to_the_card():
+    """init_cache, like init_params and params_from_jax, puts the cache on
+    the card unless the caller asks for the CPU."""
+    cfg = _reduced("qwen2.5-3b")
+    if torch.cuda.is_available():
+        assert init_cache(cfg, 1, 8)["pos0"]["k"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(configs.get("rwkv6-3b").reduced(), 1, 8)
+    assert init_cache(cfg, 1, 8, device="cpu")["pos0"]["k"].device.type == "cpu"
+    assert init_cache(cfg, 1, 8, device="meta")["pos0"]["k"].device.type == "meta"
+
+
 def test_model_keeps_weights_in_the_compute_dtype_and_norms_in_f32():
     cfg = _reduced("stablelm-1.6b", dtype="bfloat16")
     model = Transformer(cfg, init_params(model_spec(cfg), 0, device="cpu"))
@@ -265,6 +280,29 @@ def test_layers_match_the_reference(name):
     # the attention block over the whole sequence
     _close(attention.attend_full(lay["block"], xt, cfg),
            jattn.attend_full(blk["block"], xj, cfg), 1e-5)
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-3b", "rwkv6-3b"])
+def test_out_of_range_token_ids_follow_the_jax_gather(name):
+    """A negative id wraps once (id + V), then ids clamp to [0, V - 1], V the
+    embedding's rows (vocab_padded), as the JAX gather does."""
+    cfg = _reduced(name, n_layers=1)
+    tree = _numpy_tree(cfg, 12)
+    model = params_from_jax(cfg, tree, device="cpu")
+    v = cfg.vocab_padded
+    toks = np.array([[-1, v, v + 7, 0, -v, -v - 3, 5]], dtype=np.int32)
+    jemb = jax.tree_util.tree_map(jnp.asarray, tree["embed"])
+    got = layers.embed_tokens(model.embed, torch.from_numpy(toks), cfg)
+    want = jlayers.embed_tokens(jemb, jnp.asarray(toks), cfg)
+    _close(got, want, 0)
+    table = tree["embed"]["embedding"]
+    np.testing.assert_array_equal(
+        got[0, :3].numpy(), table[[v - 1, v - 1, v - 1]])
+    # the hidden state at the end of the stack, through both packages
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    jlogits, _ = j_prefill(jparams, {"tokens": jnp.asarray(toks)}, cfg, 16)
+    logits, _ = prefill(model, {"tokens": torch.from_numpy(toks)}, 16)
+    _close(logits.numpy(), jlogits, PREFILL_RTOL)
 
 
 def test_gelu_and_ungated_mlp_match_the_reference():

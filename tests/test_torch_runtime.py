@@ -284,8 +284,9 @@ def test_kernel_arg_info_set_args_and_enqueue_kernel():
 
 def test_program_registry_memoizes_and_lists_only_ported_families():
     from repro_torch.core.program import BUILTIN_FAMILIES
-    assert sorted(BUILTIN_FAMILIES) == ["delineate", "fir", "gemm",
-                                        "stockham_fft", "svm"]
+    assert sorted(BUILTIN_FAMILIES) == ["decode_attention", "delineate", "fir",
+                                        "gemm", "mamba_scan", "stockham_fft",
+                                        "svm"]
     p1, p2 = Program.build(EGPU_16T), Program.build(EGPU_16T)
     assert p1 is p2
     k = p1.create_kernel("stockham_fft")
