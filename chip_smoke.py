@@ -16,12 +16,19 @@ Phases (any failure exits non-zero and prints no result line):
    check; every call must move the kernel's launch counter by one.  The
    GeMM's three config tilings must give identical bits.  Flash attention
    runs qwen's prefill shape, a ragged S = T = 300, a suffix with
-   ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and rows
-   that see no key (``q_offset = -16``).  ``rwkv6_scan`` runs bf16 and f32
-   inputs with ``state0`` absent, zero and random at T = 1, 256 and 300 and
-   D = 64 and 32; ``decode_attention`` qwen's decode shape in bf16, a
-   ragged MHA T = 300 in f32, an MQA group at Dk = Dv = 256 and
-   ``partial=True`` over 4 T-shards combined against the full result;
+   ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and in
+   bfloat16, Dk = Dv = 64 in bfloat16, B = 1, S = T = 4096 in bfloat16,
+   rows that see no key (``q_offset = -16``), and a bfloat16 view that no
+   TMA tensor map describes (rows D + 1 elements apart), which the wrapper
+   must copy once (``CONTIGUOUS_COPIES``).  ``rwkv6_scan`` runs bf16 and
+   f32 inputs with ``state0`` absent, zero and random at T = 1, 256 and 300
+   and D = 64 and 32; ``decode_attention`` qwen's decode shape in bf16, a
+   ragged MHA T = 300 in f32, an MQA group at Dk = Dv = 256, T = 32768,
+   T = 1 and an MQA group of 16 at T = 1000, each with ``partial=True`` over
+   the whole cache (the combine pass's unnormalized output where the split
+   plan cuts T) and over 4 T-shards combined against the full result; the
+   plans must include a single split, several, and a T that is no multiple
+   of ``keys_per_split``, and each case's plan is logged;
    ``mamba_scan`` jamba's width (Dm = 16384, N = 16, B = 4, T = 256) with
    the dtypes the jamba block passes under bf16, a ragged T = 100 and a
    ``state0``;
@@ -36,7 +43,8 @@ Phases (any failure exits non-zero and prints no result line):
    B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
    ``rwkv6_scan`` at rwkv6-3b's prefill (B = 4, T = 256) and decode-step
    (T = 1) shapes, with B = 1, T = 4096 beside them; ``decode_attention``
-   at qwen's decode shape and at T = 32768, against SDPA with one query;
+   at qwen's decode shape and at T = 32768, against SDPA with one query,
+   with its split plan; each attention row logs its share of the bound;
    ``mamba_scan``'s kernel at jamba's width;
 4. the two main paths, each with the launch counters reset just before and
    read just after:
@@ -149,7 +157,7 @@ RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_MAX_LEN = 4, 256, 16, 512
 MAMBA_ARCH = "jamba-1.5-large-398b"
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
-FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_mma_kernel<")
+FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
 LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
                      "flash_fwd")
 
@@ -290,6 +298,10 @@ def main() -> int:
         from repro_torch.kernels.svm.ops import svm_decision
         from repro_torch.kernels.svm.ref import svm_decision_ref
         from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.kernels.flash_attention import (
+            flash_attention as fa_module)
+        from repro_torch.kernels.decode_attention.decode_attention import (
+            plan_decode_splits)
         from repro_torch.kernels.flash_attention.ref import flash_attention_plain
         from repro_torch.kernels.decode_attention.ops import (combine_partials,
                                                               decode_attention)
@@ -531,7 +543,28 @@ def main() -> int:
         "no-key rows S=64 T=512 q_offset=-16 f32": flash_case(
             "no-key rows f32", (2, lm_h, lm_kvh, 64, 512, lm_d, lm_d),
             torch.float32, q_offset=-16),
+        "long B=1 S=T=4096 bf16": flash_case(
+            "long", (1, lm_h, lm_kvh, 4096, 4096, lm_d, lm_d), bf16),
+        "Dk=Dv=64 S=T=333 bf16": flash_case(
+            "Dk=Dv=64", (2, 8, 2, 333, 333, 64, 64), bf16),
+        "Dk=96 Dv=64 bf16": flash_case(
+            "Dk=96 Dv=64 bf16", (2, 8, 4, 200, 200, 96, 64), bf16),
     }
+    # a bf16 view that no tensor map describes (rows D + 1 elements apart):
+    # the wrapper copies it contiguous, then launches the same kernel
+    q, _, v = qkv(2, lm_h, lm_kvh, 300, 300, lm_d, lm_d, bf16)
+    k = torch.from_numpy(rng.standard_normal((2, lm_kvh, 300, lm_d + 1)).astype(
+        np.float32)).to(dev, bf16)[..., :lm_d]
+    copies = fa_module.CONTIGUOUS_COPIES
+    got = launched("flash_attention", lambda: flash_attention(q, k, v))
+    check(fa_module.CONTIGUOUS_COPIES == copies + 1,
+          "flash_attention: a view no tensor map describes was not copied once")
+    want = flash_attention_plain(q, k, v)
+    tol = 1e-5 * float(want.float().abs().max()) + 2.0 ** -7 * torch.maximum(
+        got.float().abs(), want.float().abs())
+    check(bool(((got.float() - want.float()).abs() <= tol).all()),
+          f"flash_attention copied view: error {err(got, want)}")
+    fa_err["row stride D+1 (copied) bf16"] = err(got, want)
     max_err["flash_attention"] = fa_err["prefill B=4 S=T=256 bf16"]
     log("phase 2: flash_attention ok (max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
@@ -594,14 +627,28 @@ def main() -> int:
         f"{max_err['rwkv6_scan']:.3g})")
 
     # decode attention: qwen's decode shape in bf16, a ragged MHA T in f32,
-    # and partial=True over 4 T-shards combined against the full result
+    # T = 32768 and T = 1, the whole cache with partial=True (the combine
+    # pass's unnormalized output where the plan splits T), and partial=True
+    # over 4 T-shards combined against the full result.  Each case logs the
+    # plan's (n_splits, keys_per_split).
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    da_plans = {}
+
     def decode_case(what, b_, h_, kvh_, t_, d_, dtype):
         q = normal(b_, h_, d_, dtype=dtype)
         k = normal(b_, kvh_, t_, d_, dtype=dtype)
         v = normal(b_, t_, kvh_, d_, dtype=dtype).transpose(1, 2)
+        da_plans[what] = (t_,) + plan_decode_splits(b_, kvh_, t_, n_sms)
         e = agree(f"decode_attention {what}",
                   launched("decode_attention", lambda: decode_attention(q, k, v)),
                   decode_attention_ref(q, k, v))
+        whole = launched("decode_attention",
+                         lambda: decode_attention(q, k, v, partial=True))
+        for name, g, w_ in zip(("acc", "m", "l"), whole,
+                               decode_attention_partial_ref(q, k, v)):
+            agree(f"decode_attention {what} partial {name}", g, w_)
+        if t_ < 4:                        # too short for 4 T-shards
+            return e
         cuts = [i * t_ // 4 for i in range(5)]
         parts = [launched("decode_attention", lambda a=a, z=z: decode_attention(
             q, k[:, :, a:z], v[:, :, a:z], partial=True))
@@ -624,10 +671,23 @@ def main() -> int:
             "MQA", 1, 12, 1, 77, 256, torch.float32),
         "B=2 H=6 KVH=2 T=33 D=48 bf16": decode_case(
             "D=48", 2, 6, 2, 33, 48, bf16),
+        "B=4 H=16 KVH=2 T=32768 D=128 bf16": decode_case(
+            "T=32768", LM_BATCH, lm_h, lm_kvh, 32768, lm_d, bf16),
+        "B=4 H=16 KVH=2 T=1 D=128 bf16": decode_case(
+            "T=1", LM_BATCH, lm_h, lm_kvh, 1, lm_d, bf16),
+        "MQA B=2 H=16 KVH=1 T=1000 D=128 bf16": decode_case(
+            "MQA T=1000", 2, 16, 1, 1000, lm_d, bf16),
     }
+    plans = da_plans.values()
+    check(any(n == 1 for _, n, _ in plans) and any(n > 1 for _, n, _ in plans)
+          and any(n > 1 and t_ % kps for t_, n, kps in plans),
+          f"decode_attention plans miss a single split, a split T or a T that "
+          f"is no multiple of keys_per_split: {da_plans}")
     max_err["decode_attention"] = da_err["qwen decode B=4 H=16 KVH=2 T=512 D=128 bf16"]
     log("phase 2: decode_attention ok (partial over 4 T-shards combined "
-        "equals the full result in every case; max abs err vs plain: "
+        "equals the full result in every case; plans (n_splits, "
+        "keys_per_split): " + ", ".join(f"{k_} {v_[1:]}" for k_, v_ in da_plans.items())
+        + "; max abs err vs plain: "
         + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in da_err.items()) + ")")
 
     # mamba_scan at jamba's width with the dtypes the jamba block passes
@@ -802,7 +862,8 @@ def main() -> int:
             f"S=T={s_} D={lm_d} bf16 causal: device time per call: kernel "
             f"{fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library (SDPA) "
             f"{fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); kernel "
-            f"{r['ms'] / b_ms:.1f}x its bound, {r['ms'] / r['library_ms']:.2f}x SDPA")
+            f"{r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of it), "
+            f"{r['ms'] / r['library_ms']:.2f}x SDPA")
     rows["flash_attention"] = fa_rows["prefill"]
 
     # rwkv6_scan at rwkv6-3b's prefill shape (state0 absent, as the prefill
@@ -863,12 +924,14 @@ def main() -> int:
             library_ms=device_ms(torch, lambda: sdpa_one(q, k, v), per_graph),
             bound_ms=b_ms, bound_by=b_by)
         r = da_rows[label]
+        n_split, kps = plan_decode_splits(LM_BATCH, lm_kvh, t_, n_sms)
         log(f"phase 3: decode_attention {label} B={LM_BATCH} H={lm_h} "
-            f"KVH={lm_kvh} T={t_} D={lm_d} bf16: device time per call: kernel "
+            f"KVH={lm_kvh} T={t_} D={lm_d} bf16 ({n_split} splits of {kps} "
+            f"keys, {n_split * LM_BATCH * lm_kvh} blocks): device time per call: kernel "
             f"{fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library (SDPA, one "
             f"query) {fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); "
-            f"kernel {r['ms'] / b_ms:.1f}x its bound, "
-            f"{r['ms'] / r['library_ms']:.2f}x SDPA")
+            f"kernel {r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of "
+            f"it), {r['ms'] / r['library_ms']:.2f}x SDPA")
     rows["decode_attention"] = da_rows["decode"]
 
     # mamba_scan's kernel (selective_scan: the scan without the D x skip,

@@ -36,10 +36,12 @@
 //
 // Two kernels compute this, chosen by dtype and head dims:
 //
-// * flash_mma_kernel, for bfloat16 at (Dk, Dv) in {(32, 32), (64, 64),
-//   (96, 96), (128, 128), (96, 64)}: both products on the tensor cores
-//   with mma.sync (bf16 inputs, f32 accumulation), p kept to about 16 bits
-//   as the sum of two bf16 parts (see the note above the kernel);
+// * flash_wgmma_kernel, for bfloat16 at (Dk, Dv) in {(32, 32), (64, 64),
+//   (96, 96), (128, 128), (96, 64)}: a producer warp brings Q once and K
+//   and V tiles through a shared-memory ring with TMA, and two consumer
+//   warpgroups run both products on wgmma (bf16 inputs, f32 accumulation),
+//   p kept to about 16 bits as the sum of two bf16 parts (see the note
+//   above the kernel);
 // * flash_kernel, for float32 (which must match a full-precision product,
 //   so no TF32 tensor cores) and every other head-dim pair: f32 FMAs on the
 //   CUDA cores.  128 threads hold an 8 x 2 strip of the (64, 32) score tile
@@ -50,11 +52,20 @@
 // heads of 128, S = T = 256, bf16, batch 4) the work is 0.54 G causal
 // multiply-adds against 9.4 MB of inputs and outputs: 2.8 us at 3.35 TB/s
 // against 1.1 us at the bf16 tensor-core peak, so bytes bound it there; at
-// S = T = 4096 operations do (69 us).  The tensor-core kernel is as simple
-// as the CUDA-core one: no TMA, no wgmma, no overlap of the next tile's
-// loads with this tile's products; those are for a later version.
+// S = T = 4096 operations do (69 us at the peak for the two products).
+// The bf16 kernel does three products per tile, not two (p_hi V and p_lo
+// V), so its own floor at 4096 is 104 us.  Loads that threads issue
+// between barriers, v staged transposed by hand and mma.sync leave the
+// tensor cores idle most of the time; so the wgmma kernel feeds them from
+// swizzled shared memory that no thread writes, its producer runs ahead of
+// the products by up to three tiles, and the two warpgroups of a block
+// share the tensor cores, one doing its softmax while the other
+// multiplies.
 #include "common.cuh"
+#include "wgmma.cuh"
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 
 #include <type_traits>
@@ -284,41 +295,63 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores: mma.sync.m16n8k16 (bf16 x bf16 -> f32).
+// bfloat16 on the tensor cores: flash_wgmma_kernel, TMA + wgmma.
 //
-// The same algorithm and the same per-element arithmetic as flash_kernel,
-// with both products on the tensor cores.  Four warps, each owning 16 of
-// the block's 64 q rows; kv tiles of 64 rows.  q . k: q's fragments stay in
-// registers for the whole kv loop, k is read from shared memory as the
-// "col" operand (a (kv row, d) row-major tile is exactly that).  p @ v: the
-// score accumulators are the A fragments of the next product, so p never
-// leaves registers; v is staged transposed (dv, kv) so its fragments are
-// 32-bit reads too.  The TPU kernel multiplies p in f32, and an mma takes
-// bf16, so p is split into p_hi = bf16(p) and p_lo = bf16(p - p_hi) and
-// both are multiplied (two mma per fragment): p_hi + p_lo holds p to about
-// 16 bits, where one bf16 rounding would keep 8.  Rows of each 16-row
-// fragment are groupID and groupID + 8 (groupID = lane / 4), columns are
-// 2 * (lane % 4) + {0, 1}; the row statistics m and l of a thread's two
-// rows reduce over the 4 lanes that share them.
-constexpr int kMmaBK = 64;            // kv rows per tile
-constexpr int kMmaPad = 8;            // bf16 padding per shared row
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// One block per (128 q rows, head, batch), 384 threads: two consumer
+// warpgroups, each owning 64 of the block's q rows, and a producer
+// warpgroup whose first warp's lane 0 issues every copy.  The producer
+// warpgroup drops to 24 registers a thread (setmaxnreg.dec) and the
+// consumers raise theirs to 240 (setmaxnreg.inc): the exchange works on
+// whole warpgroups, and a lone producer warp would free registers in one
+// SM sub-partition only.  ptxas allocates 168 registers a thread for the
+// whole kernel (the limit for 12 warps) and the consumers' code fits in
+// them without spills; overlapping the next tile's Q K^T with this tile's
+// softmax (two score tiles live) does not fit, and spilling costs more
+// than the overlap gains.
+// The producer loads the q tile once and streams (64, Dk) tiles of K and
+// (64, Dv) tiles of V through a 3-stage ring with TMA
+// (cp.async.bulk.tensor, 4-d tensor maps built on the host per call), each
+// stage with a full and an empty mbarrier.  Everything lands in
+// 128-byte-swizzled boxes of 64 bf16 columns (a 128-wide head is two
+// boxes; 96 is two, the second half zero-filled by TMA; 32 one, half
+// zero), rows past S and T zero-filled by TMA too.  Per kv tile, each
+// consumer warpgroup:
+//
+// * S = Q K^T: wgmma.m64n64k16, A = its 64 q rows and B = the K tile as it
+//   lies (both K-major), Dk / 16 steps, f32 accumulators in registers;
+// * the online softmax on wgmma's accumulator layout (thread (warp w, lane
+//   l) holds rows 16w + l/4 and + 8, columns 8j + 2(l%4) + {0, 1}), with
+//   flash_kernel's per-element arithmetic: scale, columns >= T and causal
+//   columns to the -1e30 sentinel, m, alpha, p, l, row reductions over the
+//   4 lanes of a quad;
+// * acc += P V: wgmma.m64nDvk16 with A = P from registers (the score
+//   accumulators of two n8 tiles are exactly one k16 A fragment) and B =
+//   the V tile with the transpose bit (MN-major), so V is never staged
+//   transposed.  P is p_hi + p_lo, two bf16 parts multiplied in turn: p
+//   to about 16 bits, where
+//   one bf16 rounding keeps 8, so the result holds to the f32-p plain
+//   version within the check's bf16 tolerance.
+//
+// Descriptors: K-major operands (Q, K) use SBO = 1024 bytes (8 rows of 128
+// bytes) and step 32 bytes per k16 inside a box, a box further per 4
+// steps; the MN-major V uses SBO = 1024 bytes (8 kv rows) and LBO = one
+// box (64 rows x 128 bytes) between its 64-column halves, and steps 16 kv
+// rows (2048 bytes) per k16.  Every box starts 1024-byte aligned, so the
+// swizzle phase (base offset) is 0.  Kv tiles wholly above the diagonal
+// are not loaded; a warpgroup whose rows all lie above a loaded tile skips
+// its products for it.  Rows >= S are never stored.
+constexpr int kWgRows = 64;                 // q rows per consumer warpgroup
+constexpr int kWgBQ = 2 * kWgRows;          // q rows per block
+constexpr int kWgBK = 64;                   // kv rows per tile
+constexpr int kWgStages = 3;
+constexpr int kWgConsumers = 2 * 128;
+constexpr int kWgThreads = kWgConsumers + 128;   // and a producer warpgroup
+constexpr int kBox = 64;                    // bf16 columns per 128-byte swizzled box
+constexpr unsigned kWaitLimit = 1u << 20;   // mbarrier polls before a fault is declared
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -330,204 +363,353 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Copy rows [row0, row0 + 64) of a (rows, D) bf16 matrix with row stride
-// ``ss`` into dst[64][D + kMmaPad] (zeros past ``rows``), 16 bytes at a
-// time when the source allows it.  Transposed: dst[D][64 + kMmaPad].
-template <int D, bool kTransposed>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long ss, int row0, int rows,
-                                           bool vec) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kMmaBK * kChunks; idx += kThreads) {
-    // neighbouring threads take neighbouring 16-byte chunks of a row, or,
-    // for the transposed copy, neighbouring rows (conflict-free stores)
-    const int r = kTransposed ? idx % kMmaBK : idx / kChunks;
-    const int c = (kTransposed ? idx / kMmaBK : idx % kChunks) * 8;
-    __nv_bfloat16 v8[8];
-    if (row0 + r < rows) {
-      const __nv_bfloat16* p = src + (row0 + r) * ss + c;
-      if (vec) {
-        *reinterpret_cast<uint4*>(v8) = *reinterpret_cast<const uint4*>(p);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v8[e] = p[e];
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v8[e] = __float2bfloat16_rn(0.f);
-    }
-    if constexpr (kTransposed) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[(c + e) * (kMmaBK + kMmaPad) + r] = v8[e];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + kMmaPad) + c) =
-          *reinterpret_cast<const uint4*>(v8);
-    }
+struct Perm {                               // tensor-map dim (1..3) of seq, head, batch
+  int q[3], k[3], v[3];
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity ``parity``; a wait that never ends is a
+// fault (a lost copy), reported as one instead of a hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (unsigned n = 0;; ++n) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == kWaitLimit) __trap();
   }
 }
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+// Coordinates of column ``col`` of (seq, head, batch) in a map whose dims
+// 1..3 hold them in the order ``pos`` gives.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         const int (&pos)[3], int col, int seq,
+                                         int head, int batch, uint64_t* bar) {
+  const int x[3] = {seq, head, batch};
+  int c[3];
+#pragma unroll
+  for (int d = 1; d <= 3; ++d)
+    c[d - 1] = pos[0] == d ? x[0] : pos[1] == d ? x[1] : x[2];
+  tma_load_4d(dst, map, col, c[0], c[1], c[2], bar);
+}
 
-__host__ __device__ constexpr size_t mma_smem_bytes(int dk, int dv) {
-  return sizeof(__nv_bfloat16) *
-         (static_cast<size_t>(kBQ) * (dk + kMmaPad) +
-          static_cast<size_t>(kMmaBK) * (dk + kMmaPad) +
-          static_cast<size_t>(dv) * (kMmaBK + kMmaPad));
+// A wgmma shared-memory descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo,
+                                               unsigned sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
+  else wgmma_rs_n128(d, a, db);
 }
 
 template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads) flash_mma_kernel(Args a) {
-  constexpr int kKSteps = DK / 16, kNT = kMmaBK / 8, kDT = DV / 8;
-  extern __shared__ __align__(16) __nv_bfloat16 sh[];
-  __nv_bfloat16* qs = sh;                                // [kBQ][DK + pad]
-  __nv_bfloat16* ks = qs + kBQ * (DK + kMmaPad);         // [kMmaBK][DK + pad]
-  __nv_bfloat16* vt = ks + kMmaBK * (DK + kMmaPad);      // [DV][kMmaBK + pad]
+__host__ __device__ constexpr int wg_smem_bytes() {
+  return ((DK + kBox - 1) / kBox) * kWgBQ * 128 +
+         kWgStages * (((DK + kBox - 1) / kBox) + ((DV + kBox - 1) / kBox)) * kWgBK * 128 +
+         (1 + 2 * kWgStages) * 8 + 1024;   // barriers, and slack to align to 1024
+}
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;         // heaviest first
+template <int DK, int DV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, Args a, Perm perm) {
+  constexpr int NQ = (DK + kBox - 1) / kBox, NV = (DV + kBox - 1) / kBox;
+  constexpr int KSTEPS = DK / 16;
+  constexpr int BOXQ = kWgBQ * 128, BOXKV = kWgBK * 128;   // bytes of one box
+  constexpr int K_BYTES = NQ * BOXKV, STAGE = K_BYTES + NV * BOXKV;
+  static_assert(DK % 16 == 0 && DV % 32 == 0 && DV <= 128, "head dims");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = qs + NQ * BOXQ;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kWgStages * STAGE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWgStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;           // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kv_head = h / (a.h / a.kvh);
-  const int q0 = q_tile * kBQ;
-  const auto* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + kv_head * a.k_sh;
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kv_head * a.v_sh;
-  auto aligned = [](const void* p, long long ss) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ss % 8 == 0;
-  };
-  const bool q_vec = aligned(q, a.q_ss) && a.q_sb % 8 == 0 && a.q_sh % 8 == 0;
-  const bool k_vec = aligned(k, a.k_ss) && a.k_sb % 8 == 0 && a.k_sh % 8 == 0;
-  const bool v_vec = aligned(v, a.v_ss) && a.v_sb % 8 == 0 && a.v_sh % 8 == 0;
-
-  stage_tile<DK, false>(qs, q, a.q_ss, q0, a.s, q_vec);
-  __syncthreads();
-  uint32_t qa[kKSteps][4];
-  const __nv_bfloat16* qrow = qs + (warp * 16 + g) * (DK + kMmaPad) + 2 * tig;
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    qa[kk][0] = ld32(qrow + kk * 16);
-    qa[kk][1] = ld32(qrow + 8 * (DK + kMmaPad) + kk * 16);
-    qa[kk][2] = ld32(qrow + kk * 16 + 8);
-    qa[kk][3] = ld32(qrow + 8 * (DK + kMmaPad) + kk * 16 + 8);
-  }
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[kDT][4];
-#pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
+  const int q0 = q_tile * kWgBQ;
   int kv_end = a.t;
-  if (a.causal) kv_end = min(kv_end, a.q_offset + min(q0 + kBQ, a.s));
-  const int n_tiles = kv_end > 0 ? (kv_end + kMmaBK - 1) / kMmaBK : 0;
-  // absolute q positions of this thread's two rows
-  const int qi0 = a.q_offset + q0 + warp * 16 + g, qi1 = qi0 + 8;
+  if (a.causal) kv_end = min(kv_end, a.q_offset + min(q0 + kWgBQ, a.s));
+  const int n_tiles = kv_end > 0 ? (kv_end + kWgBK - 1) / kWgBK : 0;
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kMmaBK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<DK, false>(ks, k, a.k_ss, k0, a.t, k_vec);
-    stage_tile<DV, true>(vt, v, a.v_ss, k0, a.t, v_vec);
-    __syncthreads();
-
-    // s = q k^T: 16 rows x 64 columns per warp, in 8 column tiles
-    float s[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const __nv_bfloat16* krow = ks + (nt * 8 + g) * (DK + kMmaPad) + 2 * tig;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        mma_bf16(s[nt], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers / 32);     // one arrival per consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // scale, mask, online softmax (row g: elements 0, 1; row g + 8: 2, 3)
-    float mx[2] = {kNegInf, kNegInf};
+  if (warp >= kWgConsumers / 32) {
+    // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      mbar_arrive_tx(q_full, NQ * BOXQ);
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+      for (int x = 0; x < NQ; ++x)
+        tma_load(qs + x * BOXQ, &tq, perm.q, x * kBox, q0, h, b, q_full);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kWgStages;
+        mbar_wait(&empty[s], ((j / kWgStages) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], STAGE);
+        unsigned char* st = ring + s * STAGE;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + nt * 8 + 2 * tig + (e & 1);
-        const int qi = e < 2 ? qi0 : qi1;
-        const bool visible = kj < a.t && (!a.causal || qi >= kj);
-        s[nt][e] = visible ? s[nt][e] * a.scale : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
+        for (int x = 0; x < NQ; ++x)
+          tma_load(st + x * BOXKV, &tk, perm.k, x * kBox, j * kWgBK, kv_head, b, &full[s]);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e / 2]);
-        rs[e / 2] += s[nt][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
-#pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      acc[dt][0] *= alpha[0], acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1], acc[dt][3] *= alpha[1];
-    }
-
-    // acc += p @ v, p = p_hi + p_lo, in 4 steps of 16 kv rows
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        // r: (row g, k lo), (row g + 8, k lo), (row g, k hi), (row g + 8, k hi)
-        const float* sv = s[2 * kk + r / 2] + 2 * (r % 2);
-        hi[r] = pack_bf16(sv[0], sv[1]);
-        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi[r]);
-        lo[r] = pack_bf16(sv[0] - __low2float(h2), sv[1] - __high2float(h2));
-      }
-#pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        const __nv_bfloat16* vrow = vt + (dt * 8 + g) * (kMmaBK + kMmaPad) +
-                                    kk * 16 + 2 * tig;
-        const uint32_t b0 = ld32(vrow), b1 = ld32(vrow + 8);
-        mma_bf16(acc[dt], hi, b0, b1);
-        mma_bf16(acc[dt], lo, b0, b1);
+        for (int x = 0; x < NV; ++x)
+          tma_load(st + K_BYTES + x * BOXKV, &tv, perm.v, x * kBox, j * kWgBK, kv_head, b,
+                   &full[s]);
       }
     }
+    return;
   }
 
-  auto* o = static_cast<__nv_bfloat16*>(a.o) + (static_cast<long long>(b) * a.h + h) * a.s * DV;
+  // consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + wg * kWgRows;                      // the warpgroup's first row
+  const bool live = row0 < a.s;
+  const int last = a.q_offset + min(row0 + kWgRows, a.s) - 1;   // its last position
+  const int qi0 = a.q_offset + row0 + wq * 16 + g, qi1 = qi0 + 8;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  // the tiles this warpgroup multiplies: all, or (causal) those that start
+  // at or before its last row; the rest it only hands back
+  const int n_wg = !live ? 0
+                   : !a.causal ? n_tiles
+                   : last < 0 ? 0 : min(n_tiles, last / kWgBK + 1);
+  const unsigned char* qw = qs + wg * kWgRows * 128;       // this warpgroup's rows
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kWgStages;
+    mbar_wait(&full[s], (j / kWgStages) & 1);
+    if (j < n_wg) {
+      const unsigned char* st = ring + s * STAGE;
+      const int k0 = j * kWgBK;
+      float sc[kWgBK / 2];
+#pragma unroll
+      for (int i = 0; i < kWgBK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int off = (kk % 4) * 32;              // bytes: 16 columns a step
+        wgmma_ss_n64(sc, sw128_desc(qw + (kk / 4) * BOXQ + off, 16, 1024),
+                        sw128_desc(st + (kk / 4) * BOXKV + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale, mask, online softmax (row qi0: elements 0, 1 of each n8
+      // tile; row qi1: 2, 3)
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kWgBK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const int qi = e < 2 ? qi0 : qi1;
+          const bool visible = kj < a.t && (!a.causal || qi >= kj);
+          float& x = sc[4 * nt + e];
+          x = visible ? x * a.scale : kNegInf;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kWgBK / 2; ++i) {
+        sc[i] = expf(sc[i] - m[(i % 4) / 2]);
+        rs[(i % 4) / 2] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+#pragma unroll
+      for (int nt = 0; nt < DV / 8; ++nt) {
+        o[4 * nt] *= alpha[0], o[4 * nt + 1] *= alpha[0];
+        o[4 * nt + 2] *= alpha[1], o[4 * nt + 3] *= alpha[1];
+      }
+
+      // acc += p @ v, p = p_hi + p_lo, in steps of 16 kv rows
+      uint32_t hi[kWgBK / 16][4], lo[kWgBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // r: (row g, k lo), (row g + 8, k lo), (row g, k hi), (row g + 8, k hi)
+          const float* sv = sc + 4 * (2 * kk + r / 2) + 2 * (r % 2);
+          hi[kk][r] = pack_bf16(sv[0], sv[1]);
+          const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi[kk][r]);
+          lo[kk][r] = pack_bf16(sv[0] - __low2float(h2), sv[1] - __high2float(h2));
+        }
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        const uint64_t dv = sw128_desc(st + K_BYTES + kk * 16 * 128, BOXKV, 1024);
+        wgmma_rs<DV>(o, hi[kk], dv);
+        wgmma_rs<DV>(o, lo[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);         // this warp is done with stage s
+  }
+
+  if (!live) return;
+  auto* out = static_cast<__nv_bfloat16*>(a.o) + (static_cast<long long>(b) * a.h + h) * a.s * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
+    const int row = row0 + wq * 16 + g + 8 * r;
     if (row >= a.s) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      const int col = dt * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(o + static_cast<long long>(row) * DV + col) =
-          __floats2bfloat162_rn(acc[dt][2 * r] / denom, acc[dt][2 * r + 1] / denom);
+    for (int nt = 0; nt < DV / 8; ++nt) {
+      const int col = nt * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * DV + col) =
+          __floats2bfloat162_rn(o[4 * nt + 2 * r] / denom, o[4 * nt + 2 * r + 1] / denom);
     }
   }
 }
 
-template <int DK, int DV>
-int launch_mma(const Args& a, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(DK, DV);
-  auto kernel = flash_mma_kernel<DK, DV>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return static_cast<int>(e);
+// The driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
-  const dim3 grid((a.s + kBQ - 1) / kBQ, a.h, a.b);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return fn;
+}
+
+// A 4-d bf16 map of a (batch, head, seq, d) view, d contiguous: dim 0 is d
+// in boxes of 64 columns, dims 1..3 the other three sorted by stride (a
+// dim of size 1 takes the largest stride); ``pos`` says where seq, head and
+// batch went.  Sizes are clamped to 1 (an empty axis is never loaded).
+bool encode_map(CUtensorMap* map, const void* ptr, int d, const int (&size)[3],
+                const long long (&stride)[3], int box_rows, int (&pos)[3]) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  long long st[3];
+  long long widest = d * 2LL;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] > 1 && stride[i] * 2 > widest) widest = stride[i] * 2;
+  for (int i = 0; i < 3; ++i) st[i] = size[i] > 1 ? stride[i] * 2 : widest;
+  int order[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (st[order[j]] < st[order[i]]) {
+        const int tmp = order[i];
+        order[i] = order[j];
+        order[j] = tmp;
+      }
+  const int box[3] = {box_rows, 1, 1};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t boxes[4] = {kBox, 0, 0, 0}, elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int r = order[i];
+    dims[i + 1] = static_cast<cuuint64_t>(size[r] > 1 ? size[r] : 1);
+    strides[i] = static_cast<cuuint64_t>(st[r]);
+    boxes[i + 1] = box[r];
+    pos[r] = i + 1;
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DK, int DV>
+int launch_wgmma(const Args& a, int dv, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  Perm perm;
+  const bool ok =
+      encode_map(&tq, a.q, DK, {a.s, a.h, a.b}, {a.q_ss, a.q_sh, a.q_sb}, kWgBQ, perm.q) &&
+      encode_map(&tk, a.k, DK, {a.t, a.kvh, a.b}, {a.k_ss, a.k_sh, a.k_sb}, kWgBK, perm.k) &&
+      encode_map(&tv, a.v, dv, {a.t, a.kvh, a.b}, {a.v_ss, a.v_sh, a.v_sb}, kWgBK, perm.v);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = wg_smem_bytes<DK, DV>();
+  auto kernel = flash_wgmma_kernel<DK, DV>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.s + kWgBQ - 1) / kWgBQ, a.h, a.b);
+  kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, a, perm);
   return REPRO_LAUNCH_STATUS();
 }
 
@@ -581,11 +763,11 @@ template <typename T>
 int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     // the head dims the tensor-core kernel is compiled for
-    if (dk == 128 && dv == 128) return launch_mma<128, 128>(a, st);
-    if (dk == 96 && dv == 96) return launch_mma<96, 96>(a, st);
-    if (dk == 64 && dv == 64) return launch_mma<64, 64>(a, st);
-    if (dk == 32 && dv == 32) return launch_mma<32, 32>(a, st);
-    if (dk == 96 && dv == 64) return launch_mma<96, 64>(a, st);
+    if (dk == 128 && dv == 128) return launch_wgmma<128, 128>(a, dv, st);
+    if (dk == 96 && dv == 96) return launch_wgmma<96, 96>(a, dv, st);
+    if (dk == 64 && dv == 64) return launch_wgmma<64, 64>(a, dv, st);
+    if (dk == 32 && dv == 32) return launch_wgmma<32, 32>(a, dv, st);
+    if (dk == 96 && dv == 64) return launch_wgmma<96, 64>(a, dv, st);
   }
   switch (dv) {
     case 32: return launch_dv<T, 32>(a, st);

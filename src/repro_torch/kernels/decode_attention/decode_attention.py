@@ -2,30 +2,62 @@
 binding.
 
 ``csrc/decode_attention.cu`` replaces the TPU kernel
-``src/repro/kernels/decode_attention/decode_attention.py:_decode_kernel``.
-One block per (batch, kv head) runs the whole T loop: 8 warps split T into
-tiles of 32 keys, keep (acc, m, l) in f32 for the group's heads and merge in
-a fixed order; the tail of T is masked, so nothing is padded.
+``src/repro/kernels/decode_attention/decode_attention.py:_decode_kernel``
+as split-T flash-decoding: :func:`plan_decode_splits` cuts T into
+``n_splits`` chunks; in one block per (chunk, kv head, batch) a producer
+warp streams the chunk with TMA bulk copies through a ring of tiles of
+:data:`KEY_TILE` keys and 8 consumer warps keep (acc, m, l) in f32 for the
+group's heads; a second kernel merges the chunks in a fixed order.  The
+tail of T is masked, so nothing is padded.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ..common import launch, ptr, stream_of
+from ..common import cdiv, launch, ptr, stream_of
 
 #: Dk and Dv: any size up to this
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
+#: keys per stage of the kernel's ring; every split is a multiple of it
+KEY_TILE = 32
+#: the fewest keys a split takes: its f32 partial (Dv + 2 floats per head)
+#: then stays at most an eighth of the bf16 cache it reads at D = 128
+MIN_KEYS_PER_SPLIT = 64
+#: the grid the plan aims at, in blocks per SM
+BLOCKS_PER_SM = 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
-         _I, _I, _P]
+_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+         ctypes.c_float, _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_decode_attention_f32",
            torch.bfloat16: "repro_decode_attention_bf16"}
+
+
+def plan_decode_splits(b: int, kvh: int, t: int,
+                       sm_count: int) -> Tuple[int, int]:
+    """``(n_splits, keys_per_split)`` for a cache of ``t`` keys read by
+    ``b * kvh`` (batch, kv head) pairs on a card of ``sm_count`` SMs.
+
+    ``keys_per_split`` is a multiple of :data:`KEY_TILE` and the splits
+    cover ``[0, t)`` with none empty.  The grid ``n_splits * b * kvh``
+    aims at :data:`BLOCKS_PER_SM` blocks per SM, as far as the floor of
+    :data:`MIN_KEYS_PER_SPLIT` keys per split allows; a small ``t`` gives
+    one split.  The plan depends on its arguments only, so repeated calls
+    split alike and give the same bits.
+    """
+    if min(b, kvh, t, sm_count) < 1:
+        raise ValueError(f"plan_decode_splits needs positive sizes, got b={b}, "
+                         f"kvh={kvh}, t={t}, sm_count={sm_count}")
+    tiles = cdiv(t, KEY_TILE)
+    want = cdiv(BLOCKS_PER_SM * sm_count, b * kvh)
+    n = max(1, min(want, t // MIN_KEYS_PER_SPLIT, tiles))
+    keys = cdiv(tiles, n) * KEY_TILE
+    return cdiv(t, keys), keys
 
 
 def launch_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,12 +67,22 @@ def launch_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch on CUDA tensors of one dtype, q (B,H,Dk), k (B,KVH,T,Dk), v
     (B,KVH,T,Dv), each with a contiguous last axis, into the contiguous
     ``out`` (B,H,Dv) (q's dtype, or f32 when ``partial``) and f32 ``m``,
-    ``l`` (B,H,1) or None, on the current stream."""
+    ``l`` (B,H,1) or None, on the current stream: the split kernel, then,
+    when the plan gives more than one split, the combine kernel, over f32
+    scratch allocated here.  Counts one launch."""
     b, h, dk = q.shape
     kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_splits, kps = plan_decode_splits(b, kvh, t, sms)
+    acc_s = m_s = l_s = None
+    if n_splits > 1:
+        acc_s = torch.empty((n_splits, b, h, dv), dtype=torch.float32,
+                            device=q.device)
+        m_s = torch.empty((n_splits, b, h), dtype=torch.float32, device=q.device)
+        l_s = torch.empty_like(m_s)
     strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3],
                                       *v.stride()[:3])
     launch("decode_attention", _SYMBOL[q.dtype], _ARGS, ptr(q), ptr(k), ptr(v),
-           ptr(out), ptr(m), ptr(l), b, h, kvh, t, dk, dv,
-           ctypes.cast(strides, _P), float(scale), int(partial),
-           q.device.index, stream_of(q))
+           ptr(out), ptr(m), ptr(l), ptr(acc_s), ptr(m_s), ptr(l_s), b, h,
+           kvh, t, dk, dv, ctypes.cast(strides, _P), float(scale),
+           int(partial), n_splits, kps, q.device.index, stream_of(q))

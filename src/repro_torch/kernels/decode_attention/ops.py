@@ -5,8 +5,12 @@ replaces the TPU kernel
 ``src/repro/kernels/decode_attention/decode_attention.py:_decode_kernel``)
 on CUDA tensors and runs :func:`~repro_torch.kernels.decode_attention.ref.
 decode_attention_ref` (the JAX package's XLA path) on CPU and ``meta``
-tensors.  The family is reached through the registry, as in the JAX
-package; no model calls it (dense decode uses plain products).
+tensors.  On the card one call is one launch of the op (the launch counter
+moves by one), whether the plan of
+:func:`~repro_torch.kernels.decode_attention.decode_attention.plan_decode_splits`
+runs the split kernel alone or the split and the combine kernels.  The
+family is reached through the registry, as in the JAX package; no model
+calls it (dense decode uses plain products).
 """
 
 from __future__ import annotations
@@ -19,11 +23,11 @@ from ...core.runtime import Kernel
 from ..common import check_dtype, on_card
 from .decode_attention import DTYPES, MAX_HEAD_DIM, launch_decode_attention
 from .ref import (combine_partials, counts, decode_attention_partial_ref,
-                  decode_attention_ref)
+                  decode_attention_ref, decode_attention_split_ref)
 
 __all__ = ["decode_attention", "combine_partials", "counts",
            "decode_attention_partial_ref", "decode_attention_ref",
-           "build_kernel"]
+           "decode_attention_split_ref", "build_kernel"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -42,8 +42,9 @@ def decode_attention_partial_ref(q, k, v, *, scale=None):
     return acc, m, l
 
 
-def combine_partials(parts):
-    """Merge [(acc, m, l), ...] partials from seq shards — exact."""
+def merge_partials(parts):
+    """Merge [(acc, m, l), ...] partials from seq shards in their order into
+    one unnormalized (acc, m, l)."""
     acc, m, l = parts[0]
     for acc2, m2, l2 in parts[1:]:
         mn = torch.maximum(m, m2)
@@ -51,7 +52,33 @@ def combine_partials(parts):
         acc = acc * w1 + acc2 * w2
         l = l * w1 + l2 * w2
         m = mn
+    return acc, m, l
+
+
+def combine_partials(parts):
+    """Merge [(acc, m, l), ...] partials from seq shards — exact."""
+    acc, m, l = merge_partials(parts)
     return acc / l, m, l
+
+
+def decode_attention_split_ref(q, k, v, n_splits: int, keys_per_split: int, *,
+                               scale=None, partial: bool = False):
+    """The split scheme of the kernel in plain PyTorch: keys
+    ``[i * keys_per_split, (i + 1) * keys_per_split)`` of split ``i`` reduce
+    to their partial, and the splits merge in the order 0, 1, ...  Returns
+    out (B,H,Dv) in q's dtype, or with ``partial=True`` the merged
+    unnormalized (acc, m, l)."""
+    t = k.shape[2]
+    if n_splits < 1 or (n_splits - 1) * keys_per_split >= t or \
+            n_splits * keys_per_split < t:
+        raise ValueError(f"{n_splits} splits of {keys_per_split} keys do not "
+                         f"cover T={t} without an empty split")
+    parts = [decode_attention_partial_ref(
+        q, k[:, :, i * keys_per_split:(i + 1) * keys_per_split],
+        v[:, :, i * keys_per_split:(i + 1) * keys_per_split], scale=scale)
+        for i in range(n_splits)]
+    acc, m, l = merge_partials(parts)
+    return (acc, m, l) if partial else (acc / l).to(q.dtype)
 
 
 def counts(b: int, h: int, t: int, dk: int, dv: int,

@@ -8,19 +8,25 @@ itself, streaming kv tiles through shared memory with the online softmax
 state in f32 registers; the kv head is read in place (GQA), causal tiles
 above the diagonal are skipped and the ragged tails are masked in the
 kernel, so nothing is padded.  bfloat16 at the head dims of
-``MMA_HEAD_DIMS`` runs on the tensor cores (``mma.sync``); float32 and the
-other head dims run f32 FMAs on the CUDA cores.
+``MMA_HEAD_DIMS`` runs ``flash_wgmma_kernel``: blocks of 128 q rows, K and V
+tiles brought by TMA through a shared-memory ring, both products on
+``wgmma``; it reads q, k and v through tensor maps, so each must be a view
+that :func:`tma_describable` accepts, and the wrapper copies one that is not
+(counted in :data:`CONTIGUOUS_COPIES`).  float32 and the other head dims run
+f32 FMAs on the CUDA cores.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
 from ..common import launch, ptr, stream_of
 
-#: (Dk, Dv) pairs the tensor-core (bf16) kernel is compiled for
+#: (Dk, Dv) pairs the tensor-core (bf16) kernel, flash_wgmma_kernel, is
+#: compiled for
 MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64))
 #: Dv values csrc/flash_attention.cu is compiled for (each thread's output
 #: strip is Dv / 16 registers wide)
@@ -28,6 +34,10 @@ COMPILED_DV = (32, 64, 96, 128)
 #: Dk: any multiple of 4 up to this (a loop bound; Qs and Ks grow with it)
 MAX_DK = 256
 DTYPES = (torch.float32, torch.bfloat16)
+
+#: bf16 views that no tensor map describes, made contiguous before a launch
+#: of the tensor-core kernel (a copy, then the same kernel) in this process
+CONTIGUOUS_COPIES = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I,
@@ -38,6 +48,29 @@ _SYMBOL = {torch.float32: "repro_flash_attention_f32",
 
 def supports_head_dims(dk: int, dv: int) -> bool:
     return 0 < dk <= MAX_DK and dk % 4 == 0 and dv in COMPILED_DV
+
+
+def tma_describable(data_ptr: int, sizes: Sequence[int],
+                    strides: Sequence[int], itemsize: int) -> bool:
+    """Whether a tensor map (``cuTensorMapEncodeTiled``) describes the view:
+    a 16-byte-aligned base, a contiguous last axis of a whole number of 16
+    bytes, and every other axis of more than one element a positive stride
+    that is a multiple of 16 bytes and below 2**40 bytes."""
+    if data_ptr % 16 or strides[-1] != 1 or (sizes[-1] * itemsize) % 16:
+        return False
+    return all(size <= 1 or (st > 0 and (st * itemsize) % 16 == 0
+                             and st * itemsize < 2 ** 40)
+               for size, st in zip(sizes[:-1], strides[:-1]))
+
+
+def tma_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when a tensor map describes it, else a contiguous copy
+    (counted in :data:`CONTIGUOUS_COPIES`)."""
+    global CONTIGUOUS_COPIES
+    if tma_describable(x.data_ptr(), x.shape, x.stride(), x.element_size()):
+        return x
+    CONTIGUOUS_COPIES += 1
+    return x.contiguous()
 
 
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,8 +14,9 @@ from __future__ import annotations
 import torch
 
 from ..common import check_dtype, on_card
-from .flash_attention import (COMPILED_DV, DTYPES, MAX_DK,
-                              launch_flash_attention, supports_head_dims)
+from .flash_attention import (COMPILED_DV, DTYPES, MAX_DK, MMA_HEAD_DIMS,
+                              launch_flash_attention, supports_head_dims,
+                              tma_view)
 from .ref import block_sizes, counts, flash_attention_plain, mha_ref, repeat_kv
 
 __all__ = ["flash_attention", "counts", "mha_ref", "repeat_kv"]
@@ -37,7 +38,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version's blocking gives it.
     On the card q, k and v share a dtype (float32 or bfloat16), Dk is a
     multiple of 4 up to 256, Dv one of 32, 64, 96, 128, and each may be a
-    strided view whose last axis is contiguous.
+    strided view whose last axis is contiguous.  In bfloat16 at the head
+    dims of ``MMA_HEAD_DIMS`` the kernel reads q, k and v through TMA tensor
+    maps: a view that none describes (a base or a stride that is not a
+    multiple of 16 bytes) is first copied contiguous, and the copy is
+    counted in ``flash_attention.CONTIGUOUS_COPIES``.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q (B,H,S,Dk), k (B,KVH,T,Dk), "
@@ -66,6 +71,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention: the kernel takes a contiguous "
                          "head-dim axis")
+    if q.dtype == torch.bfloat16 and (dk, dv) in MMA_HEAD_DIMS:
+        q, k, v = tma_view(q), tma_view(k), tma_view(v)
     out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
     if out.numel():
         launch_flash_attention(q, k, v, out, causal=causal, scale=scale,

@@ -10,6 +10,10 @@ Tolerance in float32: 2e-5 absolute on outputs of magnitude about 1 (the
 same f32 online softmax, summed in another order).  In bfloat16 both
 packages round the same f32 result, so outputs differ by at most one bf16
 ulp of the output (2^-7 relative).
+
+The tensor-map admissibility rule of the bf16 tensor-core kernel
+(``tma_describable``) is pure Python on sizes, strides and the base
+address, so it is tested here too.
 """
 
 import numpy as np
@@ -20,8 +24,9 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import mha_ref as j_mha_ref
 from repro_torch.kernels.common import LAUNCHES
+from repro_torch.kernels.flash_attention import flash_attention as fa_module
 from repro_torch.kernels.flash_attention.flash_attention import (
-    COMPILED_DV, MMA_HEAD_DIMS, supports_head_dims)
+    COMPILED_DV, MMA_HEAD_DIMS, supports_head_dims, tma_describable, tma_view)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (causal_pairs,
                                                      flash_attention_plain,
@@ -244,3 +249,36 @@ def test_rows_that_see_no_key_match_jax_and_the_rule(s, t, q_offset, bq, bk):
                                impl="xla", **kw).astype(jnp.float32))
     assert (np.abs(got - jwant) <= 2.0 ** -7 * np.maximum(np.abs(got), np.abs(jwant))
             + F32_ATOL).all()
+
+
+# -- the bf16 tensor-core kernel reads q, k and v through TMA tensor maps ------
+D = 128
+
+
+@pytest.mark.parametrize("what,sizes,strides,base,ok", [
+    ("contiguous (B, H, S, D)", (2, 16, 256, D), (16 * 256 * D, 256 * D, D, 1), 0, True),
+    # the model's (B, S, H, D) -> (B, H, S, D) transpose
+    ("transposed view", (2, 16, 256, D), (256 * 16 * D, D, 16 * D, 1), 0, True),
+    ("a head of size one, any stride", (2, 1, 256, D), (256 * D, 7, D, 1), 0, True),
+    ("rows D + 1 apart", (2, 2, 300, D), (2 * 300 * (D + 1), 300 * (D + 1), D + 1, 1), 0, False),
+    ("base off by one element", (2, 2, 300, D), (2 * 300 * D, 300 * D, D, 1), 2, False),
+    ("an expanded axis (stride 0)", (2, 16, 256, D), (256 * D, 0, D, 1), 0, False),
+    ("last axis strided", (2, 2, 300, D), (2 * 300 * D * 2, 300 * D * 2, 2 * D, 2), 0, False),
+])
+def test_tma_describable(what, sizes, strides, base, ok):
+    assert tma_describable(1024 + base, sizes, strides, 2) is ok, what
+
+
+def test_tma_view_copies_only_what_no_map_describes():
+    buf = torch.zeros(2, 2, 300, D + 1, dtype=torch.bfloat16)
+    aligned = torch.zeros(2, 16, 300, D, dtype=torch.bfloat16)
+    before = fa_module.CONTIGUOUS_COPIES
+    assert tma_view(aligned) is aligned
+    transposed = torch.zeros(2, 300, 16, D, dtype=torch.bfloat16).transpose(1, 2)
+    assert tma_view(transposed) is transposed
+    assert fa_module.CONTIGUOUS_COPIES == before
+    view = buf[..., :D]
+    copied = tma_view(view)
+    assert fa_module.CONTIGUOUS_COPIES == before + 1
+    assert copied.is_contiguous() and torch.equal(copied, view)
+    assert tma_describable(copied.data_ptr(), copied.shape, copied.stride(), 2)
