@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version, on the card, at the main
    paths' shapes plus ragged sizes, with the tolerance stated beside each
    check; every call must move the kernel's launch counter by one.  The
-   GeMM's three config tilings must give identical bits.  Flash attention
+   GeMM's three config tilings must give identical bits, int32 included
+   where a tiling splits K across blocks (each case logs the split plans,
+   and some must split).  Flash attention
    runs qwen's prefill shape, a ragged S = T = 300, a suffix with
    ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and in
    bfloat16, Dk = Dv = 64 in bfloat16, B = 1, S = T = 4096 in bfloat16,
@@ -22,7 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
    TMA tensor map describes (rows D + 1 elements apart), which the wrapper
    must copy once (``CONTIGUOUS_COPIES``).  ``rwkv6_scan`` runs bf16 and
    f32 inputs with ``state0`` absent, zero and random at T = 1, 256 and 300
-   and D = 64 and 32; ``decode_attention`` qwen's decode shape in bf16, a
+   and D = 64 and 32, and decays drawn near 1 and near 0 (w = exp(-exp(x)),
+   x over [-6, 3]) at the prefill shape and at T = 300, D = 32;
+   ``decode_attention`` must give a B = 1 call the bits of the same row of
+   a B = 4 call (output and partial triple, bf16 and f32, T = 512, 4096 and
+   32768), and runs qwen's decode shape in bf16, a
    ragged MHA T = 300 in f32, an MQA group at Dk = Dv = 256, T = 32768,
    T = 1 and an MQA group of 16 at T = 1000, each with ``partial=True`` over
    the whole cache (the combine pass's unnormalized output where the split
@@ -44,7 +50,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``rwkv6_scan`` at rwkv6-3b's prefill (B = 4, T = 256) and decode-step
    (T = 1) shapes, with B = 1, T = 4096 beside them; ``decode_attention``
    at qwen's decode shape and at T = 32768, against SDPA with one query,
-   with its split plan; each attention row logs its share of the bound;
+   with its split plan, and at T = 32768 also with the plan sized for one
+   sequence alone (the rule the batch-free plan did not take); each
+   attention row logs its share of the bound;
    ``mamba_scan``'s kernel at jamba's width;
 4. the two main paths, each with the launch counters reset just before and
    read just after:
@@ -89,7 +97,9 @@ Phases (any failure exits non-zero and prints no result line):
    16 new tokens each; ``rwkv6_scan`` must launch once per layer in the
    prefill and in every decode step, and no other kernel of ours; the
    tokens must repeat on a second run.  Walls, tokens/s, the device's idle
-   share of one prefill and one decode step, and peak memory are printed;
+   share of one prefill and one decode step, ``rwkv6_kernel``'s device time
+   in the prefill (``rwkv6_step_kernel`` in a decode step), and peak memory
+   are printed;
    6b. the card against the CPU: a 2-layer cut of rwkv6-3b at full width in
    float32, as in 5b;
 
@@ -287,6 +297,7 @@ def main() -> int:
                                       CommandQueue, Context, Device, Program,
                                       Stage)
         from repro_torch.kernels import common
+        from repro_torch.kernels.gemm.gemm import plan_split_k, tiles_from_knobs
         from repro_torch.kernels.gemm.ops import gemm
         from repro_torch.kernels.gemm.ref import gemm_plain
         from repro_torch.kernels.delineate.ops import delineate
@@ -300,6 +311,8 @@ def main() -> int:
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.flash_attention import (
             flash_attention as fa_module)
+        from repro_torch.kernels.decode_attention import (
+            decode_attention as da_module)
         from repro_torch.kernels.decode_attention.decode_attention import (
             plan_decode_splits)
         from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -468,10 +481,23 @@ def main() -> int:
     def floats(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
+    # the int32 cases where the tiling leaves the card idle split K across
+    # blocks (atomic uint32 sums, exact in any order); each case logs the
+    # plan of every tiling, and some must split
+    split_plans = {}
+
+    def log_splits(what, m, k, n):
+        split_plans[what] = [tuple(plan_split_k(m, n, k, tiles_from_knobs(kn),
+                                                n_sms, torch.int32))
+                             for kn in knobs.values()]
+
     gemm_err = {}
     for size in (32, 64, 128, 256):
+        log_splits(f"int32 {size}", size, size, size)
         gemm_err[f"int32 {size}"] = gemm_case(
             ints(-64, 64, size, size), ints(-64, 64, size, size), f"int32 {size}")
+    log_splits("int32 257x129x65", 257, 129, 65)
+    log_splits("int32 wraparound 96x200x80", 96, 200, 80)
     gemm_err["int32 257x129x65"] = gemm_case(
         ints(-64, 64, 257, 129), ints(-64, 64, 129, 65), "int32 ragged")
     aw, bw_ = ints(2 ** 20 - 64, 2 ** 20 + 64, 96, 200), ints(-2 ** 20 - 64, -2 ** 20 + 64, 200, 80)
@@ -486,8 +512,12 @@ def main() -> int:
         gemm_err[f"f32 {m}x{k}x{n}"] = gemm_case(floats(m, k), floats(k, n),
                                                  f"f32 {m}x{k}x{n}")
     max_err["gemm"] = max(v for key, v in gemm_err.items() if key.startswith("int32"))
+    check(any(p[0] > 1 for plans in split_plans.values() for p in plans),
+          f"gemm: no int32 case split K: {split_plans}")
     log("phase 2: gemm ok (int32 exact incl. ragged and wraparound; 4T/8T/16T "
-        "tilings bit-identical; max abs err vs plain: "
+        "tilings bit-identical; int32 (splits, k-tiles a split) for 4T/8T/16T: "
+        + ", ".join(f"{k} {v}" for k, v in split_plans.items())
+        + "; max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in gemm_err.items()) + ")")
 
     # flash_attention against its plain version (the JAX package's blocked
@@ -571,8 +601,10 @@ def main() -> int:
 
     # The three scans and decode attention against their plain versions.
     # Both sides compute in f32 and sum in another order (the rwkv kernel
-    # walks the steps one by one, its plain version the chunked log-decay
-    # form; measured on the CPU the two differ by under 1e-6 of max |y|):
+    # takes the chunked form with decays as running products and its
+    # products in three TF32 parts on the tensor cores, its plain version
+    # the chunked log-decay form; tests/test_torch_rwkv_chunked.py holds
+    # the kernel's algorithm within 1e-5 of max |y| on the CPU):
     # float32 outputs and every f32 state within 1e-5 of their largest
     # magnitude; bfloat16 outputs, which both round from f32, within one
     # bf16 ulp of each value plus the same 1e-5.
@@ -619,10 +651,42 @@ def main() -> int:
                         f"D={d_} state0 {state}")
                 rw_err[what] = max(agree(what, got[0], want[0]),
                                    agree(what + " state", got[1], want[1]))
+    # decays near 1 and near 0: w = exp(-exp(w_log)), w_log over [-6, 3]
+    # (w from about 0.998 down to about 2e-9), where products of 32 decays
+    # underflow; the same tolerances
+    for dtype, (b_, h_, t_, d_) in ((bf16, (RWKV_BATCH, rw_h, RWKV_PROMPT, rw_d)),
+                                    (torch.float32, (RWKV_BATCH, rw_h, RWKV_PROMPT, rw_d)),
+                                    (bf16, (2, 8, 300, 32)),
+                                    (torch.float32, (2, 8, 300, 32))):
+        ins = list(rwkv_inputs(b_, h_, t_, d_, dtype))
+        ins[3] = torch.exp(-torch.exp(torch.from_numpy(rng.uniform(
+            -6.0, 3.0, (b_, h_, t_, d_)).astype(np.float32)).to(dev)))
+        for state in ("absent", "random"):
+            s0 = normal(b_, h_, d_, d_) if state == "random" else None
+            got = launched("rwkv6_scan", lambda: rwkv6_scan(*ins, s0))
+            want = rwkv6_scan_plain(*ins, s0)
+            what = (f"rwkv6_scan extreme w {str(dtype)[6:]} B={b_} H={h_} "
+                    f"T={t_} D={d_} state0 {state}")
+            rw_err[what] = max(agree(what, got[0], want[0]),
+                               agree(what + " state", got[1], want[1]))
+    # views whose rows are not 16-byte aligned (D + 1 elements apart): the
+    # kernel reads them from device memory instead of staging them
+    for dtype in (bf16, torch.float32):
+        wide = [normal(2, 8, 100, rw_d + 1, dtype=dtype, sc=0.5)[..., :rw_d]
+                for _ in range(3)]
+        wl = normal(2, 8, 100, rw_d + 1)[..., 1:]
+        ins = (*wide, torch.exp(-torch.exp(wl - 1.0)), normal(8, rw_d, sc=0.5))
+        got = launched("rwkv6_scan", lambda: rwkv6_scan(*ins))
+        want = rwkv6_scan_plain(*ins)
+        what = f"rwkv6_scan unaligned rows {str(dtype)[6:]} B=2 H=8 T=100 D={rw_d}"
+        rw_err[what] = max(agree(what, got[0], want[0]),
+                           agree(what + " state", got[1], want[1]))
     max_err["rwkv6_scan"] = max(v_ for k_, v_ in rw_err.items()
-                                if f"H={rw_h} T={RWKV_PROMPT}" in k_ and "bfloat16" in k_)
+                                if f"H={rw_h} T={RWKV_PROMPT}" in k_
+                                and "bfloat16" in k_ and "extreme" not in k_)
     log(f"phase 2: rwkv6_scan ok ({len(rw_err)} cases: bf16 and f32, state0 "
-        f"absent, zero and random, T = 1, 256, 300, D = {rw_d} and 32; max abs "
+        f"absent, zero and random, T = 1, 256, 300, D = {rw_d} and 32, decays "
+        f"near 1 and near 0, rows not 16-byte aligned; max abs "
         f"err vs plain {max(rw_err.values()):.3g}, at the prefill shape "
         f"{max_err['rwkv6_scan']:.3g})")
 
@@ -638,7 +702,7 @@ def main() -> int:
         q = normal(b_, h_, d_, dtype=dtype)
         k = normal(b_, kvh_, t_, d_, dtype=dtype)
         v = normal(b_, t_, kvh_, d_, dtype=dtype).transpose(1, 2)
-        da_plans[what] = (t_,) + plan_decode_splits(b_, kvh_, t_, n_sms)
+        da_plans[what] = (t_,) + plan_decode_splits(kvh_, t_, n_sms)
         e = agree(f"decode_attention {what}",
                   launched("decode_attention", lambda: decode_attention(q, k, v)),
                   decode_attention_ref(q, k, v))
@@ -683,9 +747,31 @@ def main() -> int:
           and any(n > 1 and t_ % kps for t_, n, kps in plans),
           f"decode_attention plans miss a single split, a split T or a T that "
           f"is no multiple of keys_per_split: {da_plans}")
+    # a row of a batched call has the bits of the same row called alone
+    # (the split plan does not read B): B = 1 against row 2 of B = 4, the
+    # output and the partial triple, in bf16 and f32
+    batch_free = []
+    for dtype in (bf16, torch.float32):
+        for t_ in (LM_MAX_LEN, 4096, 32768):
+            q = normal(LM_BATCH, lm_h, lm_d, dtype=dtype)
+            k = normal(LM_BATCH, lm_kvh, t_, lm_d, dtype=dtype)
+            v = normal(LM_BATCH, t_, lm_kvh, lm_d, dtype=dtype).transpose(1, 2)
+            row = slice(2, 3)
+            for partial in (False, True):
+                whole = launched("decode_attention", lambda: decode_attention(
+                    q, k, v, partial=partial))
+                alone = launched("decode_attention", lambda: decode_attention(
+                    q[row], k[row], v[row], partial=partial))
+                pairs = zip(whole, alone) if partial else ((whole, alone),)
+                check(all(torch.equal(w_[row], a_) for w_, a_ in pairs),
+                      f"decode_attention T={t_} {dtype} partial={partial}: "
+                      f"row 2 of B=4 differs from the row alone")
+            batch_free.append(f"{str(dtype)[6:]} T={t_} "
+                              f"{plan_decode_splits(lm_kvh, t_, n_sms)}")
     max_err["decode_attention"] = da_err["qwen decode B=4 H=16 KVH=2 T=512 D=128 bf16"]
-    log("phase 2: decode_attention ok (partial over 4 T-shards combined "
-        "equals the full result in every case; plans (n_splits, "
+    log("phase 2: decode_attention ok (B=1 bit-equal to row 2 of B=4, output "
+        "and partial triple: " + ", ".join(batch_free) + "; partial over 4 "
+        "T-shards combined equals the full result in every case; plans (n_splits, "
         "keys_per_split): " + ", ".join(f"{k_} {v_[1:]}" for k_, v_ in da_plans.items())
         + "; max abs err vs plain: "
         + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in da_err.items()) + ")")
@@ -799,7 +885,8 @@ def main() -> int:
         bound_ms=g_bound[0], bound_by=g_bound[1])
     r = rows["gemm"]
     log(f"phase 3: gemm 256^3 int32: device time per call: kernel "
-        + ", ".join(f"{c} {v:.6f} ms" for c, v in per_cfg.items())
+        + ", ".join(f"{c} {v:.6f} ms ({tuple(plan_split_k(side, side, side, tiles_from_knobs(k), n_sms, torch.int32))} "
+                    f"splits, k-tiles)" for (c, v), k in zip(per_cfg.items(), knobs.values()))
         + f"; plain {fmt(r['plain_ms'])}, library {fmt(r['library_ms'])}; "
         f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}, int32 peak); eager "
         f"call incl. host dispatch: kernel 16T "
@@ -924,7 +1011,19 @@ def main() -> int:
             library_ms=device_ms(torch, lambda: sdpa_one(q, k, v), per_graph),
             bound_ms=b_ms, bound_by=b_by)
         r = da_rows[label]
-        n_split, kps = plan_decode_splits(LM_BATCH, lm_kvh, t_, n_sms)
+        if label == "long":
+            # the rule this plan replaced: one sequence alone aimed at the
+            # card (PLAN_BATCH = 1), whose cut is as B-free but finer
+            da_module.PLAN_BATCH, kept = 1, da_module.PLAN_BATCH
+            fine = plan_decode_splits(lm_kvh, t_, n_sms)
+            fine_ms = device_ms(torch, lambda: decode_attention(q, k, v), per_graph)
+            da_module.PLAN_BATCH = kept
+            log(f"phase 3: decode_attention long, the plan for one sequence "
+                f"alone ({fine[0]} splits of {fine[1]} keys, "
+                f"{fine[0] * LM_BATCH * lm_kvh} blocks): kernel {fmt(fine_ms)} "
+                f"against {fmt(r['ms'])} with the plan batch of "
+                f"{da_module.PLAN_BATCH}")
+        n_split, kps = plan_decode_splits(lm_kvh, t_, n_sms)
         log(f"phase 3: decode_attention {label} B={LM_BATCH} H={lm_h} "
             f"KVH={lm_kvh} T={t_} D={lm_d} bf16 ({n_split} splits of {kps} "
             f"keys, {n_split * LM_BATCH * lm_kvh} blocks): device time per call: kernel "
@@ -1413,12 +1512,15 @@ def main() -> int:
     log("phase 6: " + profile_line("one rwkv prefill", rp_wall, rp_busy, rp_kernels))
     check(any("rwkv6_kernel" in k_ for k_ in rp_kernels),
           "the rwkv prefill's profile shows no rwkv6_kernel")
+    scan_us = sum(v_ for k_, v_ in rp_kernels.items() if "rwkv6_kernel" in k_)
+    log(f"phase 6: rwkv6_kernel in the profiled prefill: {scan_us / 1e3:.4f} ms "
+        f"for {n_layers} launches, of {rp_busy * 1e3:.4f} ms busy")
     rd_wall, rd_busy, rd_kernels = device_profile(
         torch, lambda: rw_decode_fn(rw_model, rw_cache, tok,
                                     RWKV_PROMPT + RWKV_NEW - 1))
     log("phase 6: " + profile_line("one rwkv decode step", rd_wall, rd_busy, rd_kernels))
-    check(any("rwkv6_kernel" in k_ for k_ in rd_kernels),
-          "the rwkv decode step's profile shows no rwkv6_kernel")
+    check(any("rwkv6_step_kernel" in k_ for k_ in rd_kernels),
+          "the rwkv decode step's profile shows no rwkv6_step_kernel")
     log(f"phase 6: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (the f32 init "
         f"tree beside the bf16 model included)")

@@ -25,10 +25,10 @@
 //
 // * decode_split_kernel, grid (n_splits, KVH, B): each block takes its own
 //   chunk of keys_per_split keys (the plan, plan_decode_splits in
-//   repro_torch/kernels/decode_attention/decode_attention.py, makes the
-//   grid at least about twice the SM count where T allows, with a floor of
-//   keys per split so that the partials' write stays small against the
-//   cache read).  A producer warp streams the chunk in tiles of 32 keys
+//   repro_torch/kernels/decode_attention/decode_attention.py, aims one
+//   sequence's n_splits * KVH blocks at about twice the SM count where T
+//   allows, whatever B, with a floor of keys per split so that the
+//   partials' write stays small against the cache read).  A producer warp streams the chunk in tiles of 32 keys
 //   into a ring of 4 shared-memory stages (3 for f32 rows of 256) with TMA
 //   bulk copies (cp.async.bulk, one per row, or one per tile where the
 //   rows are contiguous), each stage with a full and an empty mbarrier, so
@@ -65,9 +65,9 @@
 // l == 0 read as 1.  Any T >= 1 works: keys past T get p = 0 and are never
 // multiplied, so nothing is padded.  A group larger than the heads a pass
 // holds (8, or 4 at Dk or Dv > 128 or for groups of up to 4) runs in several
-// passes over the chunk.  Repeated runs give the same bits: the plan
-// depends on the shapes and the SM count only, and every sum has a fixed
-// order.
+// passes over the chunk.  Repeated runs give the same bits, and so does a
+// row of a batched call and the same row called alone: the plan depends on
+// KVH, T and the SM count only, and every sum has a fixed order.
 #include "common.cuh"
 
 #include <cuda_bf16.h>

@@ -8,7 +8,9 @@ as split-T flash-decoding: :func:`plan_decode_splits` cuts T into
 warp streams the chunk with TMA bulk copies through a ring of tiles of
 :data:`KEY_TILE` keys and 8 consumer warps keep (acc, m, l) in f32 for the
 group's heads; a second kernel merges the chunks in a fixed order.  The
-tail of T is masked, so nothing is padded.
+tail of T is masked, so nothing is padded.  The plan does not read the
+batch size, so a sequence's bits do not depend on the batch it shares a
+launch with.
 """
 
 from __future__ import annotations
@@ -30,6 +32,12 @@ KEY_TILE = 32
 MIN_KEYS_PER_SPLIT = 64
 #: the grid the plan aims at, in blocks per SM
 BLOCKS_PER_SM = 2
+#: the batch the plan sizes its grid for (the LM path's decode batch).  The
+#: plan must not read B; aiming one sequence alone at the card instead cut
+#: T = 32768 into 128 splits of 256 keys, and at B = 4 the 1024 blocks and
+#: the combine over 128 partials ran 1.6x slower than 32 splits of 1024 on
+#: an H100 80GB HBM3 at 700 W (PERF.md §6)
+PLAN_BATCH = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
@@ -38,23 +46,25 @@ _SYMBOL = {torch.float32: "repro_decode_attention_f32",
            torch.bfloat16: "repro_decode_attention_bf16"}
 
 
-def plan_decode_splits(b: int, kvh: int, t: int,
-                       sm_count: int) -> Tuple[int, int]:
-    """``(n_splits, keys_per_split)`` for a cache of ``t`` keys read by
-    ``b * kvh`` (batch, kv head) pairs on a card of ``sm_count`` SMs.
+def plan_decode_splits(kvh: int, t: int, sm_count: int) -> Tuple[int, int]:
+    """``(n_splits, keys_per_split)`` for a cache of ``t`` keys per kv head,
+    ``kvh`` kv heads, on a card of ``sm_count`` SMs.
 
     ``keys_per_split`` is a multiple of :data:`KEY_TILE` and the splits
-    cover ``[0, t)`` with none empty.  The grid ``n_splits * b * kvh``
-    aims at :data:`BLOCKS_PER_SM` blocks per SM, as far as the floor of
-    :data:`MIN_KEYS_PER_SPLIT` keys per split allows; a small ``t`` gives
-    one split.  The plan depends on its arguments only, so repeated calls
-    split alike and give the same bits.
+    cover ``[0, t)`` with none empty.  The plan takes no batch size, so a
+    sequence's f32 sums over T are cut alike whatever batch it shares a
+    launch with, and a row of a batched call has the bits of the same row
+    called alone.  It aims the grid of a batch of :data:`PLAN_BATCH`
+    sequences, ``n_splits * kvh * PLAN_BATCH`` blocks, at
+    :data:`BLOCKS_PER_SM` blocks per SM, as far as the floor of
+    :data:`MIN_KEYS_PER_SPLIT` keys per split allows (a small ``t`` gives
+    one split).
     """
-    if min(b, kvh, t, sm_count) < 1:
-        raise ValueError(f"plan_decode_splits needs positive sizes, got b={b}, "
+    if min(kvh, t, sm_count) < 1:
+        raise ValueError(f"plan_decode_splits needs positive sizes, got "
                          f"kvh={kvh}, t={t}, sm_count={sm_count}")
     tiles = cdiv(t, KEY_TILE)
-    want = cdiv(BLOCKS_PER_SM * sm_count, b * kvh)
+    want = cdiv(BLOCKS_PER_SM * sm_count, kvh * PLAN_BATCH)
     n = max(1, min(want, t // MIN_KEYS_PER_SPLIT, tiles))
     keys = cdiv(tiles, n) * KEY_TILE
     return cdiv(t, keys), keys
@@ -73,7 +83,7 @@ def launch_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, dk = q.shape
     kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_splits, kps = plan_decode_splits(b, kvh, t, sms)
+    n_splits, kps = plan_decode_splits(kvh, t, sms)
     acc_s = m_s = l_s = None
     if n_splits > 1:
         acc_s = torch.empty((n_splits, b, h, dv), dtype=torch.float32,

@@ -2,8 +2,10 @@
 
 ``rwkv6_scan(r, k, v, w, u, state0)`` launches ``csrc/rwkv6_scan.cu``
 (which replaces the TPU kernel
-``src/repro/kernels/rwkv6_scan/rwkv6_scan.py:_rwkv6_kernel``) on CUDA
-tensors, with or without ``state0``, and runs
+``src/repro/kernels/rwkv6_scan/rwkv6_scan.py:_rwkv6_kernel`` with a
+chunked kernel on a cluster per head, latency- rather than FFMA-bound on
+the H100; ``rwkv6_scan.py`` says how) on CUDA tensors, with or without
+``state0``, and runs
 :func:`~repro_torch.kernels.rwkv6_scan.ref.rwkv6_scan_plain` (the JAX
 package's XLA chunked path) on CPU and ``meta`` tensors.  The JAX package
 registers no Tiny-OpenCL family for it, so neither does the port.
@@ -27,8 +29,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``state0`` (B,H,D,D) (zeros when None: the same function).
 
     Returns (y (B,H,T,D) in r's dtype, final state (B,H,D,D) f32).
-    ``chunk`` is the plain version's chunk; the kernel walks the steps one
-    by one.  On the card r, k and v share a dtype, float32 with a float32
+    ``chunk`` is the plain version's chunk; the kernel's is 32.  On the
+    card r, k and v share a dtype, float32 with a float32
     w or bfloat16 with a float32 or bfloat16 w; D is 32 or 64; each of
     r, k, v, w may be a strided view whose last axis is contiguous.
     """

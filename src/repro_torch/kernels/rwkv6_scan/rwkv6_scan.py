@@ -1,10 +1,20 @@
 """The CUDA RWKV-6 WKV kernel (``csrc/rwkv6_scan.cu``) and its binding.
 
 ``csrc/rwkv6_scan.cu`` replaces the TPU kernel
-``src/repro/kernels/rwkv6_scan/rwkv6_scan.py:_rwkv6_kernel``.  One block
-per (batch, head) walks the recurrence step by step with the D x D f32
-state in registers, seeded from ``state0`` or from zeros; r, k, v and w of
-32 steps at a time are staged in shared memory; any T works unpadded.
+``src/repro/kernels/rwkv6_scan/rwkv6_scan.py:_rwkv6_kernel``.  On the H100
+a chunk of the scan is a chain of dependent phases, so latency bounds it
+before the FFMA rate does; the design keeps the card full and the chain
+short.  Its grid has one block per (batch, head, slab of 32 state
+columns): a column of the state evolves on its own.  It takes the TPU
+kernel's chunked form, 32 steps a chunk, with every decay a running product
+of w (no factor above 1).  The slab blocks of a head form a thread-block
+cluster, each staging its 32 channels with 16-byte ``cp.async`` copies a
+chunk ahead and sharing their decays and share of the chunk's A matrix
+through distributed shared memory; the products that carry the state run
+on the tensor cores in three TF32 parts (f32 accuracy).  A one-step call (a
+decode step) takes a small kernel whose whole grid is resident at once.
+The f32 state is seeded from ``state0`` or from zeros; any T works
+unpadded.
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ import torch
 
 from ..common import launch, ptr, stream_of
 
-#: head dims the kernel is compiled for (D / 4 state rows per thread)
+#: head dims the kernel is compiled for (clusters of D / 32 blocks)
 COMPILED_D = (32, 64)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

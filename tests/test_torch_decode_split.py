@@ -14,6 +14,8 @@ another order); the unnormalized partials within 1e-5 of their largest
 magnitude.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,7 @@ from repro.kernels.decode_attention.ops import decode_attention as j_decode
 from repro.kernels.decode_attention.ref import \
     decode_attention_partial_ref as j_partial
 from repro_torch.kernels.decode_attention.decode_attention import (
-    KEY_TILE, MIN_KEYS_PER_SPLIT, plan_decode_splits)
+    KEY_TILE, MIN_KEYS_PER_SPLIT, PLAN_BATCH, plan_decode_splits)
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_split_ref)
 
@@ -32,7 +34,8 @@ ATOL = 2e-5
 PARTIAL_RTOL = 1e-5
 
 # (b, kvh, t): qwen2.5-3b's decode shape, T = 1, a ragged T = 300 (MHA),
-# T = 32768, one (batch, kv head) pair, and an MQA group of 16 heads
+# T = 32768, one (batch, kv head) pair, and an MQA group of 16 heads (the
+# plan reads kvh and t; b names the call the shape comes from)
 PLAN_SHAPES = [(4, 2, 512), (4, 2, 1), (2, 8, 300), (4, 2, 32768),
                (1, 1, 4096), (2, 1, 1000)]
 
@@ -47,7 +50,7 @@ def _qkv(seed, b, h, kvh, t, d):
 @pytest.mark.parametrize("sm_count", [132, 114])
 @pytest.mark.parametrize("b,kvh,t", PLAN_SHAPES)
 def test_plan_covers_t_with_whole_tiles(b, kvh, t, sm_count):
-    n, kps = plan_decode_splits(b, kvh, t, sm_count)
+    n, kps = plan_decode_splits(kvh, t, sm_count)
     assert n >= 1 and kps % KEY_TILE == 0
     starts = [i * kps for i in range(n)]
     ends = [min(t, s + kps) for s in starts]
@@ -56,21 +59,39 @@ def test_plan_covers_t_with_whole_tiles(b, kvh, t, sm_count):
     assert all(ends[i] == starts[i + 1] for i in range(n - 1))
     if n > 1:
         assert kps >= MIN_KEYS_PER_SPLIT
-    assert plan_decode_splits(b, kvh, t, sm_count) == (n, kps)
+    assert plan_decode_splits(kvh, t, sm_count) == (n, kps)
     if t < 2 * MIN_KEYS_PER_SPLIT:
         assert n == 1
 
 
 @pytest.mark.parametrize("sm_count", [132, 114])
 def test_plan_fills_the_card(sm_count):
-    # qwen's decode shape: tens of blocks where one per pair would be 8
-    n, _ = plan_decode_splits(4, 2, 512, sm_count)
-    assert 8 < n * 4 * 2 <= 2 * sm_count
-    # T = 32768: a few hundred blocks, about two per SM
-    n, _ = plan_decode_splits(4, 2, 32768, sm_count)
-    assert 1.5 * sm_count <= n * 4 * 2 <= 3 * sm_count
+    # qwen's decode shape: 2 kv heads get 8 splits of 64 keys (the floor),
+    # 64 blocks at B = 4, 16 for one sequence
+    assert plan_decode_splits(2, 512, sm_count) == (8, 64)
+    # T = 32768: the plan's batch of 4 sequences fills the card, about two
+    # blocks per SM (one sequence alone takes the same cut, a quarter of it)
+    n, _ = plan_decode_splits(2, 32768, sm_count)
+    assert 1.5 * sm_count <= n * 2 * PLAN_BATCH <= 3 * sm_count
     with pytest.raises(ValueError, match="positive"):
-        plan_decode_splits(4, 2, 0, sm_count)
+        plan_decode_splits(2, 0, sm_count)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4, 8, 16])
+def test_plan_is_the_same_for_every_batch(batch):
+    """The kernel's wrapper plans from (KVH, T, SM count) alone, so a row of
+    a batched call is cut like the same row alone; the plain version of the
+    split scheme then gives that row the same bits."""
+    assert "b" not in inspect.signature(plan_decode_splits).parameters
+    assert plan_decode_splits(2, 32768, 132) == (32, 1024)
+    t, kvh = 300, 2
+    n, kps = plan_decode_splits(kvh, t, 132)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(batch, batch, 8, kvh, t, 32))
+    whole = decode_attention_split_ref(q, k, v, n, kps)
+    for row in {0, batch - 1}:
+        alone = decode_attention_split_ref(q[row:row + 1], k[row:row + 1],
+                                           v[row:row + 1], n, kps)
+        assert torch.equal(whole[row:row + 1], alone)
 
 
 @pytest.mark.parametrize("b,h,kvh,t", [(4, 16, 2, 512), (2, 8, 8, 300),
@@ -79,7 +100,7 @@ def test_split_ref_matches_jax(b, h, kvh, t):
     arrs = _qkv(b + h + t, b, h, kvh, t, 32)
     q, k, v = (torch.from_numpy(a) for a in arrs)
     want = np.asarray(j_decode(*(jnp.asarray(a) for a in arrs), impl="xla"))
-    plans = {plan_decode_splits(b, kvh, t, sm) for sm in (132, 114)}
+    plans = {plan_decode_splits(kvh, t, sm) for sm in (132, 114)}
     plans.add((1, t))
     for n, kps in plans:
         got = decode_attention_split_ref(q, k, v, n, kps)

@@ -28,7 +28,9 @@ import repro_torch.core as tcore
 from repro_torch.core.device import KernelKnobs, check_smem_budget
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.gemm.gemm import (BK, COMPILED_STAGES, COMPILED_TILES,
-                                           ITEMSIZE, tiles_from_knobs)
+                                           ITEMSIZE, MIN_K_TILES_PER_SPLIT,
+                                           GemmTiling, plan_split_k,
+                                           tiles_from_knobs)
 from repro_torch.kernels.gemm.ops import gemm
 from repro_torch.kernels.gemm.ref import counts as t_counts
 from repro_torch.kernels.gemm.ref import gemm_ref
@@ -155,6 +157,41 @@ def test_oversized_tiling_raises():
     assert tiles_from_knobs(small)[:2] == (32, 64)    # shrinks to fit
     with pytest.raises(ValueError, match="no compiled GeMM tiling"):
         tiles_from_knobs(dataclasses.replace(small, smem_budget_bytes=1024))
+
+
+# -- the kernel's split-K plan -----------------------------------------------
+@pytest.mark.parametrize("sm_count", [132, 114])
+@pytest.mark.parametrize("bm,bn", COMPILED_TILES)
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (257, 129, 65),
+                                   (96, 200, 80), (2048, 2048, 2048),
+                                   (8, 8, 8), (64, 4096, 64), (5, 0, 7)])
+def test_split_k_plan_covers_k_with_whole_tiles(m, k, n, bm, bn, sm_count):
+    tiling = GemmTiling(bm, bn, BK, 4)
+    k_tiles = -(-k // BK)
+    splits, per = plan_split_k(m, n, k, tiling, sm_count, torch.int32)
+    assert splits >= 1 and per >= 1
+    if k_tiles:
+        assert (splits - 1) * per < k_tiles <= splits * per   # none empty
+    if splits > 1:
+        assert per >= MIN_K_TILES_PER_SPLIT
+        blocks = -(-m // bm) * -(-n // bn)
+        assert 2 * blocks <= sm_count and splits * blocks <= sm_count
+    # float32 never splits: one in-order chain per output
+    assert plan_split_k(m, n, k, tiling, sm_count, torch.float32) == \
+        (1, max(1, k_tiles))
+    assert plan_split_k(m, n, k, tiling, sm_count, torch.int32) == (splits, per)
+
+
+def test_split_k_engages_where_the_tiling_leaves_the_card_idle():
+    tiles = {knobs: GemmTiling(*t, BK, 4) for knobs, t in
+             zip(CONFIGS, COMPILED_TILES)}
+    plans = {c: plan_split_k(256, 256, 256, t, 132, torch.int32)
+             for c, t in tiles.items()}
+    assert plans["EGPU_4T"] == (1, 16)        # 128 blocks fill the card
+    assert plans["EGPU_8T"] == (4, 4)         # 32 blocks
+    assert plans["EGPU_16T"] == (8, 2)        # 8 blocks
+    assert plan_split_k(2048, 2048, 2048, tiles["EGPU_16T"], 132,
+                        torch.int32) == (1, 128)
 
 
 # -- the quickstart's GeMM offload ----------------------------------------
