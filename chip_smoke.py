@@ -35,9 +35,13 @@ Phases (any failure exits non-zero and prints no result line):
    plan cuts T) and over 4 T-shards combined against the full result; the
    plans must include a single split, several, and a T that is no multiple
    of ``keys_per_split``, and each case's plan is logged;
-   ``mamba_scan`` jamba's width (Dm = 16384, N = 16, B = 4, T = 256) with
-   the dtypes the jamba block passes under bf16, a ragged T = 100 and a
-   ``state0``;
+   ``mamba_scan`` jamba's width (Dm = 16384, N = 16) at B = 4, T = 256
+   and B = 1, T = 4096 with the dtypes the jamba block passes under bf16,
+   a ragged T = 100, ``state0``, N = 32, bf16 rows of Dm = 300 and 301
+   (no 16-byte copy describes them: the kernel's element-wise path, x and
+   delta both bf16 at 301) and decays from 0 to 0.99999 over T = 512; each
+   case logs its lane count (``plan_mamba``) and copy path, and every lane
+   count and both paths must run;
 3. kernel timings at the main paths' shapes: device time per call from
    CUDA events around replays of a CUDA graph of many warm calls, for the
    kernel, its plain version and, where one PyTorch call computes the same
@@ -53,7 +57,10 @@ Phases (any failure exits non-zero and prints no result line):
    with its split plan, and at T = 32768 also with the plan sized for one
    sequence alone (the rule the batch-free plan did not take); each
    attention row logs its share of the bound;
-   ``mamba_scan``'s kernel at jamba's width;
+   ``mamba_scan``'s kernel at jamba's width at B = 4, T = 256, with
+   B = 2, T = 128 (phase 4c's shape) and B = 1, T = 4096 beside it, each
+   with its byte bound and the special-function unit's floor (one
+   exponential per step, channel and state);
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -129,6 +136,8 @@ PEAK_BF16_FLOPS = 989e12
 # arithmetic instruction throughput, compute capability 9.0), times the SMs
 # and the card's max SM clock from nvidia-smi give the int32 peak.
 INT32_MAC_PER_CLK_PER_SM = 64
+# Exponentials (MUFU.EX2) per clock per SM, from the same table.
+SFU_PER_CLK_PER_SM = 16
 
 TINYBIO_KERNELS = {
     "fir": ("src/repro_torch/csrc/fir.cu", "src/repro/kernels/fir/fir.py:27"),
@@ -320,6 +329,8 @@ def main() -> int:
                                                               decode_attention)
         from repro_torch.kernels.decode_attention.ref import (
             decode_attention_partial_ref, decode_attention_ref)
+        from repro_torch.kernels.mamba_scan.mamba_scan import (plan_mamba,
+                                                               rows_16b)
         from repro_torch.kernels.mamba_scan.ops import mamba_scan, selective_scan
         from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
         from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
@@ -779,40 +790,85 @@ def main() -> int:
     # mamba_scan at jamba's width with the dtypes the jamba block passes
     # under bf16 (x bf16; delta, a, b, c, d f32; models/mamba.py:80-90).
     # d = 0 in the bf16 cases, so y is the scan's own output (the skip term
-    # is the wrapper's plain PyTorch on both sides); the f32 case keeps d.
+    # is the wrapper's plain PyTorch on both sides); the f32 cases keep d.
+    # Each case logs plan_mamba's lanes and whether x and delta took the
+    # kernel's 16-byte copies (rows_16b) or its element-wise path; both
+    # paths and every lane count must run.  "extreme decays" draws
+    # delta * a over [-150, -1e-5]: decays from 0 (below 2^-127) to
+    # 0.99999, which compound over all T steps.  "decays near 1" draws
+    # jamba's own ranges (delta in [1e-3, 1e-2] and a = -exp(A_log) in
+    # [-16, -1], as mamba's A_log = log(1 .. 16) and its delta floor make
+    # them), decays of 0.85 to 0.999, over one sequence of 4096 steps in
+    # f32: the chain along which the kernel's approximate exponentials
+    # (ex2.approx) could build up an error.
     mb_cfg = get_arch(MAMBA_ARCH)
     mb_dm, mb_n = mb_cfg.mamba_d_inner, mb_cfg.mamba_d_state
 
-    def ssm_inputs(b_, t_, dm, n_, dtype):
+    def log_uniform(lo, hi, *shape):
+        return torch.exp(torch.from_numpy(rng.uniform(
+            math.log(lo), math.log(hi), shape).astype(np.float32))).to(dev)
+
+    def ssm_inputs(b_, t_, dm, n_, dtype, delta_dtype=torch.float32,
+                   decays=None):
         x_ = normal(b_, t_, dm, dtype=dtype, sc=0.5)
-        delta = normal(b_, t_, dm, sc=0.3).abs() + 0.1
-        a_ = -(normal(dm, n_).abs() + 0.1)
-        return x_, delta, a_, normal(b_, t_, n_, sc=0.5), normal(b_, t_, n_, sc=0.5)
+        if decays == "extreme":
+            delta = log_uniform(1e-3, 5.0, b_, t_, dm)
+            a_ = -log_uniform(1e-2, 30.0, dm, n_)
+        elif decays == "near 1":
+            delta = log_uniform(1e-3, 1e-2, b_, t_, dm)
+            a_ = -log_uniform(1.0, 16.0, dm, n_)
+        else:
+            delta = normal(b_, t_, dm, sc=0.3).abs() + 0.1
+            a_ = -(normal(dm, n_).abs() + 0.1)
+        return (x_, delta.to(delta_dtype), a_, normal(b_, t_, n_, sc=0.5),
+                normal(b_, t_, n_, sc=0.5))
 
     def mamba_plain(x_, delta, a_, bm, cm, d_, s0):
         yp, hp = mamba_scan_plain(x_, delta, a_, bm, cm, s0)
         return yp + (x_.float() * d_[None, None].float()).to(yp.dtype), hp
 
-    mb_err = {}
-    for what, (b_, t_, dm, n_, dtype, with_d, with_s0) in {
+    f32 = torch.float32
+    mb_err, mb_paths, mb_share = {}, {}, {}
+    for what, (b_, t_, dm, n_, dtype, d_dtype, with_d, with_s0, decays) in {
             f"jamba width B=4 T=256 Dm={mb_dm} N={mb_n} x bf16": (
-                4, 256, mb_dm, mb_n, bf16, False, False),
-            f"jamba width B=4 T=256 state0 x bf16": (
-                4, 256, mb_dm, mb_n, bf16, False, True),
+                4, 256, mb_dm, mb_n, bf16, f32, False, False, None),
+            "jamba width B=4 T=256 state0 x bf16": (
+                4, 256, mb_dm, mb_n, bf16, f32, False, True, None),
+            "jamba width B=1 T=4096 x bf16": (
+                1, 4096, mb_dm, mb_n, bf16, f32, False, False, None),
+            "decays near 1 jamba width B=1 T=4096 f32 state0": (
+                1, 4096, mb_dm, mb_n, f32, f32, False, True, "near 1"),
             "ragged B=2 T=100 Dm=300 N=16 x bf16 state0": (
-                2, 100, 300, 16, bf16, False, True),
-            "B=2 T=100 Dm=300 N=8 f32 with D": (2, 100, 300, 8, torch.float32, True, True),
-            "B=1 T=7 Dm=64 N=2 f32": (1, 7, 64, 2, torch.float32, True, False)}.items():
-        ins = ssm_inputs(b_, t_, dm, n_, dtype)
+                2, 100, 300, 16, bf16, f32, False, True, None),
+            "B=2 T=50 Dm=301 N=16 x and delta bf16 state0": (
+                2, 50, 301, 16, bf16, bf16, False, True, None),
+            "B=2 T=100 Dm=1024 N=32 x bf16 state0": (
+                2, 100, 1024, 32, bf16, f32, False, True, None),
+            "extreme decays B=2 T=512 Dm=2048 N=16 f32 state0": (
+                2, 512, 2048, 16, f32, f32, False, True, "extreme"),
+            "B=2 T=100 Dm=300 N=8 f32 with D": (2, 100, 300, 8, f32, f32, True, True, None),
+            "B=1 T=7 Dm=64 N=2 f32": (1, 7, 64, 2, f32, f32, True, False, None)}.items():
+        ins = ssm_inputs(b_, t_, dm, n_, dtype, d_dtype, decays)
         d_ = normal(dm) if with_d else torch.zeros(dm, device=dev)
         s0 = normal(b_, dm, n_) if with_s0 else None
         got = launched("mamba_scan", lambda: mamba_scan(*ins, d_, s0))
         want = mamba_plain(*ins, d_, s0)
         mb_err[what] = max(agree(f"mamba_scan {what}", got[0], want[0]),
                            agree(f"mamba_scan {what} state", got[1], want[1]))
+        # the f32 outputs' error as a share of the tolerance (<= 1 passes)
+        mb_share[what] = max(err(g_, w_) / (1e-5 * float(w_.abs().max()))
+                             for g_, w_ in zip(got, want) if g_.dtype == f32)
+        copy16 = all(rows_16b(z.data_ptr(), dm, z.element_size()) for z in ins[:2])
+        mb_paths[what] = (plan_mamba(b_, t_, dm, n_, n_sms).lanes,
+                          "16-byte" if copy16 else "element")
+    check({p[0] for p in mb_paths.values()} == {1, 2, 4}
+          and {p[1] for p in mb_paths.values()} == {"16-byte", "element"},
+          f"mamba_scan: phase 2 missed a lane count or a copy path: {mb_paths}")
     max_err["mamba_scan"] = mb_err[f"jamba width B=4 T=256 Dm={mb_dm} N={mb_n} x bf16"]
-    log("phase 2: mamba_scan ok (max abs err vs plain: "
-        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in mb_err.items()) + ")")
+    log("phase 2: mamba_scan ok (max abs err vs plain, f32 outputs' err over "
+        "tolerance, [lanes, copy path]: " + ", ".join(
+            f"{k_} {v_:.3g} {mb_share[k_]:.3f} {mb_paths[k_]}"
+            for k_, v_ in mb_err.items()) + ")")
 
     # -- 3. timings at the main paths' shapes ------------------------------
     n, taps = x.numel(), h.numel()
@@ -1035,25 +1091,36 @@ def main() -> int:
 
     # mamba_scan's kernel (selective_scan: the scan without the D x skip,
     # which the op adds in plain PyTorch as the JAX op does) at jamba's
-    # width, B = 4, T = 256, with the dtypes the jamba block passes under
-    # bf16.  Bound: x (bf16), delta (f32), a, b, c (f32) read once, y (bf16)
-    # and the f32 state written once, against 6 N flops per step and
-    # channel (mamba_scan's counts).  Library none.
-    ins = ssm_inputs(4, 256, mb_dm, mb_n, bf16)
-    elems = 4 * 256 * mb_dm
-    mb_bound = bound(elems * (2 + 4 + 2) + 4.0 * (mb_dm * mb_n + 2 * 4 * 256 * mb_n
-                                                  + 4 * mb_dm * mb_n),
-                     6.0 * elems * mb_n)
-    rows["mamba_scan"] = dict(
-        ms=device_ms(torch, lambda: selective_scan(*ins), 20),
-        plain_ms=device_ms(torch, lambda: mamba_scan_plain(*ins), 1),
-        library_ms=None, bound_ms=mb_bound[0], bound_by=mb_bound[1])
-    r = rows["mamba_scan"]
-    log(f"phase 3: mamba_scan B=4 T=256 Dm={mb_dm} N={mb_n} (x bf16, the rest "
-        f"f32): device time per call: kernel {fmt(r['ms'])}, plain "
-        f"{fmt(r['plain_ms'])}, library none; bound "
-        f"{mb_bound[0]:.6f} ms ({mb_bound[1]}); kernel "
-        f"{r['ms'] / mb_bound[0]:.1f}x its bound")
+    # width with the dtypes the jamba block passes under bf16: B = 4,
+    # T = 256 (the row reported), phase 4c's B = 2, T = 128 and one long
+    # sequence, B = 1, T = 4096, beside it.  Bound: x (bf16), delta (f32),
+    # a, b, c (f32) read once, y (bf16) and the f32 state written once,
+    # against 6 N flops per step and channel (mamba_scan's counts).  The
+    # special-function unit's floor is logged beside it: one exponential
+    # per step, channel and state at 16 a clock per SM (CUDA C++
+    # Programming Guide, compute capability 9.0) and the max SM clock.
+    # Library none.
+    mb_rows = {}
+    for b_, t_, per_graph in ((4, 256, 20), (2, 128, 80), (1, 4096, 5)):
+        ins = ssm_inputs(b_, t_, mb_dm, mb_n, bf16)
+        elems = b_ * t_ * mb_dm
+        mb_bound = bound(elems * (2 + 4 + 2) + 4.0 * (
+            mb_dm * mb_n + 2 * b_ * t_ * mb_n + b_ * mb_dm * mb_n),
+            6.0 * elems * mb_n)
+        sfu_ms = elems * mb_n / (SFU_PER_CLK_PER_SM * n_sms * max_sm_mhz * 1e6) * 1e3
+        mb_rows[b_, t_] = r = dict(
+            ms=device_ms(torch, lambda: selective_scan(*ins), per_graph),
+            plain_ms=device_ms(torch, lambda: mamba_scan_plain(*ins), 1),
+            library_ms=None, bound_ms=mb_bound[0], bound_by=mb_bound[1])
+        plan = plan_mamba(b_, t_, mb_dm, mb_n, n_sms)
+        log(f"phase 3: mamba_scan B={b_} T={t_} Dm={mb_dm} N={mb_n} (x bf16, "
+            f"the rest f32; {plan.lanes} lanes a channel, {plan.blocks} blocks, "
+            f"{plan.warps_per_sm:.2f} warps an SM): device time per call: "
+            f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library none; "
+            f"bound {mb_bound[0]:.6f} ms ({mb_bound[1]}), SFU floor "
+            f"{sfu_ms:.6f} ms; kernel {r['ms'] / mb_bound[0]:.2f}x its bound, "
+            f"{r['ms'] / sfu_ms:.2f}x the SFU floor")
+    rows["mamba_scan"] = mb_rows[4, 256]
 
     # -- 4a. the TinyBio main path --------------------------------------------
     runs = {}

@@ -23,7 +23,7 @@ import torch
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
 from .layers import NEG_INF, apply_rotary, cdtype
-from .params import ParamSpec, dense_spec
+from .params import ParamSpec, dense_spec, state_device
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +97,10 @@ def attend_full(p, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """Zero k and v (B, KVH, max_len, hd) on ``device`` (default: the card)."""
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     shape = (batch, kvh, max_len, hd)
+    device = state_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

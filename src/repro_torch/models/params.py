@@ -74,6 +74,16 @@ def leaf_seed(seed: int, path: str) -> int:
     return (zlib.crc32(path.encode()) ^ (int(seed) * 2654435761)) % 2 ** 32
 
 
+def state_device(device=None) -> torch.device:
+    """Where a model state (a cache, a recurrent state) is made: the card
+    when ``device`` is None, ``meta`` for shapes alone, else ``device``
+    through :func:`~repro_torch.core.runtime.resolve_device` (which raises
+    when the card is asked for and there is none)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device("cuda" if device is None else device)
+
+
 def init_params(spec_tree: Dict[str, Any], seed: int, *,
                 dtype: torch.dtype = torch.float32,
                 device: Any = None) -> Dict[str, Any]:

@@ -26,7 +26,7 @@ import torch
 from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from .config import ModelConfig
 from .layers import cdtype
-from .params import ParamSpec, dense_spec
+from .params import ParamSpec, dense_spec, state_device
 
 LORA_W = 64     # decay-lora rank (rwkv6 uses 64 for 3B)
 
@@ -191,7 +191,10 @@ def rwkv_block(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                     device=None):
+    """Zero (tlast (B, D) dtype, wkv (B, H, hd, hd) f32, clast (B, D) dtype)
+    on ``device`` (default: the card)."""
     d, h, hd = cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim
+    device = state_device(device)
     return (torch.zeros((batch, d), dtype=dtype, device=device),
             torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
             torch.zeros((batch, d), dtype=dtype, device=device))

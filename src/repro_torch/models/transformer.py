@@ -26,14 +26,13 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch import nn
 
-from ..core.runtime import resolve_device
 from .attention import (attend_decode, attend_full, attn_spec,
                         cache_from_prefill)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, cdtype, embed_spec, embed_tokens,
                      logits_from_hidden, mlp_spec, mul_scalar, norm_spec,
                      residual_scale)
-from .params import leaves_with_path
+from .params import leaves_with_path, state_device
 from .rwkv import (F32_LEAVES, init_rwkv_state, rwkv_channel_mix, rwkv_spec,
                    rwkv_time_mix)
 
@@ -225,10 +224,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dtype, wkv (G, B, H, hd, hd) f32, clast (G, B, D) dtype)`` for an
     ``rwkv`` one (whose state ``max_len`` does not size)."""
     check_supported(cfg)
-    if device is not None and torch.device(device).type == "meta":
-        dev = torch.device("meta")
-    else:
-        dev = resolve_device("cuda" if device is None else device)
+    dev = state_device(device)
     g = cfg.n_groups
     cache: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.block_pattern):

@@ -42,7 +42,7 @@ from repro.models.transformer import prefill as j_prefill
 from repro.train.serve import greedy_generate as j_greedy_generate
 from repro_torch import configs
 from repro_torch.kernels.common import LAUNCHES
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.models.params import (init_params, leaves_with_path,
                                        param_bytes)
@@ -426,3 +426,24 @@ def test_cache_struct_and_axes_match_the_reference():
                                       jnp.ones((2, 2, 5, 32)), 16)["k"]
     np.testing.assert_array_equal(jk["k"].float().numpy(),
                                   np.asarray(want_k.astype(jnp.float32)))
+
+
+def test_init_kv_cache_and_init_rwkv_state_default_to_the_card():
+    """init_kv_cache and init_rwkv_state follow init_cache: the card unless
+    the caller asks for the CPU (or ``meta`` for shapes alone)."""
+    qwen, rwkv_cfg = _reduced("qwen2.5-3b"), configs.get("rwkv6-3b").reduced()
+    if torch.cuda.is_available():
+        assert attention.init_kv_cache(qwen, 1, 8)["k"].device.type == "cuda"
+        assert all(t.device.type == "cuda"
+                   for t in rwkv.init_rwkv_state(rwkv_cfg, 1))
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        attention.init_kv_cache(qwen, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rwkv.init_rwkv_state(rwkv_cfg, 1)
+    for dev in ("cpu", "meta"):
+        cache = attention.init_kv_cache(qwen, 1, 8, device=dev)
+        assert {t.device.type for t in cache.values()} == {dev}
+        state = rwkv.init_rwkv_state(rwkv_cfg, 1, device=dev)
+        assert {t.device.type for t in state} == {dev}
+    assert attention.kv_cache_struct(qwen, 1, 8)["k"].device.type == "meta"
