@@ -13,10 +13,15 @@ Phases (any failure exits non-zero and prints no result line):
    toolkit's ``nvcc`` (one process per source, all at once);
 2. each kernel against its plain PyTorch version, on the card, at the main
    paths' shapes plus ragged sizes, with the tolerance stated beside each
-   check; every call must move the kernel's launch counter by one.  The
-   GeMM's three config tilings must give identical bits, int32 included
-   where a tiling splits K across blocks (each case logs the split plans,
-   and some must split).  Flash attention
+   check; every call must move the kernel's launch counter by one.
+   ``stockham_fft`` runs every n from 1 to 8192 (and a row base off 16-byte
+   alignment at n = 512), and ``power_spectrum`` must give the bits of
+   ``re*re + im*im`` over the card's own ``fft``; ``svm`` must give
+   ``svm(0) + b`` bit for bit with the bias as a card tensor, a float and a
+   CPU tensor, and runs d = 1024, d = 7 and q that give 4 and 8 queries a
+   block (``plan_svm``).  The GeMM's three config tilings must give
+   identical bits, int32 included where a tiling splits K across blocks
+   (each case logs the split plans, and some must split).  Flash attention
    runs qwen's prefill shape, a ragged S = T = 300, a suffix with
    ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and in
    bfloat16, Dk = Dv = 64 in bfloat16, B = 1, S = T = 4096 in bfloat16,
@@ -48,6 +53,11 @@ Phases (any failure exits non-zero and prints no result line):
    function, that call (``library_ms``); the eager cost per call, host
    dispatch included, is logged beside them.  ``bound_ms`` is the least time
    the card could take, from the bytes and operations of this run's inputs.
+   ``power_spectrum`` is timed beside ``fft``, against the parent's four
+   launches (``fft``, then ``re*re + im*im``), and an empty kernel
+   (``csrc/launch_floor.cu``) gives the card's launch floor; a
+   ``torch.profiler`` trace must show one device kernel per call of
+   ``svm_decision`` and of ``power_spectrum``.
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
    B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
@@ -246,6 +256,37 @@ def profile_line(what: str, wall_s: float, busy_s: float, per_kernel) -> str:
             + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
 
 
+def device_kernels(torch, fn, calls: int):
+    """Names of the device kernels that ``calls`` calls of ``fn`` ran, from
+    a ``torch.profiler`` trace (copies and memsets included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+
+def launch_floor(common):
+    """``floor(blocks, threads)`` launches ``csrc/launch_floor.cu``'s empty
+    kernel on the current stream (no counter: no path of the port runs
+    it)."""
+    import ctypes
+    import torch
+    fn = common.kernel_library().repro_launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def floor(blocks: int, threads: int) -> None:
+        dev = torch.cuda.current_device()
+        err = fn(blocks, threads, dev, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"the empty kernel failed to launch: CUDA error {err}")
+    return floor
+
+
 def call_ms(torch, fn, iters: int, warmup: int = 10) -> float:
     """Mean milliseconds per eager call over ``iters`` back-to-back calls,
     host dispatch included (CUDA events around the loop)."""
@@ -313,9 +354,10 @@ def main() -> int:
         from repro_torch.kernels.delineate.ref import delineate_ref
         from repro_torch.kernels.fir.ops import fir
         from repro_torch.kernels.fir.ref import fir_ref
-        from repro_torch.kernels.stockham_fft.ops import fft
+        from repro_torch.kernels.stockham_fft.ops import fft, power_spectrum
         from repro_torch.kernels.stockham_fft.ref import stockham_fft_ref
         from repro_torch.kernels.svm.ops import svm_decision
+        from repro_torch.kernels.svm.svm import plan_svm
         from repro_torch.kernels.svm.ref import svm_decision_ref
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.flash_attention import (
@@ -435,8 +477,35 @@ def main() -> int:
           "fft (3, 2048) vs plain")
     check(np.allclose(gre.cpu().numpy() + 1j * gim.cpu().numpy(), ref_np,
                       rtol=1e-4, atol=1e-4 * 2048), "fft (3, 2048) vs numpy")
+    # every n the kernel takes, 1 .. 8192 (batch 3, complex input), on the
+    # 16-byte copy path and, at n = 512, on the 4-byte one (a base 4 bytes
+    # off 16-byte alignment): the same tolerance
+    fft_err = {}
+    for s_ in range(14):
+        n_ = 1 << s_
+        for offset in (0, 1) if n_ == 512 else (0,):
+            flat = torch.from_numpy(rng.standard_normal(2 * 3 * n_ + offset).astype(
+                np.float32)).to(dev)
+            pr_, pi_ = (flat[offset + i * 3 * n_:offset + (i + 1) * 3 * n_].view(3, n_)
+                        for i in range(2))
+            gre, gim = launched("stockham_fft", lambda: fft(pr_, pi_))
+            rre, rim = stockham_fft_ref(pr_, pi_)
+            mag = float(torch.sqrt(rre * rre + rim * rim).max())
+            fft_err[n_, offset] = max(err(gre, rre), err(gim, rim)) / mag
+            check(fft_err[n_, offset] <= 1e-6,
+                  f"fft n={n_} (offset {offset}) error {fft_err[n_, offset]} of max |X|")
+    # power_spectrum is the same launch with |X|^2 in its last pass: the bits
+    # of re*re + im*im over the card's own fft, for TinyBio's windows, one
+    # 1-D signal and n = 8192
+    for sig in (w, w[5], flat[:3 * 8192].view(3, 8192)):
+        ps = launched("stockham_fft", lambda: power_spectrum(sig))
+        fre, fim = fft(sig)
+        check(torch.equal(ps.view(torch.int32), (fre * fre + fim * fim).view(torch.int32)),
+              f"power_spectrum {tuple(sig.shape)} differs from re*re + im*im of fft")
     log(f"phase 2: stockham_fft ok (max abs err {max_err['stockham_fft']:.3g}, "
-        f"max |X| {scale:.4g})")
+        f"max |X| {scale:.4g}; n = 1 .. 8192, error / max |X| at most "
+        f"{max(fft_err.values()):.3g}; power_spectrum bit-equal to re*re + im*im "
+        f"of fft)")
 
     # svm at q=128, m=256, d=36, with support vectors drawn near the queries
     # so the RBF values are not all 0; fp32 dots and sums in another order
@@ -461,7 +530,36 @@ def main() -> int:
     check(torch.allclose(launched("svm", lambda: svm_decision(xq, svq, aq, 0.0, 0.5)),
                          svm_decision_ref(xq, svq, aq, 0.0, 0.5),
                          rtol=1e-4, atol=1e-5), "svm ragged")
-    log(f"phase 2: svm ok (max abs err {max_err['svm']:.3g})")
+    # the bias inside the kernel: svm(b) has the bits of svm(0) + b, with b a
+    # 0-d tensor on the card, a float and a 0-d CPU tensor
+    s0 = launched("svm", lambda: svm_decision(feats, sv_near, alpha_main, 0.0, 0.5))
+    for what, bb in (("card tensor", b), ("float", 0.1),
+                     ("CPU tensor", torch.tensor(0.1))):
+        got_b = launched("svm", lambda: svm_decision(feats, sv_near, alpha_main, bb, 0.5))
+        check(torch.equal(got_b.view(torch.int32), (s0 + bb).view(torch.int32)),
+              f"svm with the bias as a {what} differs from svm(0) + b")
+    # other shapes: d = 1024, q that give 4 and 8 queries a block (1024,
+    # 1100; plan_svm), a ragged d = 7 on the 4-byte load path; the same
+    # tolerance
+    svm_plans = {}
+    for q_, m_, d_ in ((64, 512, 1024), (1024, 1024, 36), (1100, 1024, 36),
+                       (13, 300, 7)):
+        xq = torch.from_numpy(rng.uniform(-1, 1, (q_, d_)).astype(np.float32)).to(dev)
+        spread = 0.2 if d_ < 100 else 0.01
+        svq = (xq[torch.from_numpy(rng.integers(0, q_, m_)).to(dev)] + spread
+               * torch.from_numpy(rng.standard_normal((m_, d_)).astype(np.float32)).to(dev))
+        aq = torch.from_numpy(rng.standard_normal(m_).astype(np.float32) / m_).to(dev)
+        want = svm_decision_ref(xq, svq, aq, b, 0.5)
+        check(float((want - b).abs().max()) > 1e-3, f"svm {q_, m_, d_} has no RBF signal")
+        check(torch.allclose(launched("svm", lambda: svm_decision(xq, svq, aq, b, 0.5)),
+                             want, rtol=1e-4, atol=1e-5), f"svm at {q_, m_, d_}")
+        svm_plans[q_, m_, d_] = plan_svm(q_, n_sms)
+    check({p_.queries for p_ in svm_plans.values()} >= {1, 4, 8},
+          f"svm: phase 2 missed a queries-per-block count: {svm_plans}")
+    log(f"phase 2: svm ok (max abs err {max_err['svm']:.3g}; svm(b) bit-equal to "
+        f"svm(0) + b for b on the card, a float and a CPU tensor; plans "
+        + ", ".join(f"{k_}: {p_.queries} queries a block" for k_, p_ in svm_plans.items())
+        + ")")
 
     # gemm, each case through the tilings of all three configs, which must
     # give identical bits (compared as int32 words, so -0.0 != +0.0).
@@ -916,6 +1014,48 @@ def main() -> int:
             f"{bound_ms:.6f} ms ({bound_by}); eager call incl. host "
             f"dispatch: kernel {fmt(eager[0])}, plain {fmt(eager[1])}, "
             f"library {fmt(eager[2])}")
+
+    # power_spectrum (TinyBio's stage-3 call: the fft kernel with |X|^2 in
+    # its last pass, one launch) beside fft; its "library" is the parent's
+    # composition, fft and then re*re + im*im (four launches).  Bound: the
+    # windows read once and the spectrum written once, against the fft's
+    # flops and 3 a sample.
+    def squares(r_, i_):
+        return r_ * r_ + i_ * i_
+
+    ps_bound = bound(4.0 * 2 * bw * bn, 10.0 * bw * (bn // 2) * int(math.log2(bn))
+                     + 3.0 * bw * bn)
+    ps_row = dict(
+        ms=device_ms(torch, lambda: power_spectrum(w), 100),
+        plain_ms=device_ms(torch, lambda: squares(*stockham_fft_ref(
+            w, torch.zeros_like(w))), 5),
+        library_ms=device_ms(torch, lambda: squares(*fft(w)), 100),
+        bound_ms=ps_bound[0], bound_by=ps_bound[1])
+    log(f"phase 3: power_spectrum {bw} x {bn}: device time per call: kernel "
+        f"{fmt(ps_row['ms'])}, plain {fmt(ps_row['plain_ms'])}, fft then "
+        f"re*re + im*im (the parent's four launches) {fmt(ps_row['library_ms'])}; "
+        f"bound {ps_bound[0]:.6f} ms ({ps_bound[1]}); eager call incl. host "
+        f"dispatch: kernel {fmt(call_ms(torch, lambda: power_spectrum(w), 300))}")
+    # the card's launch floor: an empty kernel (csrc/launch_floor.cu) of one
+    # block of 32 threads and of TinyBio's fft/svm grid, 128 blocks of 256,
+    # timed as the kernels are (100 a graph)
+    floor = launch_floor(common)
+    floor_ms = {g_: device_ms(torch, lambda g_=g_: floor(*g_), 100)
+                for g_ in ((1, 32), (128, 256))}
+    log("phase 3: launch floor (empty kernel): device time per call: "
+        + ", ".join(f"{b_} x {t_} threads {v_:.6f} ms" for (b_, t_), v_ in floor_ms.items())
+        + "; over the 1-block floor: " + ", ".join(
+            f"{k_} {rows[k_]['ms'] / floor_ms[1, 32]:.2f}x" for k_ in TINYBIO_KERNELS)
+        + f", power_spectrum {ps_row['ms'] / floor_ms[1, 32]:.2f}x")
+    # one device kernel per call of svm_decision and power_spectrum
+    # (torch.profiler over 10 calls)
+    for what, fn_, marker in (
+            ("svm_decision", timed["svm"]["kernel"], "svm_kernel"),
+            ("power_spectrum", lambda: power_spectrum(w), "stockham_fft_kernel")):
+        names = device_kernels(torch, fn_, 10)
+        check(len(names) == 10 and all(marker in k_ for k_ in names),
+              f"{what}: 10 calls ran {len(names)} device kernels: {sorted(set(names))}")
+        log(f"phase 3: {what}: 10 calls ran 10 device kernels ({names[0][:60]})")
 
     # gemm at the GeMM path's 256^3 int32, once per config's tiling; the
     # kernels line reports the 16T tiling (the quickstart's config).
