@@ -14,6 +14,12 @@ Phases (any failure exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version, on the card, at the main
    paths' shapes plus ragged sizes, with the tolerance stated beside each
    check; every call must move the kernel's launch counter by one.
+   ``fir`` must equal the plain version bit for bit (f32, Q15 int16, int32
+   wraparound, int32 taps on an int16 signal, views off 16-byte alignment,
+   taps 1 .. 5000), also under every outputs-a-thread count and block
+   sizes of 1, 125 and 256 threads (``FirPlan``); ``delineate``'s flags must
+   equal the plain version's for f32, int16 and int32, n = 1 .. 33 and
+   unaligned views.
    ``stockham_fft`` runs every n from 1 to 8192 (and a row base off 16-byte
    alignment at n = 512), and ``power_spectrum`` must give the bits of
    ``re*re + im*im`` over the card's own ``fft``; ``svm`` must give
@@ -57,7 +63,10 @@ Phases (any failure exits non-zero and prints no result line):
    launches (``fft``, then ``re*re + im*im``), and an empty kernel
    (``csrc/launch_floor.cu``) gives the card's launch floor; a
    ``torch.profiler`` trace must show one device kernel per call of
-   ``svm_decision`` and of ``power_spectrum``.
+   ``svm_decision``, ``power_spectrum``, ``fir`` and ``delineate``.  The
+   plan ``fir`` took is logged, and the bound of its bits (an FMUL and an FADD per tap and output, no fused
+   multiply-add) beside the FMA bound, with Q15 int16 timed at the same
+   shape.
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
    B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
@@ -146,6 +155,8 @@ PEAK_BF16_FLOPS = 989e12
 # arithmetic instruction throughput, compute capability 9.0), times the SMs
 # and the card's max SM clock from nvidia-smi give the int32 peak.
 INT32_MAC_PER_CLK_PER_SM = 64
+# FP32 adds or multiplies per clock per SM, from the same table.
+FP32_LANES_PER_CLK_PER_SM = 128
 # Exponentials (MUFU.EX2) per clock per SM, from the same table.
 SFU_PER_CLK_PER_SM = 16
 
@@ -211,6 +222,13 @@ def bound(nbytes: float, flops: float, ops_per_s: float = PEAK_FP32_FLOPS):
     t_ops = flops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fir_bits_bound(n: int, taps: int, sms: int, max_sm_mhz: float) -> float:
+    """Least ms of an FIR whose bits forbid the fused multiply-add: an FMUL
+    and an FADD per tap and output at 128 FP32 lanes a clock per SM (the
+    Q15 path's one IMAD at 64 a clock takes the same time)."""
+    return 2.0 * n * taps / (FP32_LANES_PER_CLK_PER_SM * sms * max_sm_mhz * 1e6) * 1e3
 
 
 def nvidia_smi(query: str) -> str:
@@ -352,6 +370,9 @@ def main() -> int:
         from repro_torch.kernels.gemm.ref import gemm_plain
         from repro_torch.kernels.delineate.ops import delineate
         from repro_torch.kernels.delineate.ref import delineate_ref
+        from repro_torch.kernels.fir.fir import MAX_THREADS as FIR_MAX_THREADS
+        from repro_torch.kernels.fir.fir import ROWS as FIR_ROWS
+        from repro_torch.kernels.fir.fir import FirPlan, launch_fir, plan_fir
         from repro_torch.kernels.fir.ops import fir
         from repro_torch.kernels.fir.ref import fir_ref
         from repro_torch.kernels.stockham_fft.ops import fft, power_spectrum
@@ -429,34 +450,84 @@ def main() -> int:
     rng = np.random.default_rng(0)
     max_err = {}
 
-    # fir, f32: same taps order and roundings as the plain version, so the
-    # expected error is 0; tolerance 1e-6 (a few ulps of |y| <= 1.5)
+    # fir: the same sums in the same order and roundings as the plain
+    # version (float: separate __fmul_rn / __fadd_rn; integer: uint32
+    # wraparound, then >> 15), so every output must equal it bit for bit
+    def same_bits(a, b_):
+        return a.dtype == b_.dtype and a.shape == b_.shape and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b_.view(torch.int32) if b_.dtype == torch.float32 else b_)
+
+    def int_tensor(lo, hi, size, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, size).astype(dtype)).to(dev)
+
     y = launched("fir", lambda: fir(x, h))
     max_err["fir"] = err(y, fir_ref(x, h))
-    check(max_err["fir"] <= 1e-6, f"fir f32 error {max_err['fir']}")
+    check(same_bits(y, fir_ref(x, h)), f"fir f32 not bit-equal (max err {max_err['fir']})")
     xr = torch.from_numpy(rng.standard_normal(1000).astype(np.float32)).to(dev)
     hr = torch.from_numpy(rng.standard_normal(33).astype(np.float32) / 33).to(dev)
-    check(err(launched("fir", lambda: fir(xr, hr)), fir_ref(xr, hr)) <= 1e-6,
+    check(same_bits(launched("fir", lambda: fir(xr, hr)), fir_ref(xr, hr)),
           "fir f32 ragged")
-    # fir, int16 signal with Q15 int16 taps: exact
-    xi = torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, 65_536).astype(np.int16)).to(dev)
-    hi = torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, 128).astype(np.int16)).to(dev)
+    xi = int_tensor(-2 ** 15, 2 ** 15, 65_536, np.int16)
+    hi = int_tensor(-2 ** 15, 2 ** 15, 128, np.int16)
     check(torch.equal(launched("fir", lambda: fir(xi, hi)), fir_ref(xi, hi)),
           "fir Q15 int16 not exact")
     check(torch.equal(launched("fir", lambda: fir(xi[:1001], hi[:17])),
                       fir_ref(xi[:1001], hi[:17])), "fir Q15 ragged not exact")
-    log(f"phase 2: fir ok (f32 max abs err {max_err['fir']:.3g}, Q15 exact)")
+    # int32 products of ~2^30 x 2^30 that wrap; int32 taps with an int16
+    # signal; views off 16-byte alignment (the element-by-element loads);
+    # taps from 1 to 5000 (5000: ten chunks of the kernel's shared memory)
+    xw_ = int_tensor(2 ** 29, 2 ** 31 - 1, 3001, np.int32)
+    hw_ = int_tensor(2 ** 29, 2 ** 31 - 1, 40, np.int32)
+    fir_cases = {"int32 wraparound": (xw_, hw_),
+                 "int16 signal, int32 taps": (xi[:5003], hi[:77].to(torch.int32)),
+                 "f32 view at +4 bytes": (x[1:20_001], h),
+                 "int16 view at +2 bytes": (xi[1:9_001], hi)}
+    for taps_ in (1, 3, 17, 33, 127, 128, 129, 4096, 5000):
+        fir_cases[f"f32 taps {taps_}"] = (
+            xr[:997] if taps_ < 100 else x[:10_007],
+            torch.from_numpy(rng.standard_normal(taps_).astype(np.float32) / taps_).to(dev))
+        fir_cases[f"Q15 taps {taps_}"] = (xi[:10_007], int_tensor(-2 ** 15, 2 ** 15, taps_, np.int16))
+    for what, (xc_, hc_) in fir_cases.items():
+        check(same_bits(launched("fir", lambda: fir(xc_, hc_)), fir_ref(xc_, hc_)),
+              f"fir {what} not bit-equal to the plain version")
+    # every outputs-a-thread count and block sizes from 1 to 256 threads
+    # (the most the kernel takes) give the same bits (the plan changes none)
+    fir_plans = 0
+    for xc_, hc_ in ((x, h), (xi[:1001], hi[:17]), fir_cases["f32 taps 5000"]):
+        want_ = fir_ref(xc_, hc_)
+        for rows_ in FIR_ROWS:
+            for threads_ in (1, 125, FIR_MAX_THREADS):
+                plan_ = FirPlan(rows_, threads_)
+                out_ = torch.empty_like(xc_)
+                launched("fir", lambda: launch_fir(xc_, hc_, out_, plan_))
+                check(same_bits(out_, want_),
+                      f"fir with plan {plan_} not bit-equal to the plain version")
+                fir_plans += 1
+    log(f"phase 2: fir ok (bit-equal to the plain version: TinyBio f32 and Q15, "
+        f"{len(fir_cases)} more cases with taps 1 .. 5000, int32 wraparound and "
+        f"unaligned views, and {fir_plans} forced plans; TinyBio's plan "
+        f"{tuple(plan_fir(x.numel(), h.numel(), n_sms))})")
 
-    # delineate: exact, on the FIR output and on a ragged int16 signal
+    # delineate: exact, on the FIR output and on ragged, short and unaligned
+    # signals of each dtype, with the thresholds cast to x's dtype
     flags = launched("delineate", lambda: delineate(y, 0))
     check(torch.equal(flags, delineate_ref(y, 0)), "delineate not exact")
     max_err["delineate"] = 0.0
     xd = (xi[:1001] // 512).contiguous()
-    check(torch.equal(launched("delineate", lambda: delineate(xd, 3)),
-                      delineate_ref(xd, 3)), "delineate int16 ragged")
-    check(torch.equal(launched("delineate", lambda: delineate(xr, 0.25)),
-                      delineate_ref(xr, 0.25)), "delineate f32 ragged")
-    log(f"phase 2: delineate ok (exact, {int((flags != 0).sum())} extrema)")
+    xs32 = (xw_ // (2 ** 26)).contiguous()
+    dl_cases = {"int16 ragged": (xd, 3), "f32 ragged": (xr, 0.25),
+                "int32": (xs32, 3), "int16 thr 2.7": (xd, 2.7),
+                "f32 view at +4 bytes": (y[1:60_001], 0),
+                "int16 view at +2 bytes": (xd[1:], 3)}
+    for n_ in (1, 2, 3, 7, 9, 33):
+        dl_cases[f"f32 n={n_}"] = (xr[:n_], 0.25)
+        dl_cases[f"int16 n={n_}"] = (xd[:n_], 3)
+    for what, (xc_, thr_) in dl_cases.items():
+        check(torch.equal(launched("delineate", lambda: delineate(xc_, thr_)),
+                          delineate_ref(xc_, thr_)), f"delineate {what} not exact")
+    log(f"phase 2: delineate ok (exact, {int((flags != 0).sum())} extrema; "
+        f"{len(dl_cases)} more cases)")
 
     # fft on TinyBio's 128 windows of 512: the same butterflies and twiddle
     # angles as the plain version, cosf/sinf from the same CUDA math library;
@@ -1014,6 +1085,16 @@ def main() -> int:
             f"{bound_ms:.6f} ms ({bound_by}); eager call incl. host "
             f"dispatch: kernel {fmt(eager[0])}, plain {fmt(eager[1])}, "
             f"library {fmt(eager[2])}")
+    # fir's bits forbid the fused multiply-add: an FMUL and an FADD per tap
+    # and output (the Q15 path: one IMAD at half that rate), so its own
+    # bound is twice the FMA bound of the kernels line
+    log(f"phase 3: fir plan {tuple(plan_fir(n, taps, n_sms))} (rows a thread, "
+        f"threads a block); bound of its bits (FMUL + FADD at 128 a "
+        f"clock per SM, or IMAD at 64) {fir_bits_bound(n, taps, n_sms, max_sm_mhz):.6f} "
+        f"ms beside the FMA bound {rows['fir']['bound_ms']:.6f} ms; Q15 int16 at "
+        f"the same shape: kernel "
+        f"{fmt(device_ms(torch, lambda: fir(xi, hi), 100))}, plain "
+        f"{fmt(device_ms(torch, lambda: fir_ref(xi, hi), 5))}")
 
     # power_spectrum (TinyBio's stage-3 call: the fft kernel with |X|^2 in
     # its last pass, one launch) beside fft; its "library" is the parent's
@@ -1047,11 +1128,13 @@ def main() -> int:
         + "; over the 1-block floor: " + ", ".join(
             f"{k_} {rows[k_]['ms'] / floor_ms[1, 32]:.2f}x" for k_ in TINYBIO_KERNELS)
         + f", power_spectrum {ps_row['ms'] / floor_ms[1, 32]:.2f}x")
-    # one device kernel per call of svm_decision and power_spectrum
-    # (torch.profiler over 10 calls)
+    # one device kernel per call of svm_decision, power_spectrum, fir and
+    # delineate (torch.profiler over 10 calls)
     for what, fn_, marker in (
             ("svm_decision", timed["svm"]["kernel"], "svm_kernel"),
-            ("power_spectrum", lambda: power_spectrum(w), "stockham_fft_kernel")):
+            ("power_spectrum", lambda: power_spectrum(w), "stockham_fft_kernel"),
+            ("fir", timed["fir"]["kernel"], "fir_kernel"),
+            ("delineate", timed["delineate"]["kernel"], "delineate_kernel")):
         names = device_kernels(torch, fn_, 10)
         check(len(names) == 10 and all(marker in k_ for k_ in names),
               f"{what}: 10 calls ran {len(names)} device kernels: {sorted(set(names))}")

@@ -13,6 +13,11 @@
 // x[0], next of index n-1 is x[n-1]); neighbouring threads read neighbouring
 // addresses, so the three reads of a warp coalesce and hit the same lines.
 // thr and -thr arrive already cast to x's type, as the JAX kernel compares.
+// A thread owning the four samples of one 16-byte load (neighbours by
+// shuffles, a grid four times smaller) was measured slower than this at
+// TinyBio's 65,536 samples and faster only near 2^20, a size no path runs
+// (PERF.md, Findings); a grid of one thread a sample already pays a single
+// load round trip over the launch.
 #include "common.cuh"
 
 namespace {

@@ -1,30 +1,21 @@
 """Dispatching wrapper for the FIR kernel + TinyCL registration.
 
 ``fir(x, h)`` launches ``csrc/fir.cu`` (which replaces the TPU kernel
-``src/repro/kernels/fir/fir.py:_fir_kernel``) on CUDA tensors and runs
-:func:`~repro_torch.kernels.fir.ref.fir_ref` on CPU and ``meta`` tensors.
+``src/repro/kernels/fir/fir.py:_fir_kernel``) on CUDA tensors, once, for any
+number of taps, and runs :func:`~repro_torch.kernels.fir.ref.fir_ref` on
+CPU and ``meta`` tensors.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ...core.device import EGPU_16T, EGPUConfig
 from ...core.program import kernel_family
 from ...core.runtime import Kernel
-from ..common import check_contiguous, check_dtype, launch, on_card, ptr, stream_of
-from .ref import FXP_SHIFT, counts as fir_counts, fir_ref
-
-#: the kernel keeps the taps and a (256 + taps - 1)-sample window in 48 KB
-#: of shared memory
-MAX_TAPS = 4096
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FLOAT_ARGS = [_P, _P, _P, _I, _I, _I, _P]
-_FIXED_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]
-_FIXED_SYMBOL = {torch.int16: "repro_fir_i16", torch.int32: "repro_fir_i32"}
+from ..common import check_contiguous, check_dtype, on_card
+from .fir import launch_fir
+from .ref import counts as fir_counts, fir_ref
 
 
 def fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -47,18 +38,9 @@ def fir(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     if not on_card(x, h):
         return fir_ref(x, h)
     check_contiguous("fir", x, h)
-    n, taps = x.shape[0], h.shape[0]
-    if taps > MAX_TAPS:
-        raise ValueError(f"fir kernel takes at most {MAX_TAPS} taps, got {taps}")
     y = torch.empty_like(x)
-    dev = x.device.index
-    if x.dtype == torch.float32:
-        launch("fir", "repro_fir_f32", _FLOAT_ARGS, ptr(x), ptr(h), ptr(y),
-               n, taps, dev, stream_of(x))
-    else:
-        h32 = h if h.dtype == torch.int32 else h.to(torch.int32)
-        launch("fir", _FIXED_SYMBOL[x.dtype], _FIXED_ARGS, ptr(x), ptr(h32),
-               ptr(y), n, taps, FXP_SHIFT, dev, stream_of(x))
+    if x.shape[0]:
+        launch_fir(x, h, y)
     return y
 
 

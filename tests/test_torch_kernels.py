@@ -34,7 +34,7 @@ def _t(a):
 
 # -- FIR ---------------------------------------------------------------------
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("n,taps", [(1000, 17), (700, 128)])
+@pytest.mark.parametrize("n,taps", [(1000, 17), (700, 128), (300, 520)])
 def test_fir_float_matches_reference(n, taps, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(n).astype(np.float32)
