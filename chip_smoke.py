@@ -53,6 +53,14 @@ Phases (any failure exits non-zero and prints no result line):
    delta both bf16 at 301) and decays from 0 to 0.99999 over T = 512; each
    case logs its lane count (``plan_mamba``) and copy path, and every lane
    count and both paths must run;
+   2b. the four TinyBio kernels with a leading batch axis, for B = 1, 2,
+   4, 8: ``fir`` (f32 and Q15 int16), ``delineate`` (with extrema at every
+   row's edges), ``power_spectrum`` on (B, 128, 512) and ``svm`` on
+   (B, 128, 36) (the bias a card tensor and a float) must give each row
+   the bits of its single call, ``fir`` and ``delineate`` the plain
+   version's bits on the whole batch, the ``torch.func.vmap`` of each
+   wrapper the batched call's bits, and a ``torch.profiler`` trace one
+   device kernel per batched call;
 3. kernel timings at the main paths' shapes: device time per call from
    CUDA events around replays of a CUDA graph of many warm calls, for the
    kernel, its plain version and, where one PyTorch call computes the same
@@ -66,7 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``svm_decision``, ``power_spectrum``, ``fir`` and ``delineate``.  The
    plan ``fir`` took is logged, and the bound of its bits (an FMUL and an FADD per tap and output, no fused
    multiply-add) beside the FMA bound, with Q15 int16 timed at the same
-   shape.
+   shape.  Each batched TinyBio call at B = 4 is timed beside four single
+   calls and the launch floor.
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
    B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
@@ -129,7 +138,22 @@ Phases (any failure exits non-zero and prints no result line):
    6b. the card against the CPU: a 2-layer cut of rwkv6-3b at full width in
    float32, as in 5b;
 
-7. one ``{"kernels": [...]}`` line for all nine kernels, then, last,
+7. TinyBio served on the card at full size: ``Server`` over a 16T and an
+   8T ``QueueWorker``, ``bucket_sizes=(65536,)``, ``max_batch=4``, warmed
+   up, then 16 requests (``synth_signal``, seeds 0..15) with the launch
+   counters reset just before and read just after (one launch a stage a
+   micro-batch).  Every request's decisions must equal ``APU.offload`` of
+   it alone on the card bit for bit; the cache must miss exactly once per
+   lane, at warmup; on a virtual clock every modeled ``ServeReport`` field
+   must equal the CPU port's run (``==``); a traced twin must give complete
+   request trees, a valid Chrome trace and the same bits and report; a
+   ``FaultPlan`` run (a lane blacked out, seeded failures) must retry and
+   give the same bits.  The serving wall, requests/s, the device's idle
+   share of one warm micro-batch and a warm ``APU.offload`` graph wall are
+   printed side by side;
+
+8. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
+   4's main paths, plus phase 7's for the TinyBio kernels), then, last,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -1039,6 +1063,82 @@ def main() -> int:
             f"{k_} {v_:.3g} {mb_share[k_]:.3f} {mb_paths[k_]}"
             for k_, v_ in mb_err.items()) + ")")
 
+    # -- 2b. the four TinyBio kernels with a leading batch axis ---------------
+    # Serving lifts each stage over a batch (torch.func.vmap); each card
+    # kernel folds it into its own batch axis: ONE launch a call, each row
+    # the bits of its request alone.  For B = 1, 2, 4, 8: the batched call
+    # against B single calls on the card and against the plain version on
+    # the whole batch, bit for bit (exact: the same sums in the same order);
+    # the vmapped call against the batched call, bit for bit; and a
+    # torch.profiler count of one device kernel for one batched call.
+    xb_all = torch.from_numpy(np.stack([tinybio.synth_signal(x.numel(), s_)
+                                        for s_ in range(8)])).to(dev)
+    xib_all = int_tensor(-2 ** 15, 2 ** 15, (8, x.numel()), np.int16)
+    qb_all = torch.from_numpy(rng.uniform(-1, 1, (8, 128, 36)).astype(np.float32)).to(dev)
+    batched_kernels = {}
+    for bsz in (1, 2, 4, 8):
+        xb, xib, qb = xb_all[:bsz].contiguous(), xib_all[:bsz].contiguous(), qb_all[:bsz].contiguous()
+        yb = launched("fir", lambda: fir(xb, h))
+        check(same_bits(yb, fir_ref(xb, h)), f"batched fir B={bsz} vs plain")
+        check(all(same_bits(yb[i_], fir(xb[i_], h)) for i_ in range(bsz)),
+              f"batched fir B={bsz} vs single calls")
+        check(same_bits(launched("fir", lambda: torch.func.vmap(lambda a_: fir(a_, h))(xb)), yb),
+              f"vmapped fir B={bsz}")
+        yib = launched("fir", lambda: fir(xib, hi))
+        check(torch.equal(yib, fir_ref(xib, hi)), f"batched fir Q15 int16 B={bsz} vs plain")
+        check(all(torch.equal(yib[i_], fir(xib[i_], hi)) for i_ in range(bsz)),
+              f"batched fir Q15 int16 B={bsz} vs single calls")
+        # extrema at both edges of every row: a peak at sample 0, a trough
+        # at sample 1 and a peak at the last sample, which a flattened
+        # (B * n) signal would flag as interior samples
+        ye = yb.clone()
+        ye[:, 0], ye[:, 1], ye[:, -1], ye[:, -2] = 9.0, -9.0, 9.0, -9.0
+        fb = launched("delineate", lambda: delineate(ye, 0))
+        check(torch.equal(fb, delineate_ref(ye, 0)), f"batched delineate B={bsz} vs plain")
+        check(all(torch.equal(fb[i_], delineate(ye[i_], 0)) for i_ in range(bsz)),
+              f"batched delineate B={bsz} vs single calls")
+        check(bool((fb[:, 0] == 0).all() and (fb[:, -1] == 0).all()
+                   and (fb[:, -2] == -1).all()), f"batched delineate B={bsz}: row edges")
+        check(torch.equal(launched("delineate", lambda: torch.func.vmap(
+            lambda a_: delineate(a_, 0))(ye)), fb), f"vmapped delineate B={bsz}")
+        wb = yb.reshape(bsz, 128, 512)
+        pb = launched("stockham_fft", lambda: power_spectrum(wb))
+        check(all(same_bits(pb[i_], power_spectrum(wb[i_])) for i_ in range(bsz)),
+              f"batched power_spectrum B={bsz} vs single calls")
+        pre_, pim_ = stockham_fft_ref(wb.reshape(-1, 512), torch.zeros(bsz * 128, 512, device=dev))
+        pref = (pre_ * pre_ + pim_ * pim_).reshape(bsz, 128, 512)
+        # the fft's 1e-6 of max |X| carried through the square: 3e-6 of
+        # max |X|^2
+        check(float((pb - pref).abs().max()) <= 3e-6 * float(pref.max()),
+              f"batched power_spectrum B={bsz} vs plain (3e-6 of max |X|^2)")
+        check(same_bits(launched("stockham_fft", lambda: torch.func.vmap(power_spectrum)(wb)), pb),
+              f"vmapped power_spectrum B={bsz}")
+        for what_b, bb in (("b card tensor", b), ("b float", 0.1)):
+            sb = launched("svm", lambda: svm_decision(qb, sv_main, alpha_main, bb, 0.5))
+            check(all(same_bits(sb[i_], svm_decision(qb[i_], sv_main, alpha_main, bb, 0.5))
+                      for i_ in range(bsz)), f"batched svm B={bsz} ({what_b}) vs single calls")
+            check(torch.allclose(sb, svm_decision_ref(qb, sv_main, alpha_main, bb, 0.5),
+                                 rtol=1e-4, atol=1e-5), f"batched svm B={bsz} ({what_b}) vs plain")
+            check(same_bits(launched("svm", lambda: torch.func.vmap(
+                lambda a_: svm_decision(a_, sv_main, alpha_main, bb, 0.5))(qb)), sb),
+                f"vmapped svm B={bsz} ({what_b})")
+        for name_, fn_, marker_ in (
+                ("fir", lambda: fir(xb, h), "fir_kernel"),
+                ("fir Q15", lambda: fir(xib, hi), "fir_kernel"),
+                ("delineate", lambda: delineate(ye, 0), "delineate_kernel"),
+                ("power_spectrum", lambda: power_spectrum(wb), "stockham_fft_kernel"),
+                ("svm", lambda: svm_decision(qb, sv_main, alpha_main, b, 0.5), "svm_kernel")):
+            names_ = device_kernels(torch, fn_, 1)
+            check(len(names_) == 1 and marker_ in names_[0],
+                  f"batched {name_} B={bsz} ran device kernels {names_}")
+        batched_kernels[bsz] = 5
+    log("phase 2: batched TinyBio kernels ok for B = 1, 2, 4, 8: fir (f32 and Q15 "
+        "int16), delineate (extrema at the row edges), power_spectrum (B, 128, 512) "
+        "and svm (B, 128, 36; b a card tensor and a float) bit-equal to B single "
+        "calls, fir/delineate bit-equal to the plain version on the batch "
+        "(power_spectrum within 3e-6 of max |X|^2, svm rtol 1e-4 + atol 1e-5), "
+        "vmapped calls bit-equal to batched ones, one device kernel a batched call")
+
     # -- 3. timings at the main paths' shapes ------------------------------
     n, taps = x.numel(), h.numel()
     q, m, d = feats.shape[0], sv_main.shape[0], feats.shape[1]
@@ -1139,6 +1239,25 @@ def main() -> int:
         check(len(names) == 10 and all(marker in k_ for k_ in names),
               f"{what}: 10 calls ran {len(names)} device kernels: {sorted(set(names))}")
         log(f"phase 3: {what}: 10 calls ran 10 device kernels ({names[0][:60]})")
+
+    # the batched calls at B = 4 (phase 7's micro-batch): device time of one
+    # batched call beside four single calls and the launch floor
+    xb4, xib4 = xb_all[:4].contiguous(), xib_all[:4].contiguous()
+    yb4 = fir(xb4, h)
+    wb4, qb4 = yb4.reshape(4, 128, 512), qb_all[:4].contiguous()
+    batched_ms = {}
+    for name_, one_, four_ in (
+            ("fir", lambda: fir(x, h), lambda: fir(xb4, h)),
+            ("fir Q15 int16", lambda: fir(xi, hi), lambda: fir(xib4, hi)),
+            ("delineate", lambda: delineate(y, 0), lambda: delineate(yb4, 0)),
+            ("power_spectrum", lambda: power_spectrum(w), lambda: power_spectrum(wb4)),
+            ("svm", lambda: svm_decision(feats, sv_main, alpha_main, b, 0.5),
+             lambda: svm_decision(qb4, sv_main, alpha_main, b, 0.5))):
+        one_ms, four_ms = device_ms(torch, one_, 100), device_ms(torch, four_, 100)
+        batched_ms[name_] = (four_ms, one_ms)
+        log(f"phase 3: batched {name_} B=4: device time per call {four_ms:.6f} ms, "
+            f"4 x the single call {4 * one_ms:.6f} ms (single {one_ms:.6f} ms), "
+            f"{four_ms / floor_ms[1, 32]:.2f}x the 1 x 32 launch floor")
 
     # gemm at the GeMM path's 256^3 int32, once per config's tiling; the
     # kernels line reports the 16T tiling (the quickstart's config).
@@ -1849,7 +1968,161 @@ def main() -> int:
     del rw_card
     torch.cuda.empty_cache()
 
-    # -- 7. summary ---------------------------------------------------------------
+    # -- 7. TinyBio served on the card, at full size -----------------------------
+    # Server over two lanes (16T and 8T), exact-fit bucket (the features
+    # reduce over the whole signal), micro-batches of 4, warmed up first; 16
+    # requests from synth_signal(n, seed), seeds 0..15.  The counters are
+    # reset just before the served run and read just after it.
+    from repro_torch.obs import Tracer, validate_chrome_trace
+    from repro_torch.serve import Blackout, FaultPlan, QueueWorker, Server
+    n_sig = x.numel()
+    serve_stages, _ = tinybio.tinybio_stages(EGPU_16T, 0, dev)
+    cpu_serve_stages, _ = tinybio.tinybio_stages(EGPU_16T, 0, "cpu")
+    signals = [tinybio.synth_signal(n_sig, s_) for s_ in range(16)]
+    serve_batch = 4
+
+    class VClock:
+        """A virtual clock: the serving timeline becomes the machine
+        model's, so reports of two runs compare with ==."""
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    def make_server(device, **kw):
+        return Server(serve_stages if device == "cuda" else cpu_serve_stages,
+                      workers=(QueueWorker(EGPU_16T, device=device),
+                               QueueWorker(EGPU_8T, device=device)),
+                      bucket_sizes=(n_sig,), max_batch=serve_batch,
+                      device=device, **kw)
+
+    def serve(srv, vclock=None):
+        rids = []
+        for i_, sig_ in enumerate(signals):
+            if vclock is not None:
+                vclock.t = 1e-4 * i_
+            rids.append(srv.submit(sig_))
+        if vclock is not None:
+            vclock.t = 1e-4 * len(signals) + 1e-3
+        srv.flush()
+        return [srv.result(r_) for r_ in rids]
+
+    srv = make_server("cuda")
+    warmed = srv.warmup(signals[0])
+    check(warmed == 2 and srv.cache.misses == 2,
+          f"warmup captured {warmed} graphs, expected 2 (2 lanes x 1 bucket)")
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    served = serve(srv)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_launches = dict(common.LAUNCHES)
+    n_batches = len(signals) // serve_batch
+    for name in KERNELS:
+        want = n_batches if name in TINYBIO_KERNELS else 0
+        check(serve_launches[name] == want,
+              f"served TinyBio launched {name} {serve_launches[name]} times, "
+              f"expected {want} (one launch a stage a micro-batch)")
+    check(srv.cache.misses == 2 and srv.cache.hits == n_batches,
+          f"served TinyBio cache {srv.cache.stats()}: a miss after warmup")
+    # every request's outputs bit-equal to APU.offload of it alone on the card
+    apu_serve = APU(EGPU_16T, device="cuda")
+    offload_walls = []
+    for i_, sig_ in enumerate(signals):
+        sx = torch.from_numpy(sig_).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_outs, _ = apu_serve.offload(serve_stages, (sx,))
+        torch.cuda.synchronize()
+        offload_walls.append(time.perf_counter() - t0)
+        (got_,) = served[i_]
+        check(got_.is_cuda and got_.shape == (128,) and bool(torch.isfinite(got_).all()),
+              f"served request {i_}: not 128 finite decisions on the card")
+        check(same_bits(got_, ref_outs[0].data),
+              f"served request {i_} differs from its own APU.offload")
+    rep_main = srv.report()
+    log(f"phase 7: served {len(signals)} TinyBio requests (n={n_sig}) over lanes "
+        f"{[w_.name for w_ in srv.dispatcher.workers]} in {n_batches} micro-batches "
+        f"of {serve_batch}: launches {serve_launches}; cache {srv.cache.stats()}; "
+        f"every request bit-equal to its own APU.offload on the card")
+    # modeled fields on a virtual clock: the card's run equals the CPU's
+    measured = ("wall_s", "requests_per_s", "goodput_per_s")
+
+    def modeled(rep_):
+        return {k_: v_ for k_, v_ in dataclasses.asdict(rep_).items() if k_ not in measured}
+
+    vc_card, vc_cpu = VClock(), VClock()
+    srv_vc = make_server("cuda", clock=vc_card)
+    srv_vc.warmup(signals[0])
+    outs_vc = serve(srv_vc, vc_card)
+    srv_cpu = make_server("cpu", clock=vc_cpu)
+    srv_cpu.warmup(signals[0])
+    outs_cpu = serve(srv_cpu, vc_cpu)
+    check(modeled(srv_vc.report()) == modeled(srv_cpu.report()),
+          "served TinyBio: a modeled ServeReport field differs between card and CPU")
+    check(all(same_bits(a_[0], b_[0]) for a_, b_ in zip(outs_vc, served)),
+          "served TinyBio on a virtual clock differs from the real-clock run")
+    dec_err = max(err(a_[0].cpu(), b_[0]) for a_, b_ in zip(outs_vc, outs_cpu))
+    check(dec_err <= 1e-6, f"served decisions card vs CPU differ by {dec_err}")
+    # a traced twin: complete request trees, a valid Chrome trace, the bits
+    # and modeled report of the untraced run
+    tracer = Tracer()
+    vc_tr = VClock()
+    srv_tr = make_server("cuda", clock=vc_tr, tracer=tracer)
+    srv_tr.warmup(signals[0])
+    outs_tr = serve(srv_tr, vc_tr)
+    tree_errors = tracer.validate_request_trees()
+    check(tree_errors == [], f"traced serving: request trees {tree_errors[:3]}")
+    trace_doc = tracer.to_chrome_json()
+    schema_errors = validate_chrome_trace(trace_doc)
+    check(schema_errors == [], f"traced serving: chrome trace {schema_errors[:3]}")
+    check(all(same_bits(a_[0], b_[0]) for a_, b_ in zip(outs_tr, outs_vc)),
+          "traced serving changed the outputs")
+    check(modeled(srv_tr.report()) == modeled(srv_vc.report()),
+          "tracing perturbed the modeled report")
+    # faults: the 16T lane blacked out for its first two launches plus
+    # seeded launch failures; every failed attempt retries on a lane, and
+    # the retried batches give the fault-free bits
+    plan = FaultPlan(seed=0, p_launch_fail=0.25,
+                     blackouts=(Blackout("e-gpu-16t", 0, 2),))
+    vc_f = VClock()
+    srv_f = make_server("cuda", clock=vc_f, fault_plan=plan)
+    srv_f.warmup(signals[0])
+    outs_f = serve(srv_f, vc_f)
+    rep_f = srv_f.report()
+    check(rep_f.n_retries > 0 and rep_f.n_shed == 0 and rep_f.n_requests == len(signals),
+          f"fault run: {rep_f.n_retries} retries, {rep_f.n_shed} shed, "
+          f"{rep_f.n_requests} served")
+    check(all(same_bits(a_[0], b_[0]) for a_, b_ in zip(outs_f, outs_vc)),
+          "retried batches differ from the fault-free run")
+    log(f"phase 7: virtual clock: every modeled ServeReport field == the CPU run's "
+        f"(decisions card vs CPU within {dec_err:.3g}); traced twin: "
+        f"{len(tracer.spans)} spans, {len(tracer.request_rids())} complete request "
+        f"trees, Chrome trace valid, bits and report unperturbed; fault run: "
+        f"{plan.injected_failures} injected failures, {rep_f.n_retries} retries, "
+        f"{rep_f.n_quarantines} quarantines, 0 shed, bits equal")
+    # where one warm batch launch's time goes (submit 4 requests -> one
+    # launch, flush retires it), beside a warm APU.offload graph wall
+    batch_prof = device_profile(torch, lambda: (
+        [srv.submit(sig_) for sig_ in signals[:serve_batch]], srv.flush()))
+    sx0 = torch.from_numpy(signals[0]).to(dev)
+    offload_prof = device_profile(torch, lambda: apu_serve.offload(serve_stages, (sx0,)))
+    log(f"phase 7: serving wall {serve_wall * 1e3:.3f} ms for {len(signals)} requests: "
+        f"{serve_wall / len(signals) * 1e3:.3f} ms a request, "
+        f"{len(signals) / serve_wall:.1f} requests/s (report: "
+        f"{rep_main.requests_per_s:.1f}); per-request APU.offload graph wall (host "
+        f"capture included) median {sorted(offload_walls)[len(offload_walls) // 2] * 1e3:.3f} ms, "
+        f"min {min(offload_walls) * 1e3:.3f} ms")
+    log("phase 7: " + profile_line("one warm served micro-batch of 4 (submit + "
+                                   "launch + retire)", *batch_prof))
+    log("phase 7: " + profile_line("one warm 16T APU.offload graph of one request",
+                                   *offload_prof))
+    launches.update({name: launches[name] + serve_launches[name]
+                     for name in TINYBIO_KERNELS})
+
+    # -- 8. summary ---------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

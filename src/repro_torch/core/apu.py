@@ -43,6 +43,7 @@ class Stage:
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     counts_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
     consts: Tuple[Any, ...] = ()       # constant tensors appended to inputs
+    n_inputs: int = 0                  # 0 = take all previous outputs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,10 +118,18 @@ class APU:
     present; ``"cpu"`` runs the kernels' plain PyTorch versions).
     ``explicit_transfers`` is the default capture shape of
     :meth:`capture_pipeline`.
+
+    ``graph_cache`` (a :class:`repro_torch.serve.GraphCache`, or anything
+    with its ``get_or_capture(apu, stages, inputs)`` contract) memoizes
+    captured :class:`CommandGraph`\\ s across :meth:`offload` calls: a warm
+    cache makes a repeated same-shape offload skip the capture (and the
+    plain versions it runs on ``meta`` tensors).  Without one, every
+    graph-mode offload captures anew.
     """
 
     def __init__(self, config: EGPUConfig = EGPU_16T, device: Any = "cuda",
-                 explicit_transfers: bool = False):
+                 explicit_transfers: bool = False,
+                 graph_cache: Optional[Any] = None):
         self.egpu = Device(config)
         self.host = Device(HOST)
         self.egpu_ctx = Context(self.egpu, device)
@@ -130,6 +139,7 @@ class APU:
         #: enqueue_read_buffer transfer nodes and mark every kernel resident
         #: (see :meth:`capture_pipeline`)
         self.explicit_transfers = explicit_transfers
+        self.graph_cache = graph_cache
         # This APU's own launch queue: graph offloads bind their events and
         # modeled totals here.
         self.queue = CommandQueue(self.egpu_ctx)
@@ -156,8 +166,9 @@ class APU:
         for i, stage in enumerate(stages):
             ndr = optimal_ndrange(bufs[0].data.numel(), ctx.device.config)
             extra = tuple(ctx.create_buffer(x) for x in stage.consts)
-            self._check_stage_arity(stage, len(bufs) + len(extra))
-            ev = q.enqueue_nd_range(stage.kernel, ndr, bufs + extra,
+            take = bufs[:stage.n_inputs] if stage.n_inputs else bufs
+            self._check_stage_arity(stage, len(take) + len(extra))
+            ev = q.enqueue_nd_range(stage.kernel, ndr, take + extra,
                                     params=stage.params,
                                     counts_params=stage.counts_params,
                                     _resident=(resident_first if i == 0
@@ -183,7 +194,7 @@ class APU:
             raise ValueError(
                 f"stage {stage.kernel.name!r} wires {n_bufs} buffers but "
                 f"the kernel declares {names} ({accepted} accepted); check "
-                "consts")
+                "n_inputs / consts")
 
     def _host_costs(self, stages: Sequence["Stage"],
                     graph: CommandGraph) -> List[Tuple[PhaseBreakdown, float]]:
@@ -267,26 +278,39 @@ class APU:
         return graph
 
     def _offload_graph(self, stages, inputs):
-        graph = self.capture_pipeline(stages, inputs)
-        # Launch-time queue binding: events land on THIS APU's queue.
+        # Launch-time queue binding: events land on THIS APU's queue, not
+        # the capture queue a cached graph happens to carry.
         q = self.queue
-        final = graph.launch(queue=q)
+        if self.graph_cache is not None:
+            graph, _hit = self.graph_cache.get_or_capture(self, stages, inputs)
+            final = graph.launch_prefix(
+                [self.egpu_ctx.create_buffer(x).data for x in inputs], queue=q)
+        else:
+            graph = self.capture_pipeline(stages, inputs)
+            final = graph.launch(queue=q)
         q.finish()
-        host = self._host_costs(stages, graph)
-        reports = tuple(
-            StageReport(name=stage.kernel.name, egpu=node.modeled,
-                        host=h_mod, egpu_energy_j=node.energy_j,
-                        host_energy_j=h_en)
-            for stage, node, (h_mod, h_en)
-            in zip(stages, _kernel_nodes(graph), host))
-        # Kernels without a counts model still get
-        # their functional outputs — just no fused cost to report.
-        fused, _ = graph.fused_modeled()
+        # The whole report is launch-invariant for a given graph (host
+        # costs come from the captured schedule, not the inputs), so a
+        # cached graph reuses it instead of re-walking the host model.
+        report = getattr(graph, "_pipeline_report", None)
+        if report is None:
+            host = self._host_costs(stages, graph)
+            reports = tuple(
+                StageReport(name=stage.kernel.name, egpu=node.modeled,
+                            host=h_mod, egpu_energy_j=node.energy_j,
+                            host_energy_j=h_en)
+                for stage, node, (h_mod, h_en)
+                in zip(stages, _kernel_nodes(graph), host))
+            # Kernels without a counts model still get their functional
+            # outputs — just no fused cost to report.
+            fused, _ = graph.fused_modeled()
+            report = PipelineReport(reports, egpu_fused=fused)
+            graph._pipeline_report = report
         # This APU's launch queue lives as long as the APU: return it to
         # O(1) memory now that the report is assembled (the modeled totals
         # fold into the queue's running counters).
         q.release_events()
-        return final, PipelineReport(reports, egpu_fused=fused)
+        return final, report
 
     # -- per-kernel eager path ---------------------------------------------
     def _offload_eager(self, stages, inputs):

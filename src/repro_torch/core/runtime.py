@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -126,6 +127,17 @@ class Buffer:
         self.data = data if isinstance(data, torch.Tensor) else torch.as_tensor(data)
         self.flags = flags
 
+    #: set once the buffer was donated to a graph launch
+    #: (``CommandGraph.launch(..., donate=...)``): its storage belongs to
+    #: the launch, so reading it or passing it to a later command raises
+    consumed = False
+
+    def _check_live(self, what: str) -> None:
+        if self.consumed:
+            raise RuntimeError(
+                f"{what}: buffer was donated to a graph launch and is "
+                "consumed; use the launch's outputs instead")
+
     @property
     def readable(self) -> bool:
         return "r" in self.flags
@@ -148,6 +160,7 @@ class Buffer:
 
     def read(self) -> torch.Tensor:
         """clEnqueueReadBuffer — a no-op copy under unified memory."""
+        self._check_live("read")
         return self.data
 
 
@@ -494,11 +507,22 @@ class CommandQueue:
     :meth:`release_events` drops drained ones, folding their modeled
     time/energy into the queue's running totals, so :meth:`total_modeled_s`
     / :meth:`total_energy_j` stay exact whatever has been released.
+
+    ``tracer`` (a :class:`~repro_torch.obs.Tracer`) turns on span tracing:
+    every booked event becomes one span on the track ``trace_track``
+    (default ``queue:<config name>``), laid end to end on the queue's
+    cumulative *modeled* timeline.  Strictly observational, and guarded at
+    each booking site, so an untraced queue allocates nothing for it.
     """
 
-    def __init__(self, ctx: "Context", out_of_order: bool = False):
+    def __init__(self, ctx: "Context", out_of_order: bool = False,
+                 tracer: Optional[Any] = None,
+                 trace_track: Optional[str] = None):
         self.ctx = ctx
         self.out_of_order = out_of_order
+        self._tracer = tracer
+        self._trace_track = trace_track or f"queue:{ctx.device.config.name}"
+        self._trace_t = 0.0
         self._barrier: Optional[Event] = None   # latest eager barrier event
         self._events: List[Event] = []
         self._drained = 0              # finish() watermark: events before
@@ -531,6 +555,14 @@ class CommandQueue:
             return modeled, host_energy_j(modeled), counts
         modeled = egpu_time(cfg, counts, ndr)
         return modeled, egpu_energy_j(cfg, modeled), counts
+
+    def _trace_event(self, ev: "Event") -> None:
+        """Record one booked event as a span on this queue's modeled
+        timeline (only reached when a tracer is installed)."""
+        dur = ev.modeled.total_s if ev.modeled is not None else 0.0
+        self._tracer.span(ev.kernel.name, self._trace_t,
+                          self._trace_t + dur, track=self._trace_track)
+        self._trace_t += dur
 
     def _model_transfer(self, nbytes: float
                         ) -> Tuple[PhaseBreakdown, float]:
@@ -613,6 +645,7 @@ class CommandQueue:
         cp = counts_params if counts_params is not None else params
         waits = self._check_wait_events(wait_events)
         for i, b in enumerate(args):
+            b._check_live(f"kernel {kernel.name!r} arg {i}")
             if not b.readable:
                 raise ValueError(
                     f"kernel {kernel.name!r} arg {i} is a write-only "
@@ -631,6 +664,8 @@ class CommandQueue:
         for b in outs:
             b._event = ev
         self._events.append(ev)
+        if self._tracer is not None:
+            self._trace_event(ev)
         return ev
 
     def enqueue_kernel(self, kernel: Kernel, ndr: Optional[NDRange] = None,
@@ -668,6 +703,8 @@ class CommandQueue:
         ev = Event(kernel, outputs, modeled, energy,
                    deps=self._eager_deps(waits, reads))
         self._events.append(ev)
+        if self._tracer is not None:
+            self._trace_event(ev)
         return ev
 
     @staticmethod
@@ -813,6 +850,8 @@ class CommandQueue:
                          if not e.released)
         ev = Event(_MARKER, (), None, None, deps=deps)
         self._events.append(ev)
+        if self._tracer is not None:
+            self._trace_event(ev)
         if barrier:
             self._barrier = ev
         return ev
@@ -983,6 +1022,12 @@ class CommandGraph:
         self._barrier_node: Dict[int, int] = {}  # out-of-order barrier point
         self._sealed = False
         self._fused_memo: Optional[Tuple[Optional[PhaseBreakdown], float]] = None
+        #: slot -> CL_MEM-style access flags of the buffer behind it, so
+        #: the sanitizer can re-check flag discipline after capture
+        self._slot_flags: Dict[int, str] = {}
+        #: verify() results per donation tuple (a pure function of the
+        #: sealed capture)
+        self._verify_memo: Dict[Tuple[int, ...], Tuple[Any, ...]] = {}
         #: how many leading externals are pipeline inputs (set by
         #: APU.capture_pipeline; the rest are per-stage constants)
         self.n_request_inputs = 0
@@ -1001,6 +1046,14 @@ class CommandGraph:
         # Only a capture body that completed cleanly yields a launchable
         # graph; an exception mid-capture leaves a truncated chain.
         self._sealed = exc_type is None
+        # REPRO_VERIFY=1 (repro_torch.analyze): sanitize every capture at
+        # seal time, so a whole test or bench run doubles as a sweep.
+        if (self._sealed and self.nodes
+                and os.environ.get("REPRO_VERIFY") == "1"):
+            findings = self.verify()
+            if findings:
+                from ..analyze.graph import GraphVerifyError
+                raise GraphVerifyError(findings)
 
     def join(self, queue: CommandQueue) -> "_GraphJoin":
         """Record commands on another queue into this capture.
@@ -1032,6 +1085,7 @@ class CommandGraph:
             self._ext_slots.append(slot)
             self._ext_values.append(buf.data)
             self._ext_avals.append(_meta_like(buf.data))
+            self._slot_flags[slot] = buf.flags
         return slot
 
     def _new_slot(self) -> int:
@@ -1098,6 +1152,7 @@ class CommandGraph:
             self._slot_readers.setdefault(s, []).append(idx)
         for s in out_slots:
             self._slot_producer[s] = idx
+            self._slot_flags[s] = "rw"          # kernel outputs: fresh rw slots
         outs = tuple(GraphBuffer(a, s) for a, s in zip(out_avals, out_slots))
         for b in outs:
             self._buf_slot[id(b)] = b.slot
@@ -1223,6 +1278,7 @@ class CommandGraph:
                              nbytes=nbytes, overwrites=overwrites))
         self._slot_readers.setdefault(in_slot, []).append(idx)
         self._slot_producer[out_slot] = idx
+        self._slot_flags[out_slot] = buf.flags
         if rebind is not None:
             self._buf_slot[id(rebind)] = out_slot
             self._bufs_alive.append(rebind)
@@ -1248,6 +1304,25 @@ class CommandGraph:
     def node_deps(self) -> Tuple[Tuple[int, ...], ...]:
         """Per-node dependency edges (indices into :attr:`nodes`)."""
         return tuple(n.deps for n in self.nodes)
+
+    def verify(self, donate: Sequence[int] = ()) -> Tuple[Any, ...]:
+        """Statically sanitize the captured DAG (see
+        :mod:`repro_torch.analyze`).
+
+        Returns the :class:`~repro_torch.analyze.graph.Finding` tuple —
+        empty for a hazard-free capture.  ``donate`` lists donated
+        external-input positions (capture order), enabling the
+        use-after-donate / double-donation checks.  Results are memoized
+        per donation tuple, so a serving path re-verifying before every
+        donating launch pays one dict lookup.
+        """
+        key = tuple(sorted(int(i) for i in donate))
+        memo = self._verify_memo.get(key)
+        if memo is None:
+            from ..analyze.graph import verify_graph
+            memo = verify_graph(self, donate=key)
+            self._verify_memo[key] = memo
+        return memo
 
     def total_modeled_s(self) -> float:
         return sum(n.modeled.total_s for n in self.nodes
@@ -1304,7 +1379,8 @@ class CommandGraph:
             return tuple(s for n in reversed(reads) for s in n.out_slots)
         return next(n.out_slots for n in reversed(self.nodes) if n.out_slots)
 
-    def launch(self, *inputs: Any,
+    def launch(self, *inputs: Any, donate: Sequence[int] = (),
+               queue_events: bool = True,
                queue: Optional[CommandQueue] = None) -> Tuple[Buffer, ...]:
         """Replay the captured DAG (non-blocking on a CUDA device).
 
@@ -1314,9 +1390,16 @@ class CommandGraph:
         on the current stream.  Returns the graph's outputs (the trailing
         reads' values, else the last node with outputs) as fresh buffers.
 
+        ``donate`` lists external-input positions the caller hands over to
+        the launch: each is verified (under ``REPRO_VERIFY=1``, the
+        donation-aware sanitizer sweep, memoized) and every donated input
+        passed as a :class:`Buffer` is marked consumed — reading it or
+        passing it to a later command raises.  Kernels still write fresh
+        outputs; donation never changes a result.
+
         **Launch-time queue binding**: per-node modeled events are appended
         to ``queue`` — the *caller's* queue — defaulting to the capture
-        queue for one-shot use.
+        queue for one-shot use; ``queue_events=False`` books none.
         """
         if any(q._capture is self for q in self.queues):
             raise RuntimeError("cannot launch while still capturing")
@@ -1327,11 +1410,33 @@ class CommandGraph:
         if not any(n.out_slots for n in self.nodes):
             raise RuntimeError(
                 "cannot launch an empty CommandGraph (no kernel nodes)")
+        if donate and not inputs:
+            # Donating the graph's own captured tensors would consume what
+            # every later zero-argument launch still needs.
+            raise ValueError(
+                "donate requires explicit launch inputs: the captured "
+                "external tensors must stay valid for later launches")
         ext = list(inputs) if inputs else list(self._ext_values)
         if len(ext) != len(self._ext_slots):
             raise ValueError(
                 f"graph takes {len(self._ext_slots)} external inputs, "
                 f"got {len(ext)}")
+        donate_key = tuple(sorted(int(i) for i in donate))
+        if any(not 0 <= i < len(ext) for i in donate_key):
+            raise ValueError(
+                f"donate positions {donate_key} out of range for "
+                f"{len(ext)} external inputs")
+        for i, x in enumerate(ext):
+            if isinstance(x, Buffer):
+                x._check_live(f"launch input {i}")
+        if donate_key and os.environ.get("REPRO_VERIFY") == "1":
+            # donation-aware sweep (memoized): a reader of a donated slot
+            # off the ordered path would observe storage handed back
+            findings = self.verify(donate=donate_key)
+            if findings:
+                from ..analyze.graph import GraphVerifyError
+                raise GraphVerifyError(findings)
+        donated = [ext[i] for i in donate_key if isinstance(ext[i], Buffer)]
         ext = [x.data if isinstance(x, Buffer) else x for x in ext]
         # Shape/dtype/device must match the capture: a silent mismatch
         # would attach capture-time modeled costs to a differently-sized
@@ -1359,37 +1464,51 @@ class CommandGraph:
             for slot, o in zip(node.out_slots, outs):
                 vals[slot] = o
         outs = tuple(Buffer(vals[s]) for s in self._output_slots())
-        done = _record_done(outs)
-        target = queue if queue is not None else self.queue
-        slot_buf = dict(zip(self._output_slots(), outs))
-        for node in self.nodes:
-            node_outs = tuple(slot_buf[s] for s in node.out_slots
-                              if s in slot_buf)
-            ev = Event(node.kernel, node_outs, node.modeled,
-                       node.energy_j, device_done=done)
-            target._events.append(ev)
-            for b in node_outs:          # dataflow edge for later eager
-                b._event = ev            # consumers, same as enqueue
+        for b in donated:
+            b.consumed = True
+        if queue_events:
+            done = _record_done(outs)
+            target = queue if queue is not None else self.queue
+            slot_buf = dict(zip(self._output_slots(), outs))
+            for node in self.nodes:
+                node_outs = tuple(slot_buf[s] for s in node.out_slots
+                                  if s in slot_buf)
+                ev = Event(node.kernel, node_outs, node.modeled,
+                           node.energy_j, device_done=done)
+                target._events.append(ev)
+                if target._tracer is not None:
+                    target._trace_event(ev)
+                for b in node_outs:      # dataflow edge for later eager
+                    b._event = ev        # consumers, same as enqueue
         return outs
 
     def launch_prefix(self, inputs: Sequence[Any],
-                      queue: Optional[CommandQueue] = None
-                      ) -> Tuple[Buffer, ...]:
+                      **launch_kwargs: Any) -> Tuple[Buffer, ...]:
         """Launch with only the first ``len(inputs)`` externals replaced.
 
         The remaining externals keep the tensors captured at record time —
         for a pipeline graph these are the per-stage constant buffers
-        (weights, coefficients), so a caller can feed fresh request data
-        without re-threading the pipeline's parameters.  Pass ``queue=`` to
-        bind the launch's events and modeled totals to the caller's queue.
+        (weights, coefficients), so a serving layer can feed fresh request
+        data without re-threading the pipeline's parameters (this is the
+        entry point ``repro_torch.serve.GraphCache`` users launch through).
+        ``launch_kwargs`` go to :meth:`launch` (``queue=``, ``donate=``,
+        ``queue_events=``); only caller-supplied positions may be donated.
         """
         inputs = list(inputs)
         if len(inputs) > len(self._ext_values):
             raise ValueError(
                 f"launch_prefix got {len(inputs)} inputs but the graph has "
                 f"only {len(self._ext_values)} externals")
+        donate = launch_kwargs.get("donate", ())
+        if any(int(i) >= len(inputs) for i in donate):
+            # Positions beyond the replaced prefix are filled from the
+            # graph's own captured tensors — donating one would consume a
+            # buffer every later launch still needs.
+            raise ValueError(
+                "launch_prefix can only donate caller-supplied positions "
+                f"(< {len(inputs)}); the rest are captured externals")
         return self.launch(*inputs, *self._ext_values[len(inputs):],
-                           queue=queue)
+                           **launch_kwargs)
 
 
 class _GraphJoin:

@@ -18,6 +18,9 @@
 // TinyBio's 65,536 samples and faster only near 2^20, a size no path runs
 // (PERF.md, Findings); a grid of one thread a sample already pays a single
 // load round trip over the launch.
+// A batch of signals (batch, n) is one launch: blockIdx.y picks the signal,
+// and the neighbours are clamped within it, so the first and last sample of
+// every row are endpoints (never compared with the next row's samples).
 #include "common.cuh"
 
 namespace {
@@ -30,6 +33,8 @@ __global__ void delineate_kernel(const T* __restrict__ x,
                                  T neg_thr) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  x += static_cast<long long>(blockIdx.y) * n;         // this block's signal
+  flags += static_cast<long long>(blockIdx.y) * n;
   const T xc = x[i];
   const T prev = x[i > 0 ? i - 1 : 0];
   const T next = x[i < n - 1 ? i + 1 : n - 1];
@@ -41,29 +46,36 @@ __global__ void delineate_kernel(const T* __restrict__ x,
 
 template <typename T>
 int launch_delineate(const void* x, void* flags, int n, T thr, T neg_thr,
-                     int device, void* stream) {
+                     int batch, int device, void* stream) {
   REPRO_SET_DEVICE(device);
-  if (n <= 0) return 0;
+  if (n <= 0 || batch <= 0) return 0;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kThreads - 1) / kThreads;
-  delineate_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(blocks, batch);
+  delineate_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<int8_t*>(flags), n, thr, neg_thr);
   return REPRO_LAUNCH_STATUS();
 }
 
 }  // namespace
 
+// batch: signals of n samples, contiguous, 1 to 65535
 REPRO_API int repro_delineate_f32(const void* x, void* flags, int n, float thr,
-                                  float neg_thr, int device, void* stream) {
-  return launch_delineate<float>(x, flags, n, thr, neg_thr, device, stream);
+                                  float neg_thr, int batch, int device,
+                                  void* stream) {
+  return launch_delineate<float>(x, flags, n, thr, neg_thr, batch, device, stream);
 }
 
 REPRO_API int repro_delineate_i16(const void* x, void* flags, int n, int thr,
-                                  int neg_thr, int device, void* stream) {
+                                  int neg_thr, int batch, int device,
+                                  void* stream) {
   return launch_delineate<int16_t>(x, flags, n, static_cast<int16_t>(thr),
-                                   static_cast<int16_t>(neg_thr), device, stream);
+                                   static_cast<int16_t>(neg_thr), batch, device,
+                                   stream);
 }
 
 REPRO_API int repro_delineate_i32(const void* x, void* flags, int n, int thr,
-                                  int neg_thr, int device, void* stream) {
-  return launch_delineate<int32_t>(x, flags, n, thr, neg_thr, device, stream);
+                                  int neg_thr, int batch, int device,
+                                  void* stream) {
+  return launch_delineate<int32_t>(x, flags, n, thr, neg_thr, batch, device, stream);
 }

@@ -37,6 +37,10 @@
 //   four at a time where they are whole and aligned.
 // * The plan changes no bit: each output's sum is the same sequence of
 //   roundings whatever kR, the threads or the chunking.
+// * A batch of signals (batch, n) is one launch: blockIdx.y picks the
+//   signal, and a row's history before its first sample is zeros, never
+//   the previous row's tail, so each row has the bits of its signal
+//   filtered alone.
 #include <algorithm>
 #include <type_traits>
 
@@ -157,6 +161,8 @@ template <typename T, typename S, int kR>
 __global__ void __launch_bounds__(kMaxThreads)
 fir_kernel(const T* __restrict__ x, const void* __restrict__ h, int h16,
            T* __restrict__ y, int n, int taps, int shift, int vec) {
+  x += static_cast<long long>(blockIdx.y) * n;         // this block's signal
+  y += static_cast<long long>(blockIdx.y) * n;
   using A = typename std::conditional<std::is_floating_point<S>::value,
                                       float, uint32_t>::type;
   constexpr int V = 16 / sizeof(T);
@@ -248,10 +254,11 @@ fir_kernel(const T* __restrict__ x, const void* __restrict__ h, int h16,
 
 template <typename T, typename S>
 int launch_fir(const T* x, const void* h, int h16, T* y, int n, int taps,
-               int shift, int rows, int threads, int device, void* stream) {
+               int shift, int rows, int threads, int batch, int device,
+               void* stream) {
   REPRO_SET_DEVICE(device);
-  if (n <= 0) return 0;
-  if (taps < 1 || threads < 1 || threads > kMaxThreads)
+  if (n <= 0 || batch <= 0) return 0;
+  if (taps < 1 || threads < 1 || threads > kMaxThreads || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int V = 16 / sizeof(T);
   const long long outs = static_cast<long long>(threads) * rows;
@@ -260,14 +267,18 @@ int launch_fir(const T* x, const void* h, int h16, T* y, int n, int taps,
   // 4 * groups + 4 taps, then a window of at most outs + 4 * groups + 4 +
   // 2V - 2 samples
   const size_t smem = sizeof(S) * static_cast<size_t>(8 * groups + outs + 8 + 2 * V);
+  // 16-byte vectors on every row: both bases aligned, and rows a whole
+  // number of vectors apart
   const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(y) % 16 == 0;
+                  reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                  (batch == 1 || n % V == 0);
+  const dim3 grid(blocks, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 1: fir_kernel<T, S, 1><<<blocks, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
-    case 2: fir_kernel<T, S, 2><<<blocks, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
-    case 4: fir_kernel<T, S, 4><<<blocks, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
-    case 8: fir_kernel<T, S, 8><<<blocks, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
+    case 1: fir_kernel<T, S, 1><<<grid, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
+    case 2: fir_kernel<T, S, 2><<<grid, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
+    case 4: fir_kernel<T, S, 4><<<grid, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
+    case 8: fir_kernel<T, S, 8><<<grid, threads, smem, s>>>(x, h, h16, y, n, taps, shift, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return REPRO_LAUNCH_STATUS();
@@ -276,28 +287,29 @@ int launch_fir(const T* x, const void* h, int h16, T* y, int n, int taps,
 }  // namespace
 
 // rows: outputs a thread (1, 2, 4 or 8); threads: a block's, 1 to 256 (any
-// count: nothing in the kernel needs whole warps).  Taps: float32 for the float signal; int16 (h16 = 1) or
-// int32 (h16 = 0) Q15 taps for the integer signals.
+// count: nothing in the kernel needs whole warps); batch: signals of n
+// samples, contiguous, 1 to 65535.  Taps: float32 for the float signal;
+// int16 (h16 = 1) or int32 (h16 = 0) Q15 taps for the integer signals.
 REPRO_API int repro_fir_f32(const void* x, const void* h, void* y, int n,
-                            int taps, int rows, int threads, int device,
-                            void* stream) {
+                            int taps, int rows, int threads, int batch,
+                            int device, void* stream) {
   return launch_fir<float, float>(static_cast<const float*>(x), h, 0,
                                   static_cast<float*>(y), n, taps, 0, rows,
-                                  threads, device, stream);
+                                  threads, batch, device, stream);
 }
 
 REPRO_API int repro_fir_i16(const void* x, const void* h, int h16, void* y,
                             int n, int taps, int shift, int rows, int threads,
-                            int device, void* stream) {
+                            int batch, int device, void* stream) {
   return launch_fir<int16_t, int32_t>(static_cast<const int16_t*>(x), h, h16,
                                       static_cast<int16_t*>(y), n, taps, shift,
-                                      rows, threads, device, stream);
+                                      rows, threads, batch, device, stream);
 }
 
 REPRO_API int repro_fir_i32(const void* x, const void* h, int h16, void* y,
                             int n, int taps, int shift, int rows, int threads,
-                            int device, void* stream) {
+                            int batch, int device, void* stream) {
   return launch_fir<int32_t, int32_t>(static_cast<const int32_t*>(x), h, h16,
                                       static_cast<int32_t*>(y), n, taps, shift,
-                                      rows, threads, device, stream);
+                                      rows, threads, batch, device, stream);
 }

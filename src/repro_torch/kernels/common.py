@@ -10,6 +10,10 @@ wrapper with one rule (:func:`on_card`):
 * a ``meta`` tensor runs the plain version too, which only propagates
   shapes and dtypes — that is how a capture infers its output shapes.
 
+A wrapper whose kernel serves batched requests reaches its launch through
+a custom op (:func:`card_op`) with a vmap rule, so ``torch.func.vmap`` of
+the wrapper on the card is one launch over the whole batch.
+
 The library is built at first use, by :func:`kernel_library`, into
 ``build/repro_torch/`` at the root of the checkout: ``nvcc`` from
 ``torch.utils.cpp_extension.CUDA_HOME`` compiles every source at once, one
@@ -28,7 +32,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +117,46 @@ def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """The current CUDA stream on ``t``'s device, for ctypes."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# Card launches as custom ops (batching under ``torch.func.vmap``)
+# ---------------------------------------------------------------------------
+#: namespace of the custom ops that carry the card launches: the package's
+#: own top-level name, so a second copy of the package loaded under another
+#: name registers its own ops
+OP_NAMESPACE = __name__.split(".")[0]
+
+
+def card_op(name: str):
+    """Register the decorated function, a wrapper's card path, as the custom
+    op ``OP_NAMESPACE::name`` (for every device: the public wrapper decides
+    where it runs).  ``torch.func.vmap`` cannot look inside a ctypes launch,
+    so each such op gets a fake (shapes for ``meta``) and a vmap rule that
+    folds the vmapped batch into the kernel's own batch axis: a vmapped
+    call is one launch."""
+    return torch.library.custom_op(f"{OP_NAMESPACE}::{name}", mutates_args=())
+
+
+def unbatched_rest(op: str, in_dims: Sequence[Optional[int]],
+                   n_batched: int = 1) -> None:
+    """Raise unless only the first ``n_batched`` arguments of a vmapped
+    card op carry the batch axis (the rest — taps, support vectors, bias —
+    are broadcast constants)."""
+    if any(d is not None for d in in_dims[n_batched:]):
+        raise NotImplementedError(
+            f"{op}: only the first {n_batched} argument(s) may carry a vmap "
+            "batch axis; the others are constants of the batch")
+
+
+def fold_batch(x: torch.Tensor, bdim: Optional[int], inner: int
+               ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """A vmapped argument with its batch axis moved first and every axis
+    before its last ``inner`` ones folded into one leading axis, contiguous,
+    and the leading shape to restore on the output."""
+    x = x.movedim(bdim, 0) if bdim is not None else x
+    lead = tuple(x.shape[:x.dim() - inner])
+    return x.reshape((-1,) + tuple(x.shape[x.dim() - inner:])).contiguous(), lead
 
 
 # ---------------------------------------------------------------------------

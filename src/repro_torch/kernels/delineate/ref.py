@@ -29,12 +29,13 @@ def thresholds(thr: float | int, dtype: torch.dtype) -> Tuple[float | int, float
 
 def delineate_ref(x: torch.Tensor, thr: float | int = 0) -> torch.Tensor:
     """Flags[i] = +1 if x[i] is a local max above ``thr``, -1 if a local min
-    below ``-thr``, else 0.  x: 1-D float or integer signal; the thresholds
-    are compared in x's dtype."""
+    below ``-thr``, else 0.  x: a float or integer signal along its last
+    axis (leading axes are a batch of signals, each delineated on its own,
+    with its own endpoints); the thresholds are compared in x's dtype."""
     t, neg_t = thresholds(thr, x.dtype)
-    prev = torch.cat([x[:1], x[:-1]])
-    nxt = torch.cat([x[1:], x[-1:]])
-    n = x.shape[0]
+    prev = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+    nxt = torch.cat([x[..., 1:], x[..., -1:]], dim=-1)
+    n = x.shape[-1]
     idx = torch.arange(n, device=x.device)
     interior = (idx > 0) & (idx < n - 1)
     is_peak = (x > prev) & (x >= nxt) & (x > t) & interior

@@ -6,7 +6,9 @@ window of ``rows + 4`` samples through its registers, four taps at a time;
 the taps and the window they need stream through shared memory in chunks
 of :data:`CHUNK` taps, so any number of taps runs and each output still
 adds its taps in order t = 0..taps-1.  :func:`plan_fir` picks ``rows`` and
-the threads a block; the plan changes no bit.
+the threads a block for one signal; a (batch, n) stack of signals is one
+launch whose grid repeats that plan for every row.  The plan changes no
+bit.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ PLAN_THREADS = 128
 #: and Q15), about one output of 128 taps a lane
 WARP_FIXED_PRODUCTS = 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FLOAT_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-_FIXED_ARGS = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]
+_FLOAT_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_FIXED_ARGS = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+#: the most signals a launch takes (the grid's second axis)
+MAX_BATCH = 65535
 _FIXED_SYMBOL = {torch.int16: "repro_fir_i16", torch.int32: "repro_fir_i32"}
 
 
@@ -79,18 +83,22 @@ def plan_fir(n: int, taps: int, sm_count: int) -> FirPlan:
 
 def launch_fir(x: torch.Tensor, h: torch.Tensor, y: torch.Tensor,
                plan: Optional[FirPlan] = None) -> None:
-    """Launch on contiguous CUDA tensors: float32 ``x`` and ``h``, or an
-    int16/int32 ``x`` with int16/int32 Q15 taps ``h``, into ``y`` (like
-    ``x``), on the current stream, with ``plan`` or :func:`plan_fir`'s."""
-    n, taps = x.shape[0], h.shape[0]
+    """Launch on contiguous CUDA tensors: a float32 signal ``x`` (n,) or
+    stack of signals (batch, n) with float32 taps ``h``, or an int16/int32
+    ``x`` with int16/int32 Q15 taps ``h``, into ``y`` (like ``x``), on the
+    current stream, with ``plan`` or :func:`plan_fir`'s for one signal."""
+    n, taps = x.shape[-1], h.shape[0]
+    batch = x.shape[0] if x.dim() == 2 else 1
+    if batch > MAX_BATCH:
+        raise ValueError(f"fir launches at most {MAX_BATCH} signals, got {batch}")
     if plan is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         plan = plan_fir(n, taps, sms)
     dev = x.device.index
     if x.dtype == torch.float32:
         launch("fir", "repro_fir_f32", _FLOAT_ARGS, ptr(x), ptr(h), ptr(y),
-               n, taps, plan.rows, plan.threads, dev, stream_of(x))
+               n, taps, plan.rows, plan.threads, batch, dev, stream_of(x))
     else:
         launch("fir", _FIXED_SYMBOL[x.dtype], _FIXED_ARGS, ptr(x), ptr(h),
                int(h.dtype == torch.int16), ptr(y), n, taps, FXP_SHIFT,
-               plan.rows, plan.threads, dev, stream_of(x))
+               plan.rows, plan.threads, batch, dev, stream_of(x))

@@ -19,7 +19,9 @@ _LOW32 = 0xFFFFFFFF
 
 
 def fir_ref(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Causal FIR: y[n] = sum_t h[t] * x[n - t] (zero-padded history).
+    """Causal FIR: y[n] = sum_t h[t] * x[n - t] (zero-padded history), along
+    the last axis of ``x`` (a signal, or a stack of signals filtered each
+    on its own).
 
     Float inputs accumulate in fp32, ``acc = acc + h[t] * x[n - t]`` for
     t = 0..taps-1, each product and sum rounded on its own.  Integer inputs
@@ -27,14 +29,14 @@ def fir_ref(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     of int64 so no step overflows), shift right arithmetically by
     :data:`FXP_SHIFT` (Q15) and narrow back to ``x``'s dtype.
     """
-    taps, n = h.shape[0], x.shape[0]
+    taps, n = h.shape[0], x.shape[-1]
     fixed = not x.dtype.is_floating_point
     work = torch.int64 if fixed else torch.float32
     xp = F.pad(x.to(work), (taps - 1, 0))
     hw = h.to(work)
-    acc = torch.zeros(n, dtype=work, device=x.device)
+    acc = torch.zeros(x.shape, dtype=work, device=x.device)
     for t in range(taps):
-        prod = hw[t] * xp[taps - 1 - t: taps - 1 - t + n]
+        prod = hw[t] * xp[..., taps - 1 - t: taps - 1 - t + n]
         acc = acc + (prod & _LOW32 if fixed else prod)
     if not fixed:
         return acc

@@ -19,16 +19,17 @@ from ...core.machine import WorkCounts
 
 def svm_decision_ref(x: torch.Tensor, sv: torch.Tensor, alpha: torch.Tensor,
                      b, gamma: float | None = None) -> torch.Tensor:
-    """Decision values for queries ``x`` (q, d) against support vectors
-    ``sv`` (m, d) with dual coefficients ``alpha`` (m,).  ``gamma=None``
-    selects the linear kernel."""
+    """Decision values for queries ``x`` (..., q, d) against support vectors
+    ``sv`` (m, d) with dual coefficients ``alpha`` (m,); leading axes of
+    ``x`` are a batch of query sets.  ``gamma=None`` selects the linear
+    kernel."""
     x = x.to(torch.float32)
     sv = sv.to(torch.float32)
-    dots = x @ sv.T                                    # (q, m)
+    dots = x @ sv.T                                    # (..., q, m)
     if gamma is None:
         k = dots
     else:
-        d2 = ((x * x).sum(dim=1, keepdim=True)
+        d2 = ((x * x).sum(dim=-1, keepdim=True)
               + (sv * sv).sum(dim=1)[None, :] - 2.0 * dots)
         k = torch.exp(-gamma * torch.clamp(d2, min=0.0))
     return k @ alpha.to(torch.float32) + b

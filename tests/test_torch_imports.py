@@ -69,7 +69,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.train.serve",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.flash_attention.ref",
-                "repro_torch.kernels.flash_attention.flash_attention"}
+                "repro_torch.kernels.flash_attention.flash_attention",
+                "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                "repro_torch.analyze.graph", "repro_torch.serve.batching",
+                "repro_torch.serve.cache", "repro_torch.serve.dispatch",
+                "repro_torch.serve.server", "repro_torch.serve.faults",
+                "repro_torch.serve.power", "benchmarks_torch.bench_serve"}
     assert expected <= set(report["modules"])
 
 

@@ -172,7 +172,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         fir(torch.zeros(10), torch.zeros(3, dtype=torch.int16))
     with pytest.raises(ValueError, match="1-D"):
-        fir(torch.zeros(2, 10), torch.zeros(3))
+        fir(torch.zeros(2, 2, 10), torch.zeros(3))
     with pytest.raises(ValueError, match="power of two"):
         fft(torch.zeros(2, 12))
     with pytest.raises(ValueError, match="disagree"):
