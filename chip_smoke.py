@@ -110,6 +110,20 @@ Phases (any failure exits non-zero and prints no result line):
      ``CommandQueue`` and ``APU.offload`` (graph and eager): each result
      equal to the op's, each report equal to the CPU run's, and each kernel
      launched once per enqueue and graph offload and twice per eager one;
+   * 4d. the queue options with the registry's ``gemm`` (256³ int32) and
+     TinyBio families at the paper's size (65,536 samples, 128 taps, FFT
+     128 × 512, SVM 128 queries × 256 × 36), on 16T: the default queue, an
+     unprofiled blocking one (``profile=False, blocking=True``) and a
+     windowed one (``max_events=2``), the latter two with blocking
+     transfers.  Outputs bit-equal to the default queue's, blocking events
+     ``done`` on return, the unprofiled ``finish()`` releasing every event,
+     the windowed totals ``==`` the full-history queue's, one launch an
+     enqueue, ``dispatch_s > 0`` on every kernel event (also once released),
+     ``flush()`` returning; ``create_buffer`` aliasing a card tensor
+     (``copy=False``, ``use_host_ptr=True``), copying on ``copy=True`` and
+     refusing a CPU tensor.  Then ``bench_dispatch``'s eager-sync, async
+     and graph microseconds a kernel on the card, and ``bench_static``'s
+     rows;
 
 5. the LM serving path (qwen2.5-3b at full width and depth, bf16, random
    weights from ``init_params(seed=0)`` on the card): ``greedy_generate``
@@ -152,9 +166,13 @@ Phases (any failure exits non-zero and prints no result line):
    share of one warm micro-batch and a warm ``APU.offload`` graph wall are
    printed side by side;
 
+   7b. ``bench_overload`` and ``bench_power`` on the card: every modeled row
+   ``==`` the same bench's CPU run, their gates and bit-identity checks
+   holding on the card; each bench's wall on the card and on the CPU;
+
 8. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
-   4's main paths, plus phase 7's for the TinyBio kernels), then, last,
-   ``{"ok": true, "device": {...}}``.
+   4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
+   kernels), then, last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -381,13 +399,15 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     try:
-        from benchmarks_torch import (bench_gemm_overhead, bench_multiqueue,
+        from benchmarks_torch import (bench_dispatch, bench_gemm_overhead,
+                                      bench_multiqueue, bench_overload,
+                                      bench_power, bench_static,
                                       bench_transfer)
         from repro_torch.configs import get as get_arch
         from repro_torch.apps import tinybio
         from repro_torch.core import (APU, EGPU_4T, EGPU_8T, EGPU_16T,
                                       CommandQueue, Context, Device, Program,
-                                      Stage)
+                                      Stage, optimal_ndrange)
         from repro_torch.kernels import common
         from repro_torch.kernels.gemm.gemm import plan_split_k, tiles_from_knobs
         from repro_torch.kernels.gemm.ops import gemm
@@ -1686,6 +1706,141 @@ def main() -> int:
             f"modeled speed-up {rep16.speedup!r}")
     log(f"phase 4c: registry phase in {reg_wall:.3f} s, launches {reg_launches}")
 
+    # -- 4d. the queue options on the card, with the registry's kernels --------
+    # The gemm family (256^3 int32) and the four TinyBio families at the
+    # paper's size, on 16T, through three queues: the default one, an
+    # unprofiled blocking one and a profiled one with a window of 2 events,
+    # the latter two with blocking transfers.  Each family: a write of its
+    # first input into a fresh buffer, the kernel, a read of its output.
+    # The launch counters are reset just before and read just after.
+    fam_x = inputs[0]
+    fam_in = {
+        "gemm": ((torch.from_numpy(qa).to(dev), torch.from_numpy(qb).to(dev)),
+                 {}, {"m": 256, "n": 256, "k": 256}),
+        "fir": ((fam_x, h), {}, {"n": fam_x.numel(), "taps": h.numel()}),
+        "delineate": ((fir(fam_x, h),), {}, {"n": fam_x.numel()}),
+        "stockham_fft": ((fam_x[:128 * 512].reshape(128, 512),), {},
+                         {"n": 512}),
+        "svm": ((normal(128, sv_main.shape[1]), sv_main, alpha_main,
+                 stages[3].consts[2]), {"gamma": 0.5},
+                {"q": 128, "m": sv_main.shape[0], "d": sv_main.shape[1]}),
+    }
+    opt_queues = {
+        "default": ({}, False),
+        "unprofiled blocking": ({"profile": False, "blocking": True}, True),
+        "windowed": ({"profile": True, "max_events": 2}, True),
+    }
+    prog16 = Program.build(EGPU_16T)
+    ctx16 = Context(Device(EGPU_16T), "cuda")
+    opt_runs = {}
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    for qname, (qopts, tblock) in opt_queues.items():
+        q = CommandQueue(ctx16, **qopts)
+        kernel_events, outs = [], {}
+        for family, (ins, params, cps) in fam_in.items():
+            src = ctx16.create_buffer(torch.empty_like(ins[0]))
+            wr = q.enqueue_write_buffer(src, ins[0], blocking=tblock)
+            ev = q.enqueue_nd_range(
+                prog16.create_kernel(family),
+                optimal_ndrange(ins[0].numel(), EGPU_16T),
+                (src,) + tuple(ctx16.create_buffer(a) for a in ins[1:]),
+                params=params, counts_params=cps)
+            ev_done = ev.done
+            rd = q.enqueue_read_buffer(ev.outputs[0], blocking=tblock)
+            if q.blocking:
+                check(ev_done, f"4d {qname}: {family} not done on return")
+            if tblock:
+                check(wr.done and rd.done and ev.done,
+                      f"4d {qname}: {family}: a blocking transfer returned "
+                      "before its work was done")
+            check(wr.dispatch_s == 0.0 and rd.dispatch_s == 0.0,
+                  f"4d {qname}: a transfer booked host dispatch time")
+            kernel_events.append(ev)
+            outs[family] = tuple(b.data for b in ev.outputs)
+        check(q.flush() is None, f"4d {qname}: flush returned something")
+        q.finish()
+        opt_runs[qname] = (q, kernel_events, outs)
+    torch.cuda.synchronize()
+    opt_wall = time.perf_counter() - t0
+    opt_launches = dict(common.LAUNCHES)
+    for name in KERNELS:
+        want = len(opt_queues) if name in fam_in else 0
+        check(opt_launches[name] == want,
+              f"phase 4d launched {name} {opt_launches[name]} times, expected "
+              f"{want} (one launch an enqueue)")
+    n_cmds = 3 * len(fam_in)
+    (q_def, ev_def, out_def) = opt_runs["default"]
+    for qname, (q, evs, outs) in opt_runs.items():
+        for family, got in outs.items():
+            check(len(got) == len(out_def[family]) and all(
+                same_bits(a_, b_) for a_, b_ in zip(got, out_def[family])),
+                f"4d {qname}: {family} output differs from the default queue's")
+        for ev in evs:
+            check(ev.dispatch_s > 0.0 and ev.wall_s == ev.dispatch_s,
+                  f"4d {qname}: {ev.kernel.name} dispatch_s {ev.dispatch_s}")
+    q_unp, ev_unp, _ = opt_runs["unprofiled blocking"]
+    check(q_unp.events == () and q_unp.released_count == n_cmds
+          and all(e.released and e.modeled is None for e in ev_unp),
+          f"4d unprofiled finish: {len(q_unp.events)} events kept, "
+          f"{q_unp.released_count} released, expected () and {n_cmds}")
+    q_win, ev_win, _ = opt_runs["windowed"]
+    check(len(q_win.events) == 2 and q_win.released_count == n_cmds - 2,
+          f"4d windowed queue kept {len(q_win.events)} events")
+    check((q_win.total_modeled_s(), q_win.total_energy_j())
+          == (q_def.total_modeled_s(), q_def.total_energy_j()),
+          "4d windowed totals differ from the full-history queue's: "
+          f"{q_win.total_modeled_s()!r} s / {q_win.total_energy_j()!r} J vs "
+          f"{q_def.total_modeled_s()!r} s / {q_def.total_energy_j()!r} J")
+    check(all(e.released and e.dispatch_s > 0.0 for e in ev_win[:-1]),
+          "4d windowed queue: released events lost their dispatch_s")
+    launches.update({name: launches[name] + opt_launches[name] for name in fam_in})
+    # create_buffer: adoption and aliasing of a card tensor, a fresh copy on
+    # request, and a CPU tensor that a card context cannot adopt
+    card_t = fam_x[:1024]
+    for kw in ({"copy": False}, {"use_host_ptr": True}):
+        b_ = ctx16.create_buffer(card_t, **kw)
+        check(b_.data is card_t and b_.data.data_ptr() == card_t.data_ptr(),
+              f"4d create_buffer({kw}) did not alias the card tensor")
+    fresh = ctx16.create_buffer(card_t, copy=True).data
+    check(fresh.is_cuda and fresh.data_ptr() != card_t.data_ptr()
+          and torch.equal(fresh, card_t), "4d create_buffer(copy=True) aliased")
+    try:
+        ctx16.create_buffer(card_t.cpu(), copy=False)
+    except TypeError as e:
+        adopt_err = str(e)
+    else:
+        raise SmokeFailure("4d create_buffer adopted a CPU tensor on the card")
+    def_ev = {e.kernel.name: e.dispatch_s for e in ev_def}
+    blk_ev = {e.kernel.name: e.dispatch_s for e in ev_unp}
+    log(f"phase 4d: queue options on the card (gemm 256^3 int32, fir "
+        f"{fam_x.numel()} x {h.numel()}, delineate, fft 128 x 512, svm 128 x "
+        f"{sv_main.shape[0]} x {sv_main.shape[1]}; default, unprofiled "
+        f"blocking, windowed max_events=2) in {opt_wall:.3f} s: outputs "
+        f"bit-equal to the default queue's, blocking events done on return, "
+        f"unprofiled finish released {q_unp.released_count}, windowed totals "
+        f"== full history ({q_win.total_modeled_s()!r} s, "
+        f"{q_win.total_energy_j()!r} J), launches {opt_launches}; "
+        f"create_buffer aliases a card tensor, copies on copy=True, refuses a "
+        f"CPU tensor ({adopt_err!r})")
+    log("phase 4d: dispatch_s per kernel (ms), async / blocking: " + ", ".join(
+        f"{k_} {def_ev[k_] * 1e3:.3f} / {blk_ev[k_] * 1e3:.3f}" for k_ in def_ev))
+    disp = bench_dispatch.run("cuda")
+    us = disp["per_launch_us"]
+    log(f"phase 4d: bench_dispatch on the card (chain of {disp['chain_len']} "
+        f"{disp['size']}^2 f32 GeMMs, best of {disp['trials']}x{disp['reps']}): "
+        f"eager-sync {us['eager-sync']:.3f}, async {us['async']:.3f}, graph "
+        f"{us['graph']:.3f} us a kernel; graph {us['async'] / us['graph']:.3f}x "
+        f"cheaper than async, {disp['graph_vs_eager_sync_speedup']:.3f}x than "
+        f"eager-sync")
+    static_rows = bench_static.run()
+    check(len(static_rows) == 4 and all(
+        math.isfinite(r_[k_]) for r_ in static_rows for k_ in r_ if k_ != "name"),
+        "bench_static rows are not 4 rows of finite numbers")
+    log("phase 4d: bench_static rows (no device runs them; the CPU tests hold "
+        "them == the JAX rows): " + json.dumps(static_rows))
+
     # -- 5. the LM serving path: qwen2.5-3b, full width and depth, bf16 -----
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2121,6 +2276,29 @@ def main() -> int:
                                    *offload_prof))
     launches.update({name: launches[name] + serve_launches[name]
                      for name in TINYBIO_KERNELS})
+
+    # -- 7b. the overload and power serving benches on the card ---------------
+    # Every modeled row (the whole result) must equal the same bench's CPU
+    # run; the benches' own gates and bit-identity asserts hold inside run().
+    for bench in (bench_overload, bench_power):
+        t0 = time.perf_counter()
+        on_card = bench.run("cuda")
+        torch.cuda.synchronize()
+        card_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = bench.run("cpu")
+        cpu_wall = time.perf_counter() - t0
+        for key in on_cpu:
+            check(on_card[key] == on_cpu[key],
+                  f"{bench.__name__} {key}: {on_card[key]} on the card, "
+                  f"{on_cpu[key]} on the CPU")
+        log(f"phase 7b: {bench.__name__.rsplit('.', 1)[-1]}: every modeled row "
+            f"== the CPU run's; wall {card_wall:.3f} s on the card, "
+            f"{cpu_wall:.3f} s on the CPU; " + json.dumps(
+                {k_: on_card[k_] for k_ in (
+                    "goodput_vs_fifo_speedup", "goodput_faulted_vs_fifo_speedup",
+                    "n_bit_identity_checked", "goodput_per_watt_speedup",
+                    "n_power_throttled") if k_ in on_card}))
 
     # -- 8. summary ---------------------------------------------------------------
     kernels = []

@@ -1,14 +1,24 @@
-"""repro_torch.analyze — static analysis of captured graphs.
+"""repro_torch.analyze — static analysis of captured graphs and repo
+invariants.
 
-:mod:`repro_torch.analyze.graph` is the capture-time **graph sanitizer**:
-:func:`verify_graph` statically proves a captured
-:class:`~repro_torch.core.runtime.CommandGraph` free of RAW/WAR/WAW races,
-use-after-donate hazards, buffer-flag violations, dependency cycles and
-dead nodes, with node-naming :class:`Finding` diagnostics.  It is reached
-as ``CommandGraph.verify()`` (memoized per graph and donation tuple),
-automatically at every :class:`~repro_torch.serve.cache.GraphCache` miss,
-and — loudly, raising :class:`GraphVerifyError` — at every capture under
-``REPRO_VERIFY=1``.
+Two passes, one package, as in the JAX package:
+
+* :mod:`repro_torch.analyze.graph` — a capture-time **graph sanitizer**:
+  :func:`verify_graph` statically proves a captured
+  :class:`~repro_torch.core.runtime.CommandGraph` free of RAW/WAR/WAW
+  races, use-after-donate hazards, buffer-flag violations, dependency
+  cycles and dead nodes, with node-naming :class:`Finding` diagnostics.
+  It is reached as ``CommandGraph.verify()`` (memoized per graph and
+  donation tuple), automatically at every
+  :class:`~repro_torch.serve.cache.GraphCache` miss, and — loudly, raising
+  :class:`GraphVerifyError` — at every capture under ``REPRO_VERIFY=1``.
+
+* :mod:`repro_torch.analyze.lint` — an AST **invariant linter** enforcing
+  the ROADMAP's structural rules over ``src/repro_torch`` (no builtin
+  ``hash()``, no wall clocks in modeled accounting, tracer guards on hot
+  paths, registry-only kernel construction, history-only bench writes).
+  CLI: ``PYTHONPATH=src python -m repro_torch.analyze [path ...]``
+  (default ``src/repro_torch``; non-zero exit on findings).
 
 Worked example — the sanitizer catching a seeded race::
 
@@ -31,11 +41,14 @@ Worked example — the sanitizer catching a seeded race::
     graph._verify_memo.clear()
     (f,) = graph.verify()
     assert f.code == "raw-race"
-
-The AST invariant linter of the JAX package (``analyze/lint.py``) is not
-part of the port yet.
 """
 
 from .graph import Finding, GraphVerifyError, verify_graph
+from .lint import (KERNEL_CTOR_MODULES, MODELED_ACCOUNTING, LintFinding,
+                   lint_file, lint_paths, lint_source)
 
-__all__ = ["Finding", "GraphVerifyError", "verify_graph"]
+__all__ = [
+    "Finding", "GraphVerifyError", "verify_graph",
+    "LintFinding", "lint_source", "lint_file", "lint_paths",
+    "MODELED_ACCOUNTING", "KERNEL_CTOR_MODULES",
+]

@@ -24,7 +24,12 @@ Execution model
 on the current CUDA stream and the returned :class:`Event` records a
 ``torch.cuda.Event`` behind it.  ``Event.wait()`` synchronizes that event
 (and, transitively, the events it depends on) and ``CommandQueue.finish()``
-drains the queue (``clFinish``).
+drains the queue (``clFinish``).  ``CommandQueue(ctx, blocking=True)`` (and
+``blocking=True`` on a transfer command) waits on each command's own
+completion before the enqueue returns; ``Event.dispatch_s`` is the host
+seconds the enqueue took.  ``CommandQueue(ctx, profile=False)`` books no
+machine model and releases its events at every ``finish()``;
+``max_events=N`` keeps only the newest N drained events of a profiled queue.
 
 Ordering follows OpenCL.  An in-order queue (the default) chains every
 command after the previous one.  ``CommandQueue(ctx, out_of_order=True)``
@@ -66,7 +71,9 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 import os
+import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -386,10 +393,28 @@ def _record_done(outputs: Sequence[Buffer]) -> Optional[Any]:
     return None
 
 
+def _sum_step(acc: Tuple[float, float], x: float) -> Tuple[float, float]:
+    """One step of the compensated (Neumaier) sum that Python's built-in
+    ``sum()`` runs over floats (CPython 3.12+); ``acc`` is (sum, carry)."""
+    s, c = acc
+    t = s + x
+    c += (s - t) + x if abs(s) >= abs(x) else (x - t) + s
+    return t, c
+
+
+def _sum_value(acc: Tuple[float, float]) -> float:
+    """The sum ``acc`` stands for (``sum()``'s final carry-in)."""
+    s, c = acc
+    return s + c if c and math.isfinite(c) else s
+
+
 class Event:
     """Kernel-completion event: functional results + modeled time/energy.
 
-    ``wait()`` blocks until the results are realized.
+    ``dispatch_s`` is the host seconds the *enqueue* took (the executor
+    call, plus the wait on the launch's completion on a blocking queue;
+    0.0 for transfers, markers and capture-time events); ``wall_s`` is its
+    alias.  ``wait()`` blocks until the results are realized.
 
     Events are reference-counted like ``cl_event`` (clRetainEvent /
     clReleaseEvent): :meth:`release` drops the event's hold on its output
@@ -401,12 +426,13 @@ class Event:
 
     def __init__(self, kernel: Kernel, outputs: Tuple[Buffer, ...],
                  modeled: Optional[PhaseBreakdown], energy_j: Optional[float],
-                 deps: Tuple["Event", ...] = (),
+                 dispatch_s: float = 0.0, deps: Tuple["Event", ...] = (),
                  device_done: Optional[Any] = None):
         self.kernel = kernel
         self.outputs = outputs
         self.modeled = modeled
         self.energy_j = energy_j
+        self.dispatch_s = dispatch_s
         #: events this one waits on (explicit ``wait_events``, the queue's
         #: implicit ordering edge, dataflow producers); cleared once realized
         #: or released so a long-lived queue never chains its whole history
@@ -419,6 +445,12 @@ class Event:
         #: indices the event stands for (what a ``wait_events`` list names)
         self._graph: Optional["CommandGraph"] = None
         self._dep_nodes: frozenset = frozenset()
+
+    @property
+    def wall_s(self) -> float:
+        """Alias of ``dispatch_s``.  Readable on a released event, like
+        ``modeled`` and ``energy_j``: release drops only the outputs."""
+        return self.dispatch_s
 
     @property
     def done(self) -> bool:
@@ -490,9 +522,12 @@ _COPY = Kernel(name="copy_buffer", executor=lambda x: (x,))
 class CommandQueue:
     """A command queue bound to one device.
 
-    Asynchronous OpenCL semantics: enqueue returns once the kernel is queued
-    on the CUDA stream, and only ``Event.wait()`` / :meth:`finish`
-    synchronize.
+    ``blocking=False`` (default) gives asynchronous OpenCL semantics:
+    enqueue returns once the kernel is queued on the CUDA stream, and only
+    ``Event.wait()`` / :meth:`finish` synchronize.  ``blocking=True`` is
+    eager-sync dispatch: every command waits on its own completion (the
+    launch's recorded ``torch.cuda.Event``, never a device-wide
+    synchronize) before the enqueue returns, and its event is ``done``.
 
     Ordering (``out_of_order``): an in-order queue (default) implicitly
     chains every command after the previous one, OpenCL's default queue
@@ -503,10 +538,14 @@ class CommandQueue:
     :meth:`enqueue_barrier` points.  Two commands with neither are
     unordered (concurrent in the machine model's critical path).
 
-    Event lifecycle: the queue keeps every event until
-    :meth:`release_events` drops drained ones, folding their modeled
-    time/energy into the queue's running totals, so :meth:`total_modeled_s`
-    / :meth:`total_energy_j` stay exact whatever has been released.
+    Event lifecycle: an unprofiled queue (``profile=False``) books no
+    machine model and releases its events on :meth:`finish`, so a
+    long-lived queue stays O(in-flight) memory.  A profiled queue keeps
+    every event by default; ``max_events=N`` is a bounded profiling window:
+    :meth:`finish` keeps only the newest N drained events.  Released events
+    have their modeled time/energy folded into the queue's running totals,
+    so :meth:`total_modeled_s` / :meth:`total_energy_j` stay exact whatever
+    has been released.
 
     ``tracer`` (a :class:`~repro_torch.obs.Tracer`) turns on span tracing:
     every booked event becomes one span on the track ``trace_track``
@@ -515,10 +554,16 @@ class CommandQueue:
     each booking site, so an untraced queue allocates nothing for it.
     """
 
-    def __init__(self, ctx: "Context", out_of_order: bool = False,
-                 tracer: Optional[Any] = None,
+    def __init__(self, ctx: "Context", profile: bool = True,
+                 blocking: bool = False, max_events: Optional[int] = None,
+                 out_of_order: bool = False, tracer: Optional[Any] = None,
                  trace_track: Optional[str] = None):
+        if max_events is not None and max_events < 0:
+            raise ValueError("max_events must be None or >= 0")
         self.ctx = ctx
+        self.profile = profile
+        self.blocking = blocking
+        self.max_events = max_events
         self.out_of_order = out_of_order
         self._tracer = tracer
         self._trace_track = trace_track or f"queue:{ctx.device.config.name}"
@@ -528,10 +573,14 @@ class CommandQueue:
         self._drained = 0              # finish() watermark: events before
                                        # this index are already waited
         # Running totals of *released* events, so dropping an event from the
-        # retained window never changes the queue's modeled accounting.
+        # retained window never changes the queue's modeled accounting:
+        # (sum, carry) of one compensated sum in enqueue order, which the
+        # totals continue over the retained events — a windowed queue's
+        # totals have the bits of a full-history queue's (and of ``sum()``
+        # over every event, the JAX package's full-history totals).
         self._released_count = 0
-        self._released_modeled_s = 0.0
-        self._released_energy_j = 0.0
+        self._released_modeled_s = (0.0, 0.0)
+        self._released_energy_j = (0.0, 0.0)
         self._capture: Optional[CommandGraph] = None
 
     def _model(self, kernel: Kernel, ndr: NDRange,
@@ -542,9 +591,10 @@ class CommandQueue:
 
         The config comes off the queue's device, so the breakdown is stamped
         with *that config's* clock (``PhaseBreakdown.freq_hz``) and energy
-        prices at its (f, V) point.
+        prices at its (f, V) point.  An unprofiled queue books nothing, in a
+        capture too: a graph captured on it prices no node.
         """
-        if kernel.counts is None:
+        if not self.profile or kernel.counts is None:
             return None, None, None
         counts = kernel.counts(**counts_params)
         if resident:
@@ -561,12 +611,16 @@ class CommandQueue:
         timeline (only reached when a tracer is installed)."""
         dur = ev.modeled.total_s if ev.modeled is not None else 0.0
         self._tracer.span(ev.kernel.name, self._trace_t,
-                          self._trace_t + dur, track=self._trace_track)
+                          self._trace_t + dur, track=self._trace_track,
+                          dispatch_s=ev.dispatch_s)
         self._trace_t += dur
 
     def _model_transfer(self, nbytes: float
-                        ) -> Tuple[PhaseBreakdown, float]:
-        """Transfer-only cost of an explicit buffer command on this device."""
+                        ) -> Tuple[Optional[PhaseBreakdown], Optional[float]]:
+        """Transfer-only cost of an explicit buffer command on this device
+        (nothing on an unprofiled queue)."""
+        if not self.profile:
+            return None, None
         cfg = self.ctx.device.config
         modeled = transfer_time(cfg, nbytes)
         if self.ctx.device.is_host:
@@ -623,7 +677,8 @@ class CommandQueue:
                          counts_params: Optional[Dict[str, Any]] = None,
                          wait_events: Optional[Sequence[Event]] = None,
                          _resident: bool = False) -> Event:
-        """Launch ``kernel`` over ``ndr`` with buffer ``args`` (non-blocking).
+        """Launch ``kernel`` over ``ndr`` with buffer ``args`` (non-blocking
+        unless the queue is).
 
         ``params`` are executor kwargs (the paper's kernel-args region);
         ``counts_params`` are the problem sizes handed to the kernel's
@@ -654,15 +709,23 @@ class CommandQueue:
         if self._capture is not None:
             return self._capture._record(self, kernel, ndr, args, params, cp,
                                          _resident, waits)
+        t0 = time.perf_counter()
         raw = kernel.executor(*[b.data for b in args], **params)
         outs = tuple(Buffer(r) for r in (raw if isinstance(raw, tuple) else (raw,)))
+        done = _record_done(outs)
+        if self.blocking and done is not None:
+            done.synchronize()           # this launch only, not the device
+        dispatch = time.perf_counter() - t0
 
         modeled, energy, _counts = self._model(kernel, ndr, cp, _resident)
-        ev = Event(kernel, outs, modeled, energy,
-                   deps=self._eager_deps(waits, args),
-                   device_done=_record_done(outs))
+        ev = Event(kernel, outs, modeled, energy, dispatch,
+                   deps=self._eager_deps(waits, args), device_done=done)
         for b in outs:
             b._event = ev
+        if self.blocking:
+            ev._done = True
+            ev.deps = ()
+            ev._device_done = None
         self._events.append(ev)
         if self._tracer is not None:
             self._trace_event(ev)
@@ -695,13 +758,16 @@ class CommandQueue:
     # -- explicit data movement ---------------------------------------------
     def _transfer_event(self, kernel: Kernel, outputs: Tuple[Buffer, ...],
                         nbytes: float, waits: Tuple[Event, ...],
-                        reads: Sequence[Buffer]) -> Event:
+                        reads: Sequence[Buffer], blocking: bool) -> Event:
         """Eager transfer command: modeled cost + event-DAG bookkeeping.
         No device work is queued (unified memory), so the event is realized
-        once its dependencies are."""
+        once its dependencies are; a blocking transfer waits on them before
+        it returns."""
         modeled, energy = self._model_transfer(nbytes)
         ev = Event(kernel, outputs, modeled, energy,
                    deps=self._eager_deps(waits, reads))
+        if self.blocking or blocking:
+            ev.wait()
         self._events.append(ev)
         if self._tracer is not None:
             self._trace_event(ev)
@@ -716,8 +782,8 @@ class CommandQueue:
                 "(sub-buffer offsets are not supported)")
 
     def enqueue_write_buffer(self, buf: Buffer, src: Any,
-                             wait_events: Optional[Sequence[Event]] = None
-                             ) -> Event:
+                             wait_events: Optional[Sequence[Event]] = None,
+                             blocking: bool = False) -> Event:
         """clEnqueueWriteBuffer: move host data into ``buf`` (host -> D$).
 
         A first-class command: it returns a real :class:`Event`, is costed
@@ -731,6 +797,7 @@ class CommandQueue:
         context's device).  ``buf`` is rebound to the source tensor, never
         written in place; later commands consuming ``buf`` observe the
         written value (the event is ``buf``'s new producer).
+        ``blocking=True`` is CL_TRUE: wait before returning.
         """
         waits = self._check_wait_events(wait_events)
         if not buf.writable:
@@ -752,13 +819,13 @@ class CommandQueue:
         self._check_aval_match("enqueue_write_buffer", src_buf.data, buf)
         buf.data = src_buf.data
         ev = self._transfer_event(_WRITE, (buf,), buf.nbytes, waits,
-                                  (src_buf, buf))
+                                  (src_buf, buf), blocking)
         buf._event = ev
         return ev
 
     def enqueue_read_buffer(self, buf: Buffer,
-                            wait_events: Optional[Sequence[Event]] = None
-                            ) -> Event:
+                            wait_events: Optional[Sequence[Event]] = None,
+                            blocking: bool = False) -> Event:
         """clEnqueueReadBuffer: move ``buf`` to the host (D$ -> host).
 
         Under unified memory the returned event's output *is* the buffer,
@@ -766,7 +833,7 @@ class CommandQueue:
         as a real transfer over the host bus and takes part in event
         ordering and graph capture — a capture ending in read commands
         returns the read-back values as the graph's outputs.  ``buf`` must
-        be readable.
+        be readable.  ``blocking=True`` is CL_TRUE: wait before returning.
         """
         waits = self._check_wait_events(wait_events)
         if not buf.readable:
@@ -780,7 +847,8 @@ class CommandQueue:
             raise RuntimeError(
                 "cannot read a GraphBuffer eagerly; launch its graph and "
                 "read the outputs instead")
-        return self._transfer_event(_READ, (buf,), buf.nbytes, waits, (buf,))
+        return self._transfer_event(_READ, (buf,), buf.nbytes, waits, (buf,),
+                                    blocking)
 
     def enqueue_copy_buffer(self, src: Buffer, dst: Buffer,
                             wait_events: Optional[Sequence[Event]] = None
@@ -811,7 +879,7 @@ class CommandQueue:
                 "outside their graph's launch")
         dst.data = src.data
         ev = self._transfer_event(_COPY, (dst,), src.nbytes, waits,
-                                  (src, dst))
+                                  (src, dst), blocking=False)
         dst._event = ev
         return ev
 
@@ -872,16 +940,28 @@ class CommandQueue:
         """
         return CommandGraph(self)
 
+    def flush(self) -> None:
+        """clFlush: a no-op.  Every enqueue has already queued its kernel on
+        the CUDA stream by the time it returns, so there is nothing left to
+        submit."""
+
     def finish(self) -> None:
         """Block until every enqueued kernel completed (clFinish).
 
         Only events enqueued since the last ``finish()`` are waited (a
         drained-watermark: repeated drains on a long-lived queue stay O(new
-        work), not O(full history))."""
+        work), not O(full history)).  On an unprofiled queue the drained
+        events are then released outright; with ``max_events`` set, the
+        retained history is trimmed to the window (oldest first)."""
         for ev in self._events[self._drained:]:
             if not ev.released:            # user-released mid-history: the
                 ev.wait()                  # outputs are gone, nothing to wait
         self._drained = len(self._events)
+        if not self.profile:
+            self.release_events()
+        elif (self.max_events is not None
+              and len(self._events) > self.max_events):
+            self.release_events(upto=len(self._events) - self.max_events)
 
     def drain(self, n: int) -> None:
         """Wait the oldest ``n`` retained events (a *partial* clFinish).
@@ -911,9 +991,11 @@ class CommandQueue:
             return 0
         for ev in self._events[:upto]:
             if ev.modeled is not None:
-                self._released_modeled_s += ev.modeled.total_s
+                self._released_modeled_s = _sum_step(
+                    self._released_modeled_s, ev.modeled.total_s)
             if ev.energy_j is not None:
-                self._released_energy_j += ev.energy_j
+                self._released_energy_j = _sum_step(
+                    self._released_energy_j, ev.energy_j)
             self._released_count += 1
             ev.release()
         del self._events[:upto]
@@ -933,13 +1015,20 @@ class CommandQueue:
     def total_modeled_s(self) -> float:
         # `is not None`, not truthiness: an all-zero PhaseBreakdown (e.g. a
         # fully resident stage) must still be counted.  Released events are
-        # accounted via the running totals.
-        return self._released_modeled_s + sum(
-            e.modeled.total_s for e in self._events if e.modeled is not None)
+        # accounted via the running totals, whose compensated sum the
+        # retained events continue.
+        acc = self._released_modeled_s
+        for e in self._events:
+            if e.modeled is not None:
+                acc = _sum_step(acc, e.modeled.total_s)
+        return _sum_value(acc)
 
     def total_energy_j(self) -> float:
-        return self._released_energy_j + sum(
-            e.energy_j for e in self._events if e.energy_j is not None)
+        acc = self._released_energy_j
+        for e in self._events:
+            if e.energy_j is not None:
+                acc = _sum_step(acc, e.energy_j)
+        return _sum_value(acc)
 
 
 @dataclasses.dataclass
@@ -1399,7 +1488,9 @@ class CommandGraph:
 
         **Launch-time queue binding**: per-node modeled events are appended
         to ``queue`` — the *caller's* queue — defaulting to the capture
-        queue for one-shot use; ``queue_events=False`` books none.
+        queue for one-shot use; ``queue_events=False`` books none.  The
+        first node's event carries the replay's host seconds as its
+        ``dispatch_s``.
         """
         if any(q._capture is self for q in self.queues):
             raise RuntimeError("cannot launch while still capturing")
@@ -1459,10 +1550,12 @@ class CommandGraph:
         vals: List[Any] = [None] * self._n_slots
         for slot, v in zip(self._ext_slots, ext):
             vals[slot] = v
+        t0 = time.perf_counter()
         for node in self.nodes:
             outs = node.call(*[vals[s] for s in node.in_slots])
             for slot, o in zip(node.out_slots, outs):
                 vals[slot] = o
+        dispatch = time.perf_counter() - t0
         outs = tuple(Buffer(vals[s]) for s in self._output_slots())
         for b in donated:
             b.consumed = True
@@ -1470,11 +1563,12 @@ class CommandGraph:
             done = _record_done(outs)
             target = queue if queue is not None else self.queue
             slot_buf = dict(zip(self._output_slots(), outs))
-            for node in self.nodes:
+            for i, node in enumerate(self.nodes):
                 node_outs = tuple(slot_buf[s] for s in node.out_slots
                                   if s in slot_buf)
                 ev = Event(node.kernel, node_outs, node.modeled,
-                           node.energy_j, device_done=done)
+                           node.energy_j, dispatch if i == 0 else 0.0,
+                           device_done=done)
                 target._events.append(ev)
                 if target._tracer is not None:
                     target._trace_event(ev)
@@ -1561,13 +1655,63 @@ class Context:
         self.device = device
         self.torch_device = resolve_device(torch_device)
 
-    def create_buffer(self, data: Any, flags: str = "rw") -> Buffer:
-        """clCreateBuffer analogue: a tensor already on this context's torch
-        device is adopted as-is (it already lives in the unified memory);
-        anything else (a numpy array, a Python scalar, a tensor elsewhere)
-        is copied onto the device."""
+    def _holds(self, t: torch.Tensor) -> bool:
+        """Whether tensor ``t`` already lives on this context's device."""
+        dev = self.torch_device
+        if t.device.type != dev.type:
+            return False
+        if dev.type != "cuda":
+            return True
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        return t.device.index == index
+
+    def create_buffer(self, data: Any, flags: str = "rw",
+                      copy: Optional[bool] = None,
+                      use_host_ptr: bool = False) -> Buffer:
+        """clCreateBuffer analogue.
+
+        ``copy=None`` (default) picks the cheap path per input: a tensor
+        already on this context's torch device is adopted as-is (it already
+        lives in the unified memory); anything else (a numpy array, a Python
+        scalar, a tensor elsewhere) is copied onto the device.  ``copy=True``
+        forces a fresh tensor (CL_MEM_COPY_HOST_PTR), even from one already
+        on the device; ``copy=False`` requires a tensor on the context's
+        device and guarantees adoption.  ``use_host_ptr=True`` is the
+        CL_MEM_USE_HOST_PTR analogue: the buffer *aliases* the caller's
+        tensor (the same object, the same ``data_ptr()``); it implies
+        ``copy=False``.
+
+        The one difference from the JAX package: there every ``jax.Array``
+        lies in the one unified memory and can be adopted; here a tensor on
+        another device (a CPU tensor for a card context) has storage the
+        context cannot alias, so ``copy=False`` / ``use_host_ptr=True``
+        raise ``TypeError`` for it as they do for a numpy array.
+        """
+        if use_host_ptr:
+            if copy:
+                raise ValueError("use_host_ptr=True is incompatible with "
+                                 "copy=True (CL_MEM_USE_HOST_PTR aliases "
+                                 "the host tensor)")
+            copy = False
+        on_device = isinstance(data, torch.Tensor) and self._holds(data)
+        if copy is None:
+            copy = not on_device
+        if not copy:
+            if not on_device:
+                what = (f"a tensor on {data.device}"
+                        if isinstance(data, torch.Tensor)
+                        else type(data).__name__)
+                if use_host_ptr:
+                    raise TypeError(
+                        f"use_host_ptr requires a torch.Tensor on "
+                        f"{self.torch_device}, got {what}")
+                raise TypeError(
+                    f"copy=False requires a torch.Tensor on "
+                    f"{self.torch_device}, got {what} (TinyCL cannot adopt "
+                    "foreign storage without a copy)")
+            return Buffer(data, flags)
         if isinstance(data, torch.Tensor):
-            return Buffer(data.to(self.torch_device), flags)
+            return Buffer(data.to(self.torch_device, copy=True), flags)
         # torch.tensor copies (torch.as_tensor would alias a numpy array's
         # memory on the CPU, so a later host edit would reach the buffer)
         return Buffer(torch.tensor(data, device=self.torch_device), flags)

@@ -12,9 +12,11 @@ OpenCL -> TinyCL mapping::
     clCreateContext                     Context(Device(config), torch_device)
     clCreateCommandQueue                CommandQueue(ctx, ...)
       CL_QUEUE_OUT_OF_ORDER_EXEC_MODE     out_of_order=True
-    clCreateBuffer                      ctx.create_buffer(data, flags)
+    clCreateBuffer                      ctx.create_buffer(data, flags,
+      CL_MEM_USE_HOST_PTR                 use_host_ptr=True / copy=False)
                                         (a tensor on the context's device is
-                                         adopted, anything else copied there)
+                                         adopted, anything else copied there;
+                                         only such a tensor can be aliased)
     clCreateProgramWithBuiltInKernels   Program.build(config)
     clCreateKernel                      program.create_kernel(name, **variant)
     clCreateKernelsInProgram            program.create_kernels()
@@ -29,7 +31,7 @@ OpenCL -> TinyCL mapping::
     clEnqueueMarkerWithWaitList         queue.enqueue_marker(wait_events)
     clEnqueueBarrierWithWaitList        queue.enqueue_barrier(wait_events)
     event_wait_list                     wait_events=[...] on every enqueue
-    clFinish                            queue.finish()
+    clFlush / clFinish                  queue.flush() / queue.finish()
     clRetainEvent / clReleaseEvent      event.retain() / event.release()
     clWaitForEvents                     event.wait()
 

@@ -146,7 +146,8 @@ def _queue_trace(core, obs, array):
 def test_queue_tracer_spans_follow_the_modeled_timeline():
     """A traced queue books one span per event, end to end on its modeled
     timeline; the port's spans equal the reference's (names, track, t0,
-    t1), its events carry no wall-clock attribute."""
+    t1).  Their ``dispatch_s`` attribute is the host's clock, as in the
+    reference, so it is left out of the comparison."""
     trs = {"jax": _queue_trace(jcore, jobs, lambda a: jnp.asarray(a, jnp.float32)),
            "torch": _queue_trace(tcore, tobs,
                                  lambda a: torch.tensor(a, dtype=torch.float32))}
