@@ -28,14 +28,18 @@ Phases (any failure exits non-zero and prints no result line):
    block (``plan_svm``).  The GeMM's three config tilings must give
    identical bits, int32 included where a tiling splits K across blocks
    (each case logs the split plans, and some must split).  Flash attention
-   runs qwen's prefill shape, a ragged S = T = 300, a suffix with
+   runs qwen's prefill shape at B = 4 and at the decode engine's B = 1,
+   must give a B = 1 call the bits of the same row of a B = 4 call
+   (bf16 and f32), and runs a ragged S = T = 300, a suffix with
    ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and in
    bfloat16, Dk = Dv = 64 in bfloat16, B = 1, S = T = 4096 in bfloat16,
    rows that see no key (``q_offset = -16``), and a bfloat16 view that no
    TMA tensor map describes (rows D + 1 elements apart), which the wrapper
    must copy once (``CONTIGUOUS_COPIES``).  ``rwkv6_scan`` runs bf16 and
    f32 inputs with ``state0`` absent, zero and random at T = 1, 256 and 300
-   and D = 64 and 32, and decays drawn near 1 and near 0 (w = exp(-exp(x)),
+   and D = 64 and 32 (the engine's B = 1, T = 256 prefill among them),
+   must give a B = 1 call the bits of the same row of a B = 4 call (T =
+   256 and 1, output and state), and decays drawn near 1 and near 0 (w = exp(-exp(x)),
    x over [-6, 3]) at the prefill shape and at T = 300, D = 32;
    ``decode_attention`` must give a B = 1 call the bits of the same row of
    a B = 4 call (output and partial triple, bf16 and f32, T = 512, 4096 and
@@ -170,9 +174,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``==`` the same bench's CPU run, their gates and bit-identity checks
    holding on the card; each bench's wall on the card and on the CPU;
 
-8. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
+8. the continuous-batching decode engine at full width and depth, for
+   qwen2.5-3b and rwkv6-3b (bf16, random weights from seed 0, the f32
+   tree ``init_params`` makes): ``DecodeEngine(num_slots=4,
+   max_len=512)`` behind an engine-only ``Server``; after one short
+   request captures both graphs, six 256-token requests of 16 new tokens
+   arrive staggered, with the launch counters reset just before and read
+   just after (qwen: ``flash_attention`` once per layer per prefill, none
+   in a step; rwkv: ``rwkv6_scan`` once per layer per prefill and per
+   step; no other kernel of ours).  Two requests must take freed slots
+   while others still decode; every request's tokens must equal the
+   card's ``greedy_generate`` of the six prompts as one batch, bit for bit
+   (not of each prompt alone: ``benchmarks_torch/batch_bits.py`` names the
+   ops whose bits depend on the batch); the cache
+   must have missed twice; every modeled ``stats()`` field must equal the
+   CPU's over a 2-layer f32 cut at full width.  The served wall, tokens/s
+   of wall, a warm prefill's and a warm step's wall, one warm step's
+   device busy time and idle share (``torch.profiler``) and peak memory
+   are printed;
+
+9. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
-   kernels), then, last, ``{"ok": true, "device": {...}}``.
+   kernels, and phase 8's for ``flash_attention`` and ``rwkv6_scan``),
+   then, last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -236,6 +260,9 @@ LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 256, 16, 512
 # its width (d_inner, d_state)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_MAX_LEN = 4, 256, 16, 512
+# the decode engine's serving run (phase 8), for both models
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_MAX_LEN = (
+    4, 6, 256, 16, 512)
 MAMBA_ARCH = "jamba-1.5-large-398b"
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
@@ -777,6 +804,10 @@ def main() -> int:
     fa_err = {
         "prefill B=4 S=T=256 bf16": flash_case(
             "prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d, lm_d), bf16),
+        # the decode engine's prefill (phase 8): one prompt at a time
+        "engine prefill B=1 S=T=256 bf16": flash_case(
+            "engine prefill", (1, lm_h, lm_kvh, ENGINE_PROMPT, ENGINE_PROMPT,
+                               lm_d, lm_d), bf16),
         "ragged S=T=300 bf16": flash_case(
             "ragged", (2, lm_h, lm_kvh, 300, 300, lm_d, lm_d), bf16),
         "suffix S=64 T=512 q_offset=448 bf16": flash_case(
@@ -819,8 +850,20 @@ def main() -> int:
     check(bool(((got.float() - want.float()).abs() <= tol).all()),
           f"flash_attention copied view: error {err(got, want)}")
     fa_err["row stride D+1 (copied) bf16"] = err(got, want)
+    # a row of a batched call has the bits of the same row called alone
+    # (the engine prefills one prompt, greedy_generate a batch): row 2 of
+    # B = 4 against B = 1, at the prefill shape, bf16 and f32
+    for dtype in (bf16, torch.float32):
+        q, k, v = qkv(LM_BATCH, lm_h, lm_kvh, ENGINE_PROMPT, ENGINE_PROMPT,
+                      lm_d, lm_d, dtype)
+        whole = launched("flash_attention", lambda: flash_attention(q, k, v))
+        alone = launched("flash_attention", lambda: flash_attention(
+            q[2:3], k[2:3], v[2:3]))
+        check(torch.equal(whole[2:3], alone),
+              f"flash_attention {dtype}: row 2 of B=4 differs from the row alone")
     max_err["flash_attention"] = fa_err["prefill B=4 S=T=256 bf16"]
-    log("phase 2: flash_attention ok (max abs err vs plain: "
+    log("phase 2: flash_attention ok (B=1 bit-equal to row 2 of B=4 at "
+        "S=T=256, bf16 and f32; max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
 
     # The three scans and decode attention against their plain versions.
@@ -861,7 +904,9 @@ def main() -> int:
     rw_err = {}
     for dtype in (bf16, torch.float32):
         for b_, h_, t_, d_ in ((RWKV_BATCH, rw_h, RWKV_PROMPT, rw_d),
-                               (RWKV_BATCH, rw_h, 1, rw_d), (2, 8, 300, rw_d),
+                               (RWKV_BATCH, rw_h, 1, rw_d),
+                               (1, rw_h, ENGINE_PROMPT, rw_d),
+                               (2, 8, 300, rw_d),
                                (2, 8, 300, 32), (2, 8, 1, 32),
                                (2, 8, 256, 32)):
             ins = rwkv_inputs(b_, h_, t_, d_, dtype)
@@ -905,12 +950,26 @@ def main() -> int:
         what = f"rwkv6_scan unaligned rows {str(dtype)[6:]} B=2 H=8 T=100 D={rw_d}"
         rw_err[what] = max(agree(what, got[0], want[0]),
                            agree(what + " state", got[1], want[1]))
+    # a row of a batched call has the bits of the same row called alone:
+    # row 2 of B = 4 against B = 1, the prefill (T = 256) and the step
+    # (T = 1), from a random state, output and state, bf16 and f32
+    for dtype in (bf16, torch.float32):
+        for t_ in (ENGINE_PROMPT, 1):
+            ins = rwkv_inputs(RWKV_BATCH, rw_h, t_, rw_d, dtype)
+            s0 = normal(RWKV_BATCH, rw_h, rw_d, rw_d)
+            whole = launched("rwkv6_scan", lambda: rwkv6_scan(*ins, s0))
+            alone = launched("rwkv6_scan", lambda: rwkv6_scan(
+                *(z[2:3] for z in ins[:4]), ins[4], s0[2:3]))
+            check(all(torch.equal(w_[2:3], a_) for w_, a_ in zip(whole, alone)),
+                  f"rwkv6_scan {dtype} T={t_}: row 2 of B=4 differs from the "
+                  f"row alone")
     max_err["rwkv6_scan"] = max(v_ for k_, v_ in rw_err.items()
                                 if f"H={rw_h} T={RWKV_PROMPT}" in k_
                                 and "bfloat16" in k_ and "extreme" not in k_)
     log(f"phase 2: rwkv6_scan ok ({len(rw_err)} cases: bf16 and f32, state0 "
         f"absent, zero and random, T = 1, 256, 300, D = {rw_d} and 32, decays "
-        f"near 1 and near 0, rows not 16-byte aligned; max abs "
+        f"near 1 and near 0, rows not 16-byte aligned; B=1 bit-equal to "
+        f"row 2 of B=4 at T = 256 and 1; max abs "
         f"err vs plain {max(rw_err.values()):.3g}, at the prefill shape "
         f"{max_err['rwkv6_scan']:.3g})")
 
@@ -2300,7 +2359,167 @@ def main() -> int:
                     "n_bit_identity_checked", "goodput_per_watt_speedup",
                     "n_power_throttled") if k_ in on_card}))
 
-    # -- 8. summary ---------------------------------------------------------------
+    # -- 8. the decode engine on the card: qwen2.5-3b and rwkv6-3b -------------
+    # DecodeEngine(num_slots=4, max_len=512, bf16 cache) behind an
+    # engine-only Server, full width and depth, random weights from seed 0
+    # (the JAX-layout f32 tree, as init_params makes it).  One short request
+    # first captures the prefill graph (256 tokens) and the step graph;
+    # then, with the counters reset just before and read just after, six
+    # 256-token requests of 16 new tokens arrive staggered (two, two after
+    # 4 steps, two after 5 more, which wait until the first two finish and
+    # take their slots while the middle two still decode).  Each request's
+    # tokens must equal the card's greedy_generate of the six prompts as one
+    # batch, bit for bit (benchmarks_torch/batch_bits.py finds every op of a
+    # B = 1 prefill and a B = 4 step giving its rows the bits of B = 6; at
+    # B = 1 or 2 a step's f32 mean and bmm do not, so the tokens of a
+    # prompt decoded alone may part); the cache must have missed twice; every modeled stats()
+    # field must equal the same workload's on the CPU over a 2-layer f32
+    # cut at full width (as 5b cuts).
+    from repro_torch.serve import DecodeEngine
+
+    def staggered(srv, prompts, max_new, pull):
+        """Serve six prompts staggered; -> (rids, whether two requests took
+        freed slots while others still decoded)."""
+        rids = [srv.submit_decode(prompts[i], max_new=max_new) for i in (0, 1)]
+        first = srv.stream(rids[0])
+        for _ in range(pull):
+            next(first)
+        rids += [srv.submit_decode(prompts[i], max_new=max_new) for i in (2, 3)]
+        for _ in range(pull):
+            next(first)
+        rids += [srv.submit_decode(prompts[i], max_new=max_new) for i in (4, 5)]
+        for _ in first:
+            pass
+        reused = set(rids[2:]) <= set(srv._eng_active)
+        srv.flush()
+        return rids, reused
+
+    def engine_cut_stats(cfg, device):
+        """stats() of the staggered workload over a 2-layer f32 cut of
+        ``cfg`` at full width (64-token prompts, 16 new, max_len 128)."""
+        cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        tree_ = init_params(model_spec(cut), 0, device="cpu")
+        eng_ = DecodeEngine(cut, map_tree(lambda t: t.to(device), tree_),
+                            num_slots=ENGINE_SLOTS, max_len=128,
+                            cache_dtype=torch.bfloat16, device=device)
+        srv_ = Server((), workers=(), engine=eng_)
+        prompts_ = np.random.default_rng(3).integers(
+            0, cut.vocab, (ENGINE_REQUESTS, 64)).astype(np.int32)
+        _, reused_ = staggered(srv_, prompts_, ENGINE_NEW, 5)
+        check(reused_, "the cut's staggered run reused no slot mid-run")
+        return eng_.stats()
+
+    def serve_engine(cfg, label, ours, per_step):
+        """Phase 8 for one model; -> its log numbers.  ``ours`` are the
+        kernels the path must launch (once per layer per prefill, and
+        ``per_step`` times a layer per step)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tree_ = init_params(model_spec(cfg), 0, device=dev)
+        eng = DecodeEngine(cfg, tree_, num_slots=ENGINE_SLOTS,
+                           max_len=ENGINE_MAX_LEN, cache_dtype=torch.bfloat16)
+        srv = Server((), workers=(), engine=eng)
+        check(srv.device.type == "cuda" and eng.worker.device.type == "cuda",
+              f"{label}: the engine does not run on the card")
+        prompts = np.random.default_rng(2).integers(
+            0, cfg.vocab, (ENGINE_REQUESTS, ENGINE_PROMPT)).astype(np.int32)
+        t0 = time.perf_counter()
+        warm = srv.submit_decode(prompts[0], max_new=2)
+        srv.flush()
+        srv.result(warm)
+        torch.cuda.synchronize()
+        capture_wall = time.perf_counter() - t0
+        steps0, prefills0 = eng.n_steps, eng.n_prefills
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        rids, reused = staggered(srv, prompts, ENGINE_NEW, 5)
+        torch.cuda.synchronize()
+        served_wall = time.perf_counter() - t0
+        moved = dict(common.LAUNCHES)
+        n_steps = eng.n_steps - steps0
+        n_prefills = eng.n_prefills - prefills0
+        check(n_prefills == ENGINE_REQUESTS, f"{label}: {n_prefills} prefills")
+        for name in KERNELS:
+            want = (cfg.n_layers * (n_prefills + per_step * n_steps)
+                    if name in ours else 0)
+            check(moved[name] == want,
+                  f"{label} engine path launched {name} {moved[name]} times, "
+                  f"expected {want} ({n_prefills} prefills, {n_steps} steps)")
+        check(reused, f"{label}: no slot was released and reused mid-run")
+        check(eng.cache.misses == 2, f"{label}: engine cache {eng.cache.stats()}")
+        got = np.stack([srv.result(r)[0] for r in rids])
+        check(got.shape == (ENGINE_REQUESTS, ENGINE_NEW)
+              and bool(((got >= 0) & (got < cfg.vocab)).all()),
+              f"{label}: served tokens are not (6, 16) ids below the vocabulary")
+        ref = greedy_generate(eng.model, prompts, ENGINE_NEW,
+                              ENGINE_MAX_LEN).cpu().numpy()
+        check(np.array_equal(got, ref),
+              f"{label}: engine tokens differ from greedy_generate of the six "
+              f"prompts as one batch: rows equal "
+              f"{[bool((g == r).all()) for g, r in zip(got, ref)]}")
+        # walls: warm prefills of one 256-token prompt, warm steps over four
+        # occupied slots (each step ends in its tokens' read-back)
+        state = eng.init_state()
+        for i in range(ENGINE_SLOTS):
+            state = eng.insert(eng.prefill(None, prompts[i]), state, i)
+        torch.cuda.synchronize()
+        pre = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            eng.prefill(None, prompts[4 + i % 2])
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t0)
+        steps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, _ = eng.generate(None, state)
+            steps.append(time.perf_counter() - t0)
+        s_wall, s_busy, s_kernels = device_profile(
+            torch, lambda: eng.generate(None, state))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        card_stats = engine_cut_stats(cfg, dev)
+        cpu_stats = engine_cut_stats(cfg, "cpu")
+        for key in cpu_stats:
+            check(card_stats[key] == cpu_stats[key],
+                  f"{label} 2-layer cut: stats()[{key!r}] {card_stats[key]} "
+                  f"on the card, {cpu_stats[key]} on the CPU")
+        out = {"launches": moved, "n_steps": n_steps, "capture_wall": capture_wall,
+               "served_wall": served_wall,
+               "tokens_per_s": ENGINE_REQUESTS * ENGINE_NEW / served_wall,
+               "prefill_ms": sorted(pre)[1] * 1e3,
+               "step_ms": sorted(steps)[2] * 1e3,
+               "profile": (s_wall, s_busy, s_kernels), "peak_gib": peak,
+               "stats": eng.stats(), "first": got[0].tolist()}
+        del eng, srv, tree_, state
+        torch.cuda.empty_cache()
+        return out
+
+    for cfg_, label, ours, per_step in ((lm_cfg, LM_ARCH, LM_KERNELS, 0),
+                                        (rw_cfg, RWKV_ARCH, RWKV_KERNELS, 1)):
+        e = serve_engine(cfg_, label, ours, per_step)
+        for name in ours:
+            launches[name] += e["launches"][name]
+        log(f"phase 8: {label}: DecodeEngine({ENGINE_SLOTS} slots, max_len "
+            f"{ENGINE_MAX_LEN}, bf16 cache) behind an engine-only Server: "
+            f"{ENGINE_REQUESTS} staggered requests of {ENGINE_PROMPT} tokens, "
+            f"{ENGINE_NEW} new each, in {e['n_steps']} steps; tokens == "
+            f"greedy_generate of the six prompts as one batch; 2 cache "
+            f"misses (capture run {e['capture_wall']:.3f} s); launches "
+            f"{e['launches']}; "
+            f"first request's tokens {e['first']}")
+        log(f"phase 8: {label} on {card}: served wall {e['served_wall']:.3f} s, "
+            f"{e['tokens_per_s']:.1f} tokens/s of wall; warm prefill (B = 1, "
+            f"{ENGINE_PROMPT} tokens) wall {e['prefill_ms']:.3f} ms (median "
+            f"of 3); warm step ({ENGINE_SLOTS} slots, tokens read back) wall "
+            f"{e['step_ms']:.3f} ms (median of 5); peak device memory "
+            f"{e['peak_gib']:.3f} GiB (the f32 tree beside the bf16 model "
+            f"included); 2-layer f32 cut: every stats() field == the CPU's")
+        log(f"phase 8: {label}: " + profile_line("one warm engine step",
+                                                 *e["profile"]))
+        log(f"phase 8: {label}: stats " + json.dumps(e["stats"]))
+
+    # -- 9. summary ---------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .device import EGPUConfig, EGPU_16T, HOST
 from .machine import PhaseBreakdown
+from .ndrange import NDRange
 from .runtime import Buffer, CommandGraph, CommandQueue, Context, Device, Kernel
 from .scheduler import optimal_ndrange
 
@@ -120,7 +121,7 @@ class APU:
     :meth:`capture_pipeline`.
 
     ``graph_cache`` (a :class:`repro_torch.serve.GraphCache`, or anything
-    with its ``get_or_capture(apu, stages, inputs)`` contract) memoizes
+    with its ``get_or_capture(apu, stages, inputs, ndranges)`` contract) memoizes
     captured :class:`CommandGraph`\\ s across :meth:`offload` calls: a warm
     cache makes a repeated same-shape offload skip the capture (and the
     plain versions it runs on ``meta`` tensors).  Without one, every
@@ -147,6 +148,7 @@ class APU:
     # -- shared stage wiring -----------------------------------------------
     def wire_pipeline(self, q: CommandQueue, stages: Sequence["Stage"],
                       inputs: Sequence[Any],
+                      ndranges: Optional[Sequence[NDRange]] = None,
                       resident_chain: bool = True,
                       resident_first: bool = False
                       ) -> Tuple[Tuple[Buffer, ...], list]:
@@ -157,14 +159,17 @@ class APU:
         D$ — only stage 0 pays the host->D$ fill.  ``resident_first=True``
         waives stage 0's fill too — for captures whose input traffic is
         carried by explicit ``enqueue_write_buffer`` nodes instead of the
-        per-kernel heuristic.  Returns (final buffers, per-stage events).
+        per-kernel heuristic.  ``ndranges`` gives each stage its NDRange
+        (default: the optimal one for the stage's first input's size).
+        Returns (final buffers, per-stage events).
         """
         ctx = q.ctx
         bufs = tuple(x if isinstance(x, Buffer) else ctx.create_buffer(x)
                      for x in inputs)
         evs = []
         for i, stage in enumerate(stages):
-            ndr = optimal_ndrange(bufs[0].data.numel(), ctx.device.config)
+            ndr = (ndranges[i] if ndranges is not None
+                   else optimal_ndrange(bufs[0].data.numel(), ctx.device.config))
             extra = tuple(ctx.create_buffer(x) for x in stage.consts)
             take = bufs[:stage.n_inputs] if stage.n_inputs else bufs
             self._check_stage_arity(stage, len(take) + len(extra))
@@ -197,6 +202,7 @@ class APU:
                 "n_inputs / consts")
 
     def _host_costs(self, stages: Sequence["Stage"],
+                    ndranges: Optional[Sequence[NDRange]],
                     graph: CommandGraph) -> List[Tuple[PhaseBreakdown, float]]:
         """Analytic host-side cost of each stage (no execution needed).
 
@@ -204,11 +210,14 @@ class APU:
         recorded input size — exactly the sizes the eager host path would
         see — so graph and eager host reports can never diverge.  Transfer
         nodes (explicit-transfer captures) are skipped: the host baseline
-        owns the unified memory and pays no bus traffic."""
+        owns the unified memory and pays no bus traffic.  Given
+        ``ndranges``, stage ``i`` is priced at ``ndranges[i]``, as the JAX
+        package prices it."""
         hq = CommandQueue(self.host_ctx)
         costs = []
-        for stage, node in zip(stages, _kernel_nodes(graph)):
-            ndr = optimal_ndrange(node.n_items, self.host.config)
+        for i, (stage, node) in enumerate(zip(stages, _kernel_nodes(graph))):
+            ndr = (ndranges[i] if ndranges is not None
+                   else optimal_ndrange(node.n_items, self.host.config))
             modeled, energy, _counts = hq._model(
                 stage.kernel, ndr, stage.counts_params, resident=False)
             costs.append((modeled, energy))
@@ -216,6 +225,7 @@ class APU:
 
     def offload(self, stages: Sequence["Stage"],
                 inputs: Sequence[Any],
+                ndranges: Optional[Sequence[NDRange]] = None,
                 mode: str = "graph",
                 ) -> Tuple[Tuple[Buffer, ...], PipelineReport]:
         """Run :class:`Stage`\\ s as a dataflow pipeline.
@@ -224,17 +234,20 @@ class APU:
         constant buffers it declares).  Returns the final outputs (computed
         on the e-GPU path) and the host-vs-e-GPU :class:`PipelineReport`.
         ``mode`` selects one CommandGraph launch (``"graph"``, default) or
-        per-kernel eager dispatch (``"eager"``).
+        per-kernel eager dispatch (``"eager"``).  ``ndranges`` sets each
+        stage's NDRange, which prices its modeled breakdown (default: the
+        optimal one for the stage's input size).
         """
         if mode not in ("graph", "eager"):
             raise ValueError(f"unknown offload mode {mode!r}")
         if mode == "graph":
-            return self._offload_graph(stages, inputs)
-        return self._offload_eager(stages, inputs)
+            return self._offload_graph(stages, inputs, ndranges)
+        return self._offload_eager(stages, inputs, ndranges)
 
     # -- CommandGraph path --------------------------------------------------
     def capture_pipeline(self, stages: Sequence["Stage"],
                          inputs: Sequence[Any],
+                         ndranges: Optional[Sequence[NDRange]] = None,
                          explicit_transfers: Optional[bool] = None
                          ) -> CommandGraph:
         """Capture the stage chain on the e-GPU queue into a reusable
@@ -267,26 +280,28 @@ class APU:
                     dev = Buffer(b.data)        # device-resident destination
                     q.enqueue_write_buffer(dev, b)
                     written.append(dev)
-                finals, _ = self.wire_pipeline(q, stages, written,
+                finals, _ = self.wire_pipeline(q, stages, written, ndranges,
                                                resident_chain=True,
                                                resident_first=True)
                 for out in finals:
                     q.enqueue_read_buffer(out)
             else:
-                self.wire_pipeline(q, stages, bufs, resident_chain=True)
+                self.wire_pipeline(q, stages, bufs, ndranges,
+                                   resident_chain=True)
         graph.n_request_inputs = len(bufs)
         return graph
 
-    def _offload_graph(self, stages, inputs):
+    def _offload_graph(self, stages, inputs, ndranges):
         # Launch-time queue binding: events land on THIS APU's queue, not
         # the capture queue a cached graph happens to carry.
         q = self.queue
         if self.graph_cache is not None:
-            graph, _hit = self.graph_cache.get_or_capture(self, stages, inputs)
+            graph, _hit = self.graph_cache.get_or_capture(
+                self, stages, inputs, ndranges)
             final = graph.launch_prefix(
                 [self.egpu_ctx.create_buffer(x).data for x in inputs], queue=q)
         else:
-            graph = self.capture_pipeline(stages, inputs)
+            graph = self.capture_pipeline(stages, inputs, ndranges)
             final = graph.launch(queue=q)
         q.finish()
         # The whole report is launch-invariant for a given graph (host
@@ -294,7 +309,7 @@ class APU:
         # cached graph reuses it instead of re-walking the host model.
         report = getattr(graph, "_pipeline_report", None)
         if report is None:
-            host = self._host_costs(stages, graph)
+            host = self._host_costs(stages, ndranges, graph)
             reports = tuple(
                 StageReport(name=stage.kernel.name, egpu=node.modeled,
                             host=h_mod, egpu_energy_j=node.energy_j,
@@ -313,11 +328,11 @@ class APU:
         return final, report
 
     # -- per-kernel eager path ---------------------------------------------
-    def _offload_eager(self, stages, inputs):
+    def _offload_eager(self, stages, inputs, ndranges):
         final: Tuple[Buffer, ...] = ()
         for which, ctx in (("egpu", self.egpu_ctx), ("host", self.host_ctx)):
             q = CommandQueue(ctx)
-            bufs, evs = self.wire_pipeline(q, stages, inputs,
+            bufs, evs = self.wire_pipeline(q, stages, inputs, ndranges,
                                            resident_chain=which == "egpu")
             q.finish()
             if which == "egpu":

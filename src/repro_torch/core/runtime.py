@@ -108,6 +108,12 @@ def resolve_device(device: Any = "cuda") -> torch.device:
     return dev
 
 
+def canonical_device(device: Any) -> torch.device:
+    """``device`` with its index filled in (``"cuda"`` is the current card,
+    ``cuda:<n>``), so two names of one device compare equal."""
+    return torch.empty(0, device=device).device
+
+
 def _meta_like(t: torch.Tensor) -> torch.Tensor:
     """A storage-less stand-in with ``t``'s shape and dtype."""
     return torch.empty(t.shape, dtype=t.dtype, device="meta")

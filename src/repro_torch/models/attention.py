@@ -125,15 +125,33 @@ def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Decode (one token per sequence)
 # ---------------------------------------------------------------------------
-def attend_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
-                  cfg: ModelConfig):
-    """x (B, 1, D) + cache at absolute position ``pos``.
+def _row_positions(pos, batch: int, device) -> torch.Tensor:
+    """``pos`` as a (B,) int64 tensor on ``device``: an ``int`` is the same
+    position for every row (spread without a host read); a (B,) tensor is
+    one position per row."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() == 0:
+            return pos.to(device=device, dtype=torch.int64).expand(batch)
+        if tuple(pos.shape) != (batch,):
+            raise ValueError(f"positions {tuple(pos.shape)} for a batch of "
+                             f"{batch}: pass an int or a ({batch},) tensor")
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.full((batch,), int(pos), dtype=torch.int64, device=device)
 
-    Returns (y (B, 1, D), cache).  The new K/V row is written into the
+
+def attend_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
+                  cfg: ModelConfig):
+    """x (B, 1, D) + cache at absolute position ``pos``: an ``int`` for the
+    whole batch or a (B,) int tensor, one position per row (the decode
+    engine's slots sit at different positions).
+
+    Returns (y (B, 1, D), cache).  Each row's new K/V is written into the
     cache **in place** (the JAX package returns an updated copy; writing in
-    place spares a copy of the whole cache per layer and step), at ``pos``
-    clamped into [0, max_len - 1] as ``jax.lax.dynamic_update_slice``
-    clamps it.  Every cache position ``<= pos`` is attended to.
+    place spares a copy of the whole cache per layer and step), at its
+    position clamped into [0, max_len - 1] as ``jax.lax.dynamic_update_slice``
+    clamps it, and each row attends to every cache position ``<=`` its own.
+    The step reads no position on the host, so it runs on ``meta`` tensors
+    at capture.  An ``int`` goes through the same arithmetic as a tensor.
 
     The scores and the weighted sum read the bf16 cache with f32
     accumulation, as the JAX package's ``preferred_element_type=f32``
@@ -144,23 +162,23 @@ def attend_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: int,
     """
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    pos = int(pos)
-    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    pos = _row_positions(pos, b, x.device)                      # (B,)
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
 
     k_cache, v_cache = cache["k"], cache["v"]
     dtype = k_cache.dtype
     t = k_cache.shape[2]
-    at = min(max(pos, 0), t - 1)
-    k_cache[:, :, at] = k_new[:, :, 0].to(dtype)
-    v_cache[:, :, at] = v_new[:, :, 0].to(dtype)
+    rows = torch.arange(b, device=x.device)
+    at = pos.clamp(0, t - 1)
+    k_cache[rows, :, at] = k_new[:, :, 0].to(dtype)
+    v_cache[rows, :, at] = v_new[:, :, 0].to(dtype)
 
     group = h // kvh
     qd = q[:, :, 0].reshape(b, kvh, group, hd).to(dtype)
     scale = hd ** -0.5
     s = torch.matmul(qd.float(), k_cache.float().transpose(-1, -2)) * scale
-    valid = torch.arange(t, device=x.device) <= pos            # (T,)
-    s = torch.where(valid, s, NEG_INF)                          # (B,KVH,G,T)
+    valid = torch.arange(t, device=x.device) <= pos[:, None]   # (B, T)
+    s = torch.where(valid[:, None, None], s, NEG_INF)           # (B,KVH,G,T)
     m = s.amax(-1, keepdim=True)
     pexp = torch.exp(s - m)
     l = pexp.sum(-1, keepdim=True)

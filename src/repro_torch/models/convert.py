@@ -21,15 +21,22 @@ from .params import map_tree
 from .transformer import Transformer
 
 
+def tree_from_jax(tree: Dict[str, Any], *, device: Any = None
+                  ) -> Dict[str, Any]:
+    """A JAX parameter tree of numpy arrays as the same tree of tensors, in
+    the arrays' dtypes, on ``device`` (default: the card) — what
+    :class:`Transformer` and the decode engine take."""
+    dev = resolve_device("cuda" if device is None else device)
+    return map_tree(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+
+
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], *,
                     device: Any = None) -> Transformer:
     """The port's model from a JAX parameter tree of numpy arrays, on
     ``device`` (default: the card).  Raises ``ValueError`` on any leaf the
     model does not consume, any leaf it lacks and any shape that differs
     from the spec."""
-    dev = resolve_device("cuda" if device is None else device)
-    return Transformer(cfg, map_tree(
-        lambda a: torch.tensor(np.asarray(a), device=dev), tree))
+    return Transformer(cfg, tree_from_jax(tree, device=device))
 
 
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:

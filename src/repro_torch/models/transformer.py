@@ -200,9 +200,16 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         x = x + mul_scalar(out2, rs)
         if mode == "prefill":
             return x, (tlast2, wkv2, clast2)
+        # written in place where the leaf holds the step's dtype; a leaf of
+        # another dtype (a token shift seeded at the cache dtype under
+        # another compute dtype) comes back as the step computed it
+        out = []
         for leaf, new in zip(cache, (tlast2, wkv2, clast2)):
-            leaf.copy_(new)
-        return x, cache
+            if leaf.dtype == new.dtype:
+                leaf.copy_(new)
+                new = leaf
+            out.append(new)
+        return x, tuple(out)
     if mode == "decode":
         out, new_cache = attend_decode(p["block"], h, cache, pos, cfg)
     else:
@@ -316,21 +323,40 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], max_len: int,
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache: Dict[str, Any],
-                tokens: torch.Tensor, pos: int
+                tokens: torch.Tensor, pos
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One token for every sequence.  tokens (B,) ids, pos an int.
+    """One token for every sequence.  tokens (B,) ids; ``pos`` an ``int``
+    for the whole batch or a (B,) int tensor, one position per row (rwkv
+    reads none).  No position is read on the host, so the step runs on
+    ``meta`` tensors.
 
     Returns (logits (B, Vp) f32, cache).  The cache is updated **in place**
-    and returned (the JAX package returns a new one).
+    and returned (the JAX package returns a new one), except an rwkv
+    token-shift leaf whose dtype is not the compute dtype: the step returns
+    a new leaf at the compute dtype there, as the JAX step does.
     """
     cfg = model.cfg
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     x = embed_tokens(model.embed, tokens[:, None], cfg)
+    per_pos: List[List[Any]] = [[] for _ in range(cfg.period)]
     for layer, p in enumerate(model.layers):
-        x, _ = _apply_position(p, x, cfg, cfg.block_pattern[layer % cfg.period],
+        x, c = _apply_position(p, x, cfg, cfg.block_pattern[layer % cfg.period],
                                mode="decode",
                                cache=_layer_cache(cache, cfg, layer), pos=pos)
+        per_pos[layer % cfg.period].append(c)
     x = apply_norm(model.final_norm, x, cfg)
     logits = logits_from_hidden(model.embed, x, cfg)[:, 0]
-    return logits, cache
+    return logits, {f"pos{i}": _restacked(cache[f"pos{i}"], caches)
+                    for i, caches in enumerate(per_pos)}
+
+
+def _restacked(leaves: Any, per_layer: List[Any]) -> Any:
+    """A position's cache after a decode step: a stacked leaf of the
+    dtype its layers returned was written in place and is kept; another is
+    stacked anew from the layers' new tensors."""
+    if isinstance(leaves, dict):
+        return leaves
+    return tuple(leaf if per_layer[0][j].dtype == leaf.dtype
+                 else torch.stack([c[j] for c in per_layer])
+                 for j, leaf in enumerate(leaves))

@@ -22,10 +22,21 @@ engine, as the JAX package's ``repro.serve`` does:
 Every entry point runs on the card unless the caller asks for the CPU
 (``Server(..., device="cpu")``, ``QueueWorker(config, device="cpu")``).
 
+* the continuous-batching decode engine — :class:`DecodeEngine` serves
+  autoregressive decode JetStream style: per-request ``prefill`` ->
+  ``insert`` into a slot of a persistent batched decode state resident on
+  the engine's device -> ``generate`` advancing ALL occupied slots one
+  token per step in ONE cached ``CommandGraph`` launch (the cache leaves
+  are donated and written in place), bit-identical to whole-batch greedy
+  decoding under staggered arrival.  ``Server(engine=...)`` opens the
+  streaming front (``submit_decode`` / per-rid ``stream``), and
+  :class:`EngineHTTPServer` puts an asyncio streaming HTTP ingress in
+  front of it.  Engine classes load lazily — pipeline-only servers keep
+  the model stack off their import path.
+
 Not ported yet: the sharded lanes of the JAX package (``ShardedWorker`` and
-its helpers, ``ROADMAP.md`` queue 1 step 9, slice D) and the decode engine
-with its HTTP ingress (``DecodeEngine`` and friends, ``EngineHTTPServer``,
-queue 1 step 2).  Their names resolve to an error naming the step.
+its helpers, ``ROADMAP.md`` queue 1 step 9, slice D).  Their names resolve
+to an error naming the step.
 """
 
 from .batching import (BucketBatcher, MicroBatch, ServeRequest,
@@ -41,20 +52,28 @@ from .power import LanePrice, PowerBudget
 from .server import (DECOMP_PERCENTILES, DECOMP_PHASES, PERCENTILES,
                      AdmissionError, Server, ServeReport)
 
+#: engine symbols resolved lazily (PEP 562): importing them pulls the model
+#: stack (repro_torch.models / repro_torch.train), which pipeline-only
+#: servers avoid
+_ENGINE_EXPORTS = ("DecodeEngine", "DecodeState", "EngineRoofline", "Prefix",
+                   "batch_axes", "engine_roofline", "graph_traffic")
+_HTTP_EXPORTS = ("EngineHTTPServer",)
+
 #: names of the JAX package's serve exports this package does not have yet,
 #: and the ROADMAP.md step that brings each
 _NOT_PORTED = {
-    **{name: "queue 1 step 9 (slice D, sharded serving)"
-       for name in ("BATCH_AXIS", "ShardedWorker", "data_mesh",
-                    "mesh_signature", "shard_breakdown")},
-    **{name: "queue 1 step 2 (the DecodeEngine)"
-       for name in ("DecodeEngine", "DecodeState", "EngineRoofline", "Prefix",
-                    "batch_axes", "engine_roofline", "graph_traffic",
-                    "EngineHTTPServer")},
-}
+    name: "queue 1 step 9 (slice D, sharded serving)"
+    for name in ("BATCH_AXIS", "ShardedWorker", "data_mesh",
+                 "mesh_signature", "shard_breakdown")}
 
 
 def __getattr__(name: str):
+    if name in _ENGINE_EXPORTS:
+        from . import engine
+        return getattr(engine, name)
+    if name in _HTTP_EXPORTS:
+        from . import http
+        return getattr(http, name)
     step = _NOT_PORTED.get(name)
     if step is not None:
         raise NotImplementedError(
@@ -72,4 +91,5 @@ __all__ = [
     "LanePrice", "PowerBudget",
     "DECOMP_PERCENTILES", "DECOMP_PHASES", "PERCENTILES",
     "AdmissionError", "Server", "ServeReport",
+    *_ENGINE_EXPORTS, *_HTTP_EXPORTS,
 ]

@@ -6,8 +6,8 @@ there for one offload, but every ``APU.offload`` still re-captures the
 chain (running every plain version on ``meta`` tensors).  The cache closes
 that gap: captured graphs are memoized on a key of
 
-    (EGPUConfig, capture shape, torch device, per-stage signature,
-     input shapes/dtypes/devices)
+    (EGPUConfig, capture shape, per-stage signature, input
+     shapes/dtypes/devices, per-stage NDRanges)
 
 so steady-state traffic pays the capture once per distinct (pipeline,
 shape bucket, device config, torch device) and every later launch is a
@@ -45,6 +45,7 @@ import torch
 
 from ..analyze.graph import GraphVerifyError
 from ..core.apu import APU, Stage
+from ..core.ndrange import NDRange
 from ..core.runtime import CommandGraph
 
 _SIG_MEMO_CAPACITY = 64
@@ -182,8 +183,8 @@ def input_signature(inputs: Sequence[Any],
 
 class GraphCache:
     """LRU cache of captured :class:`CommandGraph`\\ s keyed on
-    (device config, capture shape, torch device, pipeline signature, input
-    shapes/dtypes/devices).
+    (device config, capture shape, pipeline signature, input
+    shapes/dtypes/devices, NDRanges).
 
     One cache may be shared across several :class:`APU`\\ s with different
     ``EGPUConfig`` presets — the config is part of the key, so a 16T graph
@@ -236,6 +237,7 @@ class GraphCache:
 
     def key_for(self, apu: APU, stages: Sequence[Stage],
                 inputs: Sequence[Any],
+                ndranges: Optional[Sequence[NDRange]] = None,
                 key_prefix: Optional[Hashable] = None) -> Hashable:
         """The full cache key for one offload/capture request.
 
@@ -246,28 +248,32 @@ class GraphCache:
         repeated offloads of the *same* Stage list hash constants once.
         """
         pipe = key_prefix if key_prefix is not None else self._stages_sig(stages)
+        ndr = (None if ndranges is None else
+               tuple((n.global_size, n.local_size) for n in ndranges))
         # explicit-transfer captures have a different node structure (write/
         # read nodes, resident kernels) than classic ones — never share.
         # The inputs sign with the APU's torch device: a graph captured for
         # the CPU replays the plain versions and must never serve the card,
         # nor the reverse.
         return (apu.egpu.config, getattr(apu, "explicit_transfers", False),
-                pipe, input_signature(inputs, apu.device))
+                pipe, input_signature(inputs, apu.device), ndr)
 
     def get_or_capture(self, apu: APU, stages: Sequence[Stage],
                        inputs: Sequence[Any],
+                       ndranges: Optional[Sequence[NDRange]] = None,
                        key_prefix: Optional[Hashable] = None,
                        ) -> Tuple[CommandGraph, bool]:
         """Return ``(graph, hit)`` — capturing only on a miss.  The entry is
-        promoted to most-recently-used either way."""
-        key = self.key_for(apu, stages, inputs, key_prefix)
+        promoted to most-recently-used either way.  ``ndranges`` (one per
+        stage) price the capture and key the entry."""
+        key = self.key_for(apu, stages, inputs, ndranges, key_prefix)
         graph = self._graphs.get(key)
         if graph is not None:
             self.hits += 1
             self._graphs.move_to_end(key)
             return graph, True
         self.misses += 1
-        graph = apu.capture_pipeline(stages, inputs)
+        graph = apu.capture_pipeline(stages, inputs, ndranges)
         findings = graph.verify()
         self.verified += 1
         self.findings += len(findings)

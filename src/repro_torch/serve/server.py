@@ -42,10 +42,15 @@ violations, retries and quarantines.
 
 Requests arrive as numpy arrays or tensors and are moved to the server's
 torch device (``Server(..., device="cuda")`` by default; ``device="cpu"``
-runs the kernels' plain versions).  The decode-engine front of the JAX
-package (``engine=``, :meth:`Server.submit_decode`, :meth:`Server.stream`)
-is not ported yet: it raises ``NotImplementedError`` naming ``ROADMAP.md``
-queue 1 step 2.
+runs the kernels' plain versions).
+
+The decode-engine front (``Server(engine=DecodeEngine(...))``):
+:meth:`Server.submit_decode` admits one autoregressive request,
+:meth:`Server.stream` yields its tokens as the engine's generate steps
+produce them, and :meth:`Server.flush` runs every accepted decode request
+to completion.  With no pipeline lanes the server is engine-only: the
+engine's lane doubles as the dispatch lane, and the engine adopts the
+server's clock and tracer.
 """
 
 from __future__ import annotations
@@ -53,15 +58,15 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import OrderedDict, deque
-from typing import (Any, Callable, Deque, Dict, Iterator, Optional,
-                    Sequence, Tuple, Union)
+from typing import (TYPE_CHECKING, Any, Callable, Deque, Dict, Iterator,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
 from ..core.apu import Stage
 from ..core.device import EGPUConfig, EGPU_16T, OP_ANCHOR, env_op_point
-from ..core.runtime import resolve_device
+from ..core.runtime import canonical_device, resolve_device
 from ..obs import MetricsRegistry, Tracer
 from .batching import BucketBatcher, MicroBatch, batched_stages
 from .cache import GraphCache, stages_signature
@@ -69,6 +74,10 @@ from .dispatch import (DispatchError, LaunchTicket, MultiQueueDispatcher,
                        PowerBudgetError, QueueStats, QueueWorker)
 from .faults import FaultPlan
 from .power import PowerBudget
+
+if TYPE_CHECKING:
+    from .engine import DecodeEngine   # (keeps the model stack off pipeline-
+    #                                     only servers' import path)
 
 PERCENTILES = (50, 90, 99)
 
@@ -174,7 +183,7 @@ class ServeReport:
     #: the configured caps (mW), ``None`` when serving uncapped
     power_budget_lane_mw: Optional[float] = None
     power_budget_fleet_mw: Optional[float] = None
-    # -- continuous-batching decode engine (not ported yet: always 0) ------
+    # -- continuous-batching decode engine ---------------------------------
     #: generate steps launched (each ONE cached-graph launch over all slots)
     engine_steps: int = 0
     #: tokens emitted from occupied slots across those steps
@@ -415,6 +424,10 @@ class Server:
     must run on ``device`` too.  Heterogeneous mixes are fine, each lane
     gets its own cached graphs.  The stages' constants must lie on
     ``device``; they are hashed once, here, for the cache key.
+    ``device`` defaults to the card, or to ``engine``'s device when a
+    :class:`~repro_torch.serve.engine.DecodeEngine` is given (the two
+    must agree); ``Server((), workers=(), engine=...)`` serves the engine
+    alone.
 
     Robustness knobs:
 
@@ -449,13 +462,16 @@ class Server:
                  clock: Callable[[], float] = time.perf_counter,
                  tracer: Optional[Tracer] = None,
                  power_budget: Optional[PowerBudget] = None,
-                 engine: Optional[Any] = None, device: Any = "cuda"):
-        if engine is not None:
-            raise NotImplementedError(
-                "Server(engine=...) needs the DecodeEngine, which is not "
-                "ported yet (ROADMAP.md queue 1 step 2)")
+                 engine: Optional["DecodeEngine"] = None,
+                 device: Any = None):
         self.stages = tuple(stages)
+        if device is None:
+            device = engine.device if engine is not None else "cuda"
         self.device = resolve_device(device)
+        if engine is not None and (canonical_device(engine.device)
+                                   != canonical_device(self.device)):
+            raise ValueError(f"the engine runs on {engine.device}, the "
+                             f"server on {self.device}")
         self.clock = clock
         self.max_pending = max_pending
         self.admission = admission
@@ -498,6 +514,10 @@ class Server:
                     cfg, name=f"{i}:{w.name}", max_in_flight=max_in_flight,
                     fault_plan=fault_plan, clock=clock, tracer=tracer,
                     device=self.device))
+        if not lanes and engine is not None:
+            # engine-only server: the engine's lane doubles as the (unused)
+            # dispatch lane, so accounting has a single source of truth
+            lanes = [engine.worker]
         self.dispatcher = MultiQueueDispatcher(
             lanes, failure_threshold=breaker_threshold,
             breaker_cooldown=breaker_cooldown, tracer=tracer,
@@ -542,6 +562,30 @@ class Server:
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
         self._t_last_modeled: Optional[float] = None
+        # -- continuous-batching decode engine -------------------------------
+        #: slot-based decode engine behind :meth:`submit_decode` /
+        #: :meth:`stream`; ``None`` keeps the server pipeline-only.  The
+        #: engine adopts the server's clock and tracer so both fronts share
+        #: one timeline and one trace.
+        self.engine = engine
+        if engine is not None:
+            if clock is not time.perf_counter:
+                engine.clock = clock
+                engine.worker.clock = clock
+            if tracer is not None:
+                if engine.tracer is None:
+                    engine.tracer = tracer
+                if engine.worker.tracer is None:
+                    engine.worker.tracer = tracer
+        self._estate = None                  # DecodeState, built on demand
+        #: accepted but not yet slotted: rid -> (prompt, max_new, deadline_s)
+        self._eng_waiting: "OrderedDict[int, Tuple[Any, int, Optional[float]]]" = OrderedDict()
+        #: slotted and generating: rid -> record dict (slot, remaining, ...)
+        self._eng_active: Dict[int, Dict[str, Any]] = {}
+        #: per-rid token queues not yet consumed by :meth:`stream` (LRU-
+        #: bounded to the metrics window like the results store, so
+        #: fire-and-forget clients can't leak token buffers forever)
+        self._eng_streams: "OrderedDict[int, Deque[int]]" = OrderedDict()
 
     # -- warm-up ------------------------------------------------------------
     def warmup(self, *example_arrays: Any) -> int:
@@ -636,9 +680,14 @@ class Server:
 
     def flush(self) -> None:
         """Force every pending request through: drain partial buckets, then
-        retire all in-flight launches."""
+        retire all in-flight launches (and, with an engine installed, run
+        every accepted decode request to completion)."""
         self._launch(self.batcher.drain())
         self._finalize(self.dispatcher.drain_all())
+        if self.engine is not None:
+            self._eng_pump()
+            while self._eng_active:
+                self._eng_step()
 
     # -- admission control --------------------------------------------------
     def _best_spr(self) -> Optional[float]:
@@ -762,16 +811,181 @@ class Server:
     def submit_decode(self, prompt: Any, max_new: int,
                       deadline: Optional[float] = None,
                       priority: int = 0) -> int:
-        """The decode-engine front: not ported yet."""
-        raise NotImplementedError(
-            "Server.submit_decode needs the DecodeEngine, which is not "
-            "ported yet (ROADMAP.md queue 1 step 2)")
+        """Enqueue one autoregressive decode request on the engine front.
+
+        The request prefills into a free slot as soon as one exists (a
+        launch-time buffer update on the persistent decode state — never a
+        re-capture) and then rides the per-step ``generate`` launches with
+        every other occupied slot.  Read its tokens incrementally with
+        :meth:`stream` (which never blocks on neighbors) or all at once
+        via :meth:`result` after :meth:`flush`.
+        """
+        eng = self._require_engine()
+        prompt = torch.as_tensor(prompt, device=eng.device
+                                 ).to(torch.int32).reshape(-1)
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        s = int(prompt.shape[0])
+        if s < 1 or s + max_new > eng.max_len:
+            raise ValueError(
+                f"prompt ({s} tokens) + max_new ({max_new}) must fit the "
+                f"engine's max_len={eng.max_len}")
+        now = self.clock()
+        if (self.admission and self.max_pending is not None
+                and len(self._eng_waiting) >= self.max_pending):
+            self.n_shed += 1
+            if self.tracer is not None:
+                self.tracer.instant("server", now, "shed-at-door",
+                                    reason="engine queue full",
+                                    priority=priority)
+            raise AdmissionError(
+                f"admission control shed decode request: "
+                f"{len(self._eng_waiting)} waiting >= "
+                f"max_pending={self.max_pending}")
+        rid = self.batcher.mint_rid()
+        if self.tracer is not None:
+            self.tracer.begin_request(
+                rid, now, priority=priority, prompt_len=s, max_new=max_new,
+                deadline_s=None if deadline is None else now + deadline)
+        if self._t0 is None:
+            self._t0 = now
+        self._eng_waiting[rid] = (
+            prompt, int(max_new),
+            None if deadline is None else now + float(deadline))
+        self._eng_streams[rid] = deque()
+        self._eng_pump()
+        return rid
 
     def stream(self, rid: int) -> Iterator[int]:
-        """The decode-engine token stream: not ported yet."""
-        raise NotImplementedError(
-            "Server.stream needs the DecodeEngine, which is not ported yet "
-            "(ROADMAP.md queue 1 step 2)")
+        """Per-request token iterator: yields ``rid``'s tokens as generate
+        steps produce them, driving the engine forward as needed.
+
+        A finished neighbor never blocks this stream, and exhausting it
+        leaves the request's full output in the results store.  Streaming
+        a shed rid raises :class:`AdmissionError` (loud, like
+        :meth:`result`)."""
+        self._require_engine()
+        while True:
+            if rid in self._shed:
+                raise AdmissionError(
+                    f"request {rid} was shed after acceptance: "
+                    f"{self._shed[rid]}")
+            q = self._eng_streams.get(rid)
+            while q:
+                yield q.popleft()
+            if rid not in self._eng_active and rid not in self._eng_waiting:
+                self._eng_streams.pop(rid, None)
+                return
+            self._eng_pump()
+            if self._eng_active:
+                self._eng_step()
+
+    def _require_engine(self) -> "DecodeEngine":
+        if self.engine is None:
+            raise RuntimeError(
+                "this server has no decode engine: construct it with "
+                "Server(..., engine=DecodeEngine(...))")
+        return self.engine
+
+    def _eng_pump(self) -> int:
+        """Admit waiting decode requests into free slots (prefill + insert).
+
+        Insertion is continuous batching's whole point: a freed slot takes
+        a fresh request while the other slots keep decoding — the next
+        generate step carries both, bit-identically for each."""
+        eng = self.engine
+        if self._estate is None:
+            self._estate = eng.init_state()
+        admitted = 0
+        while self._eng_waiting and self._estate.free_slots():
+            rid, (prompt, max_new, deadline_s) = \
+                self._eng_waiting.popitem(last=False)
+            slot = self._estate.free_slots()[0]
+            try:
+                prefix = eng.prefill(None, prompt, rid=rid)
+            except Exception as e:                   # injected fault etc.
+                self._eng_streams.pop(rid, None)
+                self._record_shed(rid, f"engine prefill failed: {e}")
+                continue
+            rec = {"slot": slot, "remaining": max_new - 1,
+                   "tokens": [int(prefix.token[0])],
+                   "deadline_s": deadline_s}
+            self._eng_streams[rid].append(rec["tokens"][0])
+            if rec["remaining"] <= 0:
+                self._eng_finish(rid, rec)
+            else:
+                eng.insert(prefix, self._estate, slot)
+                self._estate.rids[slot] = rid
+                self._eng_active[rid] = rec
+            admitted += 1
+        return admitted
+
+    def _eng_step(self) -> bool:
+        """ONE generate launch advancing every occupied slot one token;
+        finished requests free their slots and the pump refills them."""
+        eng = self.engine
+        if not self._eng_active:
+            return False
+        try:
+            self._estate, toks = eng.generate(None, self._estate)
+        except Exception as e:
+            # the persistent decode state is poisoned mid-flight (injected
+            # fault or a donated-buffer launch failure): shed every active
+            # rid LOUDLY and reset the state — no request is silently lost
+            for rid, rec in list(self._eng_active.items()):
+                self._eng_streams.pop(rid, None)
+                self._record_shed(rid, f"engine generate failed: {e}")
+            self._eng_active.clear()
+            self._estate = eng.init_state()
+            self._eng_pump()
+            return True
+        finished = []
+        for rid, rec in self._eng_active.items():
+            tok = int(toks[rec["slot"]])
+            rec["tokens"].append(tok)
+            rec["remaining"] -= 1
+            self._eng_streams[rid].append(tok)
+            if rec["remaining"] <= 0:
+                finished.append(rid)
+        for rid in finished:
+            rec = self._eng_active.pop(rid)
+            eng.release(self._estate, rec["slot"])
+            self._eng_finish(rid, rec)
+        if finished:
+            self._eng_pump()
+        return True
+
+    def _eng_finish(self, rid: int, rec: Dict[str, Any]) -> None:
+        """Book one completed decode request (results store, SLO counters,
+        trace terminal) — the engine twin of :meth:`_finalize`."""
+        now = self.clock()
+        t_done_modeled = self.engine.worker.modeled_busy_until
+        self._results[rid] = (np.asarray(rec["tokens"], np.int32),)
+        while len(self._eng_streams) > self._results_window:
+            self._eng_streams.popitem(last=False)
+        while len(self._results) > self._results_window:
+            old_rid, _ = self._results.popitem(last=False)
+            self._results_evicted += 1
+            self._evicted_upto = max(self._evicted_upto, old_rid)
+        violated = (rec["deadline_s"] is not None
+                    and t_done_modeled > rec["deadline_s"])
+        if violated:
+            self._n_deadline_violations += 1
+        else:
+            self._n_in_deadline += 1
+        self._n_done += 1
+        self._t_last = now if self._t_last is None else max(self._t_last, now)
+        self._t_last_modeled = (t_done_modeled
+                                if self._t_last_modeled is None
+                                else max(self._t_last_modeled,
+                                         t_done_modeled))
+        if self.tracer is not None:
+            if violated:
+                self.tracer.request_event(rid, t_done_modeled,
+                                          "deadline-miss",
+                                          deadline_s=rec["deadline_s"])
+            self.tracer.finish_request(rid, t_done_modeled, "result",
+                                       n_tokens=len(rec["tokens"]))
 
     # -- internals ----------------------------------------------------------
     def _launch(self, batches: Sequence[MicroBatch],
@@ -926,6 +1140,12 @@ class Server:
         fill = (self._n_done / (n_batches * self.batcher.max_batch)
                 if n_batches else 0.0)
         queues = self.dispatcher.stats()
+        if (self.engine is not None
+                and self.engine.worker not in self.dispatcher.workers):
+            # the engine's lane books its launches like any dispatcher
+            # lane, so fleet power/energy roll-ups stay honest (engine-only
+            # servers already list it as the dispatch lane)
+            queues = (*queues, self.engine.worker.stats())
         # batch-weighted mean utilization per mesh axis across sharded lanes
         # (none in this package yet: the mapping stays empty)
         axis_sum: Dict[str, float] = {}
@@ -953,6 +1173,18 @@ class Server:
                            * qs.idle_power_w for qs in queues)
                        if modeled_span > 0 else 0.0)
         fleet_energy = active_energy + idle_energy
+        engine_kwargs: Dict[str, Any] = {}
+        if self.engine is not None and self.engine.n_steps:
+            es = self.engine.stats()
+            engine_kwargs = dict(
+                engine_steps=int(es["n_steps"]),
+                engine_tokens=int(es["n_tokens"]),
+                engine_prefill_s_modeled=es["prefill_modeled_s"],
+                engine_decode_s_modeled=es["decode_modeled_s"],
+                engine_tokens_per_s_modeled=es["tokens_per_s_modeled"],
+                engine_slot_occupancy=es["occupancy"],
+                engine_bytes_per_step=es["bytes_per_step"],
+                engine_mem_bound_fraction=es["mem_bound_fraction"])
         return ServeReport(
             n_requests=self._n_done,
             n_batches=n_batches,
@@ -995,6 +1227,7 @@ class Server:
                                   else self.power_budget.lane_mw),
             power_budget_fleet_mw=(None if self.power_budget is None
                                    else self.power_budget.fleet_mw),
+            **engine_kwargs,
         )
 
     def publish_metrics(self, registry: Optional[MetricsRegistry] = None

@@ -45,7 +45,9 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
 
 
 def make_decode_step(cfg: ModelConfig, return_logits: bool = True) -> Callable:
-    """One decode step: (model, cache, tokens, pos) -> next tokens.
+    """One decode step: (model, cache, tokens, pos) -> next tokens, where
+    ``pos`` is an ``int`` for the whole batch or a (B,) int tensor of
+    per-row positions (one arithmetic path for both).
 
     ``return_logits=True`` returns (next (B,) int32, logits (B, Vp), cache);
     ``return_logits=False`` is the serving fast path, (next, cache), which

@@ -1,4 +1,4 @@
-"""The port's static, dispatch, overload and power benches
+"""The port's static, dispatch, overload, power and decode benches
 (``benchmarks_torch``) against the JAX package's, on the CPU.
 
 Modeled rows are the machine model's and the serving stack's plain Python
@@ -7,9 +7,12 @@ over the same counts, arrivals and payloads, so they compare with ``==``
 ``bench_power``'s results: goodputs, shed and late counts, backlog,
 retries, quarantines, lane energies, throttles).  ``bench_dispatch``
 measures the host's clock, so only its keys and the signs of its figures
-are compared.  The JAX benches append to ``BENCH_*.json`` at the repo root;
-here their ``OUT_PATH`` points into a temporary directory, and the port's
-benches write no file at all.
+are compared.  ``bench_decode``'s modeled rows (tokens/s of both arms,
+their ratio, the roofline, occupancy, cache stats, the traced arm) compare
+with ``==`` too.  The JAX benches append to ``BENCH_*.json`` at the repo
+root; here their ``OUT_PATH`` points into a temporary directory (the JAX
+decode bench's arms are called directly instead), and the port's benches
+write no file at all.
 """
 
 import json
@@ -22,12 +25,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+import benchmarks.bench_decode as j_decode  # noqa: E402
 import benchmarks.bench_dispatch as j_dispatch  # noqa: E402
 import benchmarks.bench_overload as j_overload  # noqa: E402
 import benchmarks.bench_power as j_power  # noqa: E402
 import benchmarks.bench_static as j_static  # noqa: E402
-from benchmarks_torch import (bench_dispatch, bench_overload,  # noqa: E402
-                              bench_power, bench_static)
+from benchmarks_torch import (bench_decode, bench_dispatch,  # noqa: E402
+                              bench_overload, bench_power, bench_static)
 from repro_torch.obs import validate_chrome_trace  # noqa: E402
 
 HISTORY = ("timestamp",)
@@ -113,7 +117,49 @@ def test_bench_power_rows_equal_jax(bench_files, tmp_path_factory):
     assert got["n_power_throttled"] > 0 and got["n_budget_violations"] == 0
 
 
+def test_bench_decode_rows_equal_jax(bench_files):
+    """The port's decode bench on the CPU against the JAX bench's arms
+    (``_arm`` / ``_traced_arm``, which write no file): every modeled row
+    ``==``, and the resident-vs-rebatch ratio above the gate.  The JAX run
+    is its ``run()`` minus the history append and the wall clock."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import ARCHS
+    from repro.models import init_params, model_spec
+    got = bench_decode.run("cpu")
+    cfg = ARCHS[j_decode.ARCH].reduced()
+    params = init_params(model_spec(cfg), jax.random.PRNGKey(0))
+    prompts = jnp.asarray(np.random.default_rng(1).integers(
+        0, cfg.vocab, (j_decode.N_REQ, j_decode.PROMPT)), jnp.int32)
+    engine, _, _ = j_decode._arm(cfg, params, prompts, resident=True)
+    naive, _, _ = j_decode._arm(cfg, params, prompts, resident=False)
+    roof = engine.roofline()
+    want = {
+        "bench": "decode", "arch": j_decode.ARCH, "slots": j_decode.SLOTS,
+        "n_requests": j_decode.N_REQ,
+        "tokens_per_request": j_decode.NEW,
+        "tokens_per_s_modeled": {"engine": engine.tokens_per_s_modeled,
+                                 "naive_rebatch": naive.tokens_per_s_modeled},
+        "resident_vs_rebatch_speedup": (engine.tokens_per_s_modeled
+                                        / naive.tokens_per_s_modeled),
+        "occupancy": engine.occupancy,
+        "roofline": {"bytes_per_step": roof.bytes_per_step,
+                     "min_step_s": roof.min_step_s,
+                     "mem_bound_fraction": roof.mem_bound_fraction,
+                     "modeled_step_s": roof.modeled_step_s},
+        "bit_identical_to_greedy": True,
+        "cache_stats": engine.cache.stats(),
+        "traced": j_decode._traced_arm(cfg, params, prompts),
+    }
+    assert got.pop("wall_tokens_per_s") > 0.0
+    assert got == want
+    assert got["resident_vs_rebatch_speedup"] >= bench_decode.GATE_X == 1.3
+    assert got["cache_stats"]["misses"] == 2
+
+
 def test_port_benches_name_no_history_file():
-    for module in (bench_static, bench_dispatch, bench_overload, bench_power):
+    for module in (bench_static, bench_dispatch, bench_overload, bench_power,
+                   bench_decode):
         src = pathlib.Path(module.__file__).read_text()
         assert "BENCH_" not in src and "OUT_PATH" not in src

@@ -74,7 +74,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.analyze.graph", "repro_torch.serve.batching",
                 "repro_torch.serve.cache", "repro_torch.serve.dispatch",
                 "repro_torch.serve.server", "repro_torch.serve.faults",
-                "repro_torch.serve.power", "benchmarks_torch.bench_serve"}
+                "repro_torch.serve.power", "benchmarks_torch.bench_serve",
+                "repro_torch.serve.engine", "repro_torch.serve.http",
+                "benchmarks_torch.bench_decode"}
     assert expected <= set(report["modules"])
 
 
@@ -83,7 +85,7 @@ def test_no_source_line_names_jax():
              + list((ROOT / "benchmarks_torch").rglob("*.py"))
              + list((ROOT / "examples").glob("*_torch.py"))
              + [ROOT / "chip_smoke.py"])
-    assert len([p for p in paths if p.parent.name == "examples"]) == 2
+    assert len([p for p in paths if p.parent.name == "examples"]) == 3
     for path in paths:
         for line in path.read_text().splitlines():
             code = line.split("#")[0].strip()

@@ -325,7 +325,7 @@ def test_cache_keys_carry_the_torch_device():
     assert (cache.hits, cache.misses) == (1, 1) and r1 is r2
     assert torch.equal(o1[0].data, o2[0].data)
     key = cache.key_for(apu, stages, (x,))
-    assert key[-1] == (((4, D), "torch.float32", "cpu"),)
+    assert key[-2:] == ((((4, D), "torch.float32", "cpu"),), None)
     # the same content in other weights is another entry
     apu.offload(_stages("torch", seed=3), (x,))
     assert cache.misses == 2
@@ -380,21 +380,31 @@ def test_server_on_the_cpu_matches_its_own_offloads():
 
 
 def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
+    from repro_torch import configs
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import model_spec
+    cfg = configs.get("qwen2.5-3b").reduced()
+    tree = init_params(model_spec(cfg), 0, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.QueueWorker(tcore.EGPU_16T)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.Server(_stages("torch"))
-    with pytest.raises(NotImplementedError, match="step 2"):
-        tserve.Server(_stages("torch"), engine=object(), device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tserve.DecodeEngine(cfg, tree)
+    # the decode front, as the JAX package's: a server without an engine
+    # refuses it, and the engine classes import
     srv = tserve.Server(_stages("torch"), device="cpu")
-    with pytest.raises(NotImplementedError, match="step 2"):
+    with pytest.raises(RuntimeError, match="no decode engine"):
         srv.submit_decode(np.zeros(3, np.int32), 4)
-    with pytest.raises(NotImplementedError, match="step 2"):
+    with pytest.raises(RuntimeError, match="no decode engine"):
         next(iter(srv.stream(0)))
-    for name, step in (("ShardedWorker", "step 9"), ("DecodeEngine", "step 2"),
-                       ("EngineHTTPServer", "step 2")):
-        with pytest.raises(NotImplementedError, match=step):
+    assert tserve.DecodeEngine.__name__ == "DecodeEngine"
+    assert tserve.EngineHTTPServer.__name__ == "EngineHTTPServer"
+    eng = tserve.DecodeEngine(cfg, tree, num_slots=1, max_len=8, device="cpu")
+    assert eng.worker.device.type == "cpu"
+    for name in ("ShardedWorker", "BATCH_AXIS", "data_mesh"):
+        with pytest.raises(NotImplementedError, match="step 9"):
             getattr(tserve, name)
 
 
