@@ -5,7 +5,15 @@ slots together; ``greedy_generate`` prefills and steps a whole batch.  Where
 one op gives a row of a batch other bits than the same row run in a smaller
 batch, the two can pick different tokens.  This script finds that op for
 one model at full width and depth (random weights from seed 0, six prompts
-of 256 tokens from numpy seed 2, as ``chip_smoke.py`` phase 8 serves them):
+of 256 tokens from numpy seed 2, as ``chip_smoke.py`` phases 8 and 9 serve
+them).  The two MoE families draw their weights in bf16 (an f32
+moonshot-v1-16b-a3b tree, 112 GB, fits no card), and deepseek-v2-236b runs
+the depth cut phase 9 serves (:data:`DEPTH`: its dense first layer and
+three MLA + MoE layers); the others keep the f32 draw cast to bf16.  The
+batch axis of an op's operand is the one axis whose length differs between
+the batch-6 run and the smaller one (an MoE's expert products carry the
+routing groups, one a sequence in a prefill and one a token in a step, on
+axis 1 of (E, groups * capacity, D)):
 
 * ``tokens``: the first token where ``greedy_generate`` of each prompt
   alone (batch 1), and of the prompts in a batch of four and one of two,
@@ -21,7 +29,11 @@ of 256 tokens from numpy seed 2, as ``chip_smoke.py`` phase 8 serves them):
   product, replayed on the shared rows of the batch-6 run's own operands
   against the same op replayed on the whole batch: each op whose rows
   differ is batch-dependent on its own (``replayed`` counts the replays,
-  ``differing`` those that differ by op).
+  ``differing`` those that differ by op, ``unpaired`` the ops that
+  compute bits in one run and pair with no op of the other, which no
+  replay reaches).  Ops are paired by name with difflib; ``first`` also
+  lists the unpaired ops that ran before its op (``unpaired_before``) and
+  the unpaired ranges of that layer (``unmatched``).
 
 Ops are caught at the ATen dispatcher (``TorchDispatchMode``); the two
 hand-written kernels on the path (``flash_attention``, ``rwkv6_scan``)
@@ -29,13 +41,17 @@ launch outside it and are caught at their wrappers.
 
 Run on the card (prints a summary and, last, the report as one JSON line)::
 
-    PYTHONPATH=src python3 -m benchmarks_torch.batch_bits [--arch rwkv6-3b]
+    PYTHONPATH=src python3 -m benchmarks_torch.batch_bits [--arch ARCH]
+
+with ARCH one of qwen2.5-3b (the default), rwkv6-3b, moonshot-v1-16b-a3b
+and deepseek-v2-236b.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import difflib
 import json
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -47,14 +63,22 @@ from torch.utils._pytree import tree_flatten, tree_map
 from repro_torch import configs
 from repro_torch.core.runtime import resolve_device
 from repro_torch.models import attention as attention_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.layers import apply_norm, embed_tokens, logits_from_hidden
+from repro_torch.models.layers import (apply_norm, cdtype, embed_tokens,
+                                       logits_from_hidden)
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import (Transformer, _apply_position,
-                                            _layer_cache, model_spec, prefill)
+                                            _layer_cache, _layer_kinds,
+                                            cache_axes, model_spec,
+                                            n_scanned, prefill)
 from repro_torch.train.serve import greedy_generate
 
 BATCH, PROMPT, NEW, MAX_LEN = 6, 256, 16, 512
+#: layers kept where the whole model fits no card (chip_smoke.py phase 9)
+DEPTH = {"deepseek-v2-236b": 4}
+#: archs whose weights are drawn in bf16 rather than f32 then cast
+BF16_TREE = ("moonshot-v1-16b-a3b", "deepseek-v2-236b")
 #: the smaller batches the six rows run in (consecutive rows): each row
 #: alone, and 4 + 2
 ALONE = tuple((i,) for i in range(BATCH))
@@ -129,24 +153,37 @@ def _caught(name: str, fn):
 
 def _rows(big, small, sel: Sequence[int]):
     """The consecutive rows ``sel`` of a batch-6 tensor (a view with its
-    strides), shaped as the batch-n one; the tensor itself where both
-    shapes agree (a weight); None where the batch axis is not the leading
-    one."""
+    strides), shaped as the batch-n one, along the one axis whose length
+    differs (the batch axis, or the routing groups of an MoE's expert
+    rows, each ``r`` long); the tensor itself where both shapes agree (a
+    weight); None where no single axis tells the batch apart."""
     if not isinstance(big, torch.Tensor) or not isinstance(small, torch.Tensor):
         return None
     if big.shape == small.shape:
         return big
-    if (big.dim() == 0 or big.shape[1:] != small.shape[1:]
-            or big.shape[0] % BATCH or small.shape[0] % len(sel)
-            or big.shape[0] // BATCH != small.shape[0] // len(sel)):
+    axes = [i for i, (a, b) in enumerate(zip(big.shape, small.shape))
+            if a != b]
+    if big.dim() != small.dim() or len(axes) != 1:
         return None
-    r = small.shape[0] // len(sel)
-    return big[sel[0] * r:(sel[-1] + 1) * r]
+    ax = axes[0]
+    if (big.shape[ax] % BATCH or small.shape[ax] % len(sel)
+            or big.shape[ax] // BATCH != small.shape[ax] // len(sel)):
+        return None
+    r = small.shape[ax] // len(sel)
+    return big.narrow(ax, sel[0] * r, len(sel) * r)
 
 
 def _floats(tree) -> List[torch.Tensor]:
     return [t for t in tree_flatten(tree)[0]
             if isinstance(t, torch.Tensor) and t.is_floating_point()]
+
+
+def _is_view(op: _Op) -> bool:
+    """Whether the op returns a view of an input (split, slice, reshape):
+    it computes no bits of its own."""
+    schema = getattr(op.func, "_schema", None)
+    return schema is not None and any(r.alias_info is not None
+                                      for r in schema.returns)
 
 
 def _comparable(op: _Op) -> bool:
@@ -171,32 +208,93 @@ def _shapes(tree) -> List[List[int]]:
             if isinstance(t, torch.Tensor)]
 
 
+def _alignment(big: List[_Op], small: List[_Op]):
+    """difflib's opcodes over the two runs' op names: an ``equal`` range
+    pairs op for op; the others hold ops of one run that pair with none of
+    the other's (a batch can change the op sequence: a reshape that copies
+    at B = 6 is a view at B = 1)."""
+    return difflib.SequenceMatcher(None, [o.name for o in big],
+                                   [o.name for o in small],
+                                   autojunk=False).get_opcodes()
+
+
+def _computes(op: _Op) -> bool:
+    """Whether the op computes bits of its own (floats out, not a view)."""
+    return _comparable(op) and not _is_view(op)
+
+
+def _unpaired(big: List[_Op], small: List[_Op], tag, i1, i2, j1, j2):
+    """The ops of an unpaired range that compute bits, with their run
+    ("batch": the batch-6 run, "rows": the smaller one) and index."""
+    return ([{"run": "batch", "index": i, "op": big[i].name}
+             for i in range(i1, i2) if _computes(big[i])]
+            + [{"run": "rows", "index": j, "op": small[j].name}
+               for j in range(j1, j2) if _computes(small[j])])
+
+
+def _paired(big: List[_Op], small: List[_Op]):
+    """(index in ``big``, big op, small op) for the ops the two runs share,
+    in run order, and the ops that compute bits in the ranges that pair
+    with nothing (:func:`_unpaired`)."""
+    pairs, lone = [], []
+    for tag, i1, i2, j1, j2 in _alignment(big, small):
+        if tag == "equal":
+            pairs += [(i1 + t, big[i1 + t], small[j1 + t])
+                      for t in range(i2 - i1)]
+        else:
+            lone += _unpaired(big, small, tag, i1, i2, j1, j2)
+    return pairs, lone
+
+
 def _first_op(big: List[_Op], small: List[_Op], sel) -> Dict[str, Any]:
-    """The first op, in run order, whose output differs on the shared rows."""
-    for j, (ob, os_) in enumerate(zip(big, small)):
-        if ob.name != os_.name:
-            return {"index": j, "op": f"{ob.name} vs {os_.name}",
-                    "note": "the two runs' op sequences part here"}
-        if not _comparable(ob):
+    """The first paired op, in run order, whose output differs on the
+    shared rows; before it, the unpaired ops that compute bits
+    (``unpaired_before``: a first difference may arise in one of them,
+    which no pair compares), and every unpaired range (``unmatched``:
+    difflib's [tag, i1, i2, j1, j2], i in the batch run, j in the other)."""
+    lone: List[Dict[str, Any]] = []
+    unmatched = []
+    for tag, i1, i2, j1, j2 in _alignment(big, small):
+        if tag != "equal":
+            lone += _unpaired(big, small, tag, i1, i2, j1, j2)
+            unmatched.append([tag, i1, i2, j1, j2])
             continue
-        d = _differs(ob.out, os_.out, sel)
-        if d is not None:
-            return {"index": j, "op": ob.name, "shapes": _shapes(os_.args),
-                    "batch_shapes": _shapes(ob.args), "max_abs": d}
-    return {"index": None, "op": None}
+        for t in range(i2 - i1):
+            ob, os_ = big[i1 + t], small[j1 + t]
+            if not _comparable(ob):
+                continue
+            d = _differs(ob.out, os_.out, sel)
+            if d is not None:
+                return {"index": i1 + t, "op": ob.name,
+                        "shapes": _shapes(os_.args),
+                        "batch_shapes": _shapes(ob.args), "max_abs": d,
+                        "unpaired_before": lone, "unmatched": unmatched}
+    return {"index": None, "op": None, "unpaired_before": lone,
+            "unmatched": unmatched}
 
 
 def _isolated(big: List[_Op], small: List[_Op], sel):
     """Each op replayed on the shared rows of the batch run's operands
     against the same op replayed on the whole batch; -> (those that
-    differ, the number replayed)."""
+    differ, the number replayed, the unpaired ops that compute bits,
+    which no replay reaches).  A caught kernel is replayed whole: the
+    ATen ops its plain version runs within it (``name/op``) are left out,
+    since their sequence may differ with the batch (an einsum decomposes
+    otherwise around a length-1 axis), and views and ops whose operands
+    differ in structure are skipped."""
     found, n = [], 0
-    for ob, os_ in zip(big, small):
-        if (ob.name != os_.name or not _comparable(ob)
+    big = [o for o in big if "/" not in o.name]
+    small = [o for o in small if "/" not in o.name]
+    pairs, lone = _paired(big, small)
+    for _, ob, os_ in pairs:
+        if (not _comparable(ob) or _is_view(ob)
                 or ob.name.rsplit(".", 1)[0].endswith("_")):   # in place
             continue
-        pairs = zip(tree_flatten((ob.args, ob.kwargs))[0],
-                    tree_flatten((os_.args, os_.kwargs))[0])
+        flat_b, spec_b = tree_flatten((ob.args, ob.kwargs))
+        flat_s, spec_s = tree_flatten((os_.args, os_.kwargs))
+        if spec_b != spec_s:
+            continue
+        pairs = zip(flat_b, flat_s)
         leaves = []
         for b, s in pairs:
             if isinstance(b, torch.Tensor):
@@ -207,8 +305,7 @@ def _isolated(big: List[_Op], small: List[_Op], sel):
             else:
                 leaves.append(s)
         else:
-            spec = tree_flatten((os_.args, os_.kwargs))[1]
-            args, kwargs = spec.unflatten(leaves)
+            args, kwargs = spec_s.unflatten(leaves)
             with torch.no_grad():
                 part = os_.func(*args, **kwargs)
                 whole = ob.func(*ob.args, **ob.kwargs)
@@ -217,7 +314,7 @@ def _isolated(big: List[_Op], small: List[_Op], sel):
             if d is not None:
                 found.append({"op": ob.name, "shapes": _shapes(os_.args),
                               "batch_shapes": _shapes(ob.args), "max_abs": d})
-    return found, n
+    return found, n, lone
 
 
 def _recorded(keep, fn):
@@ -243,20 +340,23 @@ def _chain(model, keep, sel_sets, big_x, small_x, layer_fn, head_fn, kind):
     that differ by layer, and counts."""
     found: Dict[int, Dict[str, Any]] = {}
     isolated: Dict[int, Dict[str, Any]] = {k: {} for k in range(len(sel_sets))}
-    counts = {k: {"replayed": 0, "differing": {}} for k in range(len(sel_sets))}
+    counts = {k: {"replayed": 0, "differing": {}, "unpaired": {}}
+              for k in range(len(sel_sets))}
     x6, xs = big_x, dict(small_x)
-    for layer in list(range(model.cfg.n_layers)) + ["head"]:
+    first = ["layer0"] if model.layer0 is not None else []
+    for layer in first + list(range(n_scanned(model.cfg))) + ["head"]:
         fn = head_fn if layer == "head" else (lambda x, k, L=layer: layer_fn(x, k, L))
         x6_next, ops6 = _recorded(keep, lambda: fn(x6, None))
         for k, sel in enumerate(sel_sets):
             xk_next, opsk = _recorded(keep, lambda: fn(xs[k], k))
             if k not in found and _differs(x6_next, xk_next, sel) is not None:
                 found[k] = {"layer": layer, **_first_op(ops6, opsk, sel)}
-            ops, n = _isolated(ops6, opsk, sel)
+            ops, n, lone = _isolated(ops6, opsk, sel)
             counts[k]["replayed"] += n
-            for o in ops:
-                c = counts[k]["differing"]
-                c[o["op"]] = c.get(o["op"], 0) + 1
+            for key, found_ops in (("differing", ops), ("unpaired", lone)):
+                c = counts[k][key]
+                for o in found_ops:
+                    c[o["op"]] = c.get(o["op"], 0) + 1
             if ops:
                 isolated[k][str(layer)] = ops
             xs[k] = xk_next
@@ -277,7 +377,11 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
     cfg = configs.get(arch)
     if reduced:
         cfg = cfg.reduced()
-    model = Transformer(cfg, init_params(model_spec(cfg), 0, device=dev))
+    elif arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+    tree_dtype = cdtype(cfg) if arch in BF16_TREE else torch.float32
+    model = Transformer(cfg, init_params(model_spec(cfg), 0, dtype=tree_dtype,
+                                         device=dev))
     keep = {p.data_ptr() for p in model.parameters()}
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab, (BATCH, prompt_len)).astype(np.int32)
@@ -292,6 +396,7 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
     whole = greedy_in([range(BATCH)])
     report: Dict[str, Any] = {
         "arch": cfg.name, "device": str(dev), "batch": BATCH,
+        "layers": cfg.n_layers, "tree_dtype": str(tree_dtype),
         "prompt": prompt_len, "new": new, "tokens": {
             f"in_batches_of_{'_'.join(str(len(s_)) for s_ in sets)}":
             [_first_diff(a, w) for a, w in zip(greedy_in(sets), whole)]
@@ -299,16 +404,24 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
     sel_sets = list(ALONE) + list(FOURS)
     pick = lambda t, sel: t[list(sel)].contiguous()   # noqa: E731
 
-    saved = attention_mod.flash_attention, rwkv_mod.rwkv6_scan
+    saved = (attention_mod.flash_attention, mla_mod.flash_attention,
+             rwkv_mod.rwkv6_scan)
     attention_mod.flash_attention = _caught("flash_attention", saved[0])
-    rwkv_mod.rwkv6_scan = _caught("rwkv6_scan", saved[1])
+    mla_mod.flash_attention = _caught("flash_attention", saved[1])
+    rwkv_mod.rwkv6_scan = _caught("rwkv6_scan", saved[2])
     try:
         tok = torch.as_tensor(prompts, device=dev).long()
-        kinds = [cfg.block_pattern[i % cfg.period] for i in range(cfg.n_layers)]
+
+        def layer_of(layer):
+            """(parameters, block kind, mlp kind) of a chain's layer."""
+            if layer == "layer0":
+                return model.layer0, cfg.block_pattern[0], "dense"
+            return (model.layers[layer],) + _layer_kinds(cfg, layer)
 
         # the prefill, layer by layer
         def pre_layer(x, k, layer):
-            return _apply_position(model.layers[layer], x, cfg, kinds[layer],
+            p, kind, mlp_kind = layer_of(layer)
+            return _apply_position(p, x, cfg, kind, mlp_kind,
                                    mode="prefill")[0]
 
         def pre_head(x, k):
@@ -327,15 +440,23 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
             logits, cache6 = prefill(model, {"tokens": tok}, max_len)
         step_tok = torch.argmax(logits, dim=-1)
         caches = {None: cache6}
+        # each leaf's batch axis (1 behind the stacked layers, 0 in layer0)
+        bax = tree_map(lambda ax: ax.index("batch"), cache_axes(cfg),
+                       is_leaf=lambda ax: isinstance(ax, tuple)
+                       and all(a is None or isinstance(a, str) for a in ax))
         for k, sel in enumerate(sel_sets):
-            caches[k] = tree_map(lambda t, s=sel: t[:, list(s)].clone(), cache6)
+            caches[k] = tree_map(
+                lambda t, ax, s=sel: t.index_select(
+                    ax, torch.tensor(list(s), device=t.device)), cache6, bax)
 
         def step_layer(x, k, layer):
             b = x.shape[0]
             pos = torch.full((b,), prompt_len, dtype=torch.int64, device=dev)
-            return _apply_position(model.layers[layer], x, cfg, kinds[layer],
-                                   mode="decode", pos=pos,
-                                   cache=_layer_cache(caches[k], cfg, layer))[0]
+            p, kind, mlp_kind = layer_of(layer)
+            cache = (caches[k]["layer0"] if layer == "layer0"
+                     else _layer_cache(caches[k], cfg, layer))
+            return _apply_position(p, x, cfg, kind, mlp_kind, mode="decode",
+                                   pos=pos, cache=cache)[0]
 
         def step_head(x, k):
             h = apply_norm(model.final_norm, x, cfg)
@@ -347,12 +468,14 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
         report["step"] = _chain(model, keep, sel_sets, x6, xs, step_layer,
                                 step_head, "step")
     finally:
-        attention_mod.flash_attention, rwkv_mod.rwkv6_scan = saved
+        (attention_mod.flash_attention, mla_mod.flash_attention,
+         rwkv_mod.rwkv6_scan) = saved
     return report
 
 
 def summary(report: Dict[str, Any]) -> List[str]:
-    lines = [f"{report['arch']} on {report['device']}: the first token where "
+    lines = [f"{report['arch']} ({report['layers']} layers, weights drawn in "
+             f"{report['tree_dtype']}) on {report['device']}: the first token where "
              f"greedy_generate parts from the batch of {report['batch']} "
              f"(-1: never): " + json.dumps(report["tokens"])]
     for phase in ("prefill", "step"):
@@ -361,12 +484,15 @@ def summary(report: Dict[str, Any]) -> List[str]:
             where = ("no layer's output differs" if f["layer"] is None else
                      f"first differs at layer {f['layer']}, op {f['op']} "
                      f"{f.get('shapes', '')} (batch {f.get('batch_shapes', '')}, "
-                     f"max abs {f.get('max_abs')})")
+                     f"max abs {f.get('max_abs')}); unpaired ops that compute "
+                     f"before it: "
+                     f"{[o['op'] for o in f.get('unpaired_before', [])] or 'none'}")
             iso = sorted({(o["op"], json.dumps(o["shapes"]))
                           for ops in r["isolated"].values() for o in ops})
             lines.append(f"  {label}: {where}; of {r['replayed']} ops replayed "
                          f"alone, differing: {r['differing'] or 'none'} "
-                         f"{iso if iso else ''}")
+                         f"{iso if iso else ''}; unpaired (not replayed): "
+                         f"{r['unpaired'] or 'none'}")
     return lines
 
 

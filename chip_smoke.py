@@ -33,6 +33,12 @@ Phases (any failure exits non-zero and prints no result line):
    (bf16 and f32), and runs a ragged S = T = 300, a suffix with
    ``q_offset``, a non-causal case, Dk = 96 / Dv = 64 in float32 and in
    bfloat16, Dk = Dv = 64 in bfloat16, B = 1, S = T = 4096 in bfloat16,
+   moonshot's prefill (B = 1, H = KVH = 16, S = T = 256, D = 128, bf16,
+   on ``flash_wgmma_kernel`` with a GQA group of one; a B = 1 call
+   bit-equal to row 2 of B = 4), deepseek's MLA prefill (B = 1, H = 128,
+   S = T = 256, Dk 192, Dv 128,
+   bf16, on the CUDA-core kernel; a B = 1 call bit-equal to row 2 of
+   B = 4 with k built as the MLA block builds it, and no view copied),
    rows that see no key (``q_offset = -16``), and a bfloat16 view that no
    TMA tensor map describes (rows D + 1 elements apart), which the wrapper
    must copy once (``CONTIGUOUS_COPIES``).  ``rwkv6_scan`` runs bf16 and
@@ -82,7 +88,8 @@ Phases (any failure exits non-zero and prints no result line):
    calls and the launch floor.
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
-   B = 1, S = T = 4096, against ``F.scaled_dot_product_attention``;
+   B = 1, S = T = 4096 and at deepseek's MLA prefill (Dk 192, Dv 128),
+   against ``F.scaled_dot_product_attention``;
    ``rwkv6_scan`` at rwkv6-3b's prefill (B = 4, T = 256) and decode-step
    (T = 1) shapes, with B = 1, T = 4096 beside them; ``decode_attention``
    at qwen's decode shape and at T = 32768, against SDPA with one query,
@@ -193,10 +200,34 @@ Phases (any failure exits non-zero and prints no result line):
    device busy time and idle share (``torch.profiler``) and peak memory
    are printed;
 
-9. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
+9. the MoE and MLA blocks through the decode engine (the models of
+   phases 5-8 freed first): moonshot-v1-16b-a3b at full width and depth
+   (48 layers, 64 experts of 1408, top-6, 56.1 GB) and deepseek-v2-236b at
+   full width cut to 4 layers (its dense first layer, then three MLA + MoE
+   layers of 160 experts, top-6, with two shared experts; 26.6 GB), each
+   a bf16 tree drawn from seed 0 on the card (``DecodeEngine`` counts the
+   modeled bytes of that bf16 tree).  Each is served as in phase 8 (one
+   short request to capture, six staggered 256-token requests of 16 new
+   tokens, two taking freed slots): ``flash_attention`` once per layer per
+   prefill and never in a step, no other kernel of ours, no view copied
+   for a tensor map, tokens equal to the card's ``greedy_generate`` of the
+   six prompts as one batch, 2 cache misses; a ``torch.profiler`` trace of
+   one warm prefill names the flash kernel that ran (moonshot's D = 128
+   on ``flash_wgmma_kernel``, deepseek's Dk 192 / Dv 128 on the CUDA-core
+   ``flash_kernel``) and no library attention kernel.  Walls, tokens/s,
+   a warm step's busy time and idle share, and the peak memory after each
+   model are printed.  Then a 2-layer f32 cut of each at full width
+   (deepseek: its dense first layer and one MoE layer, so the shared
+   experts and the dense layer run on the card only there), the same
+   parameters on the card and the CPU: prefill of 2 × 64 tokens and 4
+   decode steps teacher-forced from the CPU's tokens within 5b's
+   tolerances, greedy tokens equal, and every modeled ``stats()`` field of
+   the staggered engine run ``==`` the CPU's;
+
+10. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
-   kernels, and phase 8's for ``flash_attention`` and ``rwkv6_scan``),
-   then, last, ``{"ok": true, "device": {...}}``.
+   kernels, and phases 8's and 9's for ``flash_attention`` and
+   ``rwkv6_scan``), then, last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -263,6 +294,9 @@ RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_MAX_LEN = 4, 256, 16, 512
 # the decode engine's serving run (phase 8), for both models
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_MAX_LEN = (
     4, 6, 256, 16, 512)
+# the MoE and MLA families (phase 9): (arch, layers served on the card);
+# deepseek-v2-236b's 60 layers (471 GB in bf16) fit no card
+MOE_ARCHS = (("moonshot-v1-16b-a3b", 48), ("deepseek-v2-236b", 4))
 MAMBA_ARCH = "jamba-1.5-large-398b"
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
@@ -273,6 +307,20 @@ LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def engine_flash_dims(cfg):
+    """The decode engine's prefill of one ENGINE_PROMPT-token prompt as it
+    reaches flash_attention for ``cfg``: ((B, H, KVH, S, T, Dk, Dv),
+    scale).  An MLA block attends each head to its own keys (KVH = H) at
+    Dk = nope + rope against Dv, scaled by Dk ** -0.5 (None: the kernel's
+    default, Dk ** -0.5 too)."""
+    if cfg.attn_kind == "mla":
+        dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return ((1, cfg.n_heads, cfg.n_heads, ENGINE_PROMPT, ENGINE_PROMPT,
+                 dk, cfg.v_head_dim), dk ** -0.5)
+    return ((1, cfg.n_heads, cfg.n_kv_heads, ENGINE_PROMPT, ENGINE_PROMPT,
+             cfg.head_dim, cfg.head_dim), None)
 
 
 def check(ok: bool, what: str) -> None:
@@ -418,6 +466,241 @@ def device_ms(torch, fn, per_graph: int, replays: int = 20) -> float:
     return start.elapsed_time(end) / (per_graph * replays)
 
 
+def staggered(srv, prompts, max_new, pull):
+    """Serve six prompts staggered through an engine-only ``Server`` (two,
+    two more after ``pull`` tokens of the first, two more after ``pull``
+    more, which wait for freed slots); -> (rids, whether those two took
+    freed slots while others still decoded)."""
+    rids = [srv.submit_decode(prompts[i], max_new=max_new) for i in (0, 1)]
+    first = srv.stream(rids[0])
+    for _ in range(pull):
+        next(first)
+    rids += [srv.submit_decode(prompts[i], max_new=max_new) for i in (2, 3)]
+    for _ in range(pull):
+        next(first)
+    rids += [srv.submit_decode(prompts[i], max_new=max_new) for i in (4, 5)]
+    for _ in first:
+        pass
+    reused = set(rids[2:]) <= set(srv._eng_active)
+    srv.flush()
+    return rids, reused
+
+
+def cut_stats(torch, np, cut, tree, device):
+    """stats() of the staggered engine run (4 slots, six 64-token prompts
+    from numpy seed 3, 16 new tokens each, max_len 128) of the model
+    ``cut`` with the parameter tree ``tree`` (moved to ``device``)."""
+    from repro_torch.models.params import map_tree
+    from repro_torch.serve import DecodeEngine, Server
+    eng = DecodeEngine(cut, map_tree(lambda t: t.to(device), tree),
+                       num_slots=ENGINE_SLOTS, max_len=128,
+                       cache_dtype=torch.bfloat16, device=device)
+    srv = Server((), workers=(), engine=eng)
+    prompts = np.random.default_rng(3).integers(
+        0, cut.vocab, (ENGINE_REQUESTS, 64)).astype(np.int32)
+    _, reused = staggered(srv, prompts, ENGINE_NEW, 5)
+    check(reused, f"{cut.name}: the cut's staggered run reused no slot mid-run")
+    return eng.stats()
+
+
+def stats_match_cpu(torch, np, dev, cut, tree, what):
+    """Every modeled stats() field of :func:`cut_stats` on the card ``==``
+    the CPU's, over the same tree."""
+    card_stats = cut_stats(torch, np, cut, tree, dev)
+    cpu_stats = cut_stats(torch, np, cut, tree, "cpu")
+    for key in cpu_stats:
+        check(card_stats[key] == cpu_stats[key],
+              f"{what} 2-layer cut: stats()[{key!r}] {card_stats[key]} on "
+              f"the card, {cpu_stats[key]} on the CPU")
+
+
+def cut_run(torch, model, device, prompt, feed=None):
+    """Prefill ``prompt`` (max_len 128) and 4 decode steps; each step is
+    fed ``feed[i]`` or, with no feed, this run's own greedy token.  ->
+    (logits, tokens) on the CPU."""
+    from repro_torch.models.transformer import decode_step, prefill
+    lg, c = prefill(model, {"tokens": prompt.to(device)}, 128)
+    out_logits, out_tokens = [lg.cpu()], [torch.argmax(lg, -1).cpu()]
+    s = prompt.shape[1]
+    for i in range(4):
+        tok_in = out_tokens[-1] if feed is None else feed[i]
+        lg, c = decode_step(model, c, tok_in.to(device), s + i)
+        out_logits.append(lg.cpu())
+        out_tokens.append(torch.argmax(lg, -1).cpu())
+    return out_logits, out_tokens
+
+
+def card_against_cpu(torch, np, dev, cut, what, kernel="flash_attention",
+                     per_step=0):
+    """A cut at full width in f32 (phases 5b, 6b and 9), the same
+    parameters on the card and the CPU (drawn on the CPU, seed 0): prefill
+    of 2 x 64 tokens (numpy seed 1) and 4 decode steps teacher-forced from
+    the CPU's tokens.  The card's f32 matmuls (TF32 off) and kernels sum in
+    another order than the CPU's matmuls and plain versions: prefill logits
+    within 1e-4 of max |logit|; decode within 1e-2, since a key that
+    differs in its last bits can round to the neighbouring bf16 value in
+    the cache (the CPU tests hold the port to the JAX package with the same
+    tolerances); greedy tokens equal; ``kernel`` launched once per layer of
+    the card's prefill and ``per_step`` times a layer per step.  -> (the
+    relative logits errors, the CPU tree)."""
+    from repro_torch.kernels import common
+    from repro_torch.models.params import init_params, map_tree
+    from repro_torch.models.transformer import Transformer, model_spec
+    tree = init_params(model_spec(cut), 0, device="cpu")
+    on_cpu = Transformer(cut, tree)
+    on_card = Transformer(cut, map_tree(lambda t: t.to(dev), tree))
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cut.vocab, (2, 64)))
+    cpu_logits, cpu_tokens = cut_run(torch, on_cpu, "cpu", prompt)
+    before = common.LAUNCHES[kernel]
+    card_logits, card_tokens = cut_run(torch, on_card, dev, prompt,
+                                       feed=cpu_tokens)
+    check(common.LAUNCHES[kernel] - before == cut.n_layers * (1 + 4 * per_step),
+          f"{what}: the card run did not launch {kernel} once per layer of "
+          f"its prefill and {per_step} times a layer per step")
+    errs = []
+    for i, (g, w) in enumerate(zip(card_logits, cpu_logits)):
+        rtol = 1e-4 if i == 0 else 1e-2
+        scale = float(w[:, :cut.vocab].abs().max())
+        e = float((g[:, :cut.vocab].double()
+                   - w[:, :cut.vocab].double()).abs().max())
+        errs.append(e / scale)
+        check(e <= rtol * scale, f"{what}: card vs CPU logits, step {i}: "
+              f"error {e} against max |logit| {scale}")
+    check(all(torch.equal(g, w) for g, w in zip(card_tokens, cpu_tokens)),
+          f"{what}: card and CPU greedy tokens differ")
+    del on_card
+    torch.cuda.empty_cache()
+    return errs, tree
+
+
+def serve_engine(torch, np, dev, cfg, ours, per_step,
+                 tree_dtype=None):
+    """The decode engine's serving run of ``cfg`` (phases 8 and 9): weights
+    from seed 0 drawn on the card (``tree_dtype``: f32 by default, as
+    ``init_params`` makes them), ``DecodeEngine(num_slots=4, max_len=512,
+    bf16 cache)`` behind an engine-only ``Server``; one short request
+    captures both graphs, then six 256-token requests of 16 new tokens
+    arrive staggered (two, two after 5 tokens, two after 5 more, which
+    wait for freed slots), with the launch counters reset just before and
+    read just after: the kernels of ``ours`` launch once per layer per
+    prefill and ``per_step`` times a layer per step, no other kernel of
+    ours, and no view is copied for a tensor map.  Each request's tokens
+    must equal the card's ``greedy_generate`` of the six prompts as one
+    batch, bit for bit (``benchmarks_torch/batch_bits.py`` names the ops
+    whose bits depend on the batch), and the cache must miss twice.  A
+    ``torch.profiler`` trace of a warm prefill names the flash kernel that
+    ran (``flash_wgmma_kernel`` at the head dims of ``MMA_HEAD_DIMS``) and
+    no library attention kernel.  -> its numbers."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import flash_attention as fa_module
+    from repro_torch.models.params import init_params, leaves_with_path
+    from repro_torch.models.transformer import model_spec
+    from repro_torch.serve import DecodeEngine, Server
+    from repro_torch.train.serve import greedy_generate
+    arch = cfg.name
+    n_layers = cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = init_params(model_spec(cfg), 0, dtype=tree_dtype or torch.float32,
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in leaves_with_path(tree))
+    eng = DecodeEngine(cfg, tree, num_slots=ENGINE_SLOTS,
+                       max_len=ENGINE_MAX_LEN, cache_dtype=torch.bfloat16)
+    srv = Server((), workers=(), engine=eng)
+    check(srv.device.type == "cuda" and eng.worker.device.type == "cuda",
+          f"{arch}: the engine does not run on the card")
+    model_gib = torch.cuda.memory_allocated() / 2 ** 30
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab, (ENGINE_REQUESTS, ENGINE_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    warm = srv.submit_decode(prompts[0], max_new=2)
+    srv.flush()
+    srv.result(warm)
+    torch.cuda.synchronize()
+    capture_wall = time.perf_counter() - t0
+    steps0, prefills0 = eng.n_steps, eng.n_prefills
+    copies = fa_module.CONTIGUOUS_COPIES
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    rids, reused = staggered(srv, prompts, ENGINE_NEW, 5)
+    torch.cuda.synchronize()
+    served_wall = time.perf_counter() - t0
+    moved = dict(common.LAUNCHES)
+    n_steps = eng.n_steps - steps0
+    n_prefills = eng.n_prefills - prefills0
+    check(n_prefills == ENGINE_REQUESTS, f"{arch}: {n_prefills} prefills")
+    for name in KERNELS:
+        want = (n_layers * (n_prefills + per_step * n_steps)
+                if name in ours else 0)
+        check(moved[name] == want,
+              f"{arch} engine path launched {name} {moved[name]} times, "
+              f"expected {want} ({n_prefills} prefills, {n_steps} steps)")
+    check(fa_module.CONTIGUOUS_COPIES == copies,
+          f"{arch}: the served path copied a view for a tensor map")
+    check(reused, f"{arch}: no slot was released and reused mid-run")
+    check(eng.cache.misses == 2, f"{arch}: engine cache {eng.cache.stats()}")
+    got = np.stack([srv.result(r)[0] for r in rids])
+    check(got.shape == (ENGINE_REQUESTS, ENGINE_NEW)
+          and bool(((got >= 0) & (got < cfg.vocab)).all()),
+          f"{arch}: served tokens are not (6, 16) ids below the vocabulary")
+    ref = greedy_generate(eng.model, prompts, ENGINE_NEW,
+                          ENGINE_MAX_LEN).cpu().numpy()
+    check(np.array_equal(got, ref),
+          f"{arch}: engine tokens differ from greedy_generate of the six "
+          f"prompts as one batch: first differing token per request "
+          f"{[int(np.argmax(g != r)) if (g != r).any() else -1 for g, r in zip(got, ref)]}")
+    # walls: warm prefills of one 256-token prompt, warm steps over four
+    # occupied slots (each step ends in its tokens' read-back)
+    state = eng.init_state()
+    for i in range(ENGINE_SLOTS):
+        state = eng.insert(eng.prefill(None, prompts[i]), state, i)
+    torch.cuda.synchronize()
+    pre = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        eng.prefill(None, prompts[4 + i % 2])
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    steps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, _ = eng.generate(None, state)
+        steps.append(time.perf_counter() - t0)
+    step_profile = device_profile(torch, lambda: eng.generate(None, state))
+    p_wall, p_busy, p_kernels = device_profile(
+        torch, lambda: eng.prefill(None, prompts[5]))
+    library = [k for k in p_kernels
+               if any(t in k.lower() for t in LIBRARY_ATTENTION)]
+    check(not library, f"{arch}: the prefill ran library attention kernels: "
+          f"{library}")
+    flash = sorted(k for k in p_kernels
+                   if any(n in k for n in FLASH_KERNEL_NAMES))
+    dims = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+            if cfg.attn_kind == "mla" else (cfg.head_dim, cfg.head_dim))
+    if "flash_attention" in ours:
+        tensor_cores = dims in fa_module.MMA_HEAD_DIMS
+        check(tensor_cores == any("flash_wgmma_kernel" in k for k in flash),
+              f"{arch}: (Dk, Dv) = {dims} ran {flash}, expected the "
+              f"{'tensor-core' if tensor_cores else 'CUDA-core'} kernel")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"dims": dims, "n_params": n_params, "init_s": init_s,
+           "model_gib": model_gib, "launches": moved, "n_steps": n_steps,
+           "capture_wall": capture_wall, "served_wall": served_wall,
+           "tokens_per_s": ENGINE_REQUESTS * ENGINE_NEW / served_wall,
+           "prefill_ms": sorted(pre)[1] * 1e3,
+           "step_ms": sorted(steps)[2] * 1e3, "profile": step_profile,
+           "prefill_profile": (p_wall, p_busy, p_kernels), "flash": flash,
+           "peak_gib": peak, "stats": eng.stats(), "first": got[0].tolist()}
+    del eng, srv, tree, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -469,9 +752,8 @@ def main() -> int:
         from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
         from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
         from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
-        from repro_torch.models.params import init_params, map_tree
-        from repro_torch.models.transformer import (Transformer, decode_step,
-                                                    model_spec, prefill)
+        from repro_torch.models.params import init_params, leaves_with_path
+        from repro_torch.models.transformer import Transformer, model_spec
         from repro_torch.train.serve import (greedy_generate, make_decode_step,
                                              make_prefill_step)
     except ImportError as e:
@@ -801,6 +1083,10 @@ def main() -> int:
     bf16 = torch.bfloat16
     lm_cfg = get_arch(LM_ARCH)
     lm_h, lm_kvh, lm_d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
+    # phase 9's prefills: moonshot's (H = KVH, a GQA group of one, on the
+    # tensor cores) and deepseek's MLA
+    moe_dims, _ = engine_flash_dims(get_arch(MOE_ARCHS[0][0]))
+    mla_dims, mla_scale = engine_flash_dims(get_arch(MOE_ARCHS[1][0]))
     fa_err = {
         "prefill B=4 S=T=256 bf16": flash_case(
             "prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d, lm_d), bf16),
@@ -834,6 +1120,15 @@ def main() -> int:
             "Dk=Dv=64", (2, 8, 2, 333, 333, 64, 64), bf16),
         "Dk=96 Dv=64 bf16": flash_case(
             "Dk=96 Dv=64 bf16", (2, 8, 4, 200, 200, 96, 64), bf16),
+        # moonshot's prefill (phase 9): H = KVH, bf16 on flash_wgmma_kernel
+        "moonshot B=1 H=KVH={} S=T={} D={} bf16".format(
+            moe_dims[1], moe_dims[3], moe_dims[5]): flash_case(
+            "moonshot", moe_dims, bf16),
+        # deepseek's MLA prefill (phase 9): Dk nope + rope against Dv, on
+        # the CUDA-core kernel, at MLA's scale
+        "MLA B=1 H={} S=T={} Dk={} Dv={} bf16".format(
+            mla_dims[1], mla_dims[3], mla_dims[5], mla_dims[6]): flash_case(
+            "MLA", mla_dims, bf16, scale=mla_scale),
     }
     # a bf16 view that no tensor map describes (rows D + 1 elements apart):
     # the wrapper copies it contiguous, then launches the same kernel
@@ -852,18 +1147,43 @@ def main() -> int:
     fa_err["row stride D+1 (copied) bf16"] = err(got, want)
     # a row of a batched call has the bits of the same row called alone
     # (the engine prefills one prompt, greedy_generate a batch): row 2 of
-    # B = 4 against B = 1, at the prefill shape, bf16 and f32
-    for dtype in (bf16, torch.float32):
-        q, k, v = qkv(LM_BATCH, lm_h, lm_kvh, ENGINE_PROMPT, ENGINE_PROMPT,
-                      lm_d, lm_d, dtype)
+    # B = 4 against B = 1, at qwen's prefill shape in bf16 and f32 and at
+    # moonshot's in bf16
+    for dtype, dims in ((bf16, (lm_h, lm_kvh, lm_d)),
+                        (torch.float32, (lm_h, lm_kvh, lm_d)),
+                        (bf16, (moe_dims[1], moe_dims[2], moe_dims[5]))):
+        h_, kvh_, d_ = dims
+        q, k, v = qkv(LM_BATCH, h_, kvh_, ENGINE_PROMPT, ENGINE_PROMPT,
+                      d_, d_, dtype)
         whole = launched("flash_attention", lambda: flash_attention(q, k, v))
         alone = launched("flash_attention", lambda: flash_attention(
             q[2:3], k[2:3], v[2:3]))
         check(torch.equal(whole[2:3], alone),
-              f"flash_attention {dtype}: row 2 of B=4 differs from the row alone")
+              f"flash_attention {dtype} H={h_} KVH={kvh_}: row 2 of B=4 "
+              f"differs from the row alone")
+    # the same at the MLA shape (B = 4 against row 2), with k built as the
+    # MLA block builds it: the per-head part beside one rope slice
+    # broadcast over the heads; no view is copied for a tensor map
+    copies = fa_module.CONTIGUOUS_COPIES
+    _, mla_h, _, mla_s, _, mla_dk, mla_dv = mla_dims
+    mla_rope = get_arch(MOE_ARCHS[1][0]).qk_rope_head_dim
+    q, k_nope, v = qkv(4, mla_h, mla_h, mla_s, mla_s, mla_dk - mla_rope,
+                       mla_dv, bf16)
+    q = torch.cat([q, torch.randn_like(q[..., :mla_rope])], dim=-1)
+    rope = torch.randn((4, 1, mla_s, mla_rope), device=dev).to(bf16)
+    k = torch.cat([k_nope, rope.expand(4, mla_h, mla_s, mla_rope)], dim=-1)
+    whole = launched("flash_attention", lambda: flash_attention(
+        q, k, v, scale=mla_scale))
+    alone = launched("flash_attention", lambda: flash_attention(
+        q[2:3], k[2:3], v[2:3], scale=mla_scale))
+    check(torch.equal(whole[2:3], alone),
+          "flash_attention MLA: row 2 of B=4 differs from the row alone")
+    check(fa_module.CONTIGUOUS_COPIES == copies,
+          "flash_attention MLA: a bf16 view was copied for a tensor map")
     max_err["flash_attention"] = fa_err["prefill B=4 S=T=256 bf16"]
     log("phase 2: flash_attention ok (B=1 bit-equal to row 2 of B=4 at "
-        "S=T=256, bf16 and f32; max abs err vs plain: "
+        "S=T=256: qwen's heads in bf16 and f32, moonshot's and MLA's in "
+        "bf16; max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
 
     # The three scans and decode attention against their plain versions.
@@ -1404,30 +1724,39 @@ def main() -> int:
         pairs = sum(min(t, i + 1) for i in range(s))
         return bound(nbytes, 2.0 * b * h * pairs * (dk + dv), PEAK_BF16_FLOPS)
 
-    def sdpa(q, k, v):
+    def sdpa(q, k, v, scale=None):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
+                                              enable_gqa=True, scale=scale)
 
     fa_rows = {}
-    for label, b_, s_, per_graph in (("prefill", LM_BATCH, LM_PROMPT, 50),
-                                     ("long", 1, 4096, 3)):
-        dims = (b_, lm_h, lm_kvh, s_, s_, lm_d, lm_d)
+    for label, dims, scale, per_graph in (
+            ("prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d,
+                         lm_d), None, 50),
+            ("long", (1, lm_h, lm_kvh, 4096, 4096, lm_d, lm_d), None, 3),
+            # SDPA takes Dv != Dk (its flash backend does not; PyTorch picks
+            # another)
+            ("MLA", mla_dims, mla_scale, 20)):
+        b_, h_, kvh_, s_, _, dk_, dv_ = dims
         q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
-        check(err(sdpa(q, k, v), flash_attention_plain(q, k, v)) <= 5e-2,
+        check(err(sdpa(q, k, v, scale),
+                  flash_attention_plain(q, k, v, scale=scale)) <= 5e-2,
               f"SDPA differs from the plain version at {label}")
         b_ms, b_by = fa_bound(*dims)
         fa_rows[label] = dict(
-            ms=device_ms(torch, lambda: flash_attention(q, k, v), per_graph),
-            plain_ms=device_ms(torch, lambda: flash_attention_plain(q, k, v), 1),
-            library_ms=device_ms(torch, lambda: sdpa(q, k, v), per_graph),
+            ms=device_ms(torch, lambda: flash_attention(q, k, v, scale=scale),
+                         per_graph),
+            plain_ms=device_ms(torch, lambda: flash_attention_plain(
+                q, k, v, scale=scale), 1),
+            library_ms=device_ms(torch, lambda: sdpa(q, k, v, scale),
+                                 per_graph),
             bound_ms=b_ms, bound_by=b_by)
         r = fa_rows[label]
-        log(f"phase 3: flash_attention {label} B={b_} H={lm_h} KVH={lm_kvh} "
-            f"S=T={s_} D={lm_d} bf16 causal: device time per call: kernel "
-            f"{fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library (SDPA) "
-            f"{fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); kernel "
-            f"{r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of it), "
-            f"{r['ms'] / r['library_ms']:.2f}x SDPA")
+        log(f"phase 3: flash_attention {label} B={b_} H={h_} KVH={kvh_} "
+            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 causal: device time per call: "
+            f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
+            f"(SDPA) {fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); "
+            f"kernel {r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of "
+            f"it), {r['ms'] / r['library_ms']:.2f}x SDPA")
     rows["flash_attention"] = fa_rows["prefill"]
 
     # rwkv6_scan at rwkv6-3b's prefill shape (state0 absent, as the prefill
@@ -1996,53 +2325,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5b. the card against the CPU: a 2-layer cut at full width, f32 ----
-    # The same parameters (drawn on the CPU, then copied to the card), the
-    # same prompts; decode teacher-forced from the CPU run's tokens.  The
-    # card's f32 matmuls (TF32 off) and the kernel sum in another order than
-    # the CPU's matmuls and the plain version: prefill logits within 1e-4 of
-    # max |logit|; decode within 1e-2, since a key that differs in its last
-    # bits can round to the neighbouring bf16 value in the cache (the CPU
-    # tests hold the port to the JAX package with the same tolerances).
     cut = dataclasses.replace(lm_cfg, n_layers=2, dtype="float32")
-    tree = init_params(model_spec(cut), 0, device="cpu")
-    on_cpu = Transformer(cut, tree)
-    on_card = Transformer(cut, map_tree(lambda t: t.to(dev), tree))
-    prompt2 = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cut.vocab, (2, 64)))
-
-    def run_cut(m, device, feed=None):
-        """Prefill + 4 decode steps; each step is fed ``feed[i]`` or, with
-        no feed, this run's own greedy token.  -> (logits, tokens) on the
-        CPU."""
-        lg, c = prefill(m, {"tokens": prompt2.to(device)}, 128)
-        out_logits, out_tokens = [lg.cpu()], [torch.argmax(lg, -1).cpu()]
-        for i in range(4):
-            tok_in = out_tokens[-1] if feed is None else feed[i]
-            lg, c = decode_step(m, c, tok_in.to(device), 64 + i)
-            out_logits.append(lg.cpu())
-            out_tokens.append(torch.argmax(lg, -1).cpu())
-        return out_logits, out_tokens
-
-    cpu_logits, cpu_tokens = run_cut(on_cpu, "cpu")
-    before = common.LAUNCHES["flash_attention"]
-    card_logits, card_tokens = run_cut(on_card, dev, feed=cpu_tokens)
-    check(common.LAUNCHES["flash_attention"] - before == cut.n_layers,
-          "the 2-layer card run did not launch flash_attention per layer")
-    cut_err = []
-    for i, (g, w) in enumerate(zip(card_logits, cpu_logits)):
-        rtol = 1e-4 if i == 0 else 1e-2
-        scale = float(w[:, :cut.vocab].abs().max())
-        e = err(g[:, :cut.vocab], w[:, :cut.vocab])
-        cut_err.append(e / scale)
-        check(e <= rtol * scale, f"card vs CPU logits, step {i}: error {e} "
-              f"against max |logit| {scale}")
-    check(all(torch.equal(g, w) for g, w in zip(card_tokens, cpu_tokens)),
-          "card and CPU greedy tokens differ")
+    cut_err, _ = card_against_cpu(torch, np, dev, cut, "the qwen cut")
     log("phase 5b: 2-layer full-width f32 cut, card vs CPU: greedy tokens "
         "equal over prefill + 4 decode steps; logits error / max |logit| "
         + ", ".join(f"{e:.3g}" for e in cut_err))
-    del on_card
-    torch.cuda.empty_cache()
 
     # -- 6. the rwkv serving path: rwkv6-3b, full width and depth, bf16 ----
     # 32 layers of 40 heads of 64, random weights from seed 0 on the card
@@ -2151,36 +2438,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6b. the card against the CPU: a 2-layer rwkv cut at full width, f32
-    # The same parameters on both, the same prompts; decode teacher-forced
-    # from the CPU run's tokens.  The tolerances of phase 5b: prefill logits
-    # within 1e-4 of max |logit|, decode within 1e-2.
     rw_cut = dataclasses.replace(rw_cfg, n_layers=2, dtype="float32")
-    rw_tree = init_params(model_spec(rw_cut), 0, device="cpu")
-    rw_cpu = Transformer(rw_cut, rw_tree)
-    rw_card = Transformer(rw_cut, map_tree(lambda t: t.to(dev), rw_tree))
-    # run_cut (phase 5b) reads prompt2 when called: ids below rwkv's vocab
-    prompt2 = torch.from_numpy(np.random.default_rng(1).integers(
-        0, rw_cut.vocab, (2, 64)))
-    before = common.LAUNCHES["rwkv6_scan"]
-    cpu_logits, cpu_tokens = run_cut(rw_cpu, "cpu")
-    card_logits, card_tokens = run_cut(rw_card, dev, feed=cpu_tokens)
-    check(common.LAUNCHES["rwkv6_scan"] - before == rw_cut.n_layers * 5,
-          "the 2-layer rwkv card run did not launch rwkv6_scan per layer and step")
-    rw_cut_err = []
-    for i, (g, w_) in enumerate(zip(card_logits, cpu_logits)):
-        rtol = 1e-4 if i == 0 else 1e-2
-        scale = float(w_[:, :rw_cut.vocab].abs().max())
-        e = err(g[:, :rw_cut.vocab], w_[:, :rw_cut.vocab])
-        rw_cut_err.append(e / scale)
-        check(e <= rtol * scale, f"rwkv card vs CPU logits, step {i}: error {e} "
-              f"against max |logit| {scale}")
-    check(all(torch.equal(g, w_) for g, w_ in zip(card_tokens, cpu_tokens)),
-          "rwkv card and CPU greedy tokens differ")
+    rw_cut_err, _ = card_against_cpu(torch, np, dev, rw_cut, "the rwkv cut",
+                                     kernel="rwkv6_scan", per_step=1)
     log("phase 6b: 2-layer full-width f32 rwkv cut, card vs CPU: greedy tokens "
         "equal over prefill + 4 decode steps; logits error / max |logit| "
         + ", ".join(f"{e:.3g}" for e in rw_cut_err))
-    del rw_card
-    torch.cuda.empty_cache()
 
     # -- 7. TinyBio served on the card, at full size -----------------------------
     # Server over two lanes (16T and 8T), exact-fit bucket (the features
@@ -2360,144 +2623,19 @@ def main() -> int:
                     "n_power_throttled") if k_ in on_card}))
 
     # -- 8. the decode engine on the card: qwen2.5-3b and rwkv6-3b -------------
-    # DecodeEngine(num_slots=4, max_len=512, bf16 cache) behind an
-    # engine-only Server, full width and depth, random weights from seed 0
-    # (the JAX-layout f32 tree, as init_params makes it).  One short request
-    # first captures the prefill graph (256 tokens) and the step graph;
-    # then, with the counters reset just before and read just after, six
-    # 256-token requests of 16 new tokens arrive staggered (two, two after
-    # 4 steps, two after 5 more, which wait until the first two finish and
-    # take their slots while the middle two still decode).  Each request's
-    # tokens must equal the card's greedy_generate of the six prompts as one
-    # batch, bit for bit (benchmarks_torch/batch_bits.py finds every op of a
-    # B = 1 prefill and a B = 4 step giving its rows the bits of B = 6; at
-    # B = 1 or 2 a step's f32 mean and bmm do not, so the tokens of a
-    # prompt decoded alone may part); the cache must have missed twice; every modeled stats()
-    # field must equal the same workload's on the CPU over a 2-layer f32
-    # cut at full width (as 5b cuts).
-    from repro_torch.serve import DecodeEngine
-
-    def staggered(srv, prompts, max_new, pull):
-        """Serve six prompts staggered; -> (rids, whether two requests took
-        freed slots while others still decoded)."""
-        rids = [srv.submit_decode(prompts[i], max_new=max_new) for i in (0, 1)]
-        first = srv.stream(rids[0])
-        for _ in range(pull):
-            next(first)
-        rids += [srv.submit_decode(prompts[i], max_new=max_new) for i in (2, 3)]
-        for _ in range(pull):
-            next(first)
-        rids += [srv.submit_decode(prompts[i], max_new=max_new) for i in (4, 5)]
-        for _ in first:
-            pass
-        reused = set(rids[2:]) <= set(srv._eng_active)
-        srv.flush()
-        return rids, reused
-
-    def engine_cut_stats(cfg, device):
-        """stats() of the staggered workload over a 2-layer f32 cut of
-        ``cfg`` at full width (64-token prompts, 16 new, max_len 128)."""
-        cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-        tree_ = init_params(model_spec(cut), 0, device="cpu")
-        eng_ = DecodeEngine(cut, map_tree(lambda t: t.to(device), tree_),
-                            num_slots=ENGINE_SLOTS, max_len=128,
-                            cache_dtype=torch.bfloat16, device=device)
-        srv_ = Server((), workers=(), engine=eng_)
-        prompts_ = np.random.default_rng(3).integers(
-            0, cut.vocab, (ENGINE_REQUESTS, 64)).astype(np.int32)
-        _, reused_ = staggered(srv_, prompts_, ENGINE_NEW, 5)
-        check(reused_, "the cut's staggered run reused no slot mid-run")
-        return eng_.stats()
-
-    def serve_engine(cfg, label, ours, per_step):
-        """Phase 8 for one model; -> its log numbers.  ``ours`` are the
-        kernels the path must launch (once per layer per prefill, and
-        ``per_step`` times a layer per step)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tree_ = init_params(model_spec(cfg), 0, device=dev)
-        eng = DecodeEngine(cfg, tree_, num_slots=ENGINE_SLOTS,
-                           max_len=ENGINE_MAX_LEN, cache_dtype=torch.bfloat16)
-        srv = Server((), workers=(), engine=eng)
-        check(srv.device.type == "cuda" and eng.worker.device.type == "cuda",
-              f"{label}: the engine does not run on the card")
-        prompts = np.random.default_rng(2).integers(
-            0, cfg.vocab, (ENGINE_REQUESTS, ENGINE_PROMPT)).astype(np.int32)
-        t0 = time.perf_counter()
-        warm = srv.submit_decode(prompts[0], max_new=2)
-        srv.flush()
-        srv.result(warm)
-        torch.cuda.synchronize()
-        capture_wall = time.perf_counter() - t0
-        steps0, prefills0 = eng.n_steps, eng.n_prefills
-        torch.cuda.synchronize()
-        common.reset_launches()
-        t0 = time.perf_counter()
-        rids, reused = staggered(srv, prompts, ENGINE_NEW, 5)
-        torch.cuda.synchronize()
-        served_wall = time.perf_counter() - t0
-        moved = dict(common.LAUNCHES)
-        n_steps = eng.n_steps - steps0
-        n_prefills = eng.n_prefills - prefills0
-        check(n_prefills == ENGINE_REQUESTS, f"{label}: {n_prefills} prefills")
-        for name in KERNELS:
-            want = (cfg.n_layers * (n_prefills + per_step * n_steps)
-                    if name in ours else 0)
-            check(moved[name] == want,
-                  f"{label} engine path launched {name} {moved[name]} times, "
-                  f"expected {want} ({n_prefills} prefills, {n_steps} steps)")
-        check(reused, f"{label}: no slot was released and reused mid-run")
-        check(eng.cache.misses == 2, f"{label}: engine cache {eng.cache.stats()}")
-        got = np.stack([srv.result(r)[0] for r in rids])
-        check(got.shape == (ENGINE_REQUESTS, ENGINE_NEW)
-              and bool(((got >= 0) & (got < cfg.vocab)).all()),
-              f"{label}: served tokens are not (6, 16) ids below the vocabulary")
-        ref = greedy_generate(eng.model, prompts, ENGINE_NEW,
-                              ENGINE_MAX_LEN).cpu().numpy()
-        check(np.array_equal(got, ref),
-              f"{label}: engine tokens differ from greedy_generate of the six "
-              f"prompts as one batch: rows equal "
-              f"{[bool((g == r).all()) for g, r in zip(got, ref)]}")
-        # walls: warm prefills of one 256-token prompt, warm steps over four
-        # occupied slots (each step ends in its tokens' read-back)
-        state = eng.init_state()
-        for i in range(ENGINE_SLOTS):
-            state = eng.insert(eng.prefill(None, prompts[i]), state, i)
-        torch.cuda.synchronize()
-        pre = []
-        for i in range(3):
-            t0 = time.perf_counter()
-            eng.prefill(None, prompts[4 + i % 2])
-            torch.cuda.synchronize()
-            pre.append(time.perf_counter() - t0)
-        steps = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            state, _ = eng.generate(None, state)
-            steps.append(time.perf_counter() - t0)
-        s_wall, s_busy, s_kernels = device_profile(
-            torch, lambda: eng.generate(None, state))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        card_stats = engine_cut_stats(cfg, dev)
-        cpu_stats = engine_cut_stats(cfg, "cpu")
-        for key in cpu_stats:
-            check(card_stats[key] == cpu_stats[key],
-                  f"{label} 2-layer cut: stats()[{key!r}] {card_stats[key]} "
-                  f"on the card, {cpu_stats[key]} on the CPU")
-        out = {"launches": moved, "n_steps": n_steps, "capture_wall": capture_wall,
-               "served_wall": served_wall,
-               "tokens_per_s": ENGINE_REQUESTS * ENGINE_NEW / served_wall,
-               "prefill_ms": sorted(pre)[1] * 1e3,
-               "step_ms": sorted(steps)[2] * 1e3,
-               "profile": (s_wall, s_busy, s_kernels), "peak_gib": peak,
-               "stats": eng.stats(), "first": got[0].tolist()}
-        del eng, srv, tree_, state
-        torch.cuda.empty_cache()
-        return out
-
+    # serve_engine at full width and depth on the JAX-layout f32 tree, as
+    # init_params makes it (benchmarks_torch/batch_bits.py finds every op of
+    # a B = 1 prefill and a B = 4 step giving its rows the bits of B = 6; at
+    # B = 1 or 2 a step's f32 mean and bmm do not, so the tokens of a prompt
+    # decoded alone may part); every modeled stats() field must equal the
+    # same workload's on the CPU over a 2-layer f32 cut at full width (as
+    # 5b cuts).
     for cfg_, label, ours, per_step in ((lm_cfg, LM_ARCH, LM_KERNELS, 0),
                                         (rw_cfg, RWKV_ARCH, RWKV_KERNELS, 1)):
-        e = serve_engine(cfg_, label, ours, per_step)
+        e = serve_engine(torch, np, dev, cfg_, ours, per_step)
+        cut = dataclasses.replace(cfg_, n_layers=2, dtype="float32")
+        stats_match_cpu(torch, np, dev, cut,
+                        init_params(model_spec(cut), 0, device="cpu"), label)
         for name in ours:
             launches[name] += e["launches"][name]
         log(f"phase 8: {label}: DecodeEngine({ENGINE_SLOTS} slots, max_len "
@@ -2517,9 +2655,71 @@ def main() -> int:
             f"included); 2-layer f32 cut: every stats() field == the CPU's")
         log(f"phase 8: {label}: " + profile_line("one warm engine step",
                                                  *e["profile"]))
+        log(f"phase 8: {label}: " + profile_line("one warm engine prefill",
+                                                 *e["prefill_profile"]))
         log(f"phase 8: {label}: stats " + json.dumps(e["stats"]))
 
-    # -- 9. summary ---------------------------------------------------------------
+    # -- 9. the MoE and MLA blocks: moonshot-v1-16b-a3b, deepseek-v2-236b -----
+    # Phases 5-8's models, caches and cuts are freed by then; each
+    # family is served through the decode engine at full width on a bf16
+    # tree (moonshot 48 layers; deepseek its dense first layer and three
+    # MLA + MoE layers), then a 2-layer f32 cut of each is held against the
+    # CPU (deepseek's shared experts and dense first layer run on the card
+    # only in its runs here).
+    t_moe = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 9: device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+    for arch, n_layers_ in MOE_ARCHS:
+        cfg_ = dataclasses.replace(get_arch(arch), n_layers=n_layers_)
+        e = serve_engine(torch, np, dev, cfg_, LM_KERNELS, 0,
+                         tree_dtype=torch.bfloat16)
+        launches["flash_attention"] += e["launches"]["flash_attention"]
+        log(f"phase 9: {arch}: {cfg_.n_layers} layers at full width "
+            f"(d_model {cfg_.d_model}, {cfg_.n_heads} heads, Dk {e['dims'][0]}"
+            f" / Dv {e['dims'][1]}, {cfg_.n_experts} experts of {cfg_.d_ff_expert}, top-"
+            f"{cfg_.top_k}, {cfg_.n_shared_experts} shared"
+            + (", dense first layer" if cfg_.first_layer_dense else "")
+            + f"), {e['n_params']} parameters drawn in bf16 on the card in "
+            f"{e['init_s']:.3f} s ({e['model_gib']:.3f} GiB allocated with "
+            f"the engine; its modeled bytes are this bf16 tree's); "
+            f"DecodeEngine({ENGINE_SLOTS} slots, max_len {ENGINE_MAX_LEN}): "
+            f"{ENGINE_REQUESTS} staggered requests of {ENGINE_PROMPT} tokens, "
+            f"{ENGINE_NEW} new each, in {e['n_steps']} steps; tokens == "
+            f"greedy_generate of the six prompts as one batch; 2 cache "
+            f"misses (capture run {e['capture_wall']:.3f} s); launches "
+            f"{e['launches']}; the prefill ran {e['flash']}; first request's "
+            f"tokens {e['first']}")
+        log(f"phase 9: {arch} on {card}: served wall {e['served_wall']:.3f} s, "
+            f"{e['tokens_per_s']:.1f} tokens/s of wall; warm prefill (B = 1, "
+            f"{ENGINE_PROMPT} tokens) wall {e['prefill_ms']:.3f} ms (median "
+            f"of 3); warm step ({ENGINE_SLOTS} slots, tokens read back) wall "
+            f"{e['step_ms']:.3f} ms (median of 5); peak device memory "
+            f"{e['peak_gib']:.3f} GiB")
+        log(f"phase 9: {arch}: " + profile_line("one warm engine step",
+                                                *e["profile"]))
+        log(f"phase 9: {arch}: " + profile_line("one warm engine prefill",
+                                                *e["prefill_profile"]))
+        log(f"phase 9: {arch}: stats " + json.dumps(e["stats"]))
+    for arch, _ in MOE_ARCHS:
+        cut = dataclasses.replace(get_arch(arch), n_layers=2, dtype="float32")
+        t0 = time.perf_counter()
+        cut_errs, cut_tree = card_against_cpu(torch, np, dev, cut, arch)
+        stats_match_cpu(torch, np, dev, cut, cut_tree, arch)
+        n_cut = sum(t.numel() for _, t in leaves_with_path(cut_tree))
+        log(f"phase 9: {arch}: 2-layer full-width f32 cut"
+            + (" (the dense first layer and one MLA + MoE layer with its "
+               "shared experts)" if cut.first_layer_dense else "")
+            + f", {n_cut * 4 / 1e9:.1f} GB, card vs CPU: greedy tokens equal "
+            f"over prefill + 4 decode steps; logits error / max |logit| "
+            + ", ".join(f"{x_:.3g}" for x_ in cut_errs)
+            + f"; every stats() field of the staggered engine run == the "
+            f"CPU's; {time.perf_counter() - t0:.1f} s")
+        del cut_tree
+    torch.cuda.empty_cache()
+    log(f"phase 9: {time.perf_counter() - t_moe:.1f} s")
+
+    # -- 10. summary --------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

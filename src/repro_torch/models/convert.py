@@ -4,8 +4,10 @@
 applied to every leaf (fp32 masters, ``blocks.pos{i}`` stacked over
 ``n_groups``) and builds a :class:`~repro_torch.models.transformer.
 Transformer` from it; :func:`params_to_numpy` gives the tree back, in the
-same layout, from a model.  The two round-trip exactly for a float32
-config (a bfloat16 model holds its matmul weights rounded to bfloat16).
+same layout, from a model: the stacked block leaves (the MoE's expert
+leaves are 4-D, (n_groups, E, in, out)) and deepseek's unstacked
+``layer0``.  The two round-trip exactly for a float32 config (a bfloat16
+model holds its matmul weights rounded to bfloat16).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from ..core.runtime import resolve_device
 from .config import ModelConfig
 from .params import map_tree
-from .transformer import Transformer
+from .transformer import Transformer, n_scanned
 
 
 def tree_from_jax(tree: Dict[str, Any], *, device: Any = None
@@ -47,14 +49,23 @@ def params_to_numpy(model: Transformer) -> Dict[str, Any]:
     def arr(t: torch.Tensor) -> np.ndarray:
         return t.detach().to(torch.float32).cpu().numpy()
 
-    blocks: Dict[str, Any] = {}
-    for i in range(cfg.period):
-        layers = [model.layers[layer]
-                  for layer in range(i, cfg.n_layers, cfg.period)]
-        blocks[f"pos{i}"] = {
-            name: {leaf: np.stack([arr(lay[name][leaf]) for lay in layers])
-                   for leaf in sub.keys()}
-            for name, sub in layers[0].items()}
-    return {"embed": {k: arr(v) for k, v in model.embed.items()},
-            "final_norm": {k: arr(v) for k, v in model.final_norm.items()},
+    def stacked(nodes) -> Any:
+        """The same leaf of every group's layer, stacked (nested dicts of
+        the layers, such as the MoE's shared experts, recurse)."""
+        if isinstance(nodes[0], torch.Tensor):
+            return np.stack([arr(t) for t in nodes])
+        return {k: stacked([n[k] for n in nodes]) for k in nodes[0].keys()}
+
+    def plain(node) -> Any:
+        if isinstance(node, torch.Tensor):
+            return arr(node)
+        return {k: plain(node[k]) for k in node.keys()}
+
+    blocks = {f"pos{i}": stacked([model.layers[layer] for layer in
+                                  range(i, n_scanned(cfg), cfg.period)])
+              for i in range(cfg.period)}
+    tree = {"embed": plain(model.embed), "final_norm": plain(model.final_norm),
             "blocks": blocks}
+    if model.layer0 is not None:
+        tree["layer0"] = plain(model.layer0)
+    return tree

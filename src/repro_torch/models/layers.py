@@ -66,6 +66,15 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def rms_norm_1d(x: torch.Tensor, scale: torch.Tensor, eps: float
+                ) -> torch.Tensor:
+    """RMS norm over the last axis with a bare scale vector (MLA's latent
+    norms), in f32, cast back to ``x``'s dtype."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense / MLP
 # ---------------------------------------------------------------------------
@@ -74,11 +83,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.matmul(x.to(dt), w.to(dt))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as JAX lowers it, 1 / (1 + exp(-x)), each op
+    rounded to x's dtype (``torch.sigmoid`` rounds once, and differs in
+    bf16)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), each op rounded to x's dtype (the
+    bits of the JAX package's bf16 activations; ``F.silu`` rounds once)."""
+    return x * sigmoid(x)
+
+
 def act_fn(cfg: ModelConfig):
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.act == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
-    return F.silu
+    return silu
 
 
 def mlp_spec(cfg: ModelConfig, d_ff: int, stacked: int = 0):

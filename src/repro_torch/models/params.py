@@ -84,6 +84,25 @@ def state_device(device=None) -> torch.device:
     return resolve_device("cuda" if device is None else device)
 
 
+#: a ``normal`` leaf of more elements than this is drawn slice by slice
+DRAW_SLICE = 2 ** 30
+
+
+def draw_rows(shape: Tuple[int, ...]) -> int:
+    """How many slices :func:`init_params` draws a leaf of ``shape`` in:
+    1 up to :data:`DRAW_SLICE` elements, else the rows of the fewest
+    leading axes whose rows each hold at most that many."""
+    n, rows = 1, 1
+    for s in shape:
+        n *= s
+    for s in shape:
+        if n <= DRAW_SLICE:
+            break
+        n //= s
+        rows *= s
+    return rows
+
+
 def init_params(spec_tree: Dict[str, Any], seed: int, *,
                 dtype: torch.dtype = torch.float32,
                 device: Any = None) -> Dict[str, Any]:
@@ -96,6 +115,14 @@ def init_params(spec_tree: Dict[str, Any], seed: int, *,
     package's ``init_params`` does; its threefry bits cannot be replayed, so
     these values are not the JAX package's (parity tests carry the JAX
     parameters across with ``params_from_jax``).
+
+    A leaf of more than :data:`DRAW_SLICE` elements (an MoE's stacked
+    experts: moonshot's ``wi`` holds 8.86 G) is drawn in slices along its
+    leading axes (:func:`draw_rows`), one after another from its generator,
+    each scaled in place and copied into the leaf of ``dtype``, so no f32
+    copy of the whole leaf is ever made; its values need not be a whole
+    draw's (the card's generator offsets each call), and every smaller
+    leaf's are the whole draw's.
     """
     dev = resolve_device("cuda" if device is None else device)
 
@@ -108,9 +135,17 @@ def init_params(spec_tree: Dict[str, Any], seed: int, *,
             return torch.full(spec.shape, spec.constant, dtype=dtype, device=dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(leaf_seed(seed, path))
-        draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                           device=dev)
-        return (draw * spec.scale).to(dtype)
+        rows = draw_rows(spec.shape)
+        if rows == 1:
+            draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                               device=dev)
+            return (draw * spec.scale).to(dtype)
+        out = torch.empty(spec.shape, dtype=dtype, device=dev)
+        for row in out.view((rows, -1)):
+            draw = torch.randn(row.shape, generator=gen, dtype=torch.float32,
+                               device=dev)
+            row.copy_(draw.mul_(spec.scale))
+        return out
 
     def build(tree: Dict[str, Any], prefix: str) -> Dict[str, Any]:
         out = {}

@@ -25,7 +25,7 @@ import torch
 
 from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from .config import ModelConfig
-from .layers import cdtype
+from .layers import cdtype, sigmoid, silu
 from .params import ParamSpec, dense_spec, state_device
 
 LORA_W = 64     # decay-lora rank (rwkv6 uses 64 for 3B)
@@ -76,18 +76,6 @@ def _dot(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return torch.matmul(x.to(dt), w.to(dt))
 
 
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` as JAX lowers it, 1 / (1 + exp(-x)), each op
-    rounded to x's dtype (``torch.sigmoid`` rounds once, and differs in
-    bf16)."""
-    return 1 / (1 + torch.exp(-x))
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: x * sigmoid(x), each op rounded to x's dtype."""
-    return x * _sigmoid(x)
-
-
 def _shift(x: torch.Tensor, last: torch.Tensor | None = None) -> torch.Tensor:
     """Token shift: y_t = x_{t-1}; position 0 gets ``last`` (or zeros)."""
     first = (torch.zeros_like(x[:, :1]) if last is None
@@ -121,7 +109,7 @@ def _mix_inputs(p, x: torch.Tensor, xx: torch.Tensor, cfg: ModelConfig):
     r = _dot(mix("mu_r"), p["wr"], dt)
     k = _dot(mix("mu_k"), p["wk"], dt)
     v = _dot(mix("mu_v"), p["wv"], dt)
-    g = _silu(_dot(mix("mu_g"), p["wg"], dt))
+    g = silu(_dot(mix("mu_g"), p["wg"], dt))
     wl = torch.tanh(_dot(mix("mu_w"), p["w_lora_a"], dt))
     # the lora product in the compute dtype, widened to f32 after it
     w_log = p["w0"].float() + _dot(wl, p["w_lora_b"], dt).float()
@@ -158,7 +146,7 @@ def rwkv_channel_mix(p, x: torch.Tensor, cfg: ModelConfig, *,
     xx = _shift(x, last_x) - x
     xr = (x + xx * p["cmu_r"].to(x.dtype)).to(dt)
     xk = (x + xx * p["cmu_k"].to(x.dtype)).to(dt)
-    r = _sigmoid(_dot(xr, p["cwr"], dt))
+    r = sigmoid(_dot(xr, p["cwr"], dt))
     k = torch.square(torch.relu(_dot(xk, p["cwk"], dt)))
     y = r * _dot(k, p["cwv"], dt)
     if return_state:

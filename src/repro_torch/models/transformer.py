@@ -3,13 +3,16 @@
 The JAX package's ``models/transformer.py`` in PyTorch, for the serving
 path of decoder stacks with no modality frontend whose blocks are ``attn``
 with a ``dense`` MLP (qwen2.5-3b, stablelm-1.6b, minicpm-2b,
-mistral-large-123b) or ``rwkv`` carrying its own channel-mix (rwkv6-3b).
-Other block kinds, MoE MLPs and frontends raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them.
+mistral-large-123b), ``attn`` with an MoE MLP (moonshot-v1-16b-a3b),
+``mla`` with an MoE MLP behind a dense first layer (deepseek-v2-236b) or
+``rwkv`` carrying its own channel-mix (rwkv6-3b).  Mamba blocks and
+frontends raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+ports them.
 
 The JAX package stacks each block position's weights over ``n_groups`` and
 scans them; here :class:`Transformer` unstacks them into one
-``nn.ModuleDict`` per layer and runs a Python loop.  Its parameter names
+``nn.ModuleDict`` per layer and runs a Python loop (deepseek's dense first
+layer, ``layer0``, runs before it).  Its parameter names
 follow the JAX tree (``embed.embedding``, ``layers[i].block.wq``, ...), so
 the functions of ``layers`` and ``attention`` read a layer exactly as they
 read a dict of the JAX package's tensors.
@@ -21,25 +24,28 @@ Entry points (``torch.no_grad``): :func:`prefill` and :func:`decode_step`.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .attention import (attend_decode, attend_full, attn_spec,
-                        cache_from_prefill)
+                        cache_from_prefill, init_kv_cache)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, cdtype, embed_spec, embed_tokens,
                      logits_from_hidden, mlp_spec, mul_scalar, norm_spec,
                      residual_scale)
+from .mla import F32_LEAVES as MLA_F32_LEAVES
+from .mla import (init_mla_cache, mla_cache_from_prefill, mla_decode,
+                  mla_full, mla_spec)
+from .moe import apply_moe, moe_spec
 from .params import leaves_with_path, state_device
-from .rwkv import (F32_LEAVES, init_rwkv_state, rwkv_channel_mix, rwkv_spec,
+from .rwkv import F32_LEAVES as RWKV_F32_LEAVES
+from .rwkv import (init_rwkv_state, rwkv_channel_mix, rwkv_spec,
                    rwkv_time_mix)
 
 #: what the port does not build yet, and the ROADMAP.md item that ports it
 UNPORTED = {
-    "mla": "ROADMAP.md queue 1, next step 4 (MLA + MoE, deepseek)",
-    "moe": "ROADMAP.md queue 1, next step 4 (MLA + MoE, deepseek)",
     "mamba": "ROADMAP.md queue 1, next step 5 (mamba_scan, jamba)",
     "vision": "ROADMAP.md queue 1, next step 8 (frontends)",
     "audio": "ROADMAP.md queue 1, next step 8 (frontends)",
@@ -47,7 +53,15 @@ UNPORTED = {
 
 
 #: (block kind, mlp kind) pairs the port builds
-PORTED = {("attn", "dense"), ("rwkv", "none")}
+PORTED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe"),
+          ("rwkv", "none")}
+#: block kinds of a dense first layer (``first_layer_dense``) it builds
+FIRST_LAYER_KINDS = {"attn", "mla"}
+
+_BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "rwkv": rwkv_spec}
+#: leaves the model keeps in float32 besides the norms (the JAX blocks read
+#: them with ``.astype(float32)``)
+F32_LEAVES = RWKV_F32_LEAVES | MLA_F32_LEAVES
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -59,7 +73,8 @@ def check_supported(cfg: ModelConfig) -> None:
               if k in blocks and (k, m) not in PORTED]
     if cfg.frontend != "none":
         kinds.append(("frontend", cfg.frontend))
-    if cfg.first_layer_dense:
+    if (cfg.first_layer_dense
+            and cfg.block_pattern[0] not in FIRST_LAYER_KINDS):
         kinds.append(("first layer", cfg.block_pattern[0]))
     if kinds:
         what, kind = kinds[0]
@@ -71,32 +86,54 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # Parameter tree
 # ---------------------------------------------------------------------------
-def _position_spec(cfg: ModelConfig, kind: str, stacked: int):
-    if kind == "rwkv":
-        return {"norm1": norm_spec(cfg, stacked),
-                "block": rwkv_spec(cfg, stacked),
-                "norm2": norm_spec(cfg, stacked)}   # channel-mix pre-norm
-    return {"norm1": norm_spec(cfg, stacked),
-            "block": attn_spec(cfg, stacked),
-            "norm2": norm_spec(cfg, stacked),
-            "mlp": mlp_spec(cfg, cfg.d_ff, stacked)}
+def n_scanned(cfg: ModelConfig) -> int:
+    """Layers of the stacked ``blocks`` (all but a dense first layer)."""
+    return cfg.n_groups * cfg.period
+
+
+def _position_spec(cfg: ModelConfig, kind: str, mlp_kind: str,
+                   stacked: int):
+    out = {"norm1": norm_spec(cfg, stacked),
+           "block": _BLOCK_SPECS[kind](cfg, stacked)}
+    if mlp_kind == "dense":
+        out["norm2"] = norm_spec(cfg, stacked)
+        out["mlp"] = mlp_spec(cfg, cfg.d_ff, stacked)
+    elif mlp_kind == "moe":
+        out["norm2"] = norm_spec(cfg, stacked)
+        out["mlp"] = moe_spec(cfg, stacked)
+    elif kind == "rwkv":
+        out["norm2"] = norm_spec(cfg, stacked)   # channel-mix pre-norm
+    return out
 
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """The JAX package's parameter tree (``blocks.pos{i}`` stacked over
-    ``n_groups``) for an arch this slice builds."""
+    ``n_groups``, plus deepseek's unstacked ``layer0``) for an arch this
+    slice builds."""
     check_supported(cfg)
-    return {
+    spec: Dict[str, Any] = {
         "embed": embed_spec(cfg),
         "final_norm": norm_spec(cfg),
-        "blocks": {f"pos{i}": _position_spec(cfg, kind, cfg.n_groups)
-                   for i, kind in enumerate(cfg.block_pattern)},
+        "blocks": {f"pos{i}": _position_spec(cfg, kind, mlp_kind,
+                                              cfg.n_groups)
+                   for i, (kind, mlp_kind) in enumerate(
+                       zip(cfg.block_pattern, cfg.mlp_pattern))},
     }
+    if cfg.first_layer_dense:
+        spec["layer0"] = {
+            "norm1": norm_spec(cfg),
+            "block": _BLOCK_SPECS[cfg.block_pattern[0]](cfg, 0),
+            "norm2": norm_spec(cfg),
+            "mlp": mlp_spec(cfg, cfg.d_ff_dense or cfg.d_ff, 0),
+        }
+    return spec
 
 
 def _keeps_f32(path: str) -> bool:
     """True for a leaf kept in float32: a norm's (its parent key names one)
-    or one the rwkv block widens to f32 (``rwkv.F32_LEAVES``)."""
+    or one a block reads in f32 (:data:`F32_LEAVES`: rwkv's ``w0``,
+    ``u_bonus``, ``ln_x``; MLA's ``q_norm``, ``kv_norm``, ``wk_b``,
+    ``wv_b``)."""
     keys = re.findall(r"\['([^']*)'\]", path)
     return "norm" in keys[-2] or keys[-1] in F32_LEAVES
 
@@ -108,11 +145,13 @@ class Transformer(nn.Module):
     the JAX package's across).
 
     The tree's ``(n_groups, ...)`` block leaves are unstacked into
-    ``layers[l]`` (group ``l // period``, position ``l % period``).
-    Matmul weights, biases, the embedding and the rwkv mixing coefficients
-    are cast once to the compute dtype ``cfg.dtype``; norm parameters and
-    the rwkv leaves the JAX block widens (``w0``, ``u_bonus``, ``ln_x``)
-    are kept in float32.  Raises
+    ``layers[l]`` (group ``l // period``, position ``l % period``); a
+    dense first layer's leaves go to ``layer0`` (None without one).
+    Matmul weights, biases, the embedding, the MoE experts and the rwkv
+    mixing coefficients are cast once to the compute dtype ``cfg.dtype``
+    (a tree already in that dtype is viewed, not copied); norm parameters
+    and the leaves a block reads in f32 (:data:`F32_LEAVES`) are kept in
+    float32.  Raises
     ``ValueError`` on a missing leaf, a leaf it did not consume, or a
     shape that differs from the spec.  The module lives on the tree's
     device and holds no gradients.
@@ -140,20 +179,28 @@ class Transformer(nn.Module):
                                 requires_grad=False)
 
         def pdict(prefix: str, tree: Dict[str, Any], pick=lambda t: t):
+            # a nested dict (the MoE's shared experts) nests a ParameterDict
             return nn.ParameterDict({
-                name: param(f"{prefix}['{name}']", pick(t))
+                name: (pdict(f"{prefix}['{name}']", t, pick)
+                       if isinstance(t, dict)
+                       else param(f"{prefix}['{name}']", pick(t)))
                 for name, t in tree.items()})
+
+        def layer_dict(prefix: str, tree: Dict[str, Any], pick=lambda t: t):
+            return nn.ModuleDict({
+                name: pdict(f"{prefix}['{name}']", sub, pick)
+                for name, sub in tree.items()})
 
         self.embed = pdict("['embed']", params["embed"])
         self.final_norm = pdict("['final_norm']", params["final_norm"])
+        self.layer0 = (layer_dict("['layer0']", params["layer0"])
+                       if cfg.first_layer_dense else None)
         self.layers = nn.ModuleList()
-        for layer in range(cfg.n_layers):
+        for layer in range(n_scanned(cfg)):
             g, i = divmod(layer, cfg.period)
-            pos = params["blocks"][f"pos{i}"]
-            self.layers.append(nn.ModuleDict({
-                name: pdict(f"['blocks']['pos{i}']['{name}']", sub,
-                            lambda t, g=g: t[g])
-                for name, sub in pos.items()}))
+            self.layers.append(layer_dict(
+                f"['blocks']['pos{i}']", params["blocks"][f"pos{i}"],
+                lambda t, g=g: t[g]))
 
     @property
     def device(self) -> torch.device:
@@ -177,12 +224,23 @@ def embed_inputs(model: Transformer, inputs: Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 # One layer (shared by the prefill and decode bodies)
 # ---------------------------------------------------------------------------
-def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                    mode: str = "prefill", cache=None, pos=None):
-    """One layer of block ``kind``.  Returns (x, new_cache): for ``attn``
-    the prefill's (k, v) or the decode step's cache (written in place); for
-    ``rwkv`` the state (tlast, wkv, clast) after the prefill, or the decode
-    step's cache (written in place)."""
+def moe_group(mode: str, b: int, s: int) -> int:
+    """The JAX stack's MoE routing group: a whole sequence in a prefill,
+    ``max(1, B·S // 16)`` tokens in a decode step."""
+    return s if mode != "decode" else max(1, (b * s) // 16)
+
+
+def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                    mlp_kind: str, *, mode: str = "prefill", cache=None,
+                    pos=None, moe_group_size: Optional[int] = None):
+    """One layer of block ``kind`` with feed-forward ``mlp_kind``.  Returns
+    (x, new_cache): for ``attn`` the prefill's (k, v) or the decode step's
+    cache (written in place); for ``mla`` the prefill's latents (c_kv,
+    k_rope) or the decode step's cache (written in place); for ``rwkv`` the
+    state (tlast, wkv, clast) after the prefill, or the decode step's cache
+    (written in place).  An MoE layer routes groups of ``moe_group_size``
+    tokens (None: :func:`moe_group`); its aux losses are not computed (no
+    training path reads them yet)."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     rs = residual_scale(cfg)
@@ -210,40 +268,69 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 new = leaf
             out.append(new)
         return x, tuple(out)
-    if mode == "decode":
+    if kind == "mla":
+        if mode == "decode":
+            out, new_cache = mla_decode(p["block"], h, cache, pos, cfg)
+        else:
+            out, new_cache = mla_full(p["block"], h, cfg, return_cache=True)
+    elif mode == "decode":
         out, new_cache = attend_decode(p["block"], h, cache, pos, cfg)
     else:
         out, new_cache = attend_full(p["block"], h, cfg, return_kv=True)
     x = x + mul_scalar(out, rs)
     h2 = apply_norm(p["norm2"], x, cfg)
-    x = x + mul_scalar(apply_mlp(p["mlp"], h2, cfg), rs)
+    if mlp_kind == "moe":
+        b, s, _ = h2.shape
+        gs = moe_group_size or moe_group(mode, b, s)
+        m_out, _ = apply_moe(p["mlp"], h2, cfg, group_size=gs)
+    else:
+        m_out = apply_mlp(p["mlp"], h2, cfg)
+    x = x + mul_scalar(m_out, rs)
     return x, new_cache
+
+
+def _layer_kinds(cfg: ModelConfig, layer: int) -> Tuple[str, str]:
+    """(block kind, mlp kind) of scanned layer ``layer``."""
+    i = layer % cfg.period
+    return cfg.block_pattern[i], cfg.mlp_pattern[i]
 
 
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype, dev) -> Any:
+    """One layer's cache for block ``kind`` (unstacked)."""
+    if kind == "rwkv":
+        return init_rwkv_state(cfg, batch, dtype, dev)
+    if kind == "mla":
+        return init_mla_cache(cfg, batch, max_len, dtype, dev)
+    return init_kv_cache(cfg, batch, max_len, dtype, dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Cache tree in the JAX layout, on ``device`` (default: the card):
     ``{"pos{i}": ...}`` stacked over ``n_groups``, ``{"k", "v"}`` each
-    (G, B, KVH, max_len, hd) for an ``attn`` position, ``(tlast (G, B, D)
-    dtype, wkv (G, B, H, hd, hd) f32, clast (G, B, D) dtype)`` for an
-    ``rwkv`` one (whose state ``max_len`` does not size)."""
+    (G, B, KVH, max_len, hd) for an ``attn`` position, ``{"c_kv" (G, B,
+    max_len, kvl), "k_rope" (G, B, max_len, rope)}`` for an ``mla`` one,
+    ``(tlast (G, B, D) dtype, wkv (G, B, H, hd, hd) f32, clast (G, B, D)
+    dtype)`` for an ``rwkv`` one (whose state ``max_len`` does not size);
+    plus deepseek's ``"layer0"``, the same leaves unstacked (batch at axis
+    0)."""
     check_supported(cfg)
     dev = state_device(device)
     g = cfg.n_groups
     cache: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.block_pattern):
-        if kind == "rwkv":
-            cache[f"pos{i}"] = tuple(
-                t.expand((g,) + t.shape).contiguous()
-                for t in init_rwkv_state(cfg, batch, dtype, dev))
-        else:
-            shape = (g, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-            cache[f"pos{i}"] = {
-                name: torch.zeros(shape, dtype=dtype, device=dev)
-                for name in ("k", "v")}
+        per = _block_cache(cfg, kind, batch, max_len, dtype, dev)
+        stacked = [t.expand((g,) + t.shape).contiguous()
+                   for t in (per.values() if isinstance(per, dict) else per)]
+        cache[f"pos{i}"] = (dict(zip(per, stacked)) if isinstance(per, dict)
+                            else tuple(stacked))
+    if cfg.first_layer_dense:
+        cache["layer0"] = _block_cache(cfg, cfg.block_pattern[0], batch,
+                                       max_len, dtype, dev)
     return cache
 
 
@@ -258,13 +345,17 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
 _CACHE_AXES = {
     "attn": {"k": ("batch", "kv_heads", "kv_seq", None),
              "v": ("batch", "kv_heads", "kv_seq", None)},
+    "mla": {"c_kv": ("batch", "kv_seq", None),
+            "k_rope": ("batch", "kv_seq", None)},
     "rwkv": (("batch", None), ("batch", "heads", None, None),
              ("batch", None)),
 }
 
 
 def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Logical axes of every cache leaf, matching :func:`cache_struct`."""
+    """Logical axes of every cache leaf, matching :func:`cache_struct`
+    (stacked positions gain a leading "layers" axis; ``layer0`` does
+    not)."""
     check_supported(cfg)
     out: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.block_pattern):
@@ -272,12 +363,14 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
         out[f"pos{i}"] = ({k: ("layers",) + a for k, a in axes.items()}
                           if isinstance(axes, dict)
                           else tuple(("layers",) + a for a in axes))
+    if cfg.first_layer_dense:
+        out["layer0"] = _CACHE_AXES[cfg.block_pattern[0]]
     return out
 
 
 def _layer_cache(cache: Dict[str, Any], cfg: ModelConfig, layer: int):
-    """Layer ``layer``'s slice of every leaf of its position's cache (views,
-    so writes reach the cache)."""
+    """Scanned layer ``layer``'s slice of every leaf of its position's cache
+    (views, so writes reach the cache)."""
     g, i = divmod(layer, cfg.period)
     leaves = cache[f"pos{i}"]
     if isinstance(leaves, dict):
@@ -293,6 +386,16 @@ def _stack(caches: List[Any]) -> Any:
     return tuple(torch.stack(leaves) for leaves in zip(*caches))
 
 
+def _pad_prefill(cfg: ModelConfig, kind: str, c, max_len: int, dtype):
+    """A prefill's per-layer cache padded out to ``max_len`` rows in
+    ``dtype`` (an rwkv state is O(1): kept as the block leaves it)."""
+    if kind == "attn":
+        return cache_from_prefill(cfg, c[0], c[1], max_len, dtype)
+    if kind == "mla":
+        return mla_cache_from_prefill(cfg, c[0], c[1], max_len, dtype)
+    return c
+
+
 # ---------------------------------------------------------------------------
 # Prefill and decode
 # ---------------------------------------------------------------------------
@@ -300,22 +403,29 @@ def _stack(caches: List[Any]) -> Any:
 def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], max_len: int,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt; -> (last-token logits (B, Vp) f32, cache at S).
-    An ``attn`` position's cache is (k, v) padded to ``max_len`` in
-    ``cache_dtype``; an ``rwkv`` position's is its state as the block
-    leaves it (the shifts in the compute dtype, wkv in f32), as in the
-    JAX package."""
+    An ``attn`` position's cache is (k, v) and an ``mla`` one's (c_kv,
+    k_rope), padded to ``max_len`` in ``cache_dtype``; an ``rwkv``
+    position's is its state as the block leaves it (the shifts in the
+    compute dtype, wkv in f32), as in the JAX package.  A dense first layer
+    runs first and keeps its cache under ``"layer0"``."""
     cfg = model.cfg
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no prefill/decode")
     x = embed_inputs(model, inputs)
+    cache: Dict[str, Any] = {}
+    if cfg.first_layer_dense:
+        kind0 = cfg.block_pattern[0]
+        x, c0 = _apply_position(model.layer0, x, cfg, kind0, "dense",
+                                mode="prefill")
+        cache["layer0"] = _pad_prefill(cfg, kind0, c0, max_len, cache_dtype)
     per_pos: List[List[Any]] = [[] for _ in range(cfg.period)]
     for layer, p in enumerate(model.layers):
-        kind = cfg.block_pattern[layer % cfg.period]
-        x, c = _apply_position(p, x, cfg, kind, mode="prefill")
-        if kind == "attn":
-            c = cache_from_prefill(cfg, c[0], c[1], max_len, cache_dtype)
-        per_pos[layer % cfg.period].append(c)
-    cache = {f"pos{i}": _stack(caches) for i, caches in enumerate(per_pos)}
+        kind, mlp_kind = _layer_kinds(cfg, layer)
+        x, c = _apply_position(p, x, cfg, kind, mlp_kind, mode="prefill")
+        per_pos[layer % cfg.period].append(
+            _pad_prefill(cfg, kind, c, max_len, cache_dtype))
+    for i, caches in enumerate(per_pos):
+        cache[f"pos{i}"] = _stack(caches)
     x = apply_norm(model.final_norm, x, cfg)
     logits = logits_from_hidden(model.embed, x[:, -1:], cfg)[:, 0]
     return logits, cache
@@ -323,12 +433,16 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], max_len: int,
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache: Dict[str, Any],
-                tokens: torch.Tensor, pos
+                tokens: torch.Tensor, pos, *,
+                moe_group_size: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence.  tokens (B,) ids; ``pos`` an ``int``
     for the whole batch or a (B,) int tensor, one position per row (rwkv
     reads none).  No position is read on the host, so the step runs on
-    ``meta`` tensors.
+    ``meta`` tensors.  ``moe_group_size`` is the MoE layers' routing group
+    (None: the JAX stack's rule, :func:`moe_group`; the decode engine
+    passes 1, one group per slot, as the JAX engine's per-slot vmap
+    routes).
 
     Returns (logits (B, Vp) f32, cache).  The cache is updated **in place**
     and returned (the JAX package returns a new one), except an rwkv
@@ -339,16 +453,23 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     x = embed_tokens(model.embed, tokens[:, None], cfg)
+    new_cache: Dict[str, Any] = {}
+    if cfg.first_layer_dense:
+        x, new_cache["layer0"] = _apply_position(
+            model.layer0, x, cfg, cfg.block_pattern[0], "dense",
+            mode="decode", cache=cache["layer0"], pos=pos)
     per_pos: List[List[Any]] = [[] for _ in range(cfg.period)]
     for layer, p in enumerate(model.layers):
-        x, c = _apply_position(p, x, cfg, cfg.block_pattern[layer % cfg.period],
-                               mode="decode",
-                               cache=_layer_cache(cache, cfg, layer), pos=pos)
+        kind, mlp_kind = _layer_kinds(cfg, layer)
+        x, c = _apply_position(p, x, cfg, kind, mlp_kind, mode="decode",
+                               cache=_layer_cache(cache, cfg, layer), pos=pos,
+                               moe_group_size=moe_group_size)
         per_pos[layer % cfg.period].append(c)
+    for i, caches in enumerate(per_pos):
+        new_cache[f"pos{i}"] = _restacked(cache[f"pos{i}"], caches)
     x = apply_norm(model.final_norm, x, cfg)
     logits = logits_from_hidden(model.embed, x, cfg)[:, 0]
-    return logits, {f"pos{i}": _restacked(cache[f"pos{i}"], caches)
-                    for i, caches in enumerate(per_pos)}
+    return logits, new_cache
 
 
 def _restacked(leaves: Any, per_layer: List[Any]) -> Any:

@@ -71,7 +71,7 @@ from ..core.scheduler import optimal_ndrange
 from ..models.config import ModelConfig
 from ..models.params import leaves_with_path, map_tree
 from ..models.transformer import (Transformer, cache_axes, cache_struct,
-                                  model_spec)
+                                  model_spec, n_scanned)
 from ..obs import Tracer
 from ..train.serve import make_decode_step, make_prefill_step
 from .batching import MicroBatch
@@ -170,8 +170,8 @@ class _BoundModel:
     """A :class:`Transformer`'s layout over launch-input parameter leaves:
     what :func:`~repro_torch.models.transformer.prefill` and
     :func:`~repro_torch.models.transformer.decode_step` read of a model
-    (``cfg``, ``embed``, ``final_norm``, ``layers``), holding no weights of
-    its own."""
+    (``cfg``, ``embed``, ``final_norm``, ``layer0``, ``layers``), holding
+    no weights of its own."""
 
     def __init__(self, cfg: ModelConfig, names: Sequence[str],
                  leaves: Sequence[torch.Tensor]):
@@ -188,7 +188,8 @@ class _BoundModel:
         self.cfg = cfg
         self.embed = tree["embed"]
         self.final_norm = tree["final_norm"]
-        self.layers = [tree["layers"][str(i)] for i in range(cfg.n_layers)]
+        self.layer0 = tree.get("layer0")
+        self.layers = [tree["layers"][str(i)] for i in range(n_scanned(cfg))]
 
     @property
     def device(self) -> torch.device:
@@ -250,6 +251,9 @@ def build_decode_kernel(config: EGPUConfig = EGPU_16T, *,
     ONE batched decode step with per-row positions — each row reads only
     its own cache slot, token and position, which is what makes staggered
     insertion bit-identical to each request's own whole-batch trajectory.
+    An MoE layer routes each slot's token as a group of its own (the JAX
+    engine vmaps a batch-1 step, whose group is that one token; the JAX
+    stack's rule would group ``B // 16`` slots from 32 slots on).
     The cache leaves are written in place and returned.  The step body is
     the ``return_logits=False`` fast path, so no ``(B, vocab)`` buffer
     rides the captured graph's outputs.
@@ -257,7 +261,7 @@ def build_decode_kernel(config: EGPUConfig = EGPU_16T, *,
     del num_slots, cache_dtype           # identity only: one graph per width
     structure = batch_axes(cfg)
     n_cache = len(_tree_leaves(structure))
-    step = make_decode_step(cfg, return_logits=False)
+    step = make_decode_step(cfg, return_logits=False, moe_group_size=1)
     names = _param_names(cfg)
 
     def engine_decode(tokens, positions, *state):

@@ -15,7 +15,7 @@ slice.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -44,7 +44,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, return_logits: bool = True) -> Callable:
+def make_decode_step(cfg: ModelConfig, return_logits: bool = True, *,
+                     moe_group_size: Optional[int] = None) -> Callable:
     """One decode step: (model, cache, tokens, pos) -> next tokens, where
     ``pos`` is an ``int`` for the whole batch or a (B,) int tensor of
     per-row positions (one arithmetic path for both).
@@ -53,18 +54,23 @@ def make_decode_step(cfg: ModelConfig, return_logits: bool = True) -> Callable:
     ``return_logits=False`` is the serving fast path, (next, cache), which
     hands no ``(B, vocab)`` logits back to the caller.  The cache is
     updated in place.  ``argmax`` takes the first maximum, as in JAX.
+    ``moe_group_size`` is passed to
+    :func:`~repro_torch.models.transformer.decode_step` (None: the JAX
+    stack's routing groups; the decode engine passes 1).
     """
     if not return_logits:
         def greedy_step(model, cache, tokens, pos):
             _check_model(model, cfg)
-            logits, new_cache = decode_step(model, cache, tokens, pos)
+            logits, new_cache = decode_step(model, cache, tokens, pos,
+                                            moe_group_size=moe_group_size)
             return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
 
         return greedy_step
 
     def serve_step(model, cache, tokens, pos):
         _check_model(model, cfg)
-        logits, new_cache = decode_step(model, cache, tokens, pos)
+        logits, new_cache = decode_step(model, cache, tokens, pos,
+                                        moe_group_size=moe_group_size)
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tokens, logits, new_cache
 

@@ -4,7 +4,8 @@ The script names the op of the LM path whose bits for a row depend on the
 batch the row runs in.  Here a batch-dependent version of each hand-written
 kernel's wrapper is planted, and the report must name it: first in layer 0
 of the chain, and among the ops that differ on their own.  Unplanted, the
-plain versions of the two kernels are batch-free on the CPU.
+plain versions of the two kernels are batch-free on the CPU.  An op planted
+in the batch-6 run only must be listed among the unpaired ops.
 """
 
 import sys
@@ -20,6 +21,7 @@ if str(ROOT) not in sys.path:              # the benchmark package
 from benchmarks_torch import batch_bits  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
 
 SMALL = dict(reduced=True, prompt_len=8, new=4, max_len=32)
 LABELS = [f"B=1 rows [{i}]" for i in range(batch_bits.BATCH)] + [
@@ -30,7 +32,8 @@ def _isolated_ops(entry):
     return {o["op"] for ops in entry["isolated"].values() for o in ops}
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-3b",
+                                  "moonshot-v1-16b-a3b", "deepseek-v2-236b"])
 def test_report_covers_every_row_and_batch(arch):
     rep = batch_bits.run(arch, "cpu", **SMALL)
     assert rep["batch"] == batch_bits.BATCH
@@ -39,7 +42,7 @@ def test_report_covers_every_row_and_batch(arch):
     for first in rep["tokens"].values():
         assert len(first) == batch_bits.BATCH
         assert all(-1 <= t < SMALL["new"] for t in first)
-    kernel = "flash_attention" if arch == "qwen2.5-3b" else "rwkv6_scan"
+    kernel = "rwkv6_scan" if arch == "rwkv6-3b" else "flash_attention"
     for phase in ("prefill", "step"):
         assert sorted(rep[phase]) == sorted(f"{phase} {lab}" for lab in LABELS)
         for entry in rep[phase].values():
@@ -76,3 +79,27 @@ def test_a_planted_batch_dependent_kernel_is_named(monkeypatch, arch, module,
     for phase in phases:
         for entry in rep[phase].values():
             assert name in _isolated_ops(entry)
+
+
+def test_an_op_only_the_batch_runs_is_listed_not_dropped(monkeypatch):
+    """An op that runs at batch 6 only (as a copy at B = 6 that is a view
+    at B = 1 would) pairs with no op of the smaller run, so no pair
+    compares it: the report lists it among the unpaired ops before the
+    first paired op that differs, and counts it among those no replay
+    reaches."""
+    real = transformer_mod.apply_norm
+
+    def planted(p, x, cfg):
+        y = real(p, x, cfg)
+        return y * 1.5 if x.shape[0] == batch_bits.BATCH else y
+
+    monkeypatch.setattr(transformer_mod, "apply_norm", planted)
+    rep = batch_bits.run("qwen2.5-3b", "cpu", **SMALL)
+    for entry in rep["prefill"].values():
+        first = entry["first"]
+        assert first["layer"] == 0 and first["unmatched"]
+        assert any(o["run"] == "batch" and o["op"] == "aten.mul.Tensor"
+                   for o in first["unpaired_before"])
+        assert entry["unpaired"].get("aten.mul.Tensor", 0) > 0
+    assert "unpaired ops that compute before it: ['aten.mul.Tensor'" in (
+        "\n".join(batch_bits.summary(rep)))

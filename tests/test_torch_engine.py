@@ -1,12 +1,13 @@
 """The port's continuous-batching decode engine against the JAX package's,
 on the CPU.
 
-``tests/test_decode_serve.py``'s engine tests, ported for the two cache
-families the port builds — ``qwen2.5-3b`` (plain KV cache) and
-``rwkv6-3b`` (O(1) recurrent state) at ``.reduced()`` size, float32.  The
-MLA latent-cache family (deepseek-v2-236b) waits for ``ROADMAP.md`` queue 1
-step 4, which ports ``models/mla.py``; its engine test joins ``FAMILIES``
-then.  Each test initialises the JAX package's parameters, carries the same
+``tests/test_decode_serve.py``'s engine tests, ported for the cache
+families the port builds — ``qwen2.5-3b`` (plain KV cache), ``rwkv6-3b``
+(O(1) recurrent state), ``deepseek-v2-236b`` (MLA latent cache behind a
+dense first layer, MoE MLPs with shared experts) and
+``moonshot-v1-16b-a3b`` (KV cache, MoE MLPs) at ``.reduced()`` size,
+float32, at the configs' own capacity factor (the JAX package's test of
+this engine raises it to 4).  Each test initialises the JAX package's parameters, carries the same
 numpy tree to the port (``tree_from_jax``, the conversion
 ``params_from_jax`` uses) and runs both engines on the same numpy prompts.
 
@@ -39,7 +40,9 @@ from repro_torch.train.serve import greedy_generate
 BATCH, PROMPT, NEW = 2, 12, 4
 
 FAMILIES = ["qwen2.5-3b",       # GQA: plain KV cache
-            "rwkv6-3b"]         # O(1) recurrent state
+            "rwkv6-3b",         # O(1) recurrent state
+            "deepseek-v2-236b",   # MLA latent cache, dense layer0, MoE
+            "moonshot-v1-16b-a3b"]  # KV cache, MoE
 
 
 def _setup(arch, batch, prompt_len, seed=1):
@@ -105,6 +108,34 @@ def test_engine_bit_identical_per_family(arch):
     assert eng.cache.hits == (BATCH - 1) + (NEW - 2) == jeng.cache.hits
     assert eng.cache.findings == 0 and eng.cache.verified == 2
     assert eng.stats() == jeng.stats()
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v2-236b"])
+def test_engine_routes_one_group_per_slot_as_the_jax_engine(arch):
+    """The JAX engine vmaps a batch-1 step over its slots, so each slot's
+    token is an MoE routing group of its own at any width; the JAX stack's
+    rule groups B // 16 tokens of a batch-B step.  With a zero router every
+    token ties on every expert and picks experts 0 and 1 (the lower index
+    first), so at 144 slots the rule's groups of 9 overflow those experts'
+    capacity of 8 and drop assignments that groups of one keep.  The port's
+    engine must give the JAX engine's tokens, and whole-batch
+    ``greedy_generate`` (the rule, in both packages) other ones."""
+    slots, prompt_len = 144, 4
+    cfg, jcfg, jparams, tree, prompts = _setup(arch, slots, prompt_len)
+    pos = [k for k, v in jparams["blocks"].items() if "router" in v["mlp"]][0]
+    jparams["blocks"][pos]["mlp"]["router"] = jnp.zeros_like(
+        jparams["blocks"][pos]["mlp"]["router"])
+    tree["blocks"][pos]["mlp"]["router"].zero_()
+    max_len = prompt_len + NEW + 1
+    (jeng, jgot), (eng, got) = _run_both(arch, slots, max_len, prompts,
+                                         jparams, jcfg, cfg, tree)
+    np.testing.assert_array_equal(got, jgot)
+    assert eng.cache.misses == 2 == jeng.cache.misses
+    assert eng.stats() == jeng.stats()
+    whole = greedy_generate(eng.model, prompts, NEW, max_len).numpy()
+    np.testing.assert_array_equal(whole, np.asarray(j_greedy_generate(
+        jparams, jcfg, jnp.asarray(prompts), max_new=NEW, max_len=max_len)))
+    assert not np.array_equal(whole, got)
 
 
 def test_engine_staggered_insert_and_slot_reuse():
@@ -188,16 +219,21 @@ def test_decode_step_per_row_positions_bit_equal(arch):
                 for k, v in c.items()}
 
     def leaves(c):
-        return [t for v in c.values()
-                for t in (v.values() if isinstance(v, dict) else v)]
+        out = []
+        for k in sorted(c):
+            v = c[k]
+            out += [v[n] for n in sorted(v)] if isinstance(v, dict) else list(v)
+        return out
 
+    # each leaf's batch axis (1 behind the stacked layers, 0 in layer0)
+    axes = leaves(batch_axes(cfg))
     logits, got = decode_step(eng.model, clone(cache), tokens, positions)
     for row, pos in enumerate(positions.tolist()):
         want_logits, want = decode_step(eng.model, clone(cache), tokens,
                                         pos if arch != "rwkv6-3b" else 0)
         assert torch.equal(logits[row], want_logits[row])
-        for g, w in zip(leaves(got), leaves(want)):
-            assert torch.equal(g[:, row], w[:, row])
+        for g, w, ax in zip(leaves(got), leaves(want), axes):
+            assert torch.equal(g.select(ax, row), w.select(ax, row))
     # the step runs on meta tensors (capture) with a meta positions tensor
     meta = {k: ({n: t.to("meta") for n, t in v.items()}
                 if isinstance(v, dict) else tuple(t.to("meta") for t in v))

@@ -9,9 +9,10 @@ Also the ``ndranges=`` argument the engine prices its graphs with:
 ``APU.offload(ndranges=)`` and ``GraphCache.get_or_capture(ndranges=)``
 reports ``==`` the JAX package's for one non-default NDRange.
 
-Models: ``qwen2.5-3b`` and ``rwkv6-3b`` at ``.reduced()`` size, float32,
-the JAX package's parameters carried across with ``tree_from_jax``.  The
-MLA family (deepseek-v2-236b) waits for ``ROADMAP.md`` queue 1 step 4.
+Models: ``qwen2.5-3b``, ``rwkv6-3b``, ``deepseek-v2-236b`` (MLA + MoE)
+and ``moonshot-v1-16b-a3b`` (attention + MoE) at ``.reduced()`` size,
+float32, the JAX package's parameters carried across with
+``tree_from_jax``.
 Tolerances: none — tokens bit for bit, modeled numbers ``==``.
 """
 
@@ -40,7 +41,8 @@ from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.train.serve import greedy_generate
 
 PROMPT, NEW = 12, 4
-FAMILIES = ["qwen2.5-3b", "rwkv6-3b"]
+FAMILIES = ["qwen2.5-3b", "rwkv6-3b", "deepseek-v2-236b",
+            "moonshot-v1-16b-a3b"]
 ENGINE_FIELDS = ("engine_steps", "engine_tokens", "engine_prefill_s_modeled",
                  "engine_decode_s_modeled", "engine_tokens_per_s_modeled",
                  "engine_slot_occupancy", "engine_bytes_per_step",

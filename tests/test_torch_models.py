@@ -120,8 +120,7 @@ def test_configs_are_the_reference_configs():
         configs.get("gpt-5")
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-236b", "jamba-1.5-large-398b",
-                                  "moonshot-v1-16b-a3b", "paligemma-3b",
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "paligemma-3b",
                                   "hubert-xlarge"])
 def test_unported_archs_raise_naming_the_roadmap(name):
     cfg = configs.get(name).reduced()
