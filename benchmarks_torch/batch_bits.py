@@ -9,7 +9,9 @@ of 256 tokens from numpy seed 2, as ``chip_smoke.py`` phases 8 and 9 serve
 them).  The two MoE families draw their weights in bf16 (an f32
 moonshot-v1-16b-a3b tree, 112 GB, fits no card), and deepseek-v2-236b runs
 the depth cut phase 9 serves (:data:`DEPTH`: its dense first layer and
-three MLA + MoE layers); the others keep the f32 draw cast to bf16.  The
+three MLA + MoE layers), jamba-1.5-large-398b the cut phase 10a serves
+(its first four layers, the block and mlp patterns cut with them, a bf16
+tree); the others keep the f32 draw cast to bf16.  The
 batch axis of an op's operand is the one axis whose length differs between
 the batch-6 run and the smaller one (an MoE's expert products carry the
 routing groups, one a sequence in a prefill and one a token in a step, on
@@ -35,16 +37,21 @@ axis 1 of (E, groups * capacity, D)):
   lists the unpaired ops that ran before its op (``unpaired_before``) and
   the unpaired ranges of that layer (``unmatched``).
 
-Ops are caught at the ATen dispatcher (``TorchDispatchMode``); the two
-hand-written kernels on the path (``flash_attention``, ``rwkv6_scan``)
-launch outside it and are caught at their wrappers.
+Ops are caught at the ATen dispatcher (``TorchDispatchMode``); the
+hand-written kernels on the path (``flash_attention``, ``rwkv6_scan``,
+``mamba_scan``) launch outside it and are caught at their wrappers, and so
+is ``rows_matmul`` (the products on fixed chunks of token rows), whose
+chunks hold the rows of several sequences: it is compared at its output,
+never by the ops within it.
 
 Run on the card (prints a summary and, last, the report as one JSON line)::
 
     PYTHONPATH=src python3 -m benchmarks_torch.batch_bits [--arch ARCH]
 
-with ARCH one of qwen2.5-3b (the default), rwkv6-3b, moonshot-v1-16b-a3b
-and deepseek-v2-236b.
+with ARCH one of qwen2.5-3b (the default), rwkv6-3b, moonshot-v1-16b-a3b,
+deepseek-v2-236b and jamba-1.5-large-398b (whose recorded operands at 256
+tokens outgrow the 34 GB its 46 GB tree leaves on an 80 GB card: call
+``run(arch, prompt_len=...)`` with a shorter prompt).
 """
 
 from __future__ import annotations
@@ -63,7 +70,9 @@ from torch.utils._pytree import tree_flatten, tree_map
 from repro_torch import configs
 from repro_torch.core.runtime import resolve_device
 from repro_torch.models import attention as attention_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (apply_norm, cdtype, embed_tokens,
                                        logits_from_hidden)
@@ -75,10 +84,12 @@ from repro_torch.models.transformer import (Transformer, _apply_position,
 from repro_torch.train.serve import greedy_generate
 
 BATCH, PROMPT, NEW, MAX_LEN = 6, 256, 16, 512
-#: layers kept where the whole model fits no card (chip_smoke.py phase 9)
-DEPTH = {"deepseek-v2-236b": 4}
+#: layers kept where the whole model fits no card (chip_smoke.py phases 9
+#: and 10a; a pattern longer than the cut is cut with it)
+DEPTH = {"deepseek-v2-236b": 4, "jamba-1.5-large-398b": 4}
 #: archs whose weights are drawn in bf16 rather than f32 then cast
-BF16_TREE = ("moonshot-v1-16b-a3b", "deepseek-v2-236b")
+BF16_TREE = ("moonshot-v1-16b-a3b", "deepseek-v2-236b",
+             "jamba-1.5-large-398b")
 #: the smaller batches the six rows run in (consecutive rows): each row
 #: alone, and 4 + 2
 ALONE = tuple((i,) for i in range(BATCH))
@@ -261,7 +272,7 @@ def _first_op(big: List[_Op], small: List[_Op], sel) -> Dict[str, Any]:
             continue
         for t in range(i2 - i1):
             ob, os_ = big[i1 + t], small[j1 + t]
-            if not _comparable(ob):
+            if not _comparable(ob) or ob.name.startswith("rows_matmul/"):
                 continue
             d = _differs(ob.out, os_.out, sel)
             if d is not None:
@@ -378,7 +389,10 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
     if reduced:
         cfg = cfg.reduced()
     elif arch in DEPTH:
-        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+        n = DEPTH[arch]
+        cfg = dataclasses.replace(cfg, n_layers=n,
+                                  block_pattern=cfg.block_pattern[:n],
+                                  mlp_pattern=cfg.mlp_pattern[:n])
     tree_dtype = cdtype(cfg) if arch in BF16_TREE else torch.float32
     model = Transformer(cfg, init_params(model_spec(cfg), 0, dtype=tree_dtype,
                                          device=dev))
@@ -404,11 +418,13 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
     sel_sets = list(ALONE) + list(FOURS)
     pick = lambda t, sel: t[list(sel)].contiguous()   # noqa: E731
 
-    saved = (attention_mod.flash_attention, mla_mod.flash_attention,
-             rwkv_mod.rwkv6_scan)
-    attention_mod.flash_attention = _caught("flash_attention", saved[0])
-    mla_mod.flash_attention = _caught("flash_attention", saved[1])
-    rwkv_mod.rwkv6_scan = _caught("rwkv6_scan", saved[2])
+    caught = ((attention_mod, "flash_attention"), (mla_mod, "flash_attention"),
+              (rwkv_mod, "rwkv6_scan"), (mamba_mod, "mamba_scan"),
+              (attention_mod, "rows_matmul"), (mamba_mod, "rows_matmul"),
+              (moe_mod, "rows_matmul"))
+    saved = [getattr(mod, name) for mod, name in caught]
+    for (mod, name), fn in zip(caught, saved):
+        setattr(mod, name, _caught(name, fn))
     try:
         tok = torch.as_tensor(prompts, device=dev).long()
 
@@ -468,8 +484,8 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
         report["step"] = _chain(model, keep, sel_sets, x6, xs, step_layer,
                                 step_head, "step")
     finally:
-        (attention_mod.flash_attention, mla_mod.flash_attention,
-         rwkv_mod.rwkv6_scan) = saved
+        for (mod, name), fn in zip(caught, saved):
+            setattr(mod, name, fn)
     return report
 
 

@@ -39,6 +39,10 @@ Phases (any failure exits non-zero and prints no result line):
    S = T = 256, Dk 192, Dv 128,
    bf16, on the CUDA-core kernel; a B = 1 call bit-equal to row 2 of
    B = 4 with k built as the MLA block builds it, and no view copied),
+   paligemma's prefill (B = 4, H = 8, KVH = 1, S = T = 320, Dk = Dv = 256,
+   bf16 and f32, causal and not, on the CUDA-core kernel; a B = 1 call
+   bit-equal to row 2 of B = 4 in both dtypes), hubert's heads (H = 16,
+   D = 80, non-causal, f32 and bf16), a ragged Dk = Dv = 256 at 77 rows,
    rows that see no key (``q_offset = -16``), and a bfloat16 view that no
    TMA tensor map describes (rows D + 1 elements apart), which the wrapper
    must copy once (``CONTIGUOUS_COPIES``).  ``rwkv6_scan`` runs bf16 and
@@ -56,13 +60,15 @@ Phases (any failure exits non-zero and prints no result line):
    plan cuts T) and over 4 T-shards combined against the full result; the
    plans must include a single split, several, and a T that is no multiple
    of ``keys_per_split``, and each case's plan is logged;
-   ``mamba_scan`` jamba's width (Dm = 16384, N = 16) at B = 4, T = 256
-   and B = 1, T = 4096 with the dtypes the jamba block passes under bf16,
+   ``mamba_scan`` jamba's width (Dm = 16384, N = 16) at the engine's
+   prefill (B = 1, T = 256), B = 4, T = 256 and B = 1, T = 4096 with the
+   dtypes the jamba block passes under bf16,
    a ragged T = 100, ``state0``, N = 32, bf16 rows of Dm = 300 and 301
    (no 16-byte copy describes them: the kernel's element-wise path, x and
    delta both bf16 at 301) and decays from 0 to 0.99999 over T = 512; each
    case logs its lane count (``plan_mamba``) and copy path, and every lane
-   count and both paths must run;
+   count and both paths must run; a B = 1 call must give the bits of the
+   same row of a B = 6 call (x bf16 and f32);
    2b. the four TinyBio kernels with a leading batch axis, for B = 1, 2,
    4, 8: ``fir`` (f32 and Q15 int16), ``delineate`` (with extrema at every
    row's edges), ``power_spectrum`` on (B, 128, 512) and ``svm`` on
@@ -88,16 +94,18 @@ Phases (any failure exits non-zero and prints no result line):
    calls and the launch floor.
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
-   B = 1, S = T = 4096 and at deepseek's MLA prefill (Dk 192, Dv 128),
-   against ``F.scaled_dot_product_attention``;
+   B = 1, S = T = 4096, at deepseek's MLA prefill (Dk 192, Dv 128) and at
+   paligemma's (B = 4, H = 8, KVH = 1, S = T = 320, D = 256), against
+   ``F.scaled_dot_product_attention``;
    ``rwkv6_scan`` at rwkv6-3b's prefill (B = 4, T = 256) and decode-step
    (T = 1) shapes, with B = 1, T = 4096 beside them; ``decode_attention``
    at qwen's decode shape and at T = 32768, against SDPA with one query,
    with its split plan, and at T = 32768 also with the plan sized for one
    sequence alone (the rule the batch-free plan did not take); each
    attention row logs its share of the bound;
-   ``mamba_scan``'s kernel at jamba's width at B = 4, T = 256, with
-   B = 2, T = 128 (phase 4c's shape) and B = 1, T = 4096 beside it, each
+   ``mamba_scan``'s kernel at jamba's width at the engine's prefill,
+   B = 1, T = 256, with B = 4, T = 256, B = 2, T = 128 (phase 4c's shape)
+   and B = 1, T = 4096 beside it, each
    with its byte bound and the special-function unit's floor (one
    exponential per step, channel and state);
 4. the two main paths, each with the launch counters reset just before and
@@ -116,7 +124,8 @@ Phases (any failure exits non-zero and prints no result line):
      ports of the Fig-3, transfer and multi-queue benches on the card,
      their modeled rows equal to the CPU run's;
    * 4c. the registry's ``decode_attention`` and ``mamba_scan`` families
-     (the JAX package reaches these two kernels only through the registry):
+     (the port reached these two kernels only through the registry until
+     phase 10 served jamba):
      ``Program.build(cfg).create_kernel(...)`` for 4T, 8T and 16T, through a
      ``CommandQueue`` and ``APU.offload`` (graph and eager): each result
      equal to the op's, each report equal to the CPU run's, and each kernel
@@ -224,10 +233,33 @@ Phases (any failure exits non-zero and prints no result line):
    tolerances, greedy tokens equal, and every modeled ``stats()`` field of
    the staggered engine run ``==`` the CPU's;
 
-10. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
+10. the Mamba block and the vision frontend (phase 9's models freed
+   first).  10a: jamba-1.5-large-398b at full width (d_model 8192, 64
+   heads over 8 of 128, Mamba d_inner 16384, d_state 16, dt_rank 512, 16
+   experts of 24576, top-2, vocab 65536) cut to its first four layers
+   (mamba + dense, mamba + MoE, mamba + dense, attention + MoE; a period
+   of eight is 88 GB in bf16), a bf16 tree of 23.0 G parameters drawn on
+   the card, served as in phase 9: ``mamba_scan`` three times a prefill
+   (once a mamba layer) and never in a step, ``flash_attention`` once a
+   prefill on ``flash_wgmma_kernel<128, 128>``, tokens equal to
+   ``greedy_generate`` of the six prompts as one batch, 2 cache misses;
+   then its first layer alone (mamba + dense MLP) in f32 against the CPU,
+   as phase 9's cuts (tokens, logits, every ``stats()`` field).  10b:
+   paligemma-3b at full width and depth (18 layers, 8 heads over one kv
+   head of 256, GeGLU 16384, vocab 257216 tied; 2.51 G parameters in
+   bf16): four requests of 256 patch rows of 1152 features (numpy) and 64
+   tokens as one batch through ``make_prefill_step``, 16 greedy tokens
+   through ``make_decode_step(return_logits=False)``: ``flash_attention``
+   18 times a prefill on ``flash_kernel<__nv_bfloat16, 256>`` and never in
+   a step, no library attention kernel, the tokens repeating on a second
+   run; then a 2-layer f32 cut with 256 patch rows against the CPU.
+   Walls, tokens/s, idle shares and peak memory are printed;
+
+11. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
-   kernels, and phases 8's and 9's for ``flash_attention`` and
-   ``rwkv6_scan``), then, last, ``{"ok": true, "device": {...}}``.
+   kernels, phases 8's, 9's and 10's for ``flash_attention``, 8's for
+   ``rwkv6_scan`` and 10's for ``mamba_scan``), then, last,
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -298,6 +330,13 @@ ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_MAX_LEN = (
 # deepseek-v2-236b's 60 layers (471 GB in bf16) fit no card
 MOE_ARCHS = (("moonshot-v1-16b-a3b", 48), ("deepseek-v2-236b", 4))
 MAMBA_ARCH = "jamba-1.5-large-398b"
+# phase 10a: jamba's first four layers (mamba/dense, mamba/moe, mamba/dense,
+# attn/moe) at full width; one period of 8 (88 GB in bf16) fits no card
+MAMBA_LAYERS = 4
+# phase 10b: paligemma-3b at full width and depth, 4 requests of 256 patch
+# rows of 1152 features and 64 text tokens, 16 greedy tokens each
+PALI_ARCH = "paligemma-3b"
+PALI_BATCH, PALI_TEXT, PALI_NEW, PALI_MAX_LEN = 4, 64, 16, 512
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
@@ -514,14 +553,20 @@ def stats_match_cpu(torch, np, dev, cut, tree, what):
               f"the card, {cpu_stats[key]} on the CPU")
 
 
-def cut_run(torch, model, device, prompt, feed=None):
-    """Prefill ``prompt`` (max_len 128) and 4 decode steps; each step is
-    fed ``feed[i]`` or, with no feed, this run's own greedy token.  ->
-    (logits, tokens) on the CPU."""
+def cut_run(torch, model, device, prompt, feed=None, patches=None):
+    """Prefill ``prompt`` after ``patches`` where given (max_len 128 more
+    than the patch rows) and 4 decode steps; each step is fed ``feed[i]``
+    or, with no feed, this run's own greedy token.  -> (logits, tokens) on
+    the CPU."""
     from repro_torch.models.transformer import decode_step, prefill
-    lg, c = prefill(model, {"tokens": prompt.to(device)}, 128)
+    inputs = {"tokens": prompt.to(device)}
+    n_patches = 0
+    if patches is not None:
+        inputs["patches"] = patches.to(device)
+        n_patches = patches.shape[1]
+    lg, c = prefill(model, inputs, 128 + n_patches)
     out_logits, out_tokens = [lg.cpu()], [torch.argmax(lg, -1).cpu()]
-    s = prompt.shape[1]
+    s = prompt.shape[1] + n_patches
     for i in range(4):
         tok_in = out_tokens[-1] if feed is None else feed[i]
         lg, c = decode_step(model, c, tok_in.to(device), s + i)
@@ -531,11 +576,12 @@ def cut_run(torch, model, device, prompt, feed=None):
 
 
 def card_against_cpu(torch, np, dev, cut, what, kernel="flash_attention",
-                     per_step=0):
-    """A cut at full width in f32 (phases 5b, 6b and 9), the same
+                     per_step=0, patches=0):
+    """A cut at full width in f32 (phases 5b, 6b, 9 and 10), the same
     parameters on the card and the CPU (drawn on the CPU, seed 0): prefill
-    of 2 x 64 tokens (numpy seed 1) and 4 decode steps teacher-forced from
-    the CPU's tokens.  The card's f32 matmuls (TF32 off) and kernels sum in
+    of 2 x 64 tokens (numpy seed 1), after ``patches`` rows of vision
+    features each where asked, and 4 decode steps teacher-forced from the
+    CPU's tokens.  The card's f32 matmuls (TF32 off) and kernels sum in
     another order than the CPU's matmuls and plain versions: prefill logits
     within 1e-4 of max |logit|; decode within 1e-2, since a key that
     differs in its last bits can round to the neighbouring bf16 value in
@@ -543,18 +589,23 @@ def card_against_cpu(torch, np, dev, cut, what, kernel="flash_attention",
     tolerances); greedy tokens equal; ``kernel`` launched once per layer of
     the card's prefill and ``per_step`` times a layer per step.  -> (the
     relative logits errors, the CPU tree)."""
+    from repro_torch.models.frontends import feature_dim
     from repro_torch.kernels import common
     from repro_torch.models.params import init_params, map_tree
     from repro_torch.models.transformer import Transformer, model_spec
     tree = init_params(model_spec(cut), 0, device="cpu")
     on_cpu = Transformer(cut, tree)
     on_card = Transformer(cut, map_tree(lambda t: t.to(dev), tree))
-    prompt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cut.vocab, (2, 64)))
-    cpu_logits, cpu_tokens = cut_run(torch, on_cpu, "cpu", prompt)
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cut.vocab, (2, 64)))
+    feats = (torch.from_numpy(rng.standard_normal(
+        (2, patches, feature_dim(cut))).astype(np.float32))
+        if patches else None)
+    cpu_logits, cpu_tokens = cut_run(torch, on_cpu, "cpu", prompt,
+                                     patches=feats)
     before = common.LAUNCHES[kernel]
     card_logits, card_tokens = cut_run(torch, on_card, dev, prompt,
-                                       feed=cpu_tokens)
+                                       feed=cpu_tokens, patches=feats)
     check(common.LAUNCHES[kernel] - before == cut.n_layers * (1 + 4 * per_step),
           f"{what}: the card run did not launch {kernel} once per layer of "
           f"its prefill and {per_step} times a layer per step")
@@ -574,18 +625,17 @@ def card_against_cpu(torch, np, dev, cut, what, kernel="flash_attention",
     return errs, tree
 
 
-def serve_engine(torch, np, dev, cfg, ours, per_step,
-                 tree_dtype=None):
-    """The decode engine's serving run of ``cfg`` (phases 8 and 9): weights
+def serve_engine(torch, np, dev, cfg, ours, tree_dtype=None):
+    """The decode engine's serving run of ``cfg`` (phases 8, 9 and 10a): weights
     from seed 0 drawn on the card (``tree_dtype``: f32 by default, as
     ``init_params`` makes them), ``DecodeEngine(num_slots=4, max_len=512,
     bf16 cache)`` behind an engine-only ``Server``; one short request
     captures both graphs, then six 256-token requests of 16 new tokens
     arrive staggered (two, two after 5 tokens, two after 5 more, which
     wait for freed slots), with the launch counters reset just before and
-    read just after: the kernels of ``ours`` launch once per layer per
-    prefill and ``per_step`` times a layer per step, no other kernel of
-    ours, and no view is copied for a tensor map.  Each request's tokens
+    read just after: each kernel of ``ours`` ({name: (launches a prefill,
+    launches a step)}) launches that often, no other kernel of ours, and
+    no view is copied for a tensor map.  Each request's tokens
     must equal the card's ``greedy_generate`` of the six prompts as one
     batch, bit for bit (``benchmarks_torch/batch_bits.py`` names the ops
     whose bits depend on the batch), and the cache must miss twice.  A
@@ -599,7 +649,6 @@ def serve_engine(torch, np, dev, cfg, ours, per_step,
     from repro_torch.serve import DecodeEngine, Server
     from repro_torch.train.serve import greedy_generate
     arch = cfg.name
-    n_layers = cfg.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -635,8 +684,8 @@ def serve_engine(torch, np, dev, cfg, ours, per_step,
     n_prefills = eng.n_prefills - prefills0
     check(n_prefills == ENGINE_REQUESTS, f"{arch}: {n_prefills} prefills")
     for name in KERNELS:
-        want = (n_layers * (n_prefills + per_step * n_steps)
-                if name in ours else 0)
+        per_prefill, per_step = ours.get(name, (0, 0))
+        want = per_prefill * n_prefills + per_step * n_steps
         check(moved[name] == want,
               f"{arch} engine path launched {name} {moved[name]} times, "
               f"expected {want} ({n_prefills} prefills, {n_steps} steps)")
@@ -699,6 +748,210 @@ def serve_engine(torch, np, dev, cfg, ours, per_step,
     del eng, srv, tree, state
     torch.cuda.empty_cache()
     return out
+
+
+def jamba_cut(cfg, n_layers: int, dtype=None):
+    """jamba's first ``n_layers`` layers (its block and mlp patterns cut to
+    their first entries), at full width."""
+    return dataclasses.replace(
+        cfg, n_layers=n_layers, block_pattern=cfg.block_pattern[:n_layers],
+        mlp_pattern=cfg.mlp_pattern[:n_layers], dtype=dtype or cfg.dtype)
+
+
+def serve_mamba(torch, np, dev, base, card):
+    """Phase 10a: jamba at full width, its first :data:`MAMBA_LAYERS`
+    layers on a bf16 tree drawn on the card, through the decode engine as
+    phase 9 serves (:func:`serve_engine`): ``mamba_scan`` once per mamba
+    layer per prefill and never in a step (a step runs the plain one-step
+    recurrence, as the JAX decode does), ``flash_attention`` once per
+    attention layer per prefill on ``flash_wgmma_kernel<128, 128>``; then
+    its first layer alone (mamba / dense) in f32, the card against the CPU.
+    -> the launches of the served run."""
+    from repro_torch.models.params import leaves_with_path
+    cfg = jamba_cut(base, MAMBA_LAYERS)
+    n_mamba = cfg.block_pattern.count("mamba")
+    n_attn = cfg.block_pattern.count("attn")
+    e = serve_engine(torch, np, dev, cfg,
+                     {"mamba_scan": (n_mamba, 0),
+                      "flash_attention": (n_attn, 0)},
+                     tree_dtype=torch.bfloat16)
+    scans = sorted(k for k in e["prefill_profile"][2] if "mamba_kernel" in k)
+    check(bool(scans), f"{base.name}: the profiled prefill ran no "
+          f"mamba_kernel: {sorted(e['prefill_profile'][2])[:12]}")
+    log(f"phase 10a: {base.name}: {cfg.n_layers} layers at full width "
+        f"({'/'.join(f'{b}+{m}' for b, m in zip(cfg.block_pattern, cfg.mlp_pattern))}; "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"of {cfg.head_dim}, Mamba d_inner {cfg.mamba_d_inner}, d_state "
+        f"{cfg.mamba_d_state}, dt_rank {cfg.mamba_dt_rank}, {cfg.n_experts} "
+        f"experts of {cfg.d_ff_expert} top-{cfg.top_k}, vocab {cfg.vocab}), "
+        f"{e['n_params']} parameters drawn in bf16 on the card in "
+        f"{e['init_s']:.3f} s ({e['model_gib']:.3f} GiB allocated with the "
+        f"engine); DecodeEngine({ENGINE_SLOTS} slots, max_len "
+        f"{ENGINE_MAX_LEN}): {ENGINE_REQUESTS} staggered requests of "
+        f"{ENGINE_PROMPT} tokens, {ENGINE_NEW} new each, in {e['n_steps']} "
+        f"steps; tokens == greedy_generate of the six prompts as one batch; "
+        f"2 cache misses (capture run {e['capture_wall']:.3f} s); launches "
+        f"{e['launches']}; the prefill ran {e['flash']} and {scans}; first "
+        f"request's tokens {e['first']}")
+    log(f"phase 10a: {base.name} on {card}: served wall "
+        f"{e['served_wall']:.3f} s, {e['tokens_per_s']:.1f} tokens/s of "
+        f"wall; warm prefill (B = 1, {ENGINE_PROMPT} tokens) wall "
+        f"{e['prefill_ms']:.3f} ms (median of 3); warm step ({ENGINE_SLOTS} "
+        f"slots, tokens read back) wall {e['step_ms']:.3f} ms (median of "
+        f"5); peak device memory {e['peak_gib']:.3f} GiB")
+    log(f"phase 10a: {base.name}: " + profile_line("one warm engine step",
+                                                   *e["profile"]))
+    log(f"phase 10a: {base.name}: " + profile_line(
+        "one warm engine prefill", *e["prefill_profile"]))
+    log(f"phase 10a: {base.name}: stats " + json.dumps(e["stats"]))
+    cut = jamba_cut(base, 1, "float32")
+    t0 = time.perf_counter()
+    cut_errs, cut_tree = card_against_cpu(torch, np, dev, cut, base.name,
+                                          kernel="mamba_scan")
+    stats_match_cpu(torch, np, dev, cut, cut_tree, base.name)
+    n_cut = sum(t.numel() for _, t in leaves_with_path(cut_tree))
+    log(f"phase 10a: {base.name}: its first layer alone (mamba + dense MLP) "
+        f"at full width in f32, {n_cut} parameters ({n_cut * 4 / 1e9:.1f} "
+        f"GB), card vs CPU: greedy tokens equal over prefill + 4 decode "
+        f"steps; logits error / max |logit| "
+        + ", ".join(f"{x_:.3g}" for x_ in cut_errs)
+        + f"; every stats() field of the staggered engine run == the CPU's; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del cut_tree
+    torch.cuda.empty_cache()
+    return e["launches"]
+
+
+def serve_vision(torch, np, dev, cfg, card):
+    """Phase 10b: paligemma at full width and depth on a bf16 tree drawn on
+    the card (seed 0): :data:`PALI_BATCH` requests as one batch, each
+    256 patch rows of 1152 features (numpy seed 2) before
+    :data:`PALI_TEXT` text tokens, prefilled through ``make_prefill_step``
+    and :data:`PALI_NEW` greedy tokens through ``make_decode_step(
+    return_logits=False)`` from position 256 + 64, as the JAX package's
+    ``tests/test_arch_smoke.py`` drives it (the engine, like the JAX one,
+    takes token prompts only).  The launch counters are reset before a
+    second run and read after it: ``flash_attention`` once per layer per
+    prefill on ``flash_kernel<__nv_bfloat16, 256>`` (the CUDA-core kernel:
+    (256, 256) is not in ``MMA_HEAD_DIMS``) and never in a step (decode
+    attends with the einsum, as the JAX decode does); no other kernel of
+    ours and no library attention kernel; the second run's tokens equal the
+    first's.  Then a 2-layer f32 cut, the card against the CPU, with 256
+    patch rows before each prompt.  -> the launches of the counted run."""
+    from repro_torch.kernels import common
+    from repro_torch.models.frontends import feature_dim
+    from repro_torch.models.params import init_params, leaves_with_path
+    from repro_torch.models.transformer import Transformer, model_spec
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = init_params(model_spec(cfg), 0, dtype=torch.bfloat16, device=dev)
+    model = Transformer(cfg, tree)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in leaves_with_path(tree))
+    rng = np.random.default_rng(2)
+    n_patch = cfg.n_prefix_embed
+    inputs = {
+        "tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (PALI_BATCH, PALI_TEXT))).to(dev),
+        "patches": torch.from_numpy(rng.standard_normal(
+            (PALI_BATCH, n_patch, feature_dim(cfg))).astype(np.float32)).to(dev)}
+    prefill_step = make_prefill_step(cfg, PALI_MAX_LEN)
+    step = make_decode_step(cfg, return_logits=False)
+    pos0 = n_patch + PALI_TEXT
+
+    def generate():
+        logits, cache = prefill_step(model, inputs)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out = [tok]
+        for i in range(PALI_NEW - 1):
+            tok, cache = step(model, cache, tok, pos0 + i)
+            out.append(tok)
+        return torch.stack(out, 1).cpu().numpy()
+
+    t0 = time.perf_counter()
+    first = generate()
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    common.reset_launches()
+    t0 = time.perf_counter()
+    got = generate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = dict(common.LAUNCHES)
+    for name in KERNELS:
+        want = cfg.n_layers if name == "flash_attention" else 0
+        check(moved[name] == want, f"{cfg.name}: the served run launched "
+              f"{name} {moved[name]} times, expected {want}")
+    check(got.shape == (PALI_BATCH, PALI_NEW)
+          and bool(((got >= 0) & (got < cfg.vocab)).all()),
+          f"{cfg.name}: tokens are not ({PALI_BATCH}, {PALI_NEW}) ids below "
+          f"the vocabulary")
+    check(np.array_equal(first, got),
+          f"{cfg.name}: a second run gave other tokens")
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, cache = prefill_step(model, inputs)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    tok = torch.from_numpy(got[:, 0]).to(dev)
+    steps = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        tok, cache = step(model, cache, tok, pos0 + i)
+        tok.cpu()
+        steps.append(time.perf_counter() - t0)
+    step_profile = device_profile(
+        torch, lambda: step(model, cache, tok, pos0 + 5)[0].cpu())
+    p_wall, p_busy, p_kernels = device_profile(
+        torch, lambda: prefill_step(model, inputs))
+    library = [k for k in p_kernels
+               if any(t in k.lower() for t in LIBRARY_ATTENTION)]
+    check(not library, f"{cfg.name}: the prefill ran library attention "
+          f"kernels: {library}")
+    flash = sorted(k for k in p_kernels
+                   if any(n in k for n in FLASH_KERNEL_NAMES))
+    check(bool(flash) and all("flash_kernel<__nv_bfloat16, 256>" in k
+                              for k in flash),
+          f"{cfg.name}: the prefill ran {flash}, expected "
+          f"flash_kernel<__nv_bfloat16, 256>")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 10b: {cfg.name}: {cfg.n_layers} layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+        f"of {cfg.head_dim}, GeGLU {cfg.d_ff}, vocab {cfg.vocab} tied), "
+        f"{n_params} parameters drawn in bf16 on the card in {init_s:.3f} s; "
+        f"{PALI_BATCH} requests of {n_patch} patch rows x {feature_dim(cfg)} "
+        f"+ {PALI_TEXT} tokens as one batch, {PALI_NEW} greedy tokens each "
+        f"(make_prefill_step + make_decode_step(return_logits=False) from "
+        f"position {pos0}); tokens repeat on a second run; launches {moved}; "
+        f"the prefill ran {flash}; first request's tokens {got[0].tolist()}")
+    log(f"phase 10b: {cfg.name} on {card}: first run {first_wall:.3f} s, "
+        f"second {wall:.3f} s ({PALI_BATCH * PALI_NEW / wall:.1f} tokens/s of "
+        f"wall); warm prefill (B = {PALI_BATCH}, {pos0} positions) wall "
+        f"{sorted(pre)[1] * 1e3:.3f} ms (median of 3); warm step (B = "
+        f"{PALI_BATCH}, tokens read back) wall {sorted(steps)[2] * 1e3:.3f} "
+        f"ms (median of 5); peak device memory {peak:.3f} GiB")
+    log(f"phase 10b: {cfg.name}: " + profile_line("one warm prefill", p_wall,
+                                                  p_busy, p_kernels))
+    log(f"phase 10b: {cfg.name}: " + profile_line("one warm decode step",
+                                                  *step_profile))
+    del model, tree, cache
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    cut_errs, cut_tree = card_against_cpu(torch, np, dev, cut, cfg.name,
+                                          patches=n_patch)
+    log(f"phase 10b: {cfg.name}: 2-layer full-width f32 cut, "
+        f"{sum(t.numel() for _, t in leaves_with_path(cut_tree)) * 4 / 1e9:.1f} "
+        f"GB, {n_patch} patch rows before each 64-token prompt, card vs CPU: "
+        f"greedy tokens equal over prefill + 4 decode steps; logits error / "
+        f"max |logit| " + ", ".join(f"{x_:.3g}" for x_ in cut_errs)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    del cut_tree
+    return moved
 
 
 def main() -> int:
@@ -1087,6 +1340,11 @@ def main() -> int:
     # tensor cores) and deepseek's MLA
     moe_dims, _ = engine_flash_dims(get_arch(MOE_ARCHS[0][0]))
     mla_dims, mla_scale = engine_flash_dims(get_arch(MOE_ARCHS[1][0]))
+    pali_cfg = get_arch(PALI_ARCH)
+    pali_h, pali_kvh, pali_d = (pali_cfg.n_heads, pali_cfg.n_kv_heads,
+                                pali_cfg.head_dim)
+    pali_s = pali_cfg.n_prefix_embed + PALI_TEXT
+    pali_dims = (PALI_BATCH, pali_h, pali_kvh, pali_s, pali_s, pali_d, pali_d)
     fa_err = {
         "prefill B=4 S=T=256 bf16": flash_case(
             "prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d, lm_d), bf16),
@@ -1130,6 +1388,21 @@ def main() -> int:
             mla_dims[1], mla_dims[3], mla_dims[5], mla_dims[6]): flash_case(
             "MLA", mla_dims, bf16, scale=mla_scale),
     }
+    # paligemma's prefill (phase 10b): 8 heads over one kv head of 256, 256
+    # patch rows + 64 tokens, on the CUDA-core kernel at Dv 256; hubert's
+    # heads (16 of 80, bidirectional) at Dv 80, which no model path runs
+    # yet (its encode step comes with training)
+    for dtype in (bf16, torch.float32):
+        for causal in (True, False):
+            what = (f"paligemma B={PALI_BATCH} H={pali_h} KVH={pali_kvh} "
+                    f"S=T={pali_s} D={pali_d} {'causal' if causal else 'non-causal'} "
+                    f"{str(dtype)[6:]}")
+            fa_err[what] = flash_case(what, pali_dims, dtype, causal=causal)
+        what = f"hubert B=2 H=16 S=T=200 D=80 non-causal {str(dtype)[6:]}"
+        fa_err[what] = flash_case(what, (2, 16, 16, 200, 200, 80, 80), dtype,
+                                  causal=False)
+    fa_err["Dk=Dv=256 S=T=77 ragged causal f32"] = flash_case(
+        "Dk=Dv=256 ragged", (1, 2, 1, 77, 77, 256, 256), torch.float32)
     # a bf16 view that no tensor map describes (rows D + 1 elements apart):
     # the wrapper copies it contiguous, then launches the same kernel
     q, _, v = qkv(2, lm_h, lm_kvh, 300, 300, lm_d, lm_d, bf16)
@@ -1149,12 +1422,14 @@ def main() -> int:
     # (the engine prefills one prompt, greedy_generate a batch): row 2 of
     # B = 4 against B = 1, at qwen's prefill shape in bf16 and f32 and at
     # moonshot's in bf16
-    for dtype, dims in ((bf16, (lm_h, lm_kvh, lm_d)),
-                        (torch.float32, (lm_h, lm_kvh, lm_d)),
-                        (bf16, (moe_dims[1], moe_dims[2], moe_dims[5]))):
-        h_, kvh_, d_ = dims
-        q, k, v = qkv(LM_BATCH, h_, kvh_, ENGINE_PROMPT, ENGINE_PROMPT,
-                      d_, d_, dtype)
+    for dtype, dims in ((bf16, (lm_h, lm_kvh, lm_d, ENGINE_PROMPT)),
+                        (torch.float32, (lm_h, lm_kvh, lm_d, ENGINE_PROMPT)),
+                        (bf16, (moe_dims[1], moe_dims[2], moe_dims[5],
+                                ENGINE_PROMPT)),
+                        (bf16, (pali_h, pali_kvh, pali_d, pali_s)),
+                        (torch.float32, (pali_h, pali_kvh, pali_d, pali_s))):
+        h_, kvh_, d_, s_ = dims
+        q, k, v = qkv(LM_BATCH, h_, kvh_, s_, s_, d_, d_, dtype)
         whole = launched("flash_attention", lambda: flash_attention(q, k, v))
         alone = launched("flash_attention", lambda: flash_attention(
             q[2:3], k[2:3], v[2:3]))
@@ -1183,7 +1458,7 @@ def main() -> int:
     max_err["flash_attention"] = fa_err["prefill B=4 S=T=256 bf16"]
     log("phase 2: flash_attention ok (B=1 bit-equal to row 2 of B=4 at "
         "S=T=256: qwen's heads in bf16 and f32, moonshot's and MLA's in "
-        "bf16; max abs err vs plain: "
+        "bf16; at S=T=320 paligemma's in bf16 and f32; max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
 
     # The three scans and decode attention against their plain versions.
@@ -1422,6 +1697,8 @@ def main() -> int:
     f32 = torch.float32
     mb_err, mb_paths, mb_share = {}, {}, {}
     for what, (b_, t_, dm, n_, dtype, d_dtype, with_d, with_s0, decays) in {
+            f"jamba engine prefill B=1 T=256 Dm={mb_dm} N={mb_n} x bf16": (
+                1, 256, mb_dm, mb_n, bf16, f32, False, False, None),
             f"jamba width B=4 T=256 Dm={mb_dm} N={mb_n} x bf16": (
                 4, 256, mb_dm, mb_n, bf16, f32, False, False, None),
             "jamba width B=4 T=256 state0 x bf16": (
@@ -1456,8 +1733,24 @@ def main() -> int:
     check({p[0] for p in mb_paths.values()} == {1, 2, 4}
           and {p[1] for p in mb_paths.values()} == {"16-byte", "element"},
           f"mamba_scan: phase 2 missed a lane count or a copy path: {mb_paths}")
-    max_err["mamba_scan"] = mb_err[f"jamba width B=4 T=256 Dm={mb_dm} N={mb_n} x bf16"]
-    log("phase 2: mamba_scan ok (max abs err vs plain, f32 outputs' err over "
+    max_err["mamba_scan"] = mb_err[
+        f"jamba engine prefill B=1 T=256 Dm={mb_dm} N={mb_n} x bf16"]
+    # a row of a batched scan has the bits of the same row scanned alone
+    # (the decode engine prefills one prompt, greedy_generate a batch;
+    # plan_mamba's lanes do not read B): row 2 of B = 6 against B = 1 at
+    # jamba's width, x bf16 and f32
+    for dtype in (bf16, f32):
+        ins = ssm_inputs(6, 256, mb_dm, mb_n, dtype)
+        d_ = normal(mb_dm)
+        whole = launched("mamba_scan", lambda: mamba_scan(*ins, d_))
+        alone = launched("mamba_scan", lambda: mamba_scan(
+            *(z[2:3] for z in ins[:2]), ins[2], *(z[2:3] for z in ins[3:]),
+            d_))
+        check(torch.equal(whole[0][2:3], alone[0])
+              and torch.equal(whole[1][2:3], alone[1]),
+              f"mamba_scan {dtype}: row 2 of B=6 differs from the row alone")
+    log("phase 2: mamba_scan ok (B=1 bit-equal to row 2 of B=6 at jamba's "
+        "width, x bf16 and f32; max abs err vs plain, f32 outputs' err over "
         "tolerance, [lanes, copy path]: " + ", ".join(
             f"{k_} {v_:.3g} {mb_share[k_]:.3f} {mb_paths[k_]}"
             for k_, v_ in mb_err.items()) + ")")
@@ -1735,7 +2028,9 @@ def main() -> int:
             ("long", (1, lm_h, lm_kvh, 4096, 4096, lm_d, lm_d), None, 3),
             # SDPA takes Dv != Dk (its flash backend does not; PyTorch picks
             # another)
-            ("MLA", mla_dims, mla_scale, 20)):
+            ("MLA", mla_dims, mla_scale, 20),
+            # paligemma's prefill: Dk = Dv = 256 on the CUDA-core kernel
+            ("paligemma", pali_dims, None, 10)):
         b_, h_, kvh_, s_, _, dk_, dv_ = dims
         q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
         check(err(sdpa(q, k, v, scale),
@@ -1841,9 +2136,10 @@ def main() -> int:
 
     # mamba_scan's kernel (selective_scan: the scan without the D x skip,
     # which the op adds in plain PyTorch as the JAX op does) at jamba's
-    # width with the dtypes the jamba block passes under bf16: B = 4,
-    # T = 256 (the row reported), phase 4c's B = 2, T = 128 and one long
-    # sequence, B = 1, T = 4096, beside it.  Bound: x (bf16), delta (f32),
+    # width with the dtypes the jamba block passes under bf16: B = 1,
+    # T = 256 (the decode engine's prefill in phase 10a: the row reported),
+    # B = 4, T = 256 (the row earlier runs reported), phase 4c's B = 2,
+    # T = 128 and one long sequence, B = 1, T = 4096, beside it.  Bound: x (bf16), delta (f32),
     # a, b, c (f32) read once, y (bf16) and the f32 state written once,
     # against 6 N flops per step and channel (mamba_scan's counts).  The
     # special-function unit's floor is logged beside it: one exponential
@@ -1851,7 +2147,8 @@ def main() -> int:
     # Programming Guide, compute capability 9.0) and the max SM clock.
     # Library none.
     mb_rows = {}
-    for b_, t_, per_graph in ((4, 256, 20), (2, 128, 80), (1, 4096, 5)):
+    for b_, t_, per_graph in ((1, 256, 40), (4, 256, 20), (2, 128, 80),
+                              (1, 4096, 5)):
         ins = ssm_inputs(b_, t_, mb_dm, mb_n, bf16)
         elems = b_ * t_ * mb_dm
         mb_bound = bound(elems * (2 + 4 + 2) + 4.0 * (
@@ -1870,7 +2167,7 @@ def main() -> int:
             f"bound {mb_bound[0]:.6f} ms ({mb_bound[1]}), SFU floor "
             f"{sfu_ms:.6f} ms; kernel {r['ms'] / mb_bound[0]:.2f}x its bound, "
             f"{r['ms'] / sfu_ms:.2f}x the SFU floor")
-    rows["mamba_scan"] = mb_rows[4, 256]
+    rows["mamba_scan"] = mb_rows[1, 256]
 
     # -- 4a. the TinyBio main path --------------------------------------------
     runs = {}
@@ -2630,9 +2927,11 @@ def main() -> int:
     # decoded alone may part); every modeled stats() field must equal the
     # same workload's on the CPU over a 2-layer f32 cut at full width (as
     # 5b cuts).
-    for cfg_, label, ours, per_step in ((lm_cfg, LM_ARCH, LM_KERNELS, 0),
-                                        (rw_cfg, RWKV_ARCH, RWKV_KERNELS, 1)):
-        e = serve_engine(torch, np, dev, cfg_, ours, per_step)
+    for cfg_, label, ours in (
+            (lm_cfg, LM_ARCH, {"flash_attention": (lm_cfg.n_layers, 0)}),
+            (rw_cfg, RWKV_ARCH, {"rwkv6_scan": (rw_cfg.n_layers,
+                                                rw_cfg.n_layers)})):
+        e = serve_engine(torch, np, dev, cfg_, ours)
         cut = dataclasses.replace(cfg_, n_layers=2, dtype="float32")
         stats_match_cpu(torch, np, dev, cut,
                         init_params(model_spec(cut), 0, device="cpu"), label)
@@ -2672,7 +2971,8 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
     for arch, n_layers_ in MOE_ARCHS:
         cfg_ = dataclasses.replace(get_arch(arch), n_layers=n_layers_)
-        e = serve_engine(torch, np, dev, cfg_, LM_KERNELS, 0,
+        e = serve_engine(torch, np, dev, cfg_,
+                         {"flash_attention": (cfg_.n_layers, 0)},
                          tree_dtype=torch.bfloat16)
         launches["flash_attention"] += e["launches"]["flash_attention"]
         log(f"phase 9: {arch}: {cfg_.n_layers} layers at full width "
@@ -2719,7 +3019,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 9: {time.perf_counter() - t_moe:.1f} s")
 
-    # -- 10. summary --------------------------------------------------------------
+    # -- 10. the Mamba block and the vision frontend: jamba, paligemma --------
+    # Phase 9's models are freed by then.  10a serves jamba's first four
+    # layers at full width through the decode engine (mamba_scan on every
+    # prefill's mamba layers); 10b serves paligemma at full width and depth
+    # with image + text requests (flash_attention at Dk = Dv = 256).
+    t_p10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 10: device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+    moved = serve_mamba(torch, np, dev, get_arch(MAMBA_ARCH), card)
+    for name in ("mamba_scan", "flash_attention"):
+        launches[name] += moved[name]
+    launches["flash_attention"] += serve_vision(
+        torch, np, dev, get_arch(PALI_ARCH), card)["flash_attention"]
+    log(f"phase 10: {time.perf_counter() - t_p10:.1f} s")
+
+    # -- 11. summary --------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

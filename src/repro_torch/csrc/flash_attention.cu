@@ -46,7 +46,11 @@
 //   so no TF32 tensor cores) and every other head-dim pair: f32 FMAs on the
 //   CUDA cores.  128 threads hold an 8 x 2 strip of the (64, 32) score tile
 //   and an 8 x (Dv / 16) strip of the output, reading q and p rows as
-//   float4 broadcasts and k and v rows as contiguous float4/float2 runs.
+//   float4 broadcasts and k and v rows as contiguous float4/float2 runs (or
+//   one float at a time at Dv 80, hubert's heads).  At Dv 256 (paligemma's
+//   heads) a thread's strip is 128 f32 accumulators (ptxas: 255 registers
+//   a thread, no spills), and the block's shared memory at Dk 256 is
+//   141,824 bytes: one block an SM.
 //
 // What bounds it on the H100: for qwen2.5-3b's prefill (16 heads over 2 kv
 // heads of 128, S = T = 256, bf16, batch 4) the work is 0.54 G causal
@@ -772,14 +776,17 @@ int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
   switch (dv) {
     case 32: return launch_dv<T, 32>(a, st);
     case 64: return launch_dv<T, 64>(a, st);
+    case 80: return launch_dv<T, 80>(a, st);
     case 96: return launch_dv<T, 96>(a, st);
     case 128: return launch_dv<T, 128>(a, st);
+    case 256: return launch_dv<T, 256>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Head dims this file takes: Dk any multiple of 4 from 4 to 256 (a loop
-// bound), Dv in {32, 64, 96, 128} (the size of each thread's output strip;
+// bound), Dv in {32, 64, 80, 96, 128, 256} (the size of each thread's
+// output strip;
 // repro_torch/kernels/flash_attention/flash_attention.py lists the same).
 template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, int b,

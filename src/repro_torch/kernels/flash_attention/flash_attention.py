@@ -29,8 +29,9 @@ from ..common import launch, ptr, stream_of
 #: compiled for
 MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64))
 #: Dv values csrc/flash_attention.cu is compiled for (each thread's output
-#: strip is Dv / 16 registers wide)
-COMPILED_DV = (32, 64, 96, 128)
+#: strip is Dv / 16 registers wide): 80 is hubert's head dim, 256
+#: paligemma's
+COMPILED_DV = (32, 64, 80, 96, 128, 256)
 #: Dk: any multiple of 4 up to this (a loop bound; Qs and Ks grow with it)
 MAX_DK = 256
 DTYPES = (torch.float32, torch.bfloat16)

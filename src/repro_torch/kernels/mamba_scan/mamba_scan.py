@@ -44,8 +44,10 @@ MIN_STATES_PER_LANE = 8
 #: per-step work at every step, which fewer lanes cut.  Read from
 #: ``bench_mamba_scan.py --lanes`` on an H100 (Dm = 16384, N = 16, B = 1,
 #: 2, 4, T = 128 .. 4096; PERF.md, Findings): at B = 2, 2 lanes (15.5
-#: warps an SM) beat 1 (7.8) at T = 128 and 256 and lost from T = 512 on;
-#: the plan's choice is within 1.5 % of the fastest at all 18 shapes.
+#: warps an SM) beat 1 (7.8) at T = 128 and 256 and lost from T = 512 on.
+#: The warps counted are one batch row's (the plan does not read B, so a
+#: row's bits do not depend on its batch): at B = 2 and 4 it takes B = 1's
+#: lanes, 2 at jamba's width, which can be slower than 1 lane there.
 WARPS_PER_SM = 12
 WARPS_PER_SM_LONG = 6
 LONG_SCAN = 512
@@ -78,12 +80,15 @@ def lane_choices(n: int):
 
 def plan_mamba(b: int, t: int, dm: int, n: int, sm_count: int) -> MambaPlan:
     """The launch of a (B = ``b``, T = ``t``, Dm = ``dm``, N = ``n``) scan
-    on a card of ``sm_count`` SMs: the fewest lanes a channel whose grid
-    gives :data:`WARPS_PER_SM` warps an SM (:data:`WARPS_PER_SM_LONG` from
-    :data:`LONG_SCAN` steps on), else the most lanes allowed.
+    on a card of ``sm_count`` SMs: the fewest lanes a channel with which
+    ONE batch row's channels give :data:`WARPS_PER_SM` warps an SM
+    (:data:`WARPS_PER_SM_LONG` from :data:`LONG_SCAN` steps on), else the
+    most lanes allowed; the grid then holds ``b`` times that row's blocks.
 
     A pure function of its arguments.  The lanes fix the order of y's sum
-    over N, so the same shapes on the same card always give the same bits.
+    over N, and they do not depend on ``b``: a row's bits are the same in a
+    batch of any size (the decode engine prefills one prompt at a time and
+    ``greedy_generate`` a batch of them).
     """
     if min(b, dm, sm_count) < 1 or t < 0:
         raise ValueError(f"plan_mamba needs positive sizes, got b={b}, t={t}, "
@@ -93,7 +98,7 @@ def plan_mamba(b: int, t: int, dm: int, n: int, sm_count: int) -> MambaPlan:
         raise ValueError(f"the mamba_scan kernel is compiled for N in "
                          f"{COMPILED_N}; got N={n}")
     target = WARPS_PER_SM_LONG if t >= LONG_SCAN else WARPS_PER_SM
-    lanes = next((l for l in choices if b * dm * l >= target * sm_count * 32),
+    lanes = next((l for l in choices if dm * l >= target * sm_count * 32),
                  choices[-1])
     channels = THREADS // lanes
     blocks = b * cdiv(dm, channels)

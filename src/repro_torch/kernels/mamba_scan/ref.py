@@ -107,7 +107,9 @@ def mamba_scan_plain(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
         inc = torch.cat([inc[:, :1] + da[:, :1] * h[:, None], inc[:, 1:]],
                         dim=1)                                # fold carry in
         _, hc = _assoc_scan(da, inc, dim=1)
-        ys.append(torch.einsum("btdn,btn->btd", hc, cc))
+        # the readout as products summed over N per (row, step, channel):
+        # an einsum here lowers to a bmm whose blocking follows the batch
+        ys.append((hc * cc[:, :, None, :]).sum(-1))
         h = hc[:, -1]
     y = (torch.cat(ys, dim=1)[:, :t] if ys
          else torch.zeros((bsz, 0, dm), dtype=f32, device=x.device))

@@ -22,7 +22,7 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
-from .layers import NEG_INF, apply_rotary, cdtype
+from .layers import NEG_INF, apply_rotary, cdtype, rows_matmul
 from .params import ParamSpec, dense_spec, state_device
 
 
@@ -50,14 +50,16 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> q (B, H, S, hd), k/v (B, KVH, S, hd), rotary applied.
     q and k come out contiguous; v is a transposed view (the kernel takes
-    strides)."""
+    strides).  The kv projections, narrow beside d_model, run on fixed row
+    chunks (:func:`~repro_torch.models.layers.rows_matmul`), so a token's
+    keys and values do not depend on its batch."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cdtype(cfg)
     xd = x.to(dt)
     xq = torch.matmul(xd, p["wq"].to(dt))
-    xk = torch.matmul(xd, p["wk"].to(dt))
-    xv = torch.matmul(xd, p["wv"].to(dt))
+    xk = rows_matmul(xd, p["wk"].to(dt))
+    xv = rows_matmul(xd, p["wv"].to(dt))
     if cfg.qkv_bias:
         xq = xq + p["bq"].to(dt)
         xk = xk + p["bk"].to(dt)

@@ -5,9 +5,9 @@ applied to every leaf (fp32 masters, ``blocks.pos{i}`` stacked over
 ``n_groups``) and builds a :class:`~repro_torch.models.transformer.
 Transformer` from it; :func:`params_to_numpy` gives the tree back, in the
 same layout, from a model: the stacked block leaves (the MoE's expert
-leaves are 4-D, (n_groups, E, in, out)) and deepseek's unstacked
-``layer0``.  The two round-trip exactly for a float32 config (a bfloat16
-model holds its matmul weights rounded to bfloat16).
+leaves are 4-D, (n_groups, E, in, out)), deepseek's unstacked ``layer0``
+and paligemma's ``frontend``.  The two round-trip exactly for a float32
+config (a bfloat16 model holds its matmul weights rounded to bfloat16).
 """
 
 from __future__ import annotations
@@ -68,4 +68,6 @@ def params_to_numpy(model: Transformer) -> Dict[str, Any]:
             "blocks": blocks}
     if model.layer0 is not None:
         tree["layer0"] = plain(model.layer0)
+    if model.frontend is not None:
+        tree["frontend"] = plain(model.frontend)
     return tree

@@ -83,6 +83,30 @@ def matmul(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.matmul(x.to(dt), w.to(dt))
 
 
+#: token rows of each product :func:`rows_matmul` runs
+PRODUCT_ROWS = 256
+
+
+def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` as products of :data:`PRODUCT_ROWS` rows
+    of x each, the last padded with zero rows.  The library picks a
+    product's kernel, and with it the order of its sums, by the row count:
+    at some shapes (on an H100 in bf16: MoE routers, jamba's ``x_proj``
+    16384 -> 544 and kv projections 8192 -> 1024) a token's bits would
+    depend on how many rows share its product; products of one shape give
+    it the same bits in any batch."""
+    lead = x.shape[:-1]
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    pad = -n % PRODUCT_ROWS
+    if pad or n == 0:
+        rows = torch.cat([rows, rows.new_zeros((pad or PRODUCT_ROWS,
+                                                rows.shape[1]))])
+    out = torch.cat([torch.matmul(chunk, w)
+                     for chunk in rows.split(PRODUCT_ROWS)])
+    return out[:n].reshape(*lead, w.shape[-1])
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as JAX lowers it, 1 / (1 + exp(-x)), each op
     rounded to x's dtype (``torch.sigmoid`` rounds once, and differs in
@@ -152,6 +176,20 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
     rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([rot.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_positions(seq: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """Classic transformer sin/cos table (seq, d) f32 (the audio frontend's
+    positional stub)."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: d // 2])
+    return pe
 
 
 # ---------------------------------------------------------------------------

@@ -49,11 +49,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .config import ModelConfig
-from .layers import act_fn, cdtype
+from .layers import PRODUCT_ROWS, act_fn, cdtype, rows_matmul
 from .params import ParamSpec, dense_spec
 
 #: token rows of each router product (:func:`router_logits`)
-ROUTER_ROWS = 256
+ROUTER_ROWS = PRODUCT_ROWS
 
 
 # ---------------------------------------------------------------------------
@@ -102,14 +102,7 @@ def router_logits(xg: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     """xg (n, g, D) @ router (D, E) -> (n, g, E), as products of
     :data:`ROUTER_ROWS` token rows each (the last chunk padded with zero
     rows), so a token's logits have the same bits in any batch."""
-    n, g, d = xg.shape
-    rows = xg.reshape(n * g, d)
-    pad = -(n * g) % ROUTER_ROWS
-    if pad:
-        rows = torch.cat([rows, rows.new_zeros((pad, d))])
-    out = torch.cat([torch.matmul(chunk, router)
-                     for chunk in rows.split(ROUTER_ROWS)])
-    return out[:n * g].reshape(n, g, -1)
+    return rows_matmul(xg, router)
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

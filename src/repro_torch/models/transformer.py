@@ -1,13 +1,15 @@
 """The model stack: embed → one module per layer → norm → logits.
 
 The JAX package's ``models/transformer.py`` in PyTorch, for the serving
-path of decoder stacks with no modality frontend whose blocks are ``attn``
-with a ``dense`` MLP (qwen2.5-3b, stablelm-1.6b, minicpm-2b,
-mistral-large-123b), ``attn`` with an MoE MLP (moonshot-v1-16b-a3b),
-``mla`` with an MoE MLP behind a dense first layer (deepseek-v2-236b) or
-``rwkv`` carrying its own channel-mix (rwkv6-3b).  Mamba blocks and
-frontends raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports them.
+path of decoder stacks whose blocks are ``attn`` with a ``dense`` MLP
+(qwen2.5-3b, stablelm-1.6b, minicpm-2b, mistral-large-123b; paligemma-3b
+behind its vision frontend), ``attn`` with an MoE MLP
+(moonshot-v1-16b-a3b), ``mla`` with an MoE MLP behind a dense first layer
+(deepseek-v2-236b), ``rwkv`` carrying its own channel-mix (rwkv6-3b), or
+``mamba`` and ``attn`` with dense and MoE MLPs interleaved
+(jamba-1.5-large-398b).  The audio frontend (hubert-xlarge, encoder-only)
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
+it.
 
 The JAX package stacks each block position's weights over ``n_groups`` and
 scans them; here :class:`Transformer` unstacks them into one
@@ -32,9 +34,12 @@ from torch import nn
 from .attention import (attend_decode, attend_full, attn_spec,
                         cache_from_prefill, init_kv_cache)
 from .config import ModelConfig
+from .frontends import embed_vision, frontend_spec
 from .layers import (apply_mlp, apply_norm, cdtype, embed_spec, embed_tokens,
                      logits_from_hidden, mlp_spec, mul_scalar, norm_spec,
                      residual_scale)
+from .mamba import F32_LEAVES as MAMBA_F32_LEAVES
+from .mamba import init_mamba_state, mamba_decode, mamba_full, mamba_spec
 from .mla import F32_LEAVES as MLA_F32_LEAVES
 from .mla import (init_mla_cache, mla_cache_from_prefill, mla_decode,
                   mla_full, mla_spec)
@@ -46,22 +51,24 @@ from .rwkv import (init_rwkv_state, rwkv_channel_mix, rwkv_spec,
 
 #: what the port does not build yet, and the ROADMAP.md item that ports it
 UNPORTED = {
-    "mamba": "ROADMAP.md queue 1, next step 5 (mamba_scan, jamba)",
-    "vision": "ROADMAP.md queue 1, next step 8 (frontends)",
-    "audio": "ROADMAP.md queue 1, next step 8 (frontends)",
+    "audio": "ROADMAP.md queue 1, next step 7 (training: hubert's encode "
+             "needs forward)",
 }
 
 
 #: (block kind, mlp kind) pairs the port builds
 PORTED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe"),
-          ("rwkv", "none")}
+          ("rwkv", "none"), ("mamba", "dense"), ("mamba", "moe")}
 #: block kinds of a dense first layer (``first_layer_dense``) it builds
 FIRST_LAYER_KINDS = {"attn", "mla"}
+#: modality frontends it builds
+FRONTENDS = {"none", "vision"}
 
-_BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "rwkv": rwkv_spec}
+_BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "mamba": mamba_spec,
+                "rwkv": rwkv_spec}
 #: leaves the model keeps in float32 besides the norms (the JAX blocks read
 #: them with ``.astype(float32)``)
-F32_LEAVES = RWKV_F32_LEAVES | MLA_F32_LEAVES
+F32_LEAVES = RWKV_F32_LEAVES | MLA_F32_LEAVES | MAMBA_F32_LEAVES
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -71,7 +78,7 @@ def check_supported(cfg: ModelConfig) -> None:
     kinds = [("block", k) for k, _ in pairs if k not in blocks]
     kinds += [("mlp", m) for k, m in pairs
               if k in blocks and (k, m) not in PORTED]
-    if cfg.frontend != "none":
+    if cfg.frontend not in FRONTENDS:
         kinds.append(("frontend", cfg.frontend))
     if (cfg.first_layer_dense
             and cfg.block_pattern[0] not in FIRST_LAYER_KINDS):
@@ -108,8 +115,8 @@ def _position_spec(cfg: ModelConfig, kind: str, mlp_kind: str,
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """The JAX package's parameter tree (``blocks.pos{i}`` stacked over
-    ``n_groups``, plus deepseek's unstacked ``layer0``) for an arch this
-    slice builds."""
+    ``n_groups``, plus deepseek's unstacked ``layer0`` and paligemma's
+    ``frontend``) for an arch this slice builds."""
     check_supported(cfg)
     spec: Dict[str, Any] = {
         "embed": embed_spec(cfg),
@@ -126,6 +133,9 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
             "norm2": norm_spec(cfg),
             "mlp": mlp_spec(cfg, cfg.d_ff_dense or cfg.d_ff, 0),
         }
+    fe = frontend_spec(cfg)
+    if fe:
+        spec["frontend"] = fe
     return spec
 
 
@@ -133,7 +143,7 @@ def _keeps_f32(path: str) -> bool:
     """True for a leaf kept in float32: a norm's (its parent key names one)
     or one a block reads in f32 (:data:`F32_LEAVES`: rwkv's ``w0``,
     ``u_bonus``, ``ln_x``; MLA's ``q_norm``, ``kv_norm``, ``wk_b``,
-    ``wv_b``)."""
+    ``wv_b``; mamba's ``dt_bias``, ``a_log``, ``d_skip``)."""
     keys = re.findall(r"\['([^']*)'\]", path)
     return "norm" in keys[-2] or keys[-1] in F32_LEAVES
 
@@ -147,9 +157,10 @@ class Transformer(nn.Module):
     The tree's ``(n_groups, ...)`` block leaves are unstacked into
     ``layers[l]`` (group ``l // period``, position ``l % period``); a
     dense first layer's leaves go to ``layer0`` (None without one).
-    Matmul weights, biases, the embedding, the MoE experts and the rwkv
-    mixing coefficients are cast once to the compute dtype ``cfg.dtype``
-    (a tree already in that dtype is viewed, not copied); norm parameters
+    Matmul weights, biases, the embedding, the frontend's adapter, the MoE
+    experts, the rwkv mixing coefficients and mamba's conv are cast once to
+    the compute dtype ``cfg.dtype`` (a tree already in that dtype is viewed,
+    not copied); norm parameters
     and the leaves a block reads in f32 (:data:`F32_LEAVES`) are kept in
     float32.  Raises
     ``ValueError`` on a missing leaf, a leaf it did not consume, or a
@@ -195,6 +206,8 @@ class Transformer(nn.Module):
         self.final_norm = pdict("['final_norm']", params["final_norm"])
         self.layer0 = (layer_dict("['layer0']", params["layer0"])
                        if cfg.first_layer_dense else None)
+        self.frontend = (pdict("['frontend']", params["frontend"])
+                         if "frontend" in spec else None)
         self.layers = nn.ModuleList()
         for layer in range(n_scanned(cfg)):
             g, i = divmod(layer, cfg.period)
@@ -212,13 +225,22 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 def embed_inputs(model: Transformer, inputs: Dict[str, torch.Tensor]
                  ) -> torch.Tensor:
-    """inputs: {"tokens": (B, S)} (token inputs only; the frontends'
-    "patches" / "frames" come with the frontends)."""
-    if set(inputs) != {"tokens"}:
+    """inputs: {"tokens": (B, S)} [+ "patches" (B, P, F) for a vision
+    frontend, whose embeddings are prepended: (B, P + S, D)].  Audio frames
+    are not taken (:data:`UNPORTED`)."""
+    cfg = model.cfg
+    if "tokens" not in inputs or set(inputs) - {"tokens", "patches"}:
         raise NotImplementedError(
-            f"only token inputs are ported; got {sorted(inputs)} "
-            f"({UNPORTED['vision']} ports the frontends)")
-    return embed_tokens(model.embed, inputs["tokens"], model.cfg)
+            f"the port takes tokens and a vision model's patches; got "
+            f"{sorted(inputs)} ({UNPORTED['audio']} ports the audio frames)")
+    x = embed_tokens(model.embed, inputs["tokens"], cfg)
+    if "patches" in inputs:
+        if cfg.frontend != "vision":
+            raise ValueError(f"{cfg.name} has no vision frontend; got "
+                             "patches")
+        prefix = embed_vision(model.frontend, inputs["patches"], cfg)
+        x = torch.cat([prefix, x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +259,11 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     (x, new_cache): for ``attn`` the prefill's (k, v) or the decode step's
     cache (written in place); for ``mla`` the prefill's latents (c_kv,
     k_rope) or the decode step's cache (written in place); for ``rwkv`` the
-    state (tlast, wkv, clast) after the prefill, or the decode step's cache
-    (written in place).  An MoE layer routes groups of ``moe_group_size``
-    tokens (None: :func:`moe_group`); its aux losses are not computed (no
-    training path reads them yet)."""
+    state (tlast, wkv, clast) and for ``mamba`` the state (conv window, ssm)
+    after the prefill, or the decode step's cache (written in place).  An
+    MoE layer routes groups of ``moe_group_size`` tokens (None:
+    :func:`moe_group`); its aux losses are not computed (no training path
+    reads them yet)."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     rs = residual_scale(cfg)
@@ -258,17 +281,14 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         x = x + mul_scalar(out2, rs)
         if mode == "prefill":
             return x, (tlast2, wkv2, clast2)
-        # written in place where the leaf holds the step's dtype; a leaf of
-        # another dtype (a token shift seeded at the cache dtype under
-        # another compute dtype) comes back as the step computed it
-        out = []
-        for leaf, new in zip(cache, (tlast2, wkv2, clast2)):
-            if leaf.dtype == new.dtype:
-                leaf.copy_(new)
-                new = leaf
-            out.append(new)
-        return x, tuple(out)
-    if kind == "mla":
+        return x, _write_state(cache, (tlast2, wkv2, clast2))
+    if kind == "mamba":
+        if mode == "decode":
+            out, new_cache = mamba_decode(p["block"], h, cache, cfg)
+            new_cache = _write_state(cache, new_cache)
+        else:
+            out, new_cache = mamba_full(p["block"], h, cfg, return_state=True)
+    elif kind == "mla":
         if mode == "decode":
             out, new_cache = mla_decode(p["block"], h, cache, pos, cfg)
         else:
@@ -289,6 +309,21 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     return x, new_cache
 
 
+def _write_state(cache: Tuple[torch.Tensor, ...],
+                 new: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """A recurrent state after a decode step: written in place where the
+    leaf holds the step's dtype; a leaf of another dtype (an rwkv token
+    shift or a mamba conv window seeded at the cache dtype under another
+    compute dtype) comes back as the step computed it."""
+    out = []
+    for leaf, t in zip(cache, new):
+        if leaf.dtype == t.dtype:
+            leaf.copy_(t)
+            t = leaf
+        out.append(t)
+    return tuple(out)
+
+
 def _layer_kinds(cfg: ModelConfig, layer: int) -> Tuple[str, str]:
     """(block kind, mlp kind) of scanned layer ``layer``."""
     i = layer % cfg.period
@@ -303,6 +338,8 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """One layer's cache for block ``kind`` (unstacked)."""
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, dtype, dev)
+    if kind == "mamba":
+        return init_mamba_state(cfg, batch, dtype, dev)
     if kind == "mla":
         return init_mla_cache(cfg, batch, max_len, dtype, dev)
     return init_kv_cache(cfg, batch, max_len, dtype, dev)
@@ -315,7 +352,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     (G, B, KVH, max_len, hd) for an ``attn`` position, ``{"c_kv" (G, B,
     max_len, kvl), "k_rope" (G, B, max_len, rope)}`` for an ``mla`` one,
     ``(tlast (G, B, D) dtype, wkv (G, B, H, hd, hd) f32, clast (G, B, D)
-    dtype)`` for an ``rwkv`` one (whose state ``max_len`` does not size);
+    dtype)`` for an ``rwkv`` one and ``(conv (G, B, d_conv - 1, Di) dtype,
+    ssm (G, B, Di, N) f32)`` for a ``mamba`` one (states that ``max_len``
+    does not size);
     plus deepseek's ``"layer0"``, the same leaves unstacked (batch at axis
     0)."""
     check_supported(cfg)
@@ -347,6 +386,7 @@ _CACHE_AXES = {
              "v": ("batch", "kv_heads", "kv_seq", None)},
     "mla": {"c_kv": ("batch", "kv_seq", None),
             "k_rope": ("batch", "kv_seq", None)},
+    "mamba": (("batch", None, "mlp"), ("batch", "mlp", None)),
     "rwkv": (("batch", None), ("batch", "heads", None, None),
              ("batch", None)),
 }
@@ -388,7 +428,8 @@ def _stack(caches: List[Any]) -> Any:
 
 def _pad_prefill(cfg: ModelConfig, kind: str, c, max_len: int, dtype):
     """A prefill's per-layer cache padded out to ``max_len`` rows in
-    ``dtype`` (an rwkv state is O(1): kept as the block leaves it)."""
+    ``dtype`` (an rwkv or mamba state is O(1): kept as the block leaves
+    it)."""
     if kind == "attn":
         return cache_from_prefill(cfg, c[0], c[1], max_len, dtype)
     if kind == "mla":
@@ -403,11 +444,14 @@ def _pad_prefill(cfg: ModelConfig, kind: str, c, max_len: int, dtype):
 def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], max_len: int,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt; -> (last-token logits (B, Vp) f32, cache at S).
-    An ``attn`` position's cache is (k, v) and an ``mla`` one's (c_kv,
-    k_rope), padded to ``max_len`` in ``cache_dtype``; an ``rwkv``
-    position's is its state as the block leaves it (the shifts in the
-    compute dtype, wkv in f32), as in the JAX package.  A dense first layer
-    runs first and keeps its cache under ``"layer0"``."""
+    ``inputs`` are {"tokens" (B, S)} [+ "patches" (B, P, F) for a vision
+    frontend: the cache then holds P + S positions, and the first decode
+    position is P + S].  An ``attn`` position's cache is (k, v) and an
+    ``mla`` one's (c_kv, k_rope), padded to ``max_len`` in ``cache_dtype``;
+    an ``rwkv`` or ``mamba`` position's is its state as the block leaves it
+    (rwkv's shifts and mamba's conv window in the compute dtype, the wkv and
+    ssm states in f32), as in the JAX package.  A dense first layer runs
+    first and keeps its cache under ``"layer0"``."""
     cfg = model.cfg
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no prefill/decode")
@@ -446,8 +490,9 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
 
     Returns (logits (B, Vp) f32, cache).  The cache is updated **in place**
     and returned (the JAX package returns a new one), except an rwkv
-    token-shift leaf whose dtype is not the compute dtype: the step returns
-    a new leaf at the compute dtype there, as the JAX step does.
+    token-shift or mamba conv-window leaf whose dtype is not the compute
+    dtype: the step returns a new leaf at the dtype it computed there, as
+    the JAX step does.
     """
     cfg = model.cfg
     if cfg.is_encoder:

@@ -27,7 +27,8 @@ Engine invariants (pinned by ``tests/test_torch_engine.py``):
   own cache slot, token and position, and a scalar-position step goes
   through the same arithmetic, so decode under staggered arrival gives the
   bits of whole-batch :func:`~repro_torch.train.serve.greedy_generate` for
-  every cache family the port builds (plain KV, rwkv6 O(1) state).
+  every cache family the port builds (plain KV, MLA latents, rwkv6 and
+  mamba O(1) states).
 - **Honest accounting.**  The bytes-per-step roofline
   (:func:`engine_roofline`) is summed off the captured schedule's
   :class:`~repro_torch.core.runtime.GraphNode` counts — the
@@ -487,8 +488,9 @@ class DecodeEngine:
     def _cache_structs(self) -> Tuple[torch.Tensor, ...]:
         """Canonical per-leaf shapes/dtypes (``meta`` tensors) of the
         persistent cache: the decode step's OWN outputs (its fixed point),
-        not ``cache_struct``'s advertised ones — rwkv's token shifts come
-        back at the activation dtype, and seeding the state there keeps
+        not ``cache_struct``'s advertised ones — rwkv's token shifts and
+        mamba's conv window come back at the activation dtype (the
+        promoted one), and seeding the state there keeps
         every step on ONE captured graph."""
         if self._canonical_structs is not None:
             return self._canonical_structs

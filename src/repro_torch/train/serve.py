@@ -4,13 +4,16 @@ The JAX package's ``train/serve.py`` in PyTorch.  The steps take the port's
 model (:class:`~repro_torch.models.transformer.Transformer`) where the JAX
 steps take a parameter tree, and run on the model's device: build the model
 on the card (the default of ``init_params`` and ``params_from_jax``) or on
-the CPU with ``device="cpu"``, where the flash-attention wrapper runs its
-plain version.  The steps serve every arch the model builds: a dense
-stack's cache is its KV cache (``max_len`` rows), an rwkv stack's the
-per-layer state, which ``max_len`` does not size; either is updated in
-place by a decode step.  Encoder archs (hubert) have no prefill/decode;
-their ``encode`` step needs ``forward``, which comes with the training
-slice.
+the CPU with ``device="cpu"``, where the kernel wrappers run their plain
+versions.  The steps serve every arch the model builds: a dense stack's
+cache is its KV cache (``max_len`` rows), an rwkv or mamba layer's its
+recurrent state, which ``max_len`` does not size; either is updated in
+place by a decode step.  A vision model (paligemma) is served through
+:func:`make_prefill_step` with ``{"tokens", "patches"}`` and
+:func:`make_decode_step` from position P + S; :func:`greedy_generate`, like
+the JAX package's and the decode engine, takes token prompts only.
+Encoder archs (hubert) have no prefill/decode; their ``encode`` step needs
+``forward``, which comes with the training slice.
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ def _check_model(model: Transformer, cfg: ModelConfig) -> None:
 
 def make_prefill_step(cfg: ModelConfig, max_len: int,
                       cache_dtype=torch.bfloat16) -> Callable:
-    """(model, {"tokens": (B, S)}) -> (last-token logits (B, Vp), cache)."""
+    """(model, {"tokens": (B, S)[, "patches": (B, P, F)]}) -> (last-token
+    logits (B, Vp), cache).  A vision model's patches are embedded and
+    prepended to the tokens, so the cache holds P + S positions and the
+    first decode position is P + S; a model without a vision frontend
+    refuses them."""
     if cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name} is encoder-only: its encode step needs forward(), "

@@ -33,7 +33,8 @@ def _isolated_ops(entry):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-3b",
-                                  "moonshot-v1-16b-a3b", "deepseek-v2-236b"])
+                                  "moonshot-v1-16b-a3b", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b"])
 def test_report_covers_every_row_and_batch(arch):
     rep = batch_bits.run(arch, "cpu", **SMALL)
     assert rep["batch"] == batch_bits.BATCH
@@ -42,7 +43,8 @@ def test_report_covers_every_row_and_batch(arch):
     for first in rep["tokens"].values():
         assert len(first) == batch_bits.BATCH
         assert all(-1 <= t < SMALL["new"] for t in first)
-    kernel = "rwkv6_scan" if arch == "rwkv6-3b" else "flash_attention"
+    kernel = {"rwkv6-3b": "rwkv6_scan",
+              "jamba-1.5-large-398b": "mamba_scan"}.get(arch, "flash_attention")
     for phase in ("prefill", "step"):
         assert sorted(rep[phase]) == sorted(f"{phase} {lab}" for lab in LABELS)
         for entry in rep[phase].values():

@@ -4,8 +4,11 @@ on the CPU.
 ``tests/test_decode_serve.py``'s engine tests, ported for the cache
 families the port builds — ``qwen2.5-3b`` (plain KV cache), ``rwkv6-3b``
 (O(1) recurrent state), ``deepseek-v2-236b`` (MLA latent cache behind a
-dense first layer, MoE MLPs with shared experts) and
-``moonshot-v1-16b-a3b`` (KV cache, MoE MLPs) at ``.reduced()`` size,
+dense first layer, MoE MLPs with shared experts), ``moonshot-v1-16b-a3b``
+(KV cache, MoE MLPs) and ``jamba-1.5-large-398b`` (seven mamba layers'
+conv windows and ssm states beside one attention layer's KV cache, dense
+and MoE MLPs; the conv window held in f32, the step's own dtype, under
+the f32 compute dtype and a bf16 cache) at ``.reduced()`` size,
 float32, at the configs' own capacity factor (the JAX package's test of
 this engine raises it to 4).  Each test initialises the JAX package's parameters, carries the same
 numpy tree to the port (``tree_from_jax``, the conversion
@@ -42,7 +45,8 @@ BATCH, PROMPT, NEW = 2, 12, 4
 FAMILIES = ["qwen2.5-3b",       # GQA: plain KV cache
             "rwkv6-3b",         # O(1) recurrent state
             "deepseek-v2-236b",   # MLA latent cache, dense layer0, MoE
-            "moonshot-v1-16b-a3b"]  # KV cache, MoE
+            "moonshot-v1-16b-a3b",  # KV cache, MoE
+            "jamba-1.5-large-398b"]  # mamba states + one KV layer, MoE
 
 
 def _setup(arch, batch, prompt_len, seed=1):

@@ -167,12 +167,16 @@ def test_wrapper_rejects_shapes_that_do_not_fit():
 
 
 def test_kernel_head_dims():
-    for d in (32, 64, 96, 128):
+    for d in (32, 64, 80, 96, 128, 256):
         assert supports_head_dims(d, d)
     assert supports_head_dims(96, 64) and supports_head_dims(192, 128)
-    assert not supports_head_dims(80, 80)          # hubert's 80: Dv not compiled
-    assert not supports_head_dims(256, 256) and not supports_head_dims(30, 32)
-    assert COMPILED_DV == (32, 64, 96, 128)
+    assert supports_head_dims(80, 80)              # hubert's heads
+    assert supports_head_dims(256, 256)            # paligemma's heads
+    assert not supports_head_dims(30, 32) and not supports_head_dims(260, 256)
+    assert not supports_head_dims(256, 192)        # Dv 192 is not compiled
+    assert COMPILED_DV == (32, 64, 80, 96, 128, 256)
+    # bf16 (256, 256) runs the CUDA-core kernel, not the tensor-core one
+    assert (256, 256) not in MMA_HEAD_DIMS and (80, 80) not in MMA_HEAD_DIMS
     # the bf16 tensor-core kernel's pairs are a subset of what the wrapper takes
     assert all(supports_head_dims(dk, dv) for dk, dv in MMA_HEAD_DIMS)
     assert (128, 128) in MMA_HEAD_DIMS            # qwen2.5-3b's heads

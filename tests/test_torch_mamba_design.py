@@ -177,11 +177,19 @@ JAMBA = (16384, 16)                                  # d_inner, d_state
 def test_plan_mamba_is_a_pure_function_of_its_arguments():
     plans = {(b, t): mm.plan_mamba(b, t, *JAMBA, H100_SMS)
              for b, t in ((4, 256), (2, 128), (1, 4096))}
-    assert [p.lanes for p in plans.values()] == [1, 2, 2]
+    assert [p.lanes for p in plans.values()] == [2, 2, 2]
     for (b, t), plan in plans.items():
         assert mm.plan_mamba(b, t, *JAMBA, H100_SMS) == plan
         assert plan.channels * plan.lanes == mm.THREADS
         assert plan.blocks == b * -(-JAMBA[0] // plan.channels)
+    # the lanes (the order of y's sum over N) do not depend on the batch:
+    # the decode engine's batch-1 prefill and greedy_generate's batch of
+    # six give a row the same bits
+    for t in (7, 256, 4096):
+        for dm, n in (JAMBA, (300, 16), (1024, 32), (4096, 32)):
+            lanes = {mm.plan_mamba(b, t, dm, n, H100_SMS).lanes
+                     for b in (1, 2, 4, 6, 64)}
+            assert len(lanes) == 1, (t, dm, n, lanes)
 
 
 @pytest.mark.parametrize("b,t", [(1, 4096), (4, 256), (2, 128)])
@@ -205,9 +213,9 @@ def test_plan_mamba_keeps_8_to_16_states_a_lane_where_n_allows(n):
         plan = mm.plan_mamba(b, 100, dm, n, H100_SMS)
         assert plan.lanes in mm.lane_choices(n)
         assert min(n, 8) <= n // plan.lanes <= 16
-        # no fewer lanes would reach the warp target
+        # no fewer lanes would reach the warp target with one batch row
         assert plan.lanes == min(mm.lane_choices(n)) or (
-            b * dm * plan.lanes // 2 < mm.WARPS_PER_SM * H100_SMS * 32)
+            dm * plan.lanes // 2 < mm.WARPS_PER_SM * H100_SMS * 32)
     with pytest.raises(ValueError, match="compiled for N"):
         mm.plan_mamba(1, 8, 64, 64, H100_SMS)
     with pytest.raises(ValueError, match="positive sizes"):

@@ -168,12 +168,6 @@ def test_cache_layout_matches_the_reference(name):
     assert all(not t.any() for _, t in leaves_with_path(cache))
 
 
-def test_jamba_still_waits_for_the_mamba_block():
-    cfg = configs.get("jamba-1.5-large-398b").reduced()
-    with pytest.raises(NotImplementedError, match="step 5"):
-        model_spec(cfg)
-
-
 # -- the serving path -----------------------------------------------------------
 @pytest.mark.parametrize("case", list(CASES))
 def test_prefill_decode_and_greedy_match_the_reference(case):
