@@ -69,6 +69,17 @@ Phases (any failure exits non-zero and prints no result line):
    case logs its lane count (``plan_mamba``) and copy path, and every lane
    count and both paths must run; a B = 1 call must give the bits of the
    same row of a B = 6 call (x bf16 and f32);
+   ``flash_attention_bwd`` (the training path's gradient) through the
+   differentiable wrapper (q, k, v requiring grad, ``out.backward``)
+   against autograd of the plain version on the same values in f32, in
+   bf16 and f32: stablelm-1.6b's training shape (B = 8, 32 heads of 64,
+   S = T = 128, causal), qwen's GQA (16 over 2 heads of 128, S = T = 256),
+   the example model's (12 over 4 of 64), hubert's (16 of 80, S = T = 256,
+   non-causal) and ragged S = 77 and 100 at D = 32 and 96; the forward's
+   output bit-equal with and without the log-sum-exp it keeps for the
+   backward, two calls bit-equal and a B = 1 call bit-equal to row 2 of
+   B = 4 or 8 (stablelm's and qwen's shapes), and Dk = Dv = 256 refused
+   with a ``ValueError`` (no fallback);
    2b. the four TinyBio kernels with a leading batch axis, for B = 1, 2,
    4, 8: ``fir`` (f32 and Q15 int16), ``delineate`` (with extrema at every
    row's edges), ``power_spectrum`` on (B, 128, 512) and ``svm`` on
@@ -107,7 +118,11 @@ Phases (any failure exits non-zero and prints no result line):
    B = 1, T = 256, with B = 4, T = 256, B = 2, T = 128 (phase 4c's shape)
    and B = 1, T = 4096 beside it, each
    with its byte bound and the special-function unit's floor (one
-   exponential per step, channel and state);
+   exponential per step, channel and state); ``flash_attention_bwd`` at
+   stablelm's training shape in bf16, beside its bound (the five products
+   a backward needs), the plain version (autograd through the plain
+   forward) and ``scaled_dot_product_attention``'s backward (its forward
+   and backward less its forward);
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -255,11 +270,34 @@ Phases (any failure exits non-zero and prints no result line):
    run; then a 2-layer f32 cut with 256 patch rows against the CPU.
    Walls, tokens/s, idle shares and peak memory are printed;
 
-11. one ``{"kernels": [...]}`` line for all nine kernels (launches: phase
+11. the training path (phase 10's models freed first), each run with the
+   launch counters reset just before and read just after.  11a:
+   stablelm-1.6b at full width and depth (24 layers, d_model 2048, 32
+   heads of 64, d_ff 5632, vocab 100352; 1.64 G f32 parameters) through
+   ``launch.train.train_loop`` with the launcher's defaults (batch 8, seq
+   128, f32 masters, bf16 compute, bf16 moments, remat "none") for 5
+   steps: ``flash_attention`` and ``flash_attention_bwd`` once a layer a
+   step and no other kernel of ours, every loss finite and the first within
+   0.5 of ln V + 1/2; a trainer from ``build_host_trainer`` then gives the
+   warm step wall, tokens/s, peak memory and a profiled step (busy time,
+   idle share, the hand-written forward and backward kernels and no
+   library attention kernel: neither SDPA's forward nor its backward,
+   flash, memory-efficient or cuDNN).  Then a 2-layer f32 cut at full
+   width, card against CPU: loss, every leaf's gradient, parameters and
+   moments after 2 steps within the stated tolerances, and ``remat="dots"``
+   and ``"full"`` bit-equal to ``remat="none"`` on the card.  11b: the ~86M model of
+   ``examples/train_lm_torch.py``, 150 steps: the loss falls by 0.5 or
+   more; a checkpoint restart (24 steps, killed after 16, resumed) gives
+   the uninterrupted run's losses bit for bit.  11c: hubert-xlarge's
+   encode at full width and depth (48 layers, bf16) on 4 x 256 frames:
+   ``flash_attention`` once a layer on ``flash_kernel<__nv_bfloat16, 80>``,
+   bit-equal on a second call; a 2-layer f32 cut against the CPU;
+
+12. one ``{"kernels": [...]}`` line for all ten kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
-   kernels, phases 8's, 9's and 10's for ``flash_attention``, 8's for
-   ``rwkv6_scan`` and 10's for ``mamba_scan``), then, last,
-   ``{"ok": true, "device": {...}}``.
+   kernels, phases 8's, 9's, 10's and 11's for ``flash_attention``, 11's
+   for ``flash_attention_bwd``, 8's for ``rwkv6_scan`` and 10's for
+   ``mamba_scan``), then, last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -304,6 +342,12 @@ LM_KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:29"),
 }
+# the gradient of the same TPU kernel, which the JAX package leaves to
+# jax.grad of its XLA path
+TRAIN_KERNELS = {
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:29"),
+}
 REGISTRY_KERNELS = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/decode_attention.py:29"),
@@ -314,8 +358,8 @@ RWKV_KERNELS = {
     "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:34"),
 }
-KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS, **REGISTRY_KERNELS,
-           **RWKV_KERNELS}
+KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS, **TRAIN_KERNELS,
+           **REGISTRY_KERNELS, **RWKV_KERNELS}
 # the LM path's geometry (qwen2.5-3b) and its serving run
 LM_ARCH = "qwen2.5-3b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 256, 16, 512
@@ -337,11 +381,21 @@ MAMBA_LAYERS = 4
 # rows of 1152 features and 64 text tokens, 16 greedy tokens each
 PALI_ARCH = "paligemma-3b"
 PALI_BATCH, PALI_TEXT, PALI_NEW, PALI_MAX_LEN = 4, 64, 16, 512
+# phase 11: the training path.  11a: the launcher's default arch and
+# defaults (python -m repro_torch.launch.train: batch 8, seq 128, f32
+# masters, bf16 compute, remat "none"), at full width and depth; 11b: the
+# ~86M model of examples/train_lm_torch.py; 11c: hubert's encode
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 5
+EXAMPLE_STEPS, EXAMPLE_BATCH, EXAMPLE_SEQ = 150, 4, 64
+ENCODE_ARCH = "hubert-xlarge"
+ENCODE_BATCH, ENCODE_FRAMES = 4, 256
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
+FLASH_BWD_KERNEL_NAMES = ("flash_dq_kernel<", "flash_dkdv_kernel<")
 LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
-                     "flash_fwd")
+                     "flash_fwd", "flash_bwd")
 
 
 class SmokeFailure(RuntimeError):
@@ -954,6 +1008,385 @@ def serve_vision(torch, np, dev, cfg, card):
     return moved
 
 
+def check_train_launches(moved, what, per_step, steps):
+    """``flash_attention`` and ``flash_attention_bwd`` launched once a layer
+    a step (``per_step`` layers), no other kernel of ours."""
+    for name in KERNELS:
+        want = per_step * steps if name in ("flash_attention",
+                                            "flash_attention_bwd") else 0
+        check(moved[name] == want, f"{what}: launched {name} {moved[name]} "
+              f"times, expected {want}")
+
+
+def check_train_kernels(per_kernel, what):
+    """A profiled train step ran the hand-written forward and backward
+    kernels and no library attention kernel (SDPA's forward or backward:
+    flash, memory-efficient or cuDNN)."""
+    library = [k for k in per_kernel
+               if any(t in k.lower() for t in LIBRARY_ATTENTION)]
+    check(not library, f"{what}: the step ran library attention kernels: "
+          f"{library}")
+    ours = sorted(k[k.index(n):].split("(")[0] for k in per_kernel
+                  for n in FLASH_KERNEL_NAMES + FLASH_BWD_KERNEL_NAMES
+                  if n in k)
+    for names in (FLASH_KERNEL_NAMES, FLASH_BWD_KERNEL_NAMES[:1],
+                  FLASH_BWD_KERNEL_NAMES[1:]):
+        check(any(k.startswith(names) for k in ours),
+              f"{what}: the profiled step ran none of {names}: {ours}")
+    return ours
+
+
+def train_full(torch, np, dev, cfg, card):
+    """Phase 11a: ``cfg`` (stablelm-1.6b) at full width and depth through
+    the launcher's code path (``launch.train.train_loop``, as ``python -m
+    repro_torch.launch.train --steps 5`` runs it: batch 8, seq 128, f32
+    masters drawn on the card from seed 0, bf16 compute, bf16 moments, remat
+    "none", WSD over the 5 steps), with the launch counters reset just
+    before and read just after: ``flash_attention`` and
+    ``flash_attention_bwd`` once a layer a step, nothing else of ours; every
+    loss finite, the first within 0.5 of ln V + 1/2 (the expected loss of
+    logits of variance 1: a LayerNorm'd hidden state against an lm_head
+    drawn with variance 1/d).  Then the walls: a trainer from
+    ``build_host_trainer`` steps once warm, three timed steps (host clock to
+    a synchronize) and one profiled (busy, idle share, kernels by name: the
+    hand-written forward and backward, no library attention), peak device
+    memory.  -> the counted run's launches."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import common
+    from repro_torch.launch.train import build_host_trainer, train_loop
+    from repro_torch.models.params import leaves_with_path, map_tree
+    from repro_torch.train.step import TrainConfig
+    tcfg = TrainConfig(peak_lr=3e-4, total_steps=TRAIN_STEPS, remat="none",
+                       microbatches=1)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    state, losses = train_loop(cfg, tcfg, steps=TRAIN_STEPS,
+                               global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               seed=0, device=dev)
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    del state
+    moved = dict(common.LAUNCHES)
+    check_train_launches(moved, f"{cfg.name} train_loop", cfg.n_layers,
+                         TRAIN_STEPS)
+    expect = math.log(cfg.vocab) + 0.5
+    check(all(math.isfinite(x) for x in losses),
+          f"{cfg.name}: a loss is not finite: {losses}")
+    check(abs(losses[0] - expect) <= 0.5,
+          f"{cfg.name}: first loss {losses[0]} is not within 0.5 of "
+          f"ln V + 1/2 = {expect}")
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, state, _ = build_host_trainer(cfg, tcfg, 0, device=dev)
+    n_params = sum(t.numel() for _, t in leaves_with_path(state["params"]))
+    data = SyntheticLMData(DataConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab), cfg)
+
+    def one(i):
+        batch = map_tree(lambda a: torch.from_numpy(a).to(dev),
+                         data.batch_at(i))
+        return step_fn(state, batch)[1]["loss"]
+
+    t0 = time.perf_counter()
+    one(0)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    walls = []
+    for i in range(1, 4):
+        t0 = time.perf_counter()
+        one(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    p_wall, p_busy, p_kernels = device_profile(torch, lambda: one(4))
+    ran = check_train_kernels(p_kernels, cfg.name)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_wall = sorted(walls)[1]
+    bwd_us = sum(v for k, v in p_kernels.items()
+                 if any(n in k for n in FLASH_BWD_KERNEL_NAMES))
+    fwd_us = sum(v for k, v in p_kernels.items()
+                 if any(n in k for n in FLASH_KERNEL_NAMES))
+    log(f"phase 11a: {cfg.name}: {cfg.n_layers} layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n_params} f32 parameters; "
+        f"train_loop {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {loop_wall:.3f} s, losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (ln V + 1/2 = {expect:.4f}); launches {moved} "
+        f"({cfg.n_layers} flash_attention and {cfg.n_layers} "
+        f"flash_attention_bwd a step)")
+    log(f"phase 11a: {cfg.name} on {card}: first step {first_wall:.3f} s; "
+        f"warm step wall {step_wall * 1e3:.3f} ms (median of 3; "
+        + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+        + f"), {TRAIN_BATCH * TRAIN_SEQ / step_wall:.1f} tokens/s; peak "
+        f"device memory {peak:.3f} GiB ({before:.3f} GiB allocated before "
+        f"the trainer was built); hand-written kernels in the "
+        f"profiled step: forward {fwd_us / 1e3:.4f} ms, backward "
+        f"{bwd_us / 1e3:.4f} ms ({ran})")
+    log(f"phase 11a: {cfg.name}: " + profile_line("one warm train step",
+                                                 p_wall, p_busy, p_kernels))
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return moved
+
+
+def train_cut(torch, np, dev, base, card):
+    """Phase 11a's cut: ``base`` at full width, 2 layers, f32, the same
+    parameters (drawn on the CPU, seed 0) and batch (2 x 128 tokens) on the
+    card and the CPU.  The card's f32 products (TF32 off) and kernels sum in
+    another order than the CPU's: the loss within 1e-5 relative, every
+    leaf's gradient within 1e-4 of that leaf's max |g| (the CPU tests' rule
+    against the JAX package); after two train steps (launcher defaults, a
+    constant lr of 3e-4, so both steps move the parameters: WSD's first
+    step has lr 0) each bf16 moment leaf within one bf16 ulp in norm,
+    ``|m_card - m_cpu| <= 2^-7 |m_cpu|`` (the gradients agree to 1e-4 of
+    their max, and a moment rounded to bf16 can land one ulp apart; taken
+    element by element, the elements of a near-zero leaf such as the key
+    bias's are rounding noise); and the parameters within 1e-5
+    of each leaf's max |p| plus twice the summed learning rates element by
+    element (Adam scales a near-zero gradient's rounding noise to a whole
+    step, of either sign) and plus 3 % of that sum on average over each
+    leaf (but the key bias ``bk``, whose gradient is zero in exact
+    arithmetic: softmax ignores a shift common to a query's scores).
+    ``remat="dots"`` and ``"full"`` give the card's gradients bit for
+    bit."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models.params import init_params, leaves_with_path, map_tree
+    from repro_torch.models.transformer import Transformer, bind_grads, model_spec
+    from repro_torch.optim import adamw_init, constant_schedule
+    from repro_torch.train.step import TrainConfig, make_train_step, value_and_grad
+    cut = dataclasses.replace(base, n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    tree = init_params(model_spec(cut), 0, device="cpu")
+    batch = SyntheticLMData(DataConfig(2, TRAIN_SEQ, cut.vocab), cut).batch_at(0)
+
+    def grads_on(device, cfg):
+        params = map_tree(lambda t: t.to(device, copy=True), tree)
+        model = Transformer(cfg, params, trainable=True)
+        grads = map_tree(torch.zeros_like, params)
+        bind_grads(model, grads)
+        m = value_and_grad(model, grads, map_tree(
+            lambda a: torch.from_numpy(a).to(device), batch), cfg)
+        return float(m["loss"]), grads
+
+    cpu_loss, cpu_grads = grads_on("cpu", cut)
+    card_loss, card_grads = grads_on(dev, cut)
+    check(abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
+          f"{cut.name} cut: card loss {card_loss} vs CPU {cpu_loss}")
+    worst = 0.0
+    for (path, g), (_, w) in zip(leaves_with_path(card_grads),
+                                 leaves_with_path(cpu_grads)):
+        scale = float(w.abs().max())
+        e = float((g.cpu().double() - w.double()).abs().max())
+        worst = max(worst, e / scale if scale else e)
+        check(e <= 1e-4 * scale, f"{cut.name} cut: gradient {path}: error "
+              f"{e} against max |g| {scale}")
+    for remat in ("dots", "full"):
+        _, remat_grads = grads_on(dev, dataclasses.replace(cut, remat=remat))
+        check(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            leaves_with_path(remat_grads), leaves_with_path(card_grads))),
+            f"{cut.name} cut: remat={remat!r} gradients differ from "
+            f"remat='none' on the card")
+        del remat_grads
+    del card_grads, cpu_grads
+
+    tcfg = TrainConfig(peak_lr=3e-4, total_steps=2, remat="none")
+    states, lr_sum = {}, 0.0
+    for device in ("cpu", dev):
+        params = map_tree(lambda t: t.to(device, copy=True), tree)
+        state = {"params": params, "opt": adamw_init(params)}
+        step = make_train_step(cut, tcfg, constant_schedule(3e-4))
+        data = SyntheticLMData(DataConfig(2, TRAIN_SEQ, cut.vocab), cut)
+        lr_sum = 0.0
+        for i in range(2):
+            state, m = step(state, map_tree(
+                lambda a: torch.from_numpy(a).to(device), data.batch_at(i)))
+            lr_sum += float(m["lr"])
+        states[str(device)] = state
+    cpu_state, card_state = states["cpu"], states[str(dev)]
+    moment_err = {}
+    for part in ("params", "m", "v"):
+        a = card_state["params"] if part == "params" else card_state["opt"][part]
+        b = cpu_state["params"] if part == "params" else cpu_state["opt"][part]
+        for (path, x), (_, y) in zip(leaves_with_path(a), leaves_with_path(b)):
+            x, y = x.cpu().float(), y.float()
+            what = f"{cut.name} cut: {part} {path} after 2 steps"
+            if part != "params":
+                rel = float(torch.linalg.vector_norm(x - y)) / max(
+                    float(torch.linalg.vector_norm(y)), 1e-30)
+                moment_err[part] = max(moment_err.get(part, 0.0), rel)
+                check(rel <= 2.0 ** -7, f"{what}: |error| / |leaf| {rel}")
+                continue
+            scale = float(y.abs().max())
+            diff = (x - y).abs()
+            check(float(diff.max()) <= 1e-5 * scale + 2.0 * lr_sum,
+                  f"{what}: error {float(diff.max())} against the summed lr "
+                  f"{lr_sum}")
+            check(path.endswith("['bk']")
+                  or float(diff.mean()) <= 1e-5 * scale + 0.03 * lr_sum,
+                  f"{what}: mean error {float(diff.mean())} against the "
+                  f"summed lr {lr_sum}")
+    log(f"phase 11a: {base.name}: 2-layer full-width f32 cut, card vs CPU "
+        f"on 2 x {TRAIN_SEQ} tokens: loss {card_loss:.6f} vs {cpu_loss:.6f}; "
+        f"every gradient within 1e-4 of its max |g| (worst {worst:.3g}); "
+        f"parameters and moments after 2 steps within their tolerances "
+        f"(moments' worst |error| / |leaf|: m {moment_err['m']:.3g}, v "
+        f"{moment_err['v']:.3g}); "
+        f"remat='dots' and 'full' gradients bit-equal to remat='none' on the "
+        f"card; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del states, card_state, cpu_state
+    torch.cuda.empty_cache()
+
+
+def train_example(torch, np, dev, card):
+    """Phase 11b: the ~86M model of ``examples/train_lm_torch.py`` on the
+    card through ``train_loop``, as the example runs it (150 steps of 4 x 64
+    tokens, peak lr 3e-3), with the launch counters reset before and read
+    after: the loss falls by 0.5 or more.  Then the checkpoint restart of
+    ``tests/test_integration.py``: 24 steps uninterrupted; 24 steps with
+    checkpoints every 8 that exit (``SystemExit`` 42) after step 16; a
+    resumed run from the latest checkpoint (step 17), whose losses must be
+    the uninterrupted run's bit for bit.  -> the counted run's launches."""
+    import shutil
+    from repro_torch.configs import example_config
+    from repro_torch.kernels import common
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainConfig
+    cfg = example_config()
+    t0 = time.perf_counter()
+    common.reset_launches()
+    _, losses = train_loop(cfg, TrainConfig(peak_lr=3e-3,
+                                            total_steps=EXAMPLE_STEPS,
+                                            remat="none"),
+                           steps=EXAMPLE_STEPS, global_batch=EXAMPLE_BATCH,
+                           seq_len=EXAMPLE_SEQ, log_every=50, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = dict(common.LAUNCHES)
+    check_train_launches(moved, f"{cfg.name} train_loop", cfg.n_layers,
+                         EXAMPLE_STEPS)
+    check(losses[-1] < losses[0] - 0.5,
+          f"{cfg.name}: the loss fell from {losses[0]} to {losses[-1]}, less "
+          f"than 0.5")
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tcfg = TrainConfig(peak_lr=1e-3, total_steps=30, remat="none")
+    kw = dict(steps=24, global_batch=4, seq_len=32, seed=1, device=dev)
+    t1 = time.perf_counter()
+    _, gold = train_loop(cfg, tcfg, **kw)
+    try:
+        train_loop(cfg, tcfg, simulate_failure=16, ckpt_dir=str(ckpt),
+                   ckpt_every=8, **kw)
+    except SystemExit as e:
+        check(e.code == 42, f"{cfg.name}: the simulated failure exited "
+              f"with {e.code}, expected 42")
+    else:
+        raise SmokeFailure(f"{cfg.name}: simulate_failure=16 did not exit")
+    _, resumed = train_loop(cfg, tcfg, ckpt_dir=str(ckpt), ckpt_every=8, **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(resumed == gold[17:], f"{cfg.name}: the resumed losses "
+          f"{resumed} differ from the uninterrupted run's {gold[17:]}")
+    log(f"phase 11b: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}) on "
+        f"{card}: {EXAMPLE_STEPS} steps of {EXAMPLE_BATCH} x {EXAMPLE_SEQ} "
+        f"tokens in {wall:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(ln V = {math.log(cfg.vocab):.4f}); launches {moved}; killed after "
+        f"step 16 and resumed from the step-17 checkpoint: losses of steps "
+        f"17..23 bit-equal to the uninterrupted run's "
+        f"({time.perf_counter() - t1:.1f} s)")
+    torch.cuda.empty_cache()
+    return moved
+
+
+def encode_hubert(torch, np, dev, cfg, card):
+    """Phase 11c: hubert-xlarge's encode (``make_prefill_step`` of an
+    encoder: ``forward`` without a gradient, then the per-frame logits) at
+    full width and depth on a bf16 tree drawn on the card (seed 0),
+    :data:`ENCODE_BATCH` x :data:`ENCODE_FRAMES` frames of 512 features
+    (numpy seed 3), with the launch counters reset before a second call and
+    read after it: ``flash_attention`` once a layer (non-causal, Dv 80, on
+    ``flash_kernel<__nv_bfloat16, 80>``), nothing else of ours, no library
+    attention kernel; the second call's logits bit-equal to the first's.
+    Then a 2-layer f32 cut, the card against the CPU on 2 x 64 frames:
+    logits within 1e-4 of max |logit| (the prefill rule).  -> the counted
+    call's launches."""
+    from repro_torch.kernels import common
+    from repro_torch.models.params import init_params, leaves_with_path, map_tree
+    from repro_torch.models.transformer import Transformer, model_spec
+    from repro_torch.train.serve import make_prefill_step
+    tree = init_params(model_spec(cfg), 0, dtype=torch.bfloat16, device=dev)
+    model = Transformer(cfg, tree)
+    n_params = sum(t.numel() for _, t in leaves_with_path(tree))
+    frames = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (ENCODE_BATCH, ENCODE_FRAMES, 512)).astype(np.float32)).to(dev)
+    encode = make_prefill_step(cfg, ENCODE_FRAMES)
+    first = encode(model, {"frames": frames})
+    torch.cuda.synchronize()
+    common.reset_launches()
+    got = encode(model, {"frames": frames})
+    torch.cuda.synchronize()
+    moved = dict(common.LAUNCHES)
+    for name in KERNELS:
+        want = cfg.n_layers if name == "flash_attention" else 0
+        check(moved[name] == want, f"{cfg.name}: the encode launched {name} "
+              f"{moved[name]} times, expected {want}")
+    check(got.shape == (ENCODE_BATCH, ENCODE_FRAMES, cfg.vocab_padded)
+          and got.dtype == torch.float32 and bool(torch.isfinite(
+              got[..., :cfg.vocab]).all()),
+          f"{cfg.name}: encode logits are not finite f32 of shape "
+          f"({ENCODE_BATCH}, {ENCODE_FRAMES}, {cfg.vocab_padded})")
+    check(torch.equal(first, got), f"{cfg.name}: a second encode differs")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode(model, {"frames": frames})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    p_wall, p_busy, p_kernels = device_profile(
+        torch, lambda: encode(model, {"frames": frames}))
+    library = [k for k in p_kernels
+               if any(t in k.lower() for t in LIBRARY_ATTENTION)]
+    check(not library, f"{cfg.name}: the encode ran library attention "
+          f"kernels: {library}")
+    flash = sorted(k for k in p_kernels
+                   if any(n in k for n in FLASH_KERNEL_NAMES))
+    check(bool(flash) and all("flash_kernel<__nv_bfloat16, 80>" in k
+                              for k in flash),
+          f"{cfg.name}: the encode ran {flash}, expected "
+          f"flash_kernel<__nv_bfloat16, 80>")
+    log(f"phase 11c: {cfg.name}: {cfg.n_layers} layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"bidirectional, GELU {cfg.d_ff}), {n_params} parameters in bf16; "
+        f"encode of {ENCODE_BATCH} x {ENCODE_FRAMES} frames on {card}: "
+        f"wall {sorted(walls)[1] * 1e3:.3f} ms (median of 3), "
+        f"{ENCODE_BATCH * ENCODE_FRAMES / sorted(walls)[1]:.1f} frames/s; "
+        f"launches {moved}; bit-equal on a second call")
+    log(f"phase 11c: {cfg.name}: " + profile_line("one warm encode", p_wall,
+                                                 p_busy, p_kernels))
+    del model, tree
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    cut_tree = init_params(model_spec(cut), 0, device="cpu")
+    small = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 64, 512)).astype(np.float32))
+    cut_encode = make_prefill_step(cut, 64)
+    want = cut_encode(Transformer(cut, cut_tree), {"frames": small})
+    got = cut_encode(Transformer(cut, map_tree(lambda t: t.to(dev), cut_tree)),
+                     {"frames": small.to(dev)}).cpu()
+    want, got = want[..., :cut.vocab], got[..., :cut.vocab]   # no padding
+    scale = float(want.abs().max())
+    e = float((got.double() - want.double()).abs().max())
+    check(e <= 1e-4 * scale, f"{cfg.name} cut: card vs CPU logits error {e} "
+          f"against max |logit| {scale}")
+    log(f"phase 11c: {cfg.name}: 2-layer full-width f32 cut, card vs CPU on "
+        f"2 x 64 frames: logits error / max |logit| {e / scale:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return moved
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -966,7 +1399,7 @@ def main() -> int:
                                       bench_multiqueue, bench_overload,
                                       bench_power, bench_static,
                                       bench_transfer)
-        from repro_torch.configs import get as get_arch
+        from repro_torch.configs import example_config, get as get_arch
         from repro_torch.apps import tinybio
         from repro_torch.core import (APU, EGPU_4T, EGPU_8T, EGPU_16T,
                                       CommandQueue, Context, Device, Program,
@@ -994,7 +1427,10 @@ def main() -> int:
             decode_attention as da_module)
         from repro_torch.kernels.decode_attention.decode_attention import (
             plan_decode_splits)
-        from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+        from repro_torch.kernels.flash_attention.ref import (
+            flash_attention_bwd_plain, flash_attention_plain)
+        from repro_torch.kernels.flash_attention.ops import (
+            _card_forward, flash_attention_bwd)
         from repro_torch.kernels.decode_attention.ops import (combine_partials,
                                                               decode_attention)
         from repro_torch.kernels.decode_attention.ref import (
@@ -1460,6 +1896,114 @@ def main() -> int:
         "S=T=256: qwen's heads in bf16 and f32, moonshot's and MLA's in "
         "bf16; at S=T=320 paligemma's in bf16 and f32; max abs err vs plain: "
         + ", ".join(f"{k} {v:.3g}" for k, v in fa_err.items()) + ")")
+
+    # flash_attention_bwd (csrc/flash_attention_bwd.cu, the training path's
+    # gradient) against autograd of the plain version on the same inputs,
+    # through the differentiable wrapper as the model calls it: q, k, v
+    # requiring grad (v the strided view the model passes), the forward
+    # keeping its log-sum-exp, out.backward(dout).  The kernel sums in f32
+    # and rounds each gradient once; the plain version's autograd on bf16
+    # tensors rounds each q head's dk and dv to bf16 before the GQA sum (the
+    # backward of its k.float()), several ulps off at a group of 4 or 8, so
+    # the reference is the plain version's gradient of the same values taken
+    # in f32.  The attention rule: gradients within 1e-5 of each one's max
+    # |g|, bfloat16 ones within one bf16 ulp of each value plus that.  The
+    # forward's out must keep its bits whether or not it writes the
+    # log-sum-exp; two calls must give the same bits, and a B = 1 call the
+    # bits of row 2 of the batched one.
+    def kernel_grads(q, k, v, dout, causal):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        before = common.LAUNCHES["flash_attention_bwd"]
+        out = flash_attention(*leaves, causal=causal)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        check(common.LAUNCHES["flash_attention_bwd"] == before + 1,
+              "flash_attention_bwd: the launch counter did not move by one")
+        return out.detach(), [x.grad for x in leaves]
+
+    def bwd_case(what, dims, dtype, causal=True):
+        q, k, v = qkv(*dims, dtype)
+        dout = torch.randn(q.shape[:3] + (v.shape[3],), device=dev).to(dtype)
+        out, got = kernel_grads(q, k, v, dout, causal)
+        with torch.no_grad():
+            plain_out = flash_attention(q, k, v, causal=causal)
+        check(torch.equal(out, plain_out),
+              f"flash_attention {what}: the output with the log-sum-exp "
+              f"written differs from the output without it")
+        want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                         dout.float(), causal=causal)
+        errs = []
+        for name_, g, w in zip("qkv", got, want):
+            check(g.shape == w.shape and g.dtype == dtype,
+                  f"flash_attention_bwd {what}: d{name_} shape or dtype")
+            g32, w32 = g.float(), w
+            tol = 1e-5 * float(w32.abs().max())
+            if dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -7 * torch.maximum(g32.abs(), w32.abs())
+            check(bool(((g32 - w32).abs() <= tol).all())
+                  and bool(torch.isfinite(g32).all()),
+                  f"flash_attention_bwd {what}: d{name_} error {err(g, w)}")
+            errs.append(err(g, w))
+        return max(errs), (q, k, v, dout, got)
+
+    sl_cfg = get_arch(TRAIN_ARCH)
+    ex_cfg = example_config()
+    hu_cfg = get_arch(ENCODE_ARCH)
+    sl_dims = (TRAIN_BATCH, sl_cfg.n_heads, sl_cfg.n_kv_heads, TRAIN_SEQ,
+               TRAIN_SEQ, sl_cfg.head_dim, sl_cfg.head_dim)
+    bwd_err = {}
+    bwd_inputs = {}
+    for dtype in (bf16, torch.float32):
+        dt = str(dtype)[6:]
+        for label, dims, causal in (
+                (f"stablelm B={TRAIN_BATCH} H=KVH={sl_cfg.n_heads} "
+                 f"S=T={TRAIN_SEQ} D={sl_cfg.head_dim} causal", sl_dims, True),
+                (f"qwen B=4 H={lm_h} KVH={lm_kvh} S=T=256 D={lm_d} causal",
+                 (4, lm_h, lm_kvh, 256, 256, lm_d, lm_d), True),
+                (f"example B=4 H={ex_cfg.n_heads} KVH={ex_cfg.n_kv_heads} "
+                 f"S=T=64 D={ex_cfg.head_dim} causal",
+                 (4, ex_cfg.n_heads, ex_cfg.n_kv_heads, 64, 64,
+                  ex_cfg.head_dim, ex_cfg.head_dim), True),
+                (f"hubert B=2 H={hu_cfg.n_heads} S=T=256 D={hu_cfg.head_dim} "
+                 f"non-causal", (2, hu_cfg.n_heads, hu_cfg.n_kv_heads, 256,
+                                 256, hu_cfg.head_dim, hu_cfg.head_dim), False),
+                ("ragged B=2 H=4 KVH=2 S=T=77 D=32 causal",
+                 (2, 4, 2, 77, 77, 32, 32), True),
+                ("ragged B=1 H=2 KVH=1 S=T=100 D=96 causal",
+                 (1, 2, 1, 100, 100, 96, 96), True)):
+            bwd_err[f"{label} {dt}"], bwd_inputs[label, dtype] = bwd_case(
+                label, dims, dtype, causal)
+    # two calls give the same bits; a B = 1 call the bits of row 2 of the
+    # batched call (stablelm's and qwen's shapes, bf16 and f32)
+    for (label, dtype), (q, k, v, dout, got) in bwd_inputs.items():
+        if not label.startswith(("stablelm", "qwen")):
+            continue
+        _, again = kernel_grads(q, k, v, dout, True)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {label} {dtype}: two calls differ")
+        _, alone = kernel_grads(q[2:3], k[2:3], v[2:3], dout[2:3], True)
+        check(all(torch.equal(a[2:3], b) for a, b in zip(got, alone)),
+              f"flash_attention_bwd {label} {dtype}: a row of the batched "
+              f"call differs from the row alone")
+    del bwd_inputs
+    # a shape the kernel does not take raises; it never falls back
+    q, k, v = qkv(1, 2, 1, 32, 32, 256, 256, bf16)
+    try:
+        flash_attention(*(x.detach().requires_grad_() for x in (q, k, v)))
+    except ValueError as e:
+        check("ROADMAP.md queue 2 item 6" in str(e),
+              f"flash_attention_bwd: the refusal does not name the roadmap: {e}")
+    else:
+        raise SmokeFailure("flash_attention accepted a gradient at Dk = Dv = "
+                           "256, which the backward kernel does not take")
+    max_err["flash_attention_bwd"] = bwd_err[
+        f"stablelm B={TRAIN_BATCH} H=KVH={sl_cfg.n_heads} S=T={TRAIN_SEQ} "
+        f"D={sl_cfg.head_dim} causal bfloat16"]
+    log("phase 2: flash_attention_bwd ok (output bits unchanged by the "
+        "log-sum-exp; two calls bit-equal and a row alone bit-equal to the "
+        "batched row at stablelm's and qwen's shapes, bf16 and f32; Dk = Dv "
+        "= 256 refused; max abs err vs autograd of the plain version: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in bwd_err.items()) + ")")
 
     # The three scans and decode attention against their plain versions.
     # Both sides compute in f32 and sum in another order (the rwkv kernel
@@ -2053,6 +2597,61 @@ def main() -> int:
             f"kernel {r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of "
             f"it), {r['ms'] / r['library_ms']:.2f}x SDPA")
     rows["flash_attention"] = fa_rows["prefill"]
+
+    # flash_attention_bwd at stablelm-1.6b's training shape (the kernels line
+    # reports it), bf16, causal, from the forward kernel's log-sum-exp.
+    # Bound: q, k, v, dout read once and dq, dk, dv written once in bf16 (and
+    # the f32 lse read once) over 3.35 TB/s, against the five products a
+    # backward needs (QK^T again, dO V^T, P^T dO, dS K, dS^T Q: 2 D flops
+    # each per (q, k) pair the causal mask keeps) over the bf16 peak.  The
+    # plain version is autograd through flash_attention_plain (its forward
+    # included: the backward needs it); the library's is
+    # scaled_dot_product_attention's backward, timed as its forward and
+    # backward together less its forward.
+    def fa_bwd_bound(b, h, kvh, s, t, d):
+        nbytes = 2.0 * (3 * b * h * s * d + 4 * b * kvh * t * d) + 4.0 * b * h * s
+        pairs = sum(min(t, i + 1) for i in range(s))
+        return bound(nbytes, 5 * 2.0 * b * h * pairs * d, PEAK_BF16_FLOPS)
+
+    b_, h_, kvh_, s_, _, d_, _ = sl_dims
+    q, k, v = (x.contiguous() for x in qkv(*sl_dims, bf16))
+    dout = torch.randn_like(q)
+    _, lse = _card_forward(q, k, v, True, d_ ** -0.5, 0, s_, s_,
+                           with_lse=True)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (qg, kg, vg), dout)
+
+    lib_grads = sdpa_fwd_bwd()
+    plain_grads = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                            dout.float())
+    check(all(err(a, b) <= 1e-2 * float(b.abs().max())
+              for a, b in zip(lib_grads, plain_grads)),
+          "SDPA's gradient differs from the plain version's at stablelm's "
+          "training shape")
+    bb_ms, bb_by = fa_bwd_bound(b_, h_, kvh_, s_, s_, d_)
+    lib_fb = device_ms(torch, sdpa_fwd_bwd, 20)
+    lib_f = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    rows["flash_attention_bwd"] = dict(
+        ms=device_ms(torch, lambda: flash_attention_bwd(q, k, v, dout, lse),
+                     20),
+        plain_ms=device_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, dout), 1),
+        library_ms=lib_fb - lib_f, bound_ms=bb_ms, bound_by=bb_by)
+    r = rows["flash_attention_bwd"]
+    fwd_ms = device_ms(torch, lambda: flash_attention(q, k, v), 20)
+    log(f"phase 3: flash_attention_bwd stablelm B={b_} H=KVH={h_} S=T={s_} "
+        f"D={d_} bf16 causal: device time per call: kernel {fmt(r['ms'])} "
+        f"(two device kernels), plain {fmt(r['plain_ms'])} (autograd through "
+        f"the plain forward), library (SDPA backward: forward + backward "
+        f"{lib_fb:.6f} less forward {lib_f:.6f}) {fmt(r['library_ms'])}; "
+        f"bound {bb_ms:.6f} ms ({bb_by}); kernel {r['ms'] / bb_ms:.1f}x its "
+        f"bound, {r['ms'] / r['library_ms']:.2f}x SDPA's backward; the "
+        f"forward kernel at this shape {fwd_ms:.6f} ms")
 
     # rwkv6_scan at rwkv6-3b's prefill shape (state0 absent, as the prefill
     # passes it) and one decode step (T = 1 from a state), with B = 1,
@@ -3035,7 +3634,25 @@ def main() -> int:
         torch, np, dev, get_arch(PALI_ARCH), card)["flash_attention"]
     log(f"phase 10: {time.perf_counter() - t_p10:.1f} s")
 
-    # -- 11. summary --------------------------------------------------------------
+    # -- 11. the training path: stablelm-1.6b, the 86M example, hubert ------------
+    # Phase 10's models are freed by then.  11a trains stablelm-1.6b at full
+    # width and depth through the launcher's train_loop (flash_attention and
+    # flash_attention_bwd on every layer of every step) and holds a 2-layer
+    # f32 cut to the CPU; 11b trains the example model and restarts it from
+    # a checkpoint; 11c encodes with hubert (forward without a gradient).
+    t_p11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 11: device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+    moved = [train_full(torch, np, dev, get_arch(TRAIN_ARCH), card)]
+    train_cut(torch, np, dev, get_arch(TRAIN_ARCH), card)
+    moved.append(train_example(torch, np, dev, card))
+    moved.append(encode_hubert(torch, np, dev, get_arch(ENCODE_ARCH), card))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += sum(m[name] for m in moved)
+    log(f"phase 11: {time.perf_counter() - t_p11:.1f} s")
+
+    # -- 12. summary --------------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -3,10 +3,11 @@
 1. configure an e-GPU (Table-II knobs),
 2. offload an int32 GeMM through the Tiny-OpenCL (TinyCL) runtime — the
    hand-written CUDA kernel ``csrc/gemm.cu`` on the card — and read the
-   paper-calibrated speed-up / energy report.
+   paper-calibrated speed-up / energy report,
+3. one LM train step (a reduced qwen2.5-3b, remat "full"), whose attention
+   gradient on the card is the hand-written ``csrc/flash_attention_bwd.cu``.
 
-Sections 1–2 of ``examples/quickstart.py``.  Its section 3, one LM train
-step, waits for the port's LM slice (ROADMAP.md).
+The three sections of ``examples/quickstart.py``.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
 """
@@ -56,4 +57,28 @@ print(f"  C=A@B 256x256 int32 on {apu.device.type} OK | modeled speed-up "
       f"{st.speedup:.1f}x | energy reduction {st.energy_reduction:.1f}x")
 print(f"  phases: sched {st.egpu.scheduling_fraction*100:.1f}% | "
       f"transfer {st.egpu.transfer_fraction*100:.1f}%")
+
+print()
+print("=" * 70)
+print("3) the same knob discipline at datacenter scale: one train step")
+print("=" * 70)
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.data import DataConfig, SyntheticLMData
+from repro_torch.models.params import map_tree
+from repro_torch.optim import constant_schedule
+from repro_torch.train.step import (TrainConfig, init_train_state,
+                                    make_train_step)
+
+cfg = ARCHS["qwen2.5-3b"].reduced()
+tcfg = TrainConfig(remat="full")
+step = make_train_step(cfg, tcfg, constant_schedule(1e-3))
+state = init_train_state(cfg, tcfg, 0, device=device)
+data = SyntheticLMData(DataConfig(4, 64, cfg.vocab), cfg)
+batch = map_tree(lambda a: torch.from_numpy(a).to(device), data.batch_at(0))
+state, metrics = step(state, batch)
+print(f"  {cfg.name}: loss {float(metrics['loss']):.3f}, "
+      f"grad-norm {float(metrics['grad_norm']):.2f} — same remat knob the "
+      "JAX package's 398B dry-run uses")
 print("\nquickstart OK")

@@ -7,14 +7,19 @@ A copy of the JAX package's ``configs/__init__.py`` without its JAX part:
   decode_32k / long_500k);
 * :func:`cells` — the live (arch, shape) grid with the skip rules applied
   (long_500k only for sub-quadratic archs; encoder-only archs have no
-  decode shapes).
+  decode shapes);
+* :func:`example_config` — the ~86M qwen-family model that
+  ``examples/train_lm.py`` (and the port's ``examples/train_lm_torch.py``)
+  trains.
 
 ``input_specs`` (abstract inputs for the dry-run) comes with the dry-run
 slice.  The ten ``configs/*.py`` data files are copies of the JAX
-package's.  The port builds only archs whose blocks are ``attn`` with a
-``dense`` MLP and no frontend (qwen2.5-3b, stablelm-1.6b, minicpm-2b,
-mistral-large-123b); the others raise ``NotImplementedError`` where the
-model is built (:func:`repro_torch.models.transformer.check_supported`).
+package's.  The port builds all ten (hubert encodes, the others
+serve); it trains the stacks of
+``attn`` blocks with a ``dense`` MLP and no frontend (qwen2.5-3b,
+stablelm-1.6b, minicpm-2b, mistral-large-123b), and the others raise
+``NotImplementedError`` where the loss is taken
+(:func:`repro_torch.models.transformer.check_trainable`).
 """
 
 from __future__ import annotations
@@ -85,3 +90,11 @@ def get(arch: str) -> ModelConfig:
         return ARCHS[arch]
     except KeyError:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+
+
+def example_config() -> ModelConfig:
+    """The ~86M qwen-family model of ``examples/train_lm.py`` (f32)."""
+    return dataclasses.replace(
+        ARCHS["qwen2.5-3b"].reduced(),
+        name="qwen2.5-100m", n_layers=12, d_model=768, n_heads=12,
+        n_kv_heads=4, head_dim=64, d_ff=2048, vocab=2048, dtype="float32")

@@ -100,6 +100,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // (B, H, S) row log-sum-exp for the backward, or null
   int b, h, kvh, s, t, dk;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float scale;
@@ -287,6 +288,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
     const int row = q0 + ty + kTY * i;
     if (row >= a.s) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.h + h) * a.s + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int u = 0; u < C::kGroups; ++u)
 #pragma unroll
@@ -637,6 +640,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int row = row0 + wq * 16 + g + 8 * r;
     if (row >= a.s) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[(static_cast<long long>(b) * a.h + h) * a.s + row] = m[r] + logf(l[r]);
 #pragma unroll
     for (int nt = 0; nt < DV / 8; ++nt) {
       const int col = nt * 8 + 2 * t4;
@@ -789,7 +794,7 @@ int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
 // output strip;
 // repro_torch/kernels/flash_attention/flash_attention.py lists the same).
 template <typename T>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
+int launch_flash(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                  int h, int kvh, int s, int t, int dk, int dv,
                  const long long* strides, float scale, int causal,
                  int q_offset, int bq, int bk, int device, void* stream_ptr) {
@@ -797,7 +802,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
   if (b <= 0 || h <= 0 || s <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || dk <= 0 || dk % 4 != 0 || dk > 256)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, o, b, h, kvh, s, t, dk,
+  Args a{q, k, v, o, lse, b, h, kvh, s, t, dk,
          strides[0], strides[1], strides[2], strides[3], strides[4],
          strides[5], strides[6], strides[7], strides[8],
          scale, causal, q_offset};
@@ -809,26 +814,29 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
+// lse: null, or (B, H, S) f32 that receives each row's log-sum-exp m + ln l
+// in natural-log units (the kernels' exponent is expf), for the backward
+// (csrc/flash_attention_bwd.cu); the output's bits do not depend on it.
 // strides: 9 element strides, (batch, head, sequence) of q, then k, then v.
 // bq, bk: the plain version's blocks (min(512, S), min(512, T) by default),
 // which decide what a row that sees no key gets.
 REPRO_API int repro_flash_attention_f32(const void* q, const void* k,
-                                        const void* v, void* o, int b, int h,
-                                        int kvh, int s, int t, int dk, int dv,
+                                        const void* v, void* o, float* lse,
+                                        int b, int h, int kvh, int s, int t, int dk, int dv,
                                         const long long* strides, float scale,
                                         int causal, int q_offset, int bq,
                                         int bk, int device, void* stream) {
-  return launch_flash<float>(q, k, v, o, b, h, kvh, s, t, dk, dv, strides,
+  return launch_flash<float>(q, k, v, o, lse, b, h, kvh, s, t, dk, dv, strides,
                              scale, causal, q_offset, bq, bk, device, stream);
 }
 
 REPRO_API int repro_flash_attention_bf16(const void* q, const void* k,
-                                         const void* v, void* o, int b, int h,
-                                         int kvh, int s, int t, int dk, int dv,
+                                         const void* v, void* o, float* lse,
+                                         int b, int h, int kvh, int s, int t, int dk, int dv,
                                          const long long* strides, float scale,
                                          int causal, int q_offset, int bq,
                                          int bk, int device, void* stream) {
-  return launch_flash<__nv_bfloat16>(q, k, v, o, b, h, kvh, s, t, dk, dv,
+  return launch_flash<__nv_bfloat16>(q, k, v, o, lse, b, h, kvh, s, t, dk, dv,
                                      strides, scale, causal, q_offset, bq, bk,
                                      device, stream);
 }

@@ -49,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the plain versions never count.
 LAUNCHES: Dict[str, int] = {"fir": 0, "delineate": 0, "stockham_fft": 0,
                             "svm": 0, "gemm": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0,
                             "decode_attention": 0, "mamba_scan": 0,
                             "rwkv6_scan": 0}
 

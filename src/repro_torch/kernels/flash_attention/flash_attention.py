@@ -13,13 +13,18 @@ tiles brought by TMA through a shared-memory ring, both products on
 ``wgmma``; it reads q, k and v through tensor maps, so each must be a view
 that :func:`tma_describable` accepts, and the wrapper copies one that is not
 (counted in :data:`CONTIGUOUS_COPIES`).  float32 and the other head dims run
-f32 FMAs on the CUDA cores.
+f32 FMAs on the CUDA cores.  Both kernels can also write each row's
+log-sum-exp for the backward.
+
+``csrc/flash_attention_bwd.cu`` is that kernel's gradient (dQ, dK, dV,
+FlashAttention-2's deterministic two-kernel backward on the CUDA cores),
+for Dk = Dv in :data:`BWD_HEAD_DIMS`, counted as ``flash_attention_bwd``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -40,11 +45,17 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: of the tensor-core kernel (a copy, then the same kernel) in this process
 CONTIGUOUS_COPIES = 0
 
+#: head dims (Dk = Dv) csrc/flash_attention_bwd.cu is compiled for
+BWD_HEAD_DIMS = (32, 64, 80, 96, 128)
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I,
-         _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
+         _I, _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_flash_attention_f32",
            torch.bfloat16: "repro_flash_attention_bf16"}
+_BWD_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+_BWD_SYMBOL = {torch.float32: "repro_flash_attention_bwd_f32",
+               torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 
 
 def supports_head_dims(dk: int, dv: int) -> bool:
@@ -76,17 +87,38 @@ def tma_view(x: torch.Tensor) -> torch.Tensor:
 
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, *, causal: bool, scale: float,
-                           q_offset: int, bq: int, bk: int) -> None:
+                           q_offset: int, bq: int, bk: int,
+                           lse: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel on CUDA tensors of one dtype, q (B,H,S,Dk), k
     (B,KVH,T,Dk), v (B,KVH,T,Dv), each with a contiguous last axis, into the
     contiguous ``out`` (B,H,S,Dv), on the current stream.  ``bq`` and ``bk``
     are the plain version's blocks: with ``q_offset < 0`` they decide what a
-    row that sees no key gets, and a final pass writes those rows."""
+    row that sees no key gets, and a final pass writes those rows.  A
+    contiguous f32 ``lse`` (B,H,S) receives each row's log-sum-exp (natural
+    log) for the backward; ``out``'s bits are the same without it."""
     b, h, s, dk = q.shape
     kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     launch("flash_attention", _SYMBOL[q.dtype], _ARGS, ptr(q), ptr(k), ptr(v),
-           ptr(out), b, h, kvh, s, t, dk, dv, ctypes.cast(strides, _P),
-           float(scale), int(causal), int(q_offset), int(bq), int(bk),
+           ptr(out), ptr(lse), b, h, kvh, s, t, dk, dv,
+           ctypes.cast(strides, _P), float(scale), int(causal), int(q_offset),
+           int(bq), int(bk), q.device.index, stream_of(q))
+
+
+def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, dout: torch.Tensor,
+                               lse: torch.Tensor, delta: torch.Tensor,
+                               dq: torch.Tensor, dk: torch.Tensor,
+                               dv: torch.Tensor, *, causal: bool,
+                               scale: float) -> None:
+    """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels, one count) on
+    contiguous CUDA tensors of one dtype: q, dout, dq (B,H,S,D), k, v, dk,
+    dv (B,KVH,T,D), D in :data:`BWD_HEAD_DIMS`; ``lse`` the forward's f32
+    (B,H,S) and ``delta`` f32 (B,H,S) scratch."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    launch("flash_attention_bwd", _BWD_SYMBOL[q.dtype], _BWD_ARGS, ptr(q),
+           ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq), ptr(dk),
+           ptr(dv), b, h, kvh, s, t, d, float(scale), int(causal),
            q.device.index, stream_of(q))

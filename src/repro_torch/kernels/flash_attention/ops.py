@@ -1,4 +1,4 @@
-"""Dispatching wrapper for the flash-attention kernel.
+"""Dispatching wrappers for the flash-attention kernels.
 
 ``flash_attention(q, k, v)`` launches ``csrc/flash_attention.cu`` (which
 replaces the TPU kernel
@@ -6,20 +6,30 @@ replaces the TPU kernel
 CUDA tensors and runs
 :func:`~repro_torch.kernels.flash_attention.ref.flash_attention_plain` (the
 JAX package's XLA path, what JAX runs off a TPU) on CPU and ``meta``
-tensors.  The TPU kernel has no Tiny-OpenCL family, so none is registered.
+tensors.  It is differentiable on both: on the card, when an input requires
+grad, through :class:`_FlashAttention`, whose forward launches the same
+kernel and keeps each row's log-sum-exp and whose backward launches
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`); on the CPU
+autograd runs through the plain version.  The TPU kernel has no Tiny-OpenCL
+family, so none is registered.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..common import check_dtype, on_card
-from .flash_attention import (COMPILED_DV, DTYPES, MAX_DK, MMA_HEAD_DIMS,
-                              launch_flash_attention, supports_head_dims,
+from .flash_attention import (BWD_HEAD_DIMS, COMPILED_DV, DTYPES, MAX_DK,
+                              MMA_HEAD_DIMS, launch_flash_attention,
+                              launch_flash_attention_bwd, supports_head_dims,
                               tma_view)
-from .ref import block_sizes, counts, flash_attention_plain, mha_ref, repeat_kv
+from .ref import (block_sizes, counts, flash_attention_bwd_plain,
+                  flash_attention_plain, mha_ref, repeat_kv)
 
-__all__ = ["flash_attention", "counts", "mha_ref", "repeat_kv"]
+__all__ = ["flash_attention", "flash_attention_bwd", "counts", "mha_ref",
+           "repeat_kv"]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -71,10 +81,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention: the kernel takes a contiguous "
                          "head-dim axis")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        check_backward(dk, dv, q_offset)
+        return _FlashAttention.apply(q, k, v, causal, scale, bq_, bk_)
+    return _card_forward(q, k, v, causal, scale, q_offset, bq_, bk_)[0]
+
+
+def check_backward(dk: int, dv: int, q_offset: int) -> None:
+    """Raise ``ValueError`` for a call whose gradient the backward kernel
+    does not compute (no plain fallback on the card)."""
+    if dk != dv or dk not in BWD_HEAD_DIMS or q_offset != 0:
+        raise ValueError(
+            f"the flash-attention backward kernel takes Dk = Dv in "
+            f"{BWD_HEAD_DIMS} and q_offset 0; got Dk={dk}, Dv={dv}, "
+            f"q_offset={q_offset} (ROADMAP.md queue 2 item 6 extends it)")
+
+
+def _card_forward(q, k, v, causal, scale, q_offset, bq, bk, with_lse=False):
+    """(out, lse or None): one launch of the forward kernel; bf16 views no
+    tensor map describes are copied first (:func:`tma_view`)."""
+    b, h, s, dk = q.shape
+    dv = v.shape[3]
     if q.dtype == torch.bfloat16 and (dk, dv) in MMA_HEAD_DIMS:
         q, k, v = tma_view(q), tma_view(k), tma_view(v)
     out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel():
         launch_flash_attention(q, k, v, out, causal=causal, scale=scale,
-                               q_offset=q_offset, bq=bq_, bk=bk_)
-    return out
+                               q_offset=q_offset, bq=bq, bk=bk, lse=lse)
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The card's differentiable call (q_offset 0): the forward kernel with
+    each row's log-sum-exp kept, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, bq, bk):
+        out, lse = _card_forward(q, k, v, causal, scale, 0, bq, bk,
+                                 with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor | None, *,
+                        causal: bool = True, scale: float | None = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
+    scale=scale)`` (q_offset 0) for the output's gradient ``dout``, each in
+    its input's dtype and shape.
+
+    On CUDA tensors it launches ``csrc/flash_attention_bwd.cu``: q, k, v
+    and ``dout`` share a dtype (float32 or bfloat16), Dk = Dv in
+    :data:`BWD_HEAD_DIMS` (else ``ValueError``), ``lse`` is the forward
+    kernel's f32 (B, H, S) row log-sum-exp; views are copied contiguous
+    first.  On CPU and ``meta`` tensors it runs the plain version, autograd
+    of :func:`flash_attention_plain` (``lse`` unused)."""
+    dk_, dv_ = q.shape[3], v.shape[3]
+    scale = (dk_ ** -0.5) if scale is None else scale
+    if not on_card(q, k, v, dout):
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         scale=scale)
+    check_dtype("flash_attention_bwd q", q, DTYPES)
+    if any(x.dtype != q.dtype for x in (k, v, dout)):
+        raise TypeError("flash_attention_bwd inputs must share a dtype")
+    check_backward(dk_, dv_, 0)
+    q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    b, h, s, _ = q.shape
+    if not (q.numel() and k.numel()):
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    launch_flash_attention_bwd(q, k, v, dout, lse.contiguous(), delta, dq, dk,
+                               dv, causal=causal, scale=scale)
+    return dq, dk, dv

@@ -12,6 +12,8 @@ differ (MLA uses Dk = 192 = nope 128 + rope 64 against Dv = 128).
   non-causal case as a scan over kv chunks.  It sits beside the CUDA kernel
   (``csrc/flash_attention.cu``): the wrapper ``ops.flash_attention`` runs it
   for CPU and ``meta`` tensors.
+* :func:`flash_attention_bwd_plain` is its gradient by autograd (the
+  plain version of ``csrc/flash_attention_bwd.cu``).
 * :func:`mha_ref` is the plain softmax oracle, with -inf masking: a row
   that is wholly masked gives NaN there (the sentinel versions give 0).
 * :func:`counts` is the JAX package's, for the machine model.
@@ -116,17 +118,25 @@ def _state(q: torch.Tensor, dv: int):
 
 
 def _causal(q, k, v, scale, bq, bk, q_offset):
+    """The JAX path's pair scan, with each q block's (m, l, acc) rebound per
+    merge instead of written into full-sequence buffers: the same merges in
+    the same order (the same bits), and nothing that autograd saved is
+    modified in place."""
     s, t = q.shape[2], k.shape[2]
-    m_all, l_all, acc_all = _state(q, v.shape[3])
+    cols_of: List[List[int]] = [[] for _ in range(s // bq)]
     for i, j in causal_pairs(s // bq, t // bk, bq, bk, q_offset):
+        cols_of[i].append(j)
+    out = []
+    for i, js in enumerate(cols_of):
         rows = slice(i * bq, (i + 1) * bq)
-        cols = slice(j * bk, (j + 1) * bk)
-        mb, lb, ab = _block(q[:, :, rows], k[:, :, cols], v[:, :, cols],
-                            scale, True, q_offset + i * bq, j * bk, bq, bk)
-        mn, ln, an = _merge(m_all[:, :, rows], l_all[:, :, rows],
-                            acc_all[:, :, rows], mb, lb, ab)
-        m_all[:, :, rows], l_all[:, :, rows], acc_all[:, :, rows] = mn, ln, an
-    return acc_all / torch.where(l_all == 0.0, 1.0, l_all)
+        m, l, acc = _state(q[:, :, rows], v.shape[3])
+        for j in js:
+            cols = slice(j * bk, (j + 1) * bk)
+            mb, lb, ab = _block(q[:, :, rows], k[:, :, cols], v[:, :, cols],
+                                scale, True, q_offset + i * bq, j * bk, bq, bk)
+            m, l, acc = _merge(m, l, acc, mb, lb, ab)
+        out.append(acc / torch.where(l == 0.0, 1.0, l))
+    return torch.cat(out, dim=2)
 
 
 def _full(q, k, v, scale, causal, bk, q_offset):
@@ -172,3 +182,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = _full(qp, kp, vp, scale, False, bk_, q_offset)
     return out[:, :, :s].to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, scale: float | None = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_plain` (q_offset 0) for the
+    output's gradient ``dout``, by autograd through it: the JAX package's
+    gradient of its XLA path, and the backward kernel's plain version."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, scale=scale)
+        return torch.autograd.grad(out, leaves, dout)

@@ -18,6 +18,8 @@ from .params import ParamSpec, dense_spec
 
 VISION_FEATURE_DIM = 1152     # SigLIP-So400m output width (stubbed)
 AUDIO_FEATURE_DIM = 512       # wav2vec2/HuBERT CNN encoder output (stubbed)
+#: leaves the audio frontend reads in f32 (the JAX code's ``.astype``)
+F32_LEAVES = {"ln_scale", "ln_bias"}
 
 
 def frontend_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:

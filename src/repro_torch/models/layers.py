@@ -8,9 +8,11 @@ layer holds), so the same function runs a test's dict and the model.
 Dtypes follow the JAX package: matmuls, the bias add, the MLP and the
 logits product run in the config compute dtype (``cdtype``: bf16 at full
 width, f32 in ``reduced()``); norms and softmax in f32.  The JAX package
-casts its f32 weights to ``cdtype`` at every call; the model keeps its
-matmul weights, biases and embedding in ``cdtype`` already (cast once at
-load: the same bits), so the ``.to`` calls here are no-ops on its weights.
+casts its f32 weights to ``cdtype`` at every call; the serving model keeps
+its matmul weights, biases and embedding in ``cdtype`` already (cast once
+at load: the same bits), so the ``.to`` calls here are no-ops on its
+weights, while a trainable model keeps the f32 masters and these casts run
+inside the autograd graph, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -228,6 +230,20 @@ def logits_from_hidden(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, NEG_INF)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy, logsumexp minus the gold logit; logits f32
+    (B, S, Vp), labels (B, S); with a mask, the masked mean over
+    ``max(mask.sum(), 1)`` tokens."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 def residual_scale(cfg: ModelConfig) -> float:

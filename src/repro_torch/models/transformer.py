@@ -7,9 +7,8 @@ behind its vision frontend), ``attn`` with an MoE MLP
 (moonshot-v1-16b-a3b), ``mla`` with an MoE MLP behind a dense first layer
 (deepseek-v2-236b), ``rwkv`` carrying its own channel-mix (rwkv6-3b), or
 ``mamba`` and ``attn`` with dense and MoE MLPs interleaved
-(jamba-1.5-large-398b).  The audio frontend (hubert-xlarge, encoder-only)
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-it.
+(jamba-1.5-large-398b); hubert-xlarge's encoder behind its audio
+frontend.
 
 The JAX package stacks each block position's weights over ``n_groups`` and
 scans them; here :class:`Transformer` unstacks them into one
@@ -19,25 +18,38 @@ follow the JAX tree (``embed.embedding``, ``layers[i].block.wq``, ...), so
 the functions of ``layers`` and ``attention`` read a layer exactly as they
 read a dict of the JAX package's tensors.
 
-Entry points (``torch.no_grad``): :func:`prefill` and :func:`decode_step`.
-``forward`` and ``train_loss`` come with the training slice.
+Entry points: :func:`prefill` and :func:`decode_step` (``torch.no_grad``),
+:func:`forward` (hidden states of a whole sequence: hubert's encode, and the
+training loss) and :func:`train_loss`.  Training takes a model built with
+``trainable=True``: its parameters are the tree's own tensors (f32 masters,
+the block leaves viewed per layer, so an in-place optimizer step writes the
+tree), cast to the compute dtype inside the graph at every use, as the JAX
+layers cast them; :func:`bind_grads` points their gradients at a tree of
+the same layout.  This slice trains the stacks of ``attn`` blocks with a
+dense MLP and no frontend (:data:`TRAINED`); :func:`check_trainable` raises
+``NotImplementedError`` for the rest, naming the ``ROADMAP.md`` item that
+trains them.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import (attend_decode, attend_full, attn_spec,
                         cache_from_prefill, init_kv_cache)
 from .config import ModelConfig
-from .frontends import embed_vision, frontend_spec
-from .layers import (apply_mlp, apply_norm, cdtype, embed_spec, embed_tokens,
-                     logits_from_hidden, mlp_spec, mul_scalar, norm_spec,
-                     residual_scale)
+from .frontends import F32_LEAVES as FRONTEND_F32_LEAVES
+from .frontends import embed_audio, embed_vision, frontend_spec
+from .layers import (apply_mlp, apply_norm, cdtype, cross_entropy, embed_spec,
+                     embed_tokens, logits_from_hidden, mlp_spec, mul_scalar,
+                     norm_spec, residual_scale)
 from .mamba import F32_LEAVES as MAMBA_F32_LEAVES
 from .mamba import init_mamba_state, mamba_decode, mamba_full, mamba_spec
 from .mla import F32_LEAVES as MLA_F32_LEAVES
@@ -49,26 +61,36 @@ from .rwkv import F32_LEAVES as RWKV_F32_LEAVES
 from .rwkv import (init_rwkv_state, rwkv_channel_mix, rwkv_spec,
                    rwkv_time_mix)
 
-#: what the port does not build yet, and the ROADMAP.md item that ports it
-UNPORTED = {
-    "audio": "ROADMAP.md queue 1, next step 7 (training: hubert's encode "
-             "needs forward)",
-}
-
-
 #: (block kind, mlp kind) pairs the port builds
 PORTED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe"),
           ("rwkv", "none"), ("mamba", "dense"), ("mamba", "moe")}
 #: block kinds of a dense first layer (``first_layer_dense``) it builds
 FIRST_LAYER_KINDS = {"attn", "mla"}
 #: modality frontends it builds
-FRONTENDS = {"none", "vision"}
+FRONTENDS = {"none", "vision", "audio"}
+#: (block kind, mlp kind) pairs the port trains, and the ROADMAP.md item
+#: that trains each other kind
+TRAINED = {("attn", "dense")}
+UNTRAINED = {
+    "rwkv": "ROADMAP.md queue 1, step 7b (rwkv6-3b: a rwkv6_scan backward "
+            "kernel)",
+    "mamba": "ROADMAP.md queue 1, step 7c (jamba: a mamba_scan backward "
+             "kernel)",
+    "mla": "ROADMAP.md queue 1, step 7e (MLA: the (192, 128) flash "
+           "backward)",
+    "moe": "ROADMAP.md queue 1, step 7d (MoE: the load-balance and router-z "
+           "aux losses)",
+    "vision": "ROADMAP.md queue 1, step 7f (paligemma: the Dv 256 flash "
+              "backward)",
+    "audio": "ROADMAP.md queue 1, step 7f (hubert: the audio loss)",
+}
 
 _BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "mamba": mamba_spec,
                 "rwkv": rwkv_spec}
 #: leaves the model keeps in float32 besides the norms (the JAX blocks read
 #: them with ``.astype(float32)``)
-F32_LEAVES = RWKV_F32_LEAVES | MLA_F32_LEAVES | MAMBA_F32_LEAVES
+F32_LEAVES = (RWKV_F32_LEAVES | MLA_F32_LEAVES | MAMBA_F32_LEAVES
+              | FRONTEND_F32_LEAVES)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -87,7 +109,24 @@ def check_supported(cfg: ModelConfig) -> None:
         what, kind = kinds[0]
         raise NotImplementedError(
             f"{cfg.name}: {what} {kind!r} is not ported to PyTorch yet; "
-            f"{UNPORTED.get(kind, 'ROADMAP.md queue 1')} ports it")
+            "ROADMAP.md queue 1 ports it")
+
+
+def check_trainable(cfg: ModelConfig, *, frontend: bool = False) -> None:
+    """Raise ``NotImplementedError`` for an arch :func:`train_loss` does not
+    train (``frontend=True``: :func:`forward` without a gradient, which
+    also runs a vision or audio frontend, as hubert's encode does)."""
+    check_supported(cfg)
+    pairs = list(zip(cfg.block_pattern, cfg.mlp_pattern))
+    kinds = [k if k != "attn" else m for k, m in pairs if (k, m) not in TRAINED]
+    if cfg.first_layer_dense:
+        kinds.insert(0, cfg.block_pattern[0])
+    if cfg.frontend != "none" and not frontend:
+        kinds.append(cfg.frontend)
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: the port does not train {kinds[0]!r} yet; "
+            f"{UNTRAINED[kinds[0]]} trains it")
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +182,8 @@ def _keeps_f32(path: str) -> bool:
     """True for a leaf kept in float32: a norm's (its parent key names one)
     or one a block reads in f32 (:data:`F32_LEAVES`: rwkv's ``w0``,
     ``u_bonus``, ``ln_x``; MLA's ``q_norm``, ``kv_norm``, ``wk_b``,
-    ``wv_b``; mamba's ``dt_bias``, ``a_log``, ``d_skip``)."""
+    ``wv_b``; mamba's ``dt_bias``, ``a_log``, ``d_skip``; the audio
+    frontend's ``ln_scale``, ``ln_bias``)."""
     keys = re.findall(r"\['([^']*)'\]", path)
     return "norm" in keys[-2] or keys[-1] in F32_LEAVES
 
@@ -166,9 +206,16 @@ class Transformer(nn.Module):
     ``ValueError`` on a missing leaf, a leaf it did not consume, or a
     shape that differs from the spec.  The module lives on the tree's
     device and holds no gradients.
+
+    ``trainable=True`` builds the training model instead: every parameter
+    is the tree's own tensor (a block leaf's group ``g`` viewed as
+    ``leaf[g]``), not cast, requiring grad, so the layers cast it to the
+    compute dtype inside the graph and an in-place update of the tree is
+    the model's update (:func:`bind_grads` gives it gradient buffers).
     """
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
+                 trainable: bool = False):
         super().__init__()
         spec = model_spec(cfg)
         self.cfg = cfg
@@ -184,22 +231,30 @@ class Transformer(nn.Module):
                 raise ValueError(f"{cfg.name}: {path} has shape "
                                  f"{tuple(got[path].shape)}, spec {s.shape}")
         dt = cdtype(cfg)
+        tree_params: List[Tuple[nn.Parameter, str, Optional[int]]] = []
 
-        def param(path: str, t: torch.Tensor) -> nn.Parameter:
-            return nn.Parameter(t.to(torch.float32 if _keeps_f32(path) else dt),
-                                requires_grad=False)
+        def param(path: str, t: torch.Tensor, g: Optional[int]) -> nn.Parameter:
+            if not trainable:
+                return nn.Parameter(
+                    t.to(torch.float32 if _keeps_f32(path) else dt),
+                    requires_grad=False)
+            out = nn.Parameter(t, requires_grad=True)      # aliases the tree
+            tree_params.append((out, path, g))
+            return out
 
-        def pdict(prefix: str, tree: Dict[str, Any], pick=lambda t: t):
+        def pdict(prefix: str, tree: Dict[str, Any], g: Optional[int] = None):
             # a nested dict (the MoE's shared experts) nests a ParameterDict
             return nn.ParameterDict({
-                name: (pdict(f"{prefix}['{name}']", t, pick)
+                name: (pdict(f"{prefix}['{name}']", t, g)
                        if isinstance(t, dict)
-                       else param(f"{prefix}['{name}']", pick(t)))
+                       else param(f"{prefix}['{name}']",
+                                  t if g is None else t[g], g))
                 for name, t in tree.items()})
 
-        def layer_dict(prefix: str, tree: Dict[str, Any], pick=lambda t: t):
+        def layer_dict(prefix: str, tree: Dict[str, Any],
+                       g: Optional[int] = None):
             return nn.ModuleDict({
-                name: pdict(f"{prefix}['{name}']", sub, pick)
+                name: pdict(f"{prefix}['{name}']", sub, g)
                 for name, sub in tree.items()})
 
         self.embed = pdict("['embed']", params["embed"])
@@ -212,8 +267,14 @@ class Transformer(nn.Module):
         for layer in range(n_scanned(cfg)):
             g, i = divmod(layer, cfg.period)
             self.layers.append(layer_dict(
-                f"['blocks']['pos{i}']", params["blocks"][f"pos{i}"],
-                lambda t, g=g: t[g]))
+                f"['blocks']['pos{i}']", params["blocks"][f"pos{i}"], g))
+        #: (parameter, its leaf's path, its group or None), for bind_grads
+        self.tree_params = tree_params
+        # pdict's recursion makes its closure a reference cycle: drop it, so
+        # these closures are freed with this frame and keep no parameter
+        # (or, through them, the model) alive until the cycle collector
+        # runs
+        del pdict
 
     @property
     def device(self) -> torch.device:
@@ -226,13 +287,14 @@ class Transformer(nn.Module):
 def embed_inputs(model: Transformer, inputs: Dict[str, torch.Tensor]
                  ) -> torch.Tensor:
     """inputs: {"tokens": (B, S)} [+ "patches" (B, P, F) for a vision
-    frontend, whose embeddings are prepended: (B, P + S, D)].  Audio frames
-    are not taken (:data:`UNPORTED`)."""
+    frontend, whose embeddings are prepended: (B, P + S, D)], or an audio
+    model's {"frames": (B, S, F)} (other keys, such as a batch's labels,
+    are not read)."""
     cfg = model.cfg
-    if "tokens" not in inputs or set(inputs) - {"tokens", "patches"}:
-        raise NotImplementedError(
-            f"the port takes tokens and a vision model's patches; got "
-            f"{sorted(inputs)} ({UNPORTED['audio']} ports the audio frames)")
+    if cfg.frontend == "audio":
+        return embed_audio(model.frontend, inputs["frames"], cfg)
+    if "frames" in inputs:
+        raise ValueError(f"{cfg.name} has no audio frontend; got frames")
     x = embed_tokens(model.embed, inputs["tokens"], cfg)
     if "patches" in inputs:
         if cfg.frontend != "vision":
@@ -256,15 +318,16 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     mlp_kind: str, *, mode: str = "prefill", cache=None,
                     pos=None, moe_group_size: Optional[int] = None):
     """One layer of block ``kind`` with feed-forward ``mlp_kind``.  Returns
-    (x, new_cache): for ``attn`` the prefill's (k, v) or the decode step's
-    cache (written in place); for ``mla`` the prefill's latents (c_kv,
+    (x, new_cache): None in ``mode="train"`` (an ``attn`` block over the
+    whole sequence, keeping no cache); for ``attn`` the prefill's (k, v) or
+    the decode step's cache (written in place); for ``mla`` the prefill's latents (c_kv,
     k_rope) or the decode step's cache (written in place); for ``rwkv`` the
     state (tlast, wkv, clast) and for ``mamba`` the state (conv window, ssm)
     after the prefill, or the decode step's cache (written in place).  An
     MoE layer routes groups of ``moe_group_size`` tokens (None:
     :func:`moe_group`); its aux losses are not computed (no training path
     reads them yet)."""
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     rs = residual_scale(cfg)
     h = apply_norm(p["norm1"], x, cfg)
@@ -295,6 +358,8 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
             out, new_cache = mla_full(p["block"], h, cfg, return_cache=True)
     elif mode == "decode":
         out, new_cache = attend_decode(p["block"], h, cache, pos, cfg)
+    elif mode == "train":
+        out, new_cache = attend_full(p["block"], h, cfg), None
     else:
         out, new_cache = attend_full(p["block"], h, cfg, return_kv=True)
     x = x + mul_scalar(out, rs)
@@ -526,3 +591,106 @@ def _restacked(leaves: Any, per_layer: List[Any]) -> Any:
     return tuple(leaf if per_layer[0][j].dtype == leaf.dtype
                  else torch.stack([c[j] for c in per_layer])
                  for j, leaf in enumerate(leaves))
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (train / encode)
+# ---------------------------------------------------------------------------
+#: the products "dots" remat keeps (PyTorch's counterpart of JAX's
+#: ``dots_with_no_batch_dims_saveable``: the 2-D matmuls, not the batched
+#: ones)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return _apply_position(p, x, cfg, "attn", "dense", mode="train")[0]
+
+
+def _remat_layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One layer under ``cfg.remat``, as the JAX scan body's
+    ``jax.checkpoint``: ``"none"`` keeps every activation for the backward,
+    ``"full"`` keeps only the layer's input and recomputes the rest,
+    ``"dots"`` keeps the matmul outputs as well (selective checkpointing).
+    The recomputation is the same arithmetic, so the gradients' bits do not
+    depend on the policy."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return _layer(p, x, cfg)
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    context = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+    return checkpoint(_layer, p, x, cfg, use_reentrant=False, **context)
+
+
+def _as_model(model_or_tree, cfg: ModelConfig) -> Transformer:
+    if isinstance(model_or_tree, Transformer):
+        if model_or_tree.cfg.name != cfg.name:
+            raise ValueError(f"the model is {model_or_tree.cfg.name}, the "
+                             f"config {cfg.name}")
+        return model_or_tree
+    return Transformer(cfg, model_or_tree)
+
+
+def forward(model_or_tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (hidden (B, S, D) after the final norm, aux losses (2,) f32).
+
+    ``model_or_tree`` is a :class:`Transformer` (``trainable=True`` to
+    train it) or a parameter tree in the JAX layout (a serving model is
+    built from it).  ``inputs`` as :func:`embed_inputs` takes them.  Runs
+    the stacks of ``attn`` blocks with a dense MLP (:data:`TRAINED`),
+    behind a vision or audio frontend too; each layer under ``cfg.remat``.
+    The aux losses are zero: no block of these stacks has any (MoE's come
+    with its training, :data:`UNTRAINED`).  The JAX package's FSDP weight
+    gathers (``cfg.fsdp_gather_weights``) are the distribution slice's; on
+    one device there is nothing to gather, and the flag is not read."""
+    check_trainable(cfg, frontend=True)
+    model = _as_model(model_or_tree, cfg)
+    x = embed_inputs(model, inputs)
+    for p in model.layers:
+        x = _remat_layer(p, x, cfg)
+    x = apply_norm(model.final_norm, x, cfg)
+    return x, torch.zeros(2, dtype=torch.float32, device=x.device)
+
+
+#: the JAX package's aux-loss coefficients (``models/transformer.py``)
+AUX_LB_COEF = 0.01
+AUX_Z_COEF = 0.001
+
+
+def train_loss(model_or_tree, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: {"tokens", "labels" (B, S), optional "mask" (B, S)} ->
+    (loss, metrics ``ce``, ``load_balance``, ``router_z``, ``loss``), each a
+    0-d f32 tensor.  Raises ``NotImplementedError`` for an arch this slice
+    does not train (:func:`check_trainable`)."""
+    check_trainable(cfg)
+    model = _as_model(model_or_tree, cfg)
+    hidden, aux = forward(model, batch, cfg)
+    logits = logits_from_hidden(model.embed, hidden, cfg)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:        # vision prefix: no loss
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    ce = cross_entropy(logits, labels, batch.get("mask"))
+    loss = ce + AUX_LB_COEF * aux[0] + AUX_Z_COEF * aux[1]
+    metrics = {"ce": ce, "load_balance": aux[0], "router_z": aux[1],
+               "loss": loss}
+    return loss, metrics
+
+
+def bind_grads(model: Transformer, grads: Dict[str, Any]) -> None:
+    """Point every parameter's ``.grad`` of a ``trainable`` model at its
+    leaf of ``grads``, a tree in the JAX layout (a block parameter at
+    ``leaf[g]``).  Autograd then adds each backward's gradient into the
+    tree in place: zero the tree before a step, and microbatches
+    accumulate."""
+    leaves = dict(leaves_with_path(grads))
+    if not model.tree_params:
+        raise ValueError("bind_grads takes a model built with trainable=True")
+    for prm, path, g in model.tree_params:
+        prm.grad = leaves[path] if g is None else leaves[path][g]

@@ -12,8 +12,8 @@ place by a decode step.  A vision model (paligemma) is served through
 :func:`make_prefill_step` with ``{"tokens", "patches"}`` and
 :func:`make_decode_step` from position P + S; :func:`greedy_generate`, like
 the JAX package's and the decode engine, takes token prompts only.
-Encoder archs (hubert) have no prefill/decode; their ``encode`` step needs
-``forward``, which comes with the training slice.
+Encoder archs (hubert) have no prefill/decode: :func:`make_prefill_step`
+gives their ``encode`` step, a full forward returning per-frame logits.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from typing import Callable, Optional
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import Transformer, decode_step, prefill
+from ..models.layers import logits_from_hidden
+from ..models.transformer import Transformer, decode_step, forward, prefill
 
 
 def _check_model(model: Transformer, cfg: ModelConfig) -> None:
@@ -38,11 +39,15 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     logits (B, Vp), cache).  A vision model's patches are embedded and
     prepended to the tokens, so the cache holds P + S positions and the
     first decode position is P + S; a model without a vision frontend
-    refuses them."""
+    refuses them.  An encoder's step is its encode: (model, {"frames": (B,
+    S, F)}) -> per-frame logits (B, S, Vp) f32, ``torch.no_grad``."""
     if cfg.is_encoder:
-        raise NotImplementedError(
-            f"{cfg.name} is encoder-only: its encode step needs forward(), "
-            "which comes with the training slice (ROADMAP.md queue 1, next step 7)")
+        @torch.no_grad()
+        def encode(model, inputs):
+            _check_model(model, cfg)
+            hidden, _ = forward(model, inputs, cfg)
+            return logits_from_hidden(model.embed, hidden, cfg)
+        return encode
 
     def prefill_step(model, inputs):
         _check_model(model, cfg)

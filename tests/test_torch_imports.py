@@ -76,7 +76,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.serve.server", "repro_torch.serve.faults",
                 "repro_torch.serve.power", "benchmarks_torch.bench_serve",
                 "repro_torch.serve.engine", "repro_torch.serve.http",
-                "benchmarks_torch.bench_decode"}
+                "benchmarks_torch.bench_decode",
+                "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                "repro_torch.optim.schedule", "repro_torch.checkpoint.store",
+                "repro_torch.train.step", "repro_torch.launch.train"}
     assert expected <= set(report["modules"])
 
 
@@ -85,7 +88,7 @@ def test_no_source_line_names_jax():
              + list((ROOT / "benchmarks_torch").rglob("*.py"))
              + list((ROOT / "examples").glob("*_torch.py"))
              + [ROOT / "chip_smoke.py"])
-    assert len([p for p in paths if p.parent.name == "examples"]) == 3
+    assert len([p for p in paths if p.parent.name == "examples"]) == 4
     for path in paths:
         for line in path.read_text().splitlines():
             code = line.split("#")[0].strip()
@@ -117,6 +120,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.models.transformer import model_spec
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(model_spec(get("qwen2.5-3b").reduced()), 0)
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "minicpm-2b", "--smoke", "--steps", "1"])
 
 
 def _no_result(stdout: str) -> bool:

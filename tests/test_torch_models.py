@@ -46,10 +46,11 @@ from repro_torch.kernels.common import LAUNCHES
 from repro_torch.models import attention, layers, rwkv
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.models.params import (init_params, leaves_with_path,
-                                       param_bytes)
+                                       map_tree, param_bytes)
 from repro_torch.models.transformer import (Transformer, cache_axes,
                                             cache_struct, decode_step,
-                                            init_cache, model_spec, prefill)
+                                            init_cache, model_spec, prefill,
+                                            train_loss)
 from repro_torch.train.serve import (greedy_generate, make_decode_step,
                                      make_prefill_step)
 
@@ -133,13 +134,13 @@ def test_configs_are_the_reference_configs():
 
 @pytest.mark.parametrize("name", ["hubert-xlarge"])
 def test_unported_archs_raise_naming_the_roadmap(name):
-    """hubert's audio frontend comes with its encode step, which needs
-    forward(): the training slice, ROADMAP.md queue 1 step 7."""
+    """hubert's encoder is built (its encode step serves), but its
+    training, the audio loss, is not ported: ROADMAP.md queue 1 step 7f."""
     cfg = configs.get(name).reduced()
+    assert model_spec(cfg)["frontend"].keys() == {"proj", "ln_scale",
+                                                  "ln_bias"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 7"):
-        model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 7"):
-        init_cache(cfg, 1, 8, device="cpu")
+        train_loss({}, {}, cfg)
 
 
 # -- params -------------------------------------------------------------------
@@ -414,8 +415,14 @@ def test_steps_and_their_fast_path():
         _reduced("minicpm-2b"), 0), device="cpu")
     with pytest.raises(ValueError, match="made for"):
         make_decode_step(cfg)(other, cache, tok, 11)
-    with pytest.raises(NotImplementedError, match="encoder-only"):
-        make_prefill_step(configs.get("hubert-xlarge").reduced(), 16)
+    # an encoder's prefill step is its encode (tests/test_torch_train.py
+    # holds it against the JAX package's)
+    hubert = configs.get("hubert-xlarge").reduced()
+    encode = make_prefill_step(hubert, 16)
+    frames = torch.zeros(1, 5, 512)
+    logits = encode(Transformer(hubert, map_tree(
+        lambda s: torch.zeros(s.shape), model_spec(hubert))), {"frames": frames})
+    assert logits.shape == (1, 5, hubert.vocab_padded)
 
 
 def test_decode_clamps_the_cache_write_at_max_len():
