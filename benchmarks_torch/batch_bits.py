@@ -38,8 +38,9 @@ axis 1 of (E, groups * capacity, D)):
   the unpaired ranges of that layer (``unmatched``).
 
 Ops are caught at the ATen dispatcher (``TorchDispatchMode``); the
-hand-written kernels on the path (``flash_attention``, ``rwkv6_scan``,
-``mamba_scan``) launch outside it and are caught at their wrappers, and so
+hand-written kernels on the path (``flash_attention``, ``decode_attention``,
+``rwkv6_scan``, ``mamba_scan`` and the norms ``rms_norm``, ``layer_norm``,
+``group_norm``) launch outside it and are caught at their wrappers, and so
 is ``rows_matmul`` (the products on fixed chunks of token rows), whose
 chunks hold the rows of several sequences: it is compared at its output,
 never by the ops within it.
@@ -70,6 +71,7 @@ from torch.utils._pytree import tree_flatten, tree_map
 from repro_torch import configs
 from repro_torch.core.runtime import resolve_device
 from repro_torch.models import attention as attention_mod
+from repro_torch.models import layers as layers_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -106,13 +108,18 @@ class _Op:
 
 
 def _same_view(t: torch.Tensor) -> torch.Tensor:
-    """A copy of ``t`` with its strides and offset (a copy of its whole
-    storage viewed the same way), so that a replayed op sees the layout the
-    run gave it."""
+    """A copy of ``t`` with its strides (a copy of the span of its storage
+    that it covers, viewed the same way), so that a replayed op sees the
+    layout the run gave it.  Only the span is copied: a layer's cache is a
+    view of the cache stacked over all layers, and a copy of the whole
+    storage at every layer outgrew the card."""
     t = t.detach()
+    if t.numel() == 0 or any(st < 0 for st in t.stride()):
+        return t.clone()
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    flat = torch.as_strided(t, (span,), (1,), t.storage_offset()).clone()
     out = t.new_empty(0)
-    out.set_(t.untyped_storage().clone(), t.storage_offset(), t.size(),
-             t.stride())
+    out.set_(flat.untyped_storage(), 0, t.size(), t.stride())
     return out
 
 
@@ -419,6 +426,8 @@ def run(arch: str = "qwen2.5-3b", device: Any = "cuda", *,
     pick = lambda t, sel: t[list(sel)].contiguous()   # noqa: E731
 
     caught = ((attention_mod, "flash_attention"), (mla_mod, "flash_attention"),
+              (attention_mod, "decode_attention"), (layers_mod, "rms_norm"),
+              (layers_mod, "layer_norm"), (rwkv_mod, "group_norm"),
               (rwkv_mod, "rwkv6_scan"), (mamba_mod, "mamba_scan"),
               (attention_mod, "rows_matmul"), (mamba_mod, "rows_matmul"),
               (moe_mod, "rows_matmul"))

@@ -79,7 +79,19 @@ Phases (any failure exits non-zero and prints no result line):
    output bit-equal with and without the log-sum-exp it keeps for the
    backward, two calls bit-equal and a B = 1 call bit-equal to row 2 of
    B = 4 or 8 (stablelm's and qwen's shapes), and Dk = Dv = 256 refused
-   with a ``ValueError`` (no fallback);
+   with a ``ValueError`` (no fallback); bf16 at D 32, 64, 96 and 128 runs
+   the tensor-core kernels, f32 and D 80 the CUDA-core ones;
+   ``decode_attention`` with each row's ``lengths``, as the model's decode
+   step calls it, against the masked plain version: lengths 1, mid, T and
+   33 at qwen's step, a ragged T = 300, paligemma's D = 256 and T = 32768
+   (splits wholly past a row's length), bf16 and f32, out in the cache
+   dtype and f32; every row alone bit-equal to the batched row, and keys
+   past a row's length never read;
+   ``norm`` in every form the models run (RMS, LayerNorm, rwkv's groups of
+   64, the audio frontend's LayerNorm with a bias), bf16 and f32, at
+   d = 2048, 2560, 4096, 8192, 512 and 1536: a row alone bit-equal to row
+   2 of a (4, 64, d) batch, and the autograd backward against the plain
+   version's;
    2b. the four TinyBio kernels with a leading batch axis, for B = 1, 2,
    4, 8: ``fir`` (f32 and Q15 int16), ``delineate`` (with extrema at every
    row's edges), ``power_spectrum`` on (B, 128, 512) and ``svm`` on
@@ -122,7 +134,13 @@ Phases (any failure exits non-zero and prints no result line):
    stablelm's training shape in bf16, beside its bound (the five products
    a backward needs), the plain version (autograd through the plain
    forward) and ``scaled_dot_product_attention``'s backward (its forward
-   and backward less its forward);
+   and backward less its forward), its device time by kernel, and qwen's
+   GQA shape (B = 4, 16 over 2 heads of 128,
+   S = T = 256); ``decode_attention`` with lengths at qwen's step (the row
+   the kernels line reports) against SDPA with a mask; ``norm`` at qwen's
+   step and prefill, stablelm's training forward, rwkv's group norm and
+   deepseek's latent norm, against ``F.rms_norm``, ``F.layer_norm`` and
+   ``F.group_norm``;
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -165,9 +183,12 @@ Phases (any failure exits non-zero and prints no result line):
    answers 4 requests of 256-token prompts with 16 new tokens each, with
    the launch counters reset just before and read just after:
    ``flash_attention`` must launch once per layer per prefill and never in
-   a decode step, the tokens must repeat on a second run, and a
-   ``torch.profiler`` trace of one prefill must show the hand-written
-   kernel and no library attention kernel.  Prefill and per-step decode
+   a decode step, ``decode_attention`` once per layer per decode step,
+   ``norm`` at every norm of each prefill and step (exact counts), the
+   tokens must repeat on a second run, and a ``torch.profiler`` trace of
+   one prefill must show the hand-written kernel and no library attention
+   kernel, one of a decode step the norm and decode kernels and no PyTorch
+   norm reduction (a mean or ``torch.var``).  Prefill and per-step decode
    walls, tokens/s, the device's busy and idle share of one prefill and one
    decode step, and peak device memory are printed;
    5b. the card against the CPU: a 2-layer cut of qwen2.5-3b at full width
@@ -179,7 +200,8 @@ Phases (any failure exits non-zero and prints no result line):
    d_model 2560, 40 heads of 64, bf16, random weights from seed 0 on the
    card): ``greedy_generate`` answers 4 requests of 256-token prompts with
    16 new tokens each; ``rwkv6_scan`` must launch once per layer in the
-   prefill and in every decode step, and no other kernel of ours; the
+   prefill and in every decode step, ``norm`` at every norm (three a
+   layer, with the per-head group norm), and no other kernel of ours; the
    tokens must repeat on a second run.  Walls, tokens/s, the device's idle
    share of one prefill and one decode step, ``rwkv6_kernel``'s device time
    in the prefill (``rwkv6_step_kernel`` in a decode step), and peak memory
@@ -212,12 +234,15 @@ Phases (any failure exits non-zero and prints no result line):
    request captures both graphs, six 256-token requests of 16 new tokens
    arrive staggered, with the launch counters reset just before and read
    just after (qwen: ``flash_attention`` once per layer per prefill, none
-   in a step; rwkv: ``rwkv6_scan`` once per layer per prefill and per
-   step; no other kernel of ours).  Two requests must take freed slots
-   while others still decode; every request's tokens must equal the
-   card's ``greedy_generate`` of the six prompts as one batch, bit for bit
-   (not of each prompt alone: ``benchmarks_torch/batch_bits.py`` names the
-   ops whose bits depend on the batch); the cache
+   in a step, ``decode_attention`` once per layer per step; rwkv:
+   ``rwkv6_scan`` once per layer per prefill and per step; both: ``norm``
+   at every norm; no other kernel of ours).  Two requests must take freed
+   slots while others still decode; every request's tokens must equal the
+   card's ``greedy_generate`` of the six prompts as one batch, bit for
+   bit, and so must each prompt's ``greedy_generate`` alone (B = 1:
+   ``benchmarks_torch/batch_bits.py`` names any op whose bits depend on the
+   batch); a profiled warm step runs the norm kernel and no PyTorch norm
+   reduction; the cache
    must have missed twice; every modeled ``stats()`` field must equal the
    CPU's over a 2-layer f32 cut at full width.  The served wall, tokens/s
    of wall, a warm prefill's and a warm step's wall, one warm step's
@@ -233,9 +258,12 @@ Phases (any failure exits non-zero and prints no result line):
    modeled bytes of that bf16 tree).  Each is served as in phase 8 (one
    short request to capture, six staggered 256-token requests of 16 new
    tokens, two taking freed slots): ``flash_attention`` once per layer per
-   prefill and never in a step, no other kernel of ours, no view copied
-   for a tensor map, tokens equal to the card's ``greedy_generate`` of the
-   six prompts as one batch, 2 cache misses; a ``torch.profiler`` trace of
+   prefill and never in a step, ``decode_attention`` once per layer per
+   step (moonshot; deepseek's MLA keeps its absorbed products, one row at
+   a time), ``norm`` at every norm (MLA's latent norms included), no other
+   kernel of ours, no view copied for a tensor map, tokens equal to the
+   card's ``greedy_generate`` of the six prompts as one batch and of each
+   alone, 2 cache misses; a ``torch.profiler`` trace of
    one warm prefill names the flash kernel that ran (moonshot's D = 128
    on ``flash_wgmma_kernel``, deepseek's Dk 192 / Dv 128 on the CUDA-core
    ``flash_kernel``) and no library attention kernel.  Walls, tokens/s,
@@ -256,8 +284,9 @@ Phases (any failure exits non-zero and prints no result line):
    of eight is 88 GB in bf16), a bf16 tree of 23.0 G parameters drawn on
    the card, served as in phase 9: ``mamba_scan`` three times a prefill
    (once a mamba layer) and never in a step, ``flash_attention`` once a
-   prefill on ``flash_wgmma_kernel<128, 128>``, tokens equal to
-   ``greedy_generate`` of the six prompts as one batch, 2 cache misses;
+   prefill on ``flash_wgmma_kernel<128, 128>``, ``decode_attention`` once
+   a step, ``norm`` at every norm, tokens equal to ``greedy_generate`` of
+   the six prompts as one batch and of each alone, 2 cache misses;
    then its first layer alone (mamba + dense MLP) in f32 against the CPU,
    as phase 9's cuts (tokens, logits, every ``stats()`` field).  10b:
    paligemma-3b at full width and depth (18 layers, 8 heads over one kv
@@ -266,7 +295,8 @@ Phases (any failure exits non-zero and prints no result line):
    tokens as one batch through ``make_prefill_step``, 16 greedy tokens
    through ``make_decode_step(return_logits=False)``: ``flash_attention``
    18 times a prefill on ``flash_kernel<__nv_bfloat16, 256>`` and never in
-   a step, no library attention kernel, the tokens repeating on a second
+   a step, ``decode_attention`` 18 times a step (D 256), ``norm`` at every
+   norm, no library attention kernel, the tokens repeating on a second
    run; then a 2-layer f32 cut with 256 patch rows against the CPU.
    Walls, tokens/s, idle shares and peak memory are printed;
 
@@ -277,11 +307,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``launch.train.train_loop`` with the launcher's defaults (batch 8, seq
    128, f32 masters, bf16 compute, bf16 moments, remat "none") for 5
    steps: ``flash_attention`` and ``flash_attention_bwd`` once a layer a
-   step and no other kernel of ours, every loss finite and the first within
+   step, ``norm`` once a norm of each forward (its backward is PyTorch ops
+   on the kernel's statistics), no other kernel of ours, every loss
+   finite and the first within
    0.5 of ln V + 1/2; a trainer from ``build_host_trainer`` then gives the
    warm step wall, tokens/s, peak memory and a profiled step (busy time,
-   idle share, the hand-written forward and backward kernels and no
-   library attention kernel: neither SDPA's forward nor its backward,
+   idle share, the hand-written forward and backward kernels (the
+   backward's on the tensor cores, ``flash_{dq,dkdv}_wgmma_kernel``), the norm kernel
+   and no library attention kernel: neither SDPA's forward nor its backward,
    flash, memory-efficient or cuDNN).  Then a 2-layer f32 cut at full
    width, card against CPU: loss, every leaf's gradient, parameters and
    moments after 2 steps within the stated tolerances, and ``remat="dots"``
@@ -293,11 +326,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``flash_attention`` once a layer on ``flash_kernel<__nv_bfloat16, 80>``,
    bit-equal on a second call; a 2-layer f32 cut against the CPU;
 
-12. one ``{"kernels": [...]}`` line for all ten kernels (launches: phase
+12. one ``{"kernels": [...]}`` line for all eleven kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
    kernels, phases 8's, 9's, 10's and 11's for ``flash_attention``, 11's
    for ``flash_attention_bwd``, 8's for ``rwkv6_scan`` and 10's for
-   ``mamba_scan``), then, last, ``{"ok": true, "device": {...}}``.
+   ``mamba_scan``, phases 5's, 8's, 9's and 10's for ``decode_attention``
+   (after 4c's registry launches) and phases 5, 6 and 8-11 for ``norm``),
+   then, last, ``{"ok": true, "device": {...}}``.  Each phase logs its
+   wall time.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -358,8 +394,14 @@ RWKV_KERNELS = {
     "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:34"),
 }
+# the models' norms, which the JAX package leaves to XLA: the kernel
+# replaces no TPU kernel, and names the XLA norm it computes
+NORM_KERNELS = {
+    "norm": ("src/repro_torch/csrc/norm.cu",
+             "none: src/repro/models/layers.py:37 (apply_norm, left to XLA)"),
+}
 KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS, **TRAIN_KERNELS,
-           **REGISTRY_KERNELS, **RWKV_KERNELS}
+           **REGISTRY_KERNELS, **RWKV_KERNELS, **NORM_KERNELS}
 # the LM path's geometry (qwen2.5-3b) and its serving run
 LM_ARCH = "qwen2.5-3b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 256, 16, 512
@@ -393,7 +435,15 @@ ENCODE_BATCH, ENCODE_FRAMES = 4, 256
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
-FLASH_BWD_KERNEL_NAMES = ("flash_dq_kernel<", "flash_dkdv_kernel<")
+# the backward's kernels: its dQ kernels, then its dK/dV kernels, each on
+# the tensor cores (bf16 at D 32, 64, 96, 128) and on the CUDA cores
+FLASH_BWD_DQ_NAMES = ("flash_dq_wgmma_kernel<", "flash_dq_kernel<")
+FLASH_BWD_DKDV_NAMES = ("flash_dkdv_wgmma_kernel<", "flash_dkdv_kernel<")
+FLASH_BWD_KERNEL_NAMES = FLASH_BWD_DQ_NAMES + FLASH_BWD_DKDV_NAMES
+# the norm kernel, and PyTorch's reductions a norm in plain ops runs (its
+# means and torch.var), which no decode step may run
+NORM_KERNEL_NAMES = ("norm_kernel<",)
+NORM_REDUCTIONS = ("MeanOps", "WelfordOps")
 LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
                      "flash_fwd", "flash_bwd")
 
@@ -414,6 +464,66 @@ def engine_flash_dims(cfg):
                  dk, cfg.v_head_dim), dk ** -0.5)
     return ((1, cfg.n_heads, cfg.n_kv_heads, ENGINE_PROMPT, ENGINE_PROMPT,
              cfg.head_dim, cfg.head_dim), None)
+
+
+def norms_per_pass(cfg) -> int:
+    """Norm kernel launches of one prefill, one decode step or one forward
+    of ``cfg``: two a layer (norm1, norm2), one more a layer for rwkv's
+    per-head group norm and two more for MLA's latent norms, the final
+    norm, and the audio frontend's LayerNorm."""
+    from repro_torch.models.transformer import _layer_kinds, n_scanned
+    per = {"attn": 2, "mamba": 2, "rwkv": 3, "mla": 4}
+    kinds = [_layer_kinds(cfg, layer)[0] for layer in range(n_scanned(cfg))]
+    if cfg.first_layer_dense:
+        kinds.append(cfg.block_pattern[0])
+    return 1 + sum(per[k] for k in kinds) + int(cfg.frontend == "audio")
+
+
+def attn_layers(cfg) -> int:
+    """Layers of ``cfg`` whose decode step attends through
+    ``decode_attention`` (the ``attn`` blocks; MLA keeps its products)."""
+    from repro_torch.models.transformer import _layer_kinds, n_scanned
+    kinds = [_layer_kinds(cfg, layer)[0] for layer in range(n_scanned(cfg))]
+    if cfg.first_layer_dense:
+        kinds.append(cfg.block_pattern[0])
+    return kinds.count("attn")
+
+
+def model_launches(cfg, prefills: int, steps: int, **others) -> dict:
+    """The launches of ``prefills`` prefills (or forwards) and ``steps``
+    decode steps of ``cfg`` by kernel: ``norm`` at every norm,
+    ``decode_attention`` once an attention layer a step, and ``others``
+    as given."""
+    return dict(others, norm=norms_per_pass(cfg) * (prefills + steps),
+                decode_attention=attn_layers(cfg) * steps)
+
+
+def check_step_kernels(per_kernel, what, cfg):
+    """A profiled decode step ran the norm kernel and, where ``cfg`` has
+    attention layers, ``decode_split_kernel``; and no PyTorch reduction
+    of a norm (a mean or torch.var)."""
+    names = list(per_kernel)
+    check(any(n in k for k in names for n in NORM_KERNEL_NAMES),
+          f"{what}: the profiled step ran no norm kernel")
+    if attn_layers(cfg):
+        check(any("decode_split_kernel<" in k for k in names),
+              f"{what}: the profiled step ran no decode_split_kernel")
+    reductions = [k[:90] for k in names if any(r in k for r in NORM_REDUCTIONS)]
+    check(not reductions, f"{what}: the profiled step ran PyTorch's norm "
+          f"reductions: {reductions}")
+
+
+#: the phase a run is in and when it began (host clock), for phase_done
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def phase_done(next_name=None) -> None:
+    """Log the wall time of the phase that ends here, and start timing
+    ``next_name``."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        log(f"phase {_PHASE['name']}: {now - _PHASE['t0']:.1f} s of wall")
+    _PHASE.update(name=next_name, t0=now)
 
 
 def check(ok: bool, what: str) -> None:
@@ -474,6 +584,14 @@ def device_profile(torch, fn):
         busy_us += max(0.0, t1_us - max(t0_us, reach))
         reach = max(reach, t1_us)
     return wall_s, busy_us * 1e-6, per_kernel
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's function name, without its namespace, template
+    arguments and parameters."""
+    head = name.split("(")[0] if not name.startswith("void (") else name[5:]
+    head = head.replace("(anonymous namespace)::", "").split("<")[0]
+    return head.split()[-1] if head.split() else name[:40]
 
 
 def profile_line(what: str, wall_s: float, busy_s: float, per_kernel) -> str:
@@ -688,14 +806,19 @@ def serve_engine(torch, np, dev, cfg, ours, tree_dtype=None):
     arrive staggered (two, two after 5 tokens, two after 5 more, which
     wait for freed slots), with the launch counters reset just before and
     read just after: each kernel of ``ours`` ({name: (launches a prefill,
-    launches a step)}) launches that often, no other kernel of ours, and
-    no view is copied for a tensor map.  Each request's tokens
-    must equal the card's ``greedy_generate`` of the six prompts as one
-    batch, bit for bit (``benchmarks_torch/batch_bits.py`` names the ops
-    whose bits depend on the batch), and the cache must miss twice.  A
-    ``torch.profiler`` trace of a warm prefill names the flash kernel that
-    ran (``flash_wgmma_kernel`` at the head dims of ``MMA_HEAD_DIMS``) and
-    no library attention kernel.  -> its numbers."""
+    launches a step)}) launches that often (``norm`` at every norm and
+    ``decode_attention`` once an attention layer a step, unless ``ours``
+    says otherwise), no other kernel of ours, and no view is copied for a
+    tensor map.  Each request's tokens must equal the card's
+    ``greedy_generate`` of the six prompts as one batch, bit for bit, and
+    so must each prompt's ``greedy_generate`` alone (B = 1): every op of
+    the path gives a row the bits it has alone
+    (``benchmarks_torch/batch_bits.py`` names any op that does not).  The
+    cache must miss twice.  A ``torch.profiler`` trace of a warm prefill
+    names the flash kernel that ran (``flash_wgmma_kernel`` at the head
+    dims of ``MMA_HEAD_DIMS``) and no library attention kernel; one of a
+    warm step the norm and decode kernels and no PyTorch norm reduction.
+    -> its numbers."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import flash_attention as fa_module
     from repro_torch.models.params import init_params, leaves_with_path
@@ -703,6 +826,9 @@ def serve_engine(torch, np, dev, cfg, ours, tree_dtype=None):
     from repro_torch.serve import DecodeEngine, Server
     from repro_torch.train.serve import greedy_generate
     arch = cfg.name
+    npp = norms_per_pass(cfg)
+    ours = dict({"norm": (npp, npp), "decode_attention": (0, attn_layers(cfg))},
+                **ours)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -757,6 +883,13 @@ def serve_engine(torch, np, dev, cfg, ours, tree_dtype=None):
           f"{arch}: engine tokens differ from greedy_generate of the six "
           f"prompts as one batch: first differing token per request "
           f"{[int(np.argmax(g != r)) if (g != r).any() else -1 for g, r in zip(got, ref)]}")
+    alone = np.concatenate([greedy_generate(
+        eng.model, prompts[i:i + 1], ENGINE_NEW, ENGINE_MAX_LEN).cpu().numpy()
+        for i in range(ENGINE_REQUESTS)])
+    check(np.array_equal(alone, ref),
+          f"{arch}: a prompt decoded alone (B = 1) parts from the batch of "
+          f"six: first differing token per request "
+          f"{[int(np.argmax(a != r)) if (a != r).any() else -1 for a, r in zip(alone, ref)]}")
     # walls: warm prefills of one 256-token prompt, warm steps over four
     # occupied slots (each step ends in its tokens' read-back)
     state = eng.init_state()
@@ -775,6 +908,7 @@ def serve_engine(torch, np, dev, cfg, ours, tree_dtype=None):
         state, _ = eng.generate(None, state)
         steps.append(time.perf_counter() - t0)
     step_profile = device_profile(torch, lambda: eng.generate(None, state))
+    check_step_kernels(step_profile[2], f"{arch} engine step", cfg)
     p_wall, p_busy, p_kernels = device_profile(
         torch, lambda: eng.prefill(None, prompts[5]))
     library = [k for k in p_kernels
@@ -843,7 +977,8 @@ def serve_mamba(torch, np, dev, base, card):
         f"engine); DecodeEngine({ENGINE_SLOTS} slots, max_len "
         f"{ENGINE_MAX_LEN}): {ENGINE_REQUESTS} staggered requests of "
         f"{ENGINE_PROMPT} tokens, {ENGINE_NEW} new each, in {e['n_steps']} "
-        f"steps; tokens == greedy_generate of the six prompts as one batch; "
+        f"steps; tokens == greedy_generate of the six prompts as one batch "
+        f"and of each alone; "
         f"2 cache misses (capture run {e['capture_wall']:.3f} s); launches "
         f"{e['launches']}; the prefill ran {e['flash']} and {scans}; first "
         f"request's tokens {e['first']}")
@@ -887,10 +1022,11 @@ def serve_vision(torch, np, dev, cfg, card):
     takes token prompts only).  The launch counters are reset before a
     second run and read after it: ``flash_attention`` once per layer per
     prefill on ``flash_kernel<__nv_bfloat16, 256>`` (the CUDA-core kernel:
-    (256, 256) is not in ``MMA_HEAD_DIMS``) and never in a step (decode
-    attends with the einsum, as the JAX decode does); no other kernel of
-    ours and no library attention kernel; the second run's tokens equal the
-    first's.  Then a 2-layer f32 cut, the card against the CPU, with 256
+    (256, 256) is not in ``MMA_HEAD_DIMS``) and never in a step,
+    ``decode_attention`` once a layer a step (D 256), ``norm`` at every
+    norm; no other kernel of ours and no library attention kernel; the
+    second run's tokens equal the first's; a profiled step runs no PyTorch
+    norm reduction.  Then a 2-layer f32 cut, the card against the CPU, with 256
     patch rows before each prompt.  -> the launches of the counted run."""
     from repro_torch.kernels import common
     from repro_torch.models.frontends import feature_dim
@@ -935,10 +1071,11 @@ def serve_vision(torch, np, dev, cfg, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     moved = dict(common.LAUNCHES)
+    want = model_launches(cfg, 1, PALI_NEW - 1, flash_attention=cfg.n_layers)
     for name in KERNELS:
-        want = cfg.n_layers if name == "flash_attention" else 0
-        check(moved[name] == want, f"{cfg.name}: the served run launched "
-              f"{name} {moved[name]} times, expected {want}")
+        check(moved[name] == want.get(name, 0), f"{cfg.name}: the served run "
+              f"launched {name} {moved[name]} times, expected "
+              f"{want.get(name, 0)}")
     check(got.shape == (PALI_BATCH, PALI_NEW)
           and bool(((got >= 0) & (got < cfg.vocab)).all()),
           f"{cfg.name}: tokens are not ({PALI_BATCH}, {PALI_NEW}) ids below "
@@ -960,6 +1097,7 @@ def serve_vision(torch, np, dev, cfg, card):
         steps.append(time.perf_counter() - t0)
     step_profile = device_profile(
         torch, lambda: step(model, cache, tok, pos0 + 5)[0].cpu())
+    check_step_kernels(step_profile[2], f"{cfg.name} decode step", cfg)
     p_wall, p_busy, p_kernels = device_profile(
         torch, lambda: prefill_step(model, inputs))
     library = [k for k in p_kernels
@@ -1008,20 +1146,27 @@ def serve_vision(torch, np, dev, cfg, card):
     return moved
 
 
-def check_train_launches(moved, what, per_step, steps):
+def check_train_launches(moved, what, cfg, steps):
     """``flash_attention`` and ``flash_attention_bwd`` launched once a layer
-    a step (``per_step`` layers), no other kernel of ours."""
+    a step, ``norm`` once a norm of each step's forward (remat "none": no
+    forward runs again; the norm's backward is PyTorch ops), no other
+    kernel of ours."""
+    want = {"flash_attention": cfg.n_layers * steps,
+            "flash_attention_bwd": cfg.n_layers * steps,
+            "norm": norms_per_pass(cfg) * steps}
     for name in KERNELS:
-        want = per_step * steps if name in ("flash_attention",
-                                            "flash_attention_bwd") else 0
-        check(moved[name] == want, f"{what}: launched {name} {moved[name]} "
-              f"times, expected {want}")
+        check(moved[name] == want.get(name, 0), f"{what}: launched {name} "
+              f"{moved[name]} times, expected {want.get(name, 0)}")
 
 
-def check_train_kernels(per_kernel, what):
+def check_train_kernels(per_kernel, what, cfg):
     """A profiled train step ran the hand-written forward and backward
-    kernels and no library attention kernel (SDPA's forward or backward:
-    flash, memory-efficient or cuDNN)."""
+    kernels (the backward's on the tensor cores where ``bwd_route`` says
+    so), the norm kernel, and no library attention kernel (SDPA's forward
+    or backward: flash, memory-efficient or cuDNN)."""
+    from repro_torch.kernels.flash_attention.flash_attention import bwd_route
+    check(any(n in k for k in per_kernel for n in NORM_KERNEL_NAMES),
+          f"{what}: the profiled step ran no norm kernel")
     library = [k for k in per_kernel
                if any(t in k.lower() for t in LIBRARY_ATTENTION)]
     check(not library, f"{what}: the step ran library attention kernels: "
@@ -1029,8 +1174,10 @@ def check_train_kernels(per_kernel, what):
     ours = sorted(k[k.index(n):].split("(")[0] for k in per_kernel
                   for n in FLASH_KERNEL_NAMES + FLASH_BWD_KERNEL_NAMES
                   if n in k)
-    for names in (FLASH_KERNEL_NAMES, FLASH_BWD_KERNEL_NAMES[:1],
-                  FLASH_BWD_KERNEL_NAMES[1:]):
+    import torch
+    wgmma = bwd_route(getattr(torch, cfg.dtype), cfg.head_dim) == "wgmma"
+    for names in (FLASH_KERNEL_NAMES, FLASH_BWD_DQ_NAMES[not wgmma:][:1],
+                  FLASH_BWD_DKDV_NAMES[not wgmma:][:1]):
         check(any(k.startswith(names) for k in ours),
               f"{what}: the profiled step ran none of {names}: {ours}")
     return ours
@@ -1068,7 +1215,7 @@ def train_full(torch, np, dev, cfg, card):
     loop_wall = time.perf_counter() - t0
     del state
     moved = dict(common.LAUNCHES)
-    check_train_launches(moved, f"{cfg.name} train_loop", cfg.n_layers,
+    check_train_launches(moved, f"{cfg.name} train_loop", cfg,
                          TRAIN_STEPS)
     expect = math.log(cfg.vocab) + 0.5
     check(all(math.isfinite(x) for x in losses),
@@ -1099,7 +1246,7 @@ def train_full(torch, np, dev, cfg, card):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     p_wall, p_busy, p_kernels = device_profile(torch, lambda: one(4))
-    ran = check_train_kernels(p_kernels, cfg.name)
+    ran = check_train_kernels(p_kernels, cfg.name, cfg)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_wall = sorted(walls)[1]
     bwd_us = sum(v for k, v in p_kernels.items()
@@ -1264,7 +1411,7 @@ def train_example(torch, np, dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     moved = dict(common.LAUNCHES)
-    check_train_launches(moved, f"{cfg.name} train_loop", cfg.n_layers,
+    check_train_launches(moved, f"{cfg.name} train_loop", cfg,
                          EXAMPLE_STEPS)
     check(losses[-1] < losses[0] - 0.5,
           f"{cfg.name}: the loss fell from {losses[0]} to {losses[-1]}, less "
@@ -1306,7 +1453,8 @@ def encode_hubert(torch, np, dev, cfg, card):
     :data:`ENCODE_BATCH` x :data:`ENCODE_FRAMES` frames of 512 features
     (numpy seed 3), with the launch counters reset before a second call and
     read after it: ``flash_attention`` once a layer (non-causal, Dv 80, on
-    ``flash_kernel<__nv_bfloat16, 80>``), nothing else of ours, no library
+    ``flash_kernel<__nv_bfloat16, 80>``), ``norm`` at every norm (the
+    frontend's included), nothing else of ours, no library
     attention kernel; the second call's logits bit-equal to the first's.
     Then a 2-layer f32 cut, the card against the CPU on 2 x 64 frames:
     logits within 1e-4 of max |logit| (the prefill rule).  -> the counted
@@ -1327,10 +1475,11 @@ def encode_hubert(torch, np, dev, cfg, card):
     got = encode(model, {"frames": frames})
     torch.cuda.synchronize()
     moved = dict(common.LAUNCHES)
+    want = model_launches(cfg, 1, 0, flash_attention=cfg.n_layers)
     for name in KERNELS:
-        want = cfg.n_layers if name == "flash_attention" else 0
-        check(moved[name] == want, f"{cfg.name}: the encode launched {name} "
-              f"{moved[name]} times, expected {want}")
+        check(moved[name] == want.get(name, 0), f"{cfg.name}: the encode "
+              f"launched {name} {moved[name]} times, expected "
+              f"{want.get(name, 0)}")
     check(got.shape == (ENCODE_BATCH, ENCODE_FRAMES, cfg.vocab_padded)
           and got.dtype == torch.float32 and bool(torch.isfinite(
               got[..., :cfg.vocab]).all()),
@@ -1434,7 +1583,11 @@ def main() -> int:
         from repro_torch.kernels.decode_attention.ops import (combine_partials,
                                                               decode_attention)
         from repro_torch.kernels.decode_attention.ref import (
-            decode_attention_partial_ref, decode_attention_ref)
+            decode_attention_masked_ref, decode_attention_partial_ref,
+            decode_attention_ref)
+        from repro_torch.kernels.norm.ops import group_norm, layer_norm, rms_norm
+        from repro_torch.kernels.norm.ref import (group_norm_ref,
+                                                  layer_norm_ref, rms_norm_ref)
         from repro_torch.kernels.mamba_scan.mamba_scan import (plan_mamba,
                                                                rows_16b)
         from repro_torch.kernels.mamba_scan.ops import mamba_scan, selective_scan
@@ -1459,6 +1612,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 1. card and build --------------------------------------------------
+    phase_done("1")
     card = nvidia_smi("name,power.limit")
     log(card)
     max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -1475,6 +1629,7 @@ def main() -> int:
         f"{info['path'].relative_to(ROOT)} in {info['seconds']:.1f} s")
 
     # -- 2. each kernel against its plain version, on the card --------------
+    phase_done("2")
     def launched(name, fn):
         before = common.LAUNCHES[name]
         out = fn()
@@ -2198,6 +2353,131 @@ def main() -> int:
         + "; max abs err vs plain: "
         + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in da_err.items()) + ")")
 
+    # decode attention with each row's lengths, as the model's decode step
+    # calls it (q in the cache dtype, out in the compute dtype), against the
+    # masked plain version (the step's own products): lengths 1, mid and T
+    # (and 33, inside the first split), a ragged T, paligemma's D = 256 and
+    # a cache of 32768 keys, whose splits past a short row's length load
+    # nothing.  Both compute the model's weights (from the row's global max,
+    # rounded to the cache dtype before the weighted sum) and sum in f32 in
+    # other orders: within 1e-5 of max |v|, plus, for a bf16 cache, 2^-9 of
+    # max |v| (a weight at a rounding boundary may round the other way) and,
+    # for a bf16 output, one bf16 ulp of each value.  A row alone gets the
+    # bits of the same row in a batch, and keys past a row's length are
+    # never read (garbage there leaves the bits).
+    dl_err = {}
+    dl_plans = {}
+    for dtype in (bf16, torch.float32):
+        for label, (b_, h_, kvh_, t_, d_) in (
+                (f"qwen step B={LM_BATCH} T={LM_MAX_LEN}",
+                 (LM_BATCH, lm_h, lm_kvh, LM_MAX_LEN, lm_d)),
+                ("ragged B=3 H=8 KVH=2 T=300 D=64", (3, 8, 2, 300, 64)),
+                ("paligemma B=4 H=8 KVH=1 T=333 D=256", (4, 8, 1, 333, 256)),
+                (f"long B={LM_BATCH} T=32768", (LM_BATCH, lm_h, lm_kvh, 32768,
+                                                lm_d))):
+            q = normal(b_, h_, d_, dtype=dtype)
+            k = normal(b_, kvh_, t_, d_, dtype=dtype)
+            v = normal(b_, kvh_, t_, d_, dtype=dtype)
+            lens = torch.tensor([1, t_ // 2 + 1, t_, 33][:b_], device=dev)
+            dl_plans[label] = plan_decode_splits(kvh_, t_, n_sms)
+            want = decode_attention_masked_ref(q, k, v, lens,
+                                               out_dtype=torch.float32)
+            vmax = float(v.float().abs().max())
+            for out_dtype in (dtype, torch.float32):
+                got = launched("decode_attention", lambda: decode_attention(
+                    q, k, v, lengths=lens, out_dtype=out_dtype))
+                tol = (1e-5 + (2.0 ** -9 if dtype == bf16 else 0.0)) * vmax
+                if out_dtype == bf16:
+                    tol = tol + 2.0 ** -7 * torch.maximum(got.float().abs(),
+                                                          want.abs())
+                e = err(got, want)
+                check(got.dtype == out_dtype and got.shape == (b_, h_, d_)
+                      and bool(torch.isfinite(got.float()).all())
+                      and bool(((got.float() - want).abs() <= tol).all()),
+                      f"decode_attention lengths {label} {dtype} out "
+                      f"{out_dtype}: error {e}")
+                dl_err[f"{label} {str(dtype)[6:]} out {str(out_dtype)[6:]}"] = e
+                for i in range(b_):
+                    alone = launched("decode_attention", lambda: decode_attention(
+                        q[i:i + 1], k[i:i + 1], v[i:i + 1], lengths=lens[i:i + 1],
+                        out_dtype=out_dtype))
+                    check(torch.equal(alone[0], got[i]),
+                          f"decode_attention lengths {label} {dtype}: row {i} "
+                          f"alone differs from the batched row")
+            k2, v2 = k.clone(), v.clone()
+            for i, n in enumerate(lens.tolist()):
+                k2[i, :, n:] = 1e4
+                v2[i, :, n:] = -1e4
+            check(torch.equal(launched("decode_attention", lambda: decode_attention(
+                q, k2, v2, lengths=lens)), launched("decode_attention",
+                lambda: decode_attention(q, k, v, lengths=lens))),
+                f"decode_attention lengths {label} {dtype}: keys past a row's "
+                f"length changed its bits")
+    check(dl_plans[f"long B={LM_BATCH} T=32768"][0] > 2,
+          f"decode_attention lengths: the long cache has no splits past a "
+          f"short row's length: {dl_plans}")
+    max_err["decode_attention"] = dl_err[
+        f"qwen step B={LM_BATCH} T={LM_MAX_LEN} bfloat16 out bfloat16"]
+    log("phase 2: decode_attention with lengths ok (every row alone "
+        "bit-equal to the batched row; keys past a row's length never read; "
+        "plans (n_splits, keys_per_split): "
+        + ", ".join(f"{k_} {v_}" for k_, v_ in dl_plans.items())
+        + "; max abs err vs the masked plain version: "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in dl_err.items()) + ")")
+
+    # norm (csrc/norm.cu) against its plain versions, every form the models
+    # run: RMS (apply_norm, MLA's latent norms), LayerNorm (apply_norm),
+    # rwkv's per-head group norm (groups of 64, no bias) and the audio
+    # frontend's one-group LayerNorm with a bias; bf16 and f32 at widths
+    # 2048, 2560, 4096, 8192 and the latent widths 512 and 1536, over a
+    # (4, 64, d) batch.  Both sides sum in f32 in other orders and rsqrtf is
+    # within 2 ulp of the square root's reciprocal: agree's rule (1e-5 of max
+    # |y|, and one bf16 ulp of each value in bf16).  A row alone (B = 1)
+    # gets the bits of row 2 of the batch.  The autograd backward (PyTorch
+    # ops on the kernel's statistics) against autograd of the plain version
+    # in f32: 1e-5 of each gradient's max.
+    norm_err = {}
+    for dtype in (bf16, torch.float32):
+        for d_ in (2048, 2560, 4096, 8192, 512, 1536):
+            x_ = (normal(4, 64, d_, sc=3.0) + 0.5).to(dtype)
+            sc_, bi_ = normal(d_), normal(d_)
+            for form, fn, ref in (
+                    ("rms", lambda a: rms_norm(a, sc_, 1e-6),
+                     lambda a: rms_norm_ref(a, sc_, 1e-6)),
+                    ("layer", lambda a: layer_norm(a, sc_, bi_, 1e-5),
+                     lambda a: layer_norm_ref(a, sc_, bi_, 1e-5)),
+                    ("group 64", lambda a: group_norm(a, sc_, None, 64, 1e-5),
+                     lambda a: group_norm_ref(a, sc_, None, 64, 1e-5)),
+                    ("one group + bias", lambda a: group_norm(a, sc_, bi_, d_, 1e-5),
+                     lambda a: group_norm_ref(a, sc_, bi_, d_, 1e-5))):
+                what = f"norm {form} d={d_} {str(dtype)[6:]}"
+                y_ = launched("norm", lambda: fn(x_))
+                norm_err[what] = agree(what, y_, ref(x_))
+                alone = launched("norm", lambda: fn(x_[2:3]))
+                check(torch.equal(alone[0], y_[2]),
+                      f"{what}: a row alone differs from row 2 of the batch")
+    for form in ("rms", "layer"):
+        leaves = [normal(4, 16, 2048).requires_grad_(),
+                  (normal(2048) + 1).requires_grad_(), normal(2048).requires_grad_()]
+        fn, ref = ((rms_norm, rms_norm_ref) if form == "rms" else
+                   (layer_norm, layer_norm_ref))
+        args = leaves if form == "layer" else leaves[:2]
+        dy = normal(4, 16, 2048)
+        before = common.LAUNCHES["norm"]
+        got = torch.autograd.grad(fn(*args, 1e-5), args, dy)
+        check(common.LAUNCHES["norm"] == before + 1,
+              f"norm {form} backward: the forward did not launch once")
+        want_ = torch.autograd.grad(ref(*args, 1e-5), args, dy)
+        for g_, w_ in zip(got, want_):
+            check(err(g_, w_) <= 1e-5 * float(w_.abs().max()),
+                  f"norm {form} backward: error {err(g_, w_)}")
+    max_err["norm"] = norm_err["norm rms d=2048 bfloat16"]
+    log("phase 2: norm ok (RMS, LayerNorm, groups of 64, one group with a "
+        "bias; bf16 and f32 at d = 2048, 2560, 4096, 8192, 512, 1536; a row "
+        "alone bit-equal to row 2 of the batch; autograd backward within "
+        "1e-5 of the plain version's; max abs err vs plain: "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in norm_err.items()) + ")")
+
     # mamba_scan at jamba's width with the dtypes the jamba block passes
     # under bf16 (x bf16; delta, a, b, c, d f32; models/mamba.py:80-90).
     # d = 0 in the bf16 cases, so y is the scan's own output (the skip term
@@ -2300,6 +2580,7 @@ def main() -> int:
             for k_, v_ in mb_err.items()) + ")")
 
     # -- 2b. the four TinyBio kernels with a leading batch axis ---------------
+    phase_done("2b")
     # Serving lifts each stage over a batch (torch.func.vmap); each card
     # kernel folds it into its own batch axis: ONE launch a call, each row
     # the bits of its request alone.  For B = 1, 2, 4, 8: the batched call
@@ -2376,6 +2657,7 @@ def main() -> int:
         "vmapped calls bit-equal to batched ones, one device kernel a batched call")
 
     # -- 3. timings at the main paths' shapes ------------------------------
+    phase_done("3")
     n, taps = x.numel(), h.numel()
     q, m, d = feats.shape[0], sv_main.shape[0], feats.shape[1]
     bw, bn = w.shape
@@ -2653,6 +2935,118 @@ def main() -> int:
         f"bound, {r['ms'] / r['library_ms']:.2f}x SDPA's backward; the "
         f"forward kernel at this shape {fwd_ms:.6f} ms")
 
+    _, _, per_kernel = device_profile(torch, lambda: [
+        flash_attention_bwd(q, k, v, dout, lse) for _ in range(20)])
+    log("phase 3: flash_attention_bwd stablelm, device us a call by kernel "
+        "(torch.profiler over 20 calls): " + ", ".join(
+            f"{kernel_name(k_)} {v_ / 20:.2f}"
+            for k_, v_ in sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+    # qwen's GQA training shape (16 over 2 heads of 128, S = T = 256, B = 4)
+    gqa_dims = (4, lm_h, lm_kvh, 256, 256, lm_d, lm_d)
+    q, k, v = (x.contiguous() for x in qkv(*gqa_dims, bf16))
+    dout = torch.randn_like(q)
+    _, lse = _card_forward(q, k, v, True, lm_d ** -0.5, 0, 256, 256,
+                           with_lse=True)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    g_bound = fa_bwd_bound(4, lm_h, lm_kvh, 256, 256, lm_d)
+    g_ms = device_ms(torch, lambda: flash_attention_bwd(q, k, v, dout, lse), 20)
+    g_lib = device_ms(torch, sdpa_fwd_bwd, 20) - device_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+    rows["flash_attention_bwd"]["qwen_gqa"] = dict(ms=g_ms, library_ms=g_lib,
+                                                   bound_ms=g_bound[0])
+    log(f"phase 3: flash_attention_bwd qwen GQA B=4 H={lm_h} KVH={lm_kvh} "
+        f"S=T=256 D={lm_d} bf16 causal: kernel {g_ms:.6f} ms, library (SDPA "
+        f"backward) {g_lib:.6f} ms; bound {g_bound[0]:.6f} ms ({g_bound[1]}); "
+        f"kernel {g_ms / g_bound[0]:.1f}x its bound, {g_ms / g_lib:.2f}x "
+        f"SDPA's backward")
+
+    # decode attention as the model's decode step calls it: qwen's step
+    # (B = 4, H = 16 over 2 kv heads of 128, a bf16 cache of 512 keys), each
+    # row at its own length (the engine's positions after a 256-token
+    # prompt: 257 .. 272 keys), q in bf16, out bf16.  Bound: the keys and
+    # values each row attends to read once, q read and out written once,
+    # against 2 (Dk + Dv) flops per head and key.  Plain: the step's
+    # products (decode_attention_masked_ref); library: SDPA with one query
+    # and a boolean mask of each row's keys.
+    q = normal(LM_BATCH, lm_h, lm_d, dtype=bf16)
+    k = normal(LM_BATCH, lm_kvh, LM_MAX_LEN, lm_d, dtype=bf16)
+    v = normal(LM_BATCH, lm_kvh, LM_MAX_LEN, lm_d, dtype=bf16)
+    lens = torch.tensor([257, 262, 267, 272][:LM_BATCH], device=dev)
+    n_keys = int(lens.sum())
+    keep_mask = (torch.arange(LM_MAX_LEN, device=dev)[None] < lens[:, None]
+                 )[:, None, None, :]
+
+    def sdpa_lengths():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=keep_mask, enable_gqa=True)[:, :, 0]
+
+    check(err(sdpa_lengths(), decode_attention_masked_ref(q, k, v, lens))
+          <= 5e-2, "SDPA with a mask differs from the masked decode attention")
+    dl_bound = bound(2.0 * (2 * n_keys * lm_kvh * lm_d
+                            + 2 * LM_BATCH * lm_h * lm_d),
+                     2.0 * n_keys * lm_h * 2 * lm_d, PEAK_BF16_FLOPS)
+    rows["decode_attention"] = r = dict(
+        ms=device_ms(torch, lambda: decode_attention(q, k, v, lengths=lens),
+                     100),
+        plain_ms=device_ms(torch, lambda: decode_attention_masked_ref(
+            q, k, v, lens), 10),
+        library_ms=device_ms(torch, sdpa_lengths, 100),
+        bound_ms=dl_bound[0], bound_by=dl_bound[1])
+    log(f"phase 3: decode_attention with lengths, qwen's step B={LM_BATCH} "
+        f"H={lm_h} KVH={lm_kvh} T={LM_MAX_LEN} D={lm_d} bf16, lengths "
+        f"{lens.tolist()} (the row the kernels line reports): device time per "
+        f"call: kernel {fmt(r['ms'])}, plain (the step's products) "
+        f"{fmt(r['plain_ms'])}, library (SDPA, one query, a mask) "
+        f"{fmt(r['library_ms'])}; bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}); kernel {r['ms'] / r['bound_ms']:.1f}x its bound")
+
+    # the norm kernel at the shapes the paths give it: qwen's decode step
+    # (4 rows of 2048, RMS, bf16: the row the kernels line reports) and its
+    # prefill (256 rows), stablelm's training forward (1024 rows of 2048,
+    # LayerNorm), rwkv's step group norm (4 rows of 40 groups of 64) and
+    # deepseek's latent norm (4 rows of 512).  Bound: x read and y written
+    # once, the f32 scale (and bias) read once, against ~6 flops an element
+    # at the f32 peak.  Plain: the model's norm in PyTorch ops (its plain
+    # version); library: F.rms_norm / F.layer_norm (scale and bias in x's
+    # dtype, as those calls take them; F.group_norm over groups of 64
+    # consecutive channels for the group norm).
+    norm_rows = {}
+    for label, rows_, d_, form in (
+            ("qwen step RMS", LM_BATCH, 2048, "rms"),
+            ("qwen prefill RMS", 256, 2048, "rms"),
+            ("stablelm train LayerNorm", TRAIN_BATCH * TRAIN_SEQ, 2048, "layer"),
+            ("rwkv step groups of 64", RWKV_BATCH, 2560, "group"),
+            ("deepseek latent RMS", LM_BATCH, 512, "rms")):
+        x_ = normal(rows_, d_, dtype=bf16)
+        sc_, bi_ = normal(d_), normal(d_)
+        if form == "rms":
+            fn = lambda: rms_norm(x_, sc_, 1e-6)  # noqa: E731
+            pl = lambda: rms_norm_ref(x_, sc_, 1e-6)  # noqa: E731
+            lib = lambda: F.rms_norm(x_, (d_,), sc_.to(bf16), 1e-6)  # noqa: E731
+        elif form == "layer":
+            fn = lambda: layer_norm(x_, sc_, bi_, 1e-5)  # noqa: E731
+            pl = lambda: layer_norm_ref(x_, sc_, bi_, 1e-5)  # noqa: E731
+            lib = lambda: F.layer_norm(x_, (d_,), sc_.to(bf16), bi_.to(bf16),  # noqa: E731
+                                       1e-5)
+        else:
+            fn = lambda: group_norm(x_, sc_, None, 64, 1e-5)  # noqa: E731
+            pl = lambda: group_norm_ref(x_, sc_, None, 64, 1e-5)  # noqa: E731
+            lib = lambda: F.group_norm(x_, d_ // 64, sc_.to(bf16), None,  # noqa: E731
+                                       1e-5)
+        nb = 2.0 * 2 * rows_ * d_ + 4.0 * d_ * (2 if form == "layer" else 1)
+        n_bound = bound(nb, 6.0 * rows_ * d_)
+        norm_rows[label] = r = dict(
+            ms=device_ms(torch, fn, 100), plain_ms=device_ms(torch, pl, 20),
+            library_ms=device_ms(torch, lib, 100), bound_ms=n_bound[0],
+            bound_by=n_bound[1])
+        log(f"phase 3: norm {label} ({rows_} x {d_} bf16): device time per "
+            f"call: kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
+            f"{fmt(r['library_ms'])}; bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}); kernel {r['ms'] / r['bound_ms']:.1f}x its "
+            f"bound, {r['ms'] / r['library_ms']:.2f}x the library call")
+    rows["norm"] = norm_rows["qwen step RMS"]
+
     # rwkv6_scan at rwkv6-3b's prefill shape (state0 absent, as the prefill
     # passes it) and one decode step (T = 1 from a state), with B = 1,
     # T = 4096 logged beside them.  Bound: r, k, v (bf16) and w (f32) read
@@ -2731,7 +3125,7 @@ def main() -> int:
             f"query) {fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); "
             f"kernel {r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of "
             f"it), {r['ms'] / r['library_ms']:.2f}x SDPA")
-    rows["decode_attention"] = da_rows["decode"]
+    # (the kernels line reports the model's step with lengths, timed above)
 
     # mamba_scan's kernel (selective_scan: the scan without the D x skip,
     # which the op adds in plain PyTorch as the JAX op does) at jamba's
@@ -2769,6 +3163,7 @@ def main() -> int:
     rows["mamba_scan"] = mb_rows[1, 256]
 
     # -- 4a. the TinyBio main path --------------------------------------------
+    phase_done("4a")
     runs = {}
     torch.cuda.synchronize()
     common.reset_launches()
@@ -2838,6 +3233,7 @@ def main() -> int:
                                                device="cuda"))))
 
     # -- 4b. the GeMM main path (paper Fig 3, the quickstart's offload) -------
+    phase_done("4b")
     qa = np.random.default_rng(0).integers(-64, 64, (2, 256, 256)).astype(np.int32)
     qa, qb = qa[0], qa[1]
     cp = {"m": 256, "n": 256, "k": 256}
@@ -2923,6 +3319,7 @@ def main() -> int:
         "4 per transfer-graph launch, 5 per multi-queue graph launch")
 
     # -- 4c. the registry's decode_attention and mamba_scan families -------
+    phase_done("4c")
     # Program.build(cfg).create_kernel(family) for 4T, 8T and 16T, each
     # enqueued once through a CommandQueue and offloaded through APU.offload
     # in graph and eager mode, with the launch counters reset just before
@@ -2991,6 +3388,7 @@ def main() -> int:
     log(f"phase 4c: registry phase in {reg_wall:.3f} s, launches {reg_launches}")
 
     # -- 4d. the queue options on the card, with the registry's kernels --------
+    phase_done("4d")
     # The gemm family (256^3 int32) and the four TinyBio families at the
     # paper's size, on 16T, through three queues: the default one, an
     # unprofiled blocking one and a profiled one with a window of 2 events,
@@ -3126,6 +3524,7 @@ def main() -> int:
         "them == the JAX rows): " + json.dumps(static_rows))
 
     # -- 5. the LM serving path: qwen2.5-3b, full width and depth, bf16 -----
+    phase_done("5")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Transformer(lm_cfg, init_params(model_spec(lm_cfg), 0, device=dev))
@@ -3146,13 +3545,18 @@ def main() -> int:
     torch.cuda.synchronize()
     first_wall = time.perf_counter() - t0
     lm_launches = dict(common.LAUNCHES)
+    lm_want = model_launches(lm_cfg, 1, LM_NEW - 1,
+                             flash_attention=lm_cfg.n_layers)
     for name in KERNELS:
-        want = lm_cfg.n_layers if name in LM_KERNELS else 0
+        want = lm_want.get(name, 0)
         check(lm_launches[name] == want,
               f"LM main path launched {name} {lm_launches[name]} times, "
-              f"expected {want} (one per layer of the prefill, none per "
-              f"decode step)")
+              f"expected {want} (flash_attention once a layer of the "
+              f"prefill, decode_attention once a layer of each of "
+              f"{LM_NEW - 1} decode steps, norm at every norm)")
     launches.update({name: lm_launches[name] for name in LM_KERNELS})
+    launches["norm"] = lm_launches["norm"]
+    launches["decode_attention"] += lm_launches["decode_attention"]
     check(tokens.is_cuda and tokens.dtype == torch.int32
           and tokens.shape == (LM_BATCH, LM_NEW)
           and bool(((tokens >= 0) & (tokens < lm_cfg.vocab)).all()),
@@ -3170,32 +3574,39 @@ def main() -> int:
         f"{tokens[0].tolist()}")
 
     # the steps one at a time: prefill moves flash_attention by one launch
-    # per layer, a decode step by none
+    # per layer, a decode step decode_attention by one a layer; each moves
+    # norm once a norm
     prefill_step = make_prefill_step(lm_cfg, LM_MAX_LEN)
     decode_fn = make_decode_step(lm_cfg)
     ptoks = {"tokens": torch.from_numpy(prompt).to(dev)}
-    before = common.LAUNCHES["flash_attention"]
+    before = dict(common.LAUNCHES)
     t0 = time.perf_counter()
     logits, cache = prefill_step(model, ptoks)
     torch.cuda.synchronize()
     prefill_wall = time.perf_counter() - t0
-    check(common.LAUNCHES["flash_attention"] - before == lm_cfg.n_layers,
-          "a prefill did not launch flash_attention once per layer")
+    want = model_launches(lm_cfg, 1, 0, flash_attention=lm_cfg.n_layers)
+    check(all(common.LAUNCHES[k_] - before[k_] == want.get(k_, 0)
+              for k_ in KERNELS),
+          f"a prefill did not launch {want}: "
+          f"{ {k_: common.LAUNCHES[k_] - before[k_] for k_ in KERNELS} }")
     check(logits.shape == (LM_BATCH, lm_cfg.vocab_padded)
           and bool(torch.isfinite(logits[:, :lm_cfg.vocab]).all())
           and bool((logits[:, lm_cfg.vocab:] == -1e30).all()),
           "prefill logits: shape, finiteness or padding columns")
     tok = torch.argmax(logits, -1).to(torch.int32)
     steps = [tok]
-    before = common.LAUNCHES["flash_attention"]
+    before = dict(common.LAUNCHES)
     t0 = time.perf_counter()
     for i in range(LM_NEW - 1):
         tok, _, cache = decode_fn(model, cache, tok, LM_PROMPT + i)
         steps.append(tok)
     torch.cuda.synchronize()
     decode_wall = (time.perf_counter() - t0) / (LM_NEW - 1)
-    check(common.LAUNCHES["flash_attention"] == before,
-          "a decode step launched flash_attention")
+    want = model_launches(lm_cfg, 0, LM_NEW - 1)
+    check(all(common.LAUNCHES[k_] - before[k_] == want.get(k_, 0)
+              for k_ in KERNELS),
+          f"{LM_NEW - 1} decode steps did not launch {want}: "
+          f"{ {k_: common.LAUNCHES[k_] - before[k_] for k_ in KERNELS} }")
     check(torch.equal(torch.stack(steps, 1), tokens),
           "prefill + decode steps differ from greedy_generate")
     log(f"phase 5: prefill wall {prefill_wall * 1e3:.3f} ms "
@@ -3214,6 +3625,12 @@ def main() -> int:
     d_wall, d_busy, d_kernels = device_profile(
         torch, lambda: decode_fn(model, cache, tok, LM_PROMPT + LM_NEW - 1))
     log("phase 5: " + profile_line("one decode step", d_wall, d_busy, d_kernels))
+    check_step_kernels(d_kernels, f"{LM_ARCH} decode step", lm_cfg)
+    log(f"phase 5: a prefill launches norm {norms_per_pass(lm_cfg)} times "
+        f"and flash_attention {lm_cfg.n_layers}; a decode step norm "
+        f"{norms_per_pass(lm_cfg)} and decode_attention "
+        f"{attn_layers(lm_cfg)} (exact counts); the profiled step ran no "
+        f"PyTorch norm reduction ({', '.join(NORM_REDUCTIONS)})")
     log(f"phase 5: hand-written attention kernels in the prefill: {ours}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
         f"GiB (the f32 init tree beside the bf16 model included)")
@@ -3221,6 +3638,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5b. the card against the CPU: a 2-layer cut at full width, f32 ----
+    phase_done("5b")
     cut = dataclasses.replace(lm_cfg, n_layers=2, dtype="float32")
     cut_err, _ = card_against_cpu(torch, np, dev, cut, "the qwen cut")
     log("phase 5b: 2-layer full-width f32 cut, card vs CPU: greedy tokens "
@@ -3228,6 +3646,7 @@ def main() -> int:
         + ", ".join(f"{e:.3g}" for e in cut_err))
 
     # -- 6. the rwkv serving path: rwkv6-3b, full width and depth, bf16 ----
+    phase_done("6")
     # 32 layers of 40 heads of 64, random weights from seed 0 on the card
     # (the qwen model above is freed first).  rwkv6_scan must launch once
     # per layer in the prefill and once per layer in every decode step, and
@@ -3248,9 +3667,13 @@ def main() -> int:
         0, rw_cfg.vocab, (RWKV_BATCH, RWKV_PROMPT))
     n_layers = rw_cfg.n_layers
 
-    def only_rwkv(moved, want, what):
+    def only_rwkv(moved, passes, what):
+        """rwkv6_scan once a layer and norm at every norm of each of
+        ``passes`` prefills or steps, nothing else of ours."""
+        want = model_launches(rw_cfg, passes, 0,
+                              rwkv6_scan=n_layers * passes)
         for name in KERNELS:
-            expect = want if name in RWKV_KERNELS else 0
+            expect = want.get(name, 0)
             check(moved[name] == expect,
                   f"{what} launched {name} {moved[name]} times, expected {expect}")
 
@@ -3261,9 +3684,10 @@ def main() -> int:
     torch.cuda.synchronize()
     rw_first = time.perf_counter() - t0
     rw_launches = dict(common.LAUNCHES)
-    only_rwkv(rw_launches, n_layers * RWKV_NEW,
+    only_rwkv(rw_launches, RWKV_NEW,
               "the rwkv main path (one prefill and 15 decode steps)")
     launches.update({name: rw_launches[name] for name in RWKV_KERNELS})
+    launches["norm"] += rw_launches["norm"]
     check(rw_tokens.is_cuda and rw_tokens.dtype == torch.int32
           and rw_tokens.shape == (RWKV_BATCH, RWKV_NEW)
           and bool(((rw_tokens >= 0) & (rw_tokens < rw_cfg.vocab)).all()),
@@ -3289,7 +3713,7 @@ def main() -> int:
     rw_logits, rw_cache = rw_prefill_step(rw_model, rw_ptoks)
     torch.cuda.synchronize()
     rw_prefill_wall = time.perf_counter() - t0
-    only_rwkv({k_: common.LAUNCHES[k_] - before[k_] for k_ in before}, n_layers,
+    only_rwkv({k_: common.LAUNCHES[k_] - before[k_] for k_ in before}, 1,
               "an rwkv prefill")
     check(rw_logits.shape == (RWKV_BATCH, rw_cfg.vocab_padded)
           and bool(torch.isfinite(rw_logits[:, :rw_cfg.vocab]).all()),
@@ -3304,7 +3728,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_walls.append(time.perf_counter() - t0)
         only_rwkv({k_: common.LAUNCHES[k_] - before[k_] for k_ in before},
-                  n_layers, f"rwkv decode step {i}")
+                  1, f"rwkv decode step {i}")
         steps.append(tok)
     check(torch.equal(torch.stack(steps, 1), rw_tokens),
           "rwkv prefill + decode steps differ from greedy_generate")
@@ -3312,7 +3736,8 @@ def main() -> int:
     log(f"phase 6: prefill wall {rw_prefill_wall * 1e3:.3f} ms "
         f"({RWKV_BATCH * RWKV_PROMPT} prompt tokens), decode step wall "
         f"{rw_decode_wall * 1e3:.3f} ms (mean of {RWKV_NEW - 1}, {RWKV_BATCH} "
-        f"sequences); {n_layers} rwkv6_scan launches per prefill and per step")
+        f"sequences); {n_layers} rwkv6_scan and {norms_per_pass(rw_cfg)} "
+        f"norm launches per prefill and per step")
     rp_wall, rp_busy, rp_kernels = device_profile(
         torch, lambda: rw_prefill_step(rw_model, rw_ptoks))
     log("phase 6: " + profile_line("one rwkv prefill", rp_wall, rp_busy, rp_kernels))
@@ -3327,6 +3752,7 @@ def main() -> int:
     log("phase 6: " + profile_line("one rwkv decode step", rd_wall, rd_busy, rd_kernels))
     check(any("rwkv6_step_kernel" in k_ for k_ in rd_kernels),
           "the rwkv decode step's profile shows no rwkv6_step_kernel")
+    check_step_kernels(rd_kernels, f"{RWKV_ARCH} decode step", rw_cfg)
     log(f"phase 6: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (the f32 init "
         f"tree beside the bf16 model included)")
@@ -3334,6 +3760,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6b. the card against the CPU: a 2-layer rwkv cut at full width, f32
+    phase_done("6b")
     rw_cut = dataclasses.replace(rw_cfg, n_layers=2, dtype="float32")
     rw_cut_err, _ = card_against_cpu(torch, np, dev, rw_cut, "the rwkv cut",
                                      kernel="rwkv6_scan", per_step=1)
@@ -3342,6 +3769,7 @@ def main() -> int:
         + ", ".join(f"{e:.3g}" for e in rw_cut_err))
 
     # -- 7. TinyBio served on the card, at full size -----------------------------
+    phase_done("7")
     # Server over two lanes (16T and 8T), exact-fit bucket (the features
     # reduce over the whole signal), micro-batches of 4, warmed up first; 16
     # requests from synth_signal(n, seed), seeds 0..15.  The counters are
@@ -3496,6 +3924,7 @@ def main() -> int:
                      for name in TINYBIO_KERNELS})
 
     # -- 7b. the overload and power serving benches on the card ---------------
+    phase_done("7b")
     # Every modeled row (the whole result) must equal the same bench's CPU
     # run; the benches' own gates and bit-identity asserts hold inside run().
     for bench in (bench_overload, bench_power):
@@ -3519,6 +3948,7 @@ def main() -> int:
                     "n_power_throttled") if k_ in on_card}))
 
     # -- 8. the decode engine on the card: qwen2.5-3b and rwkv6-3b -------------
+    phase_done("8")
     # serve_engine at full width and depth on the JAX-layout f32 tree, as
     # init_params makes it (benchmarks_torch/batch_bits.py finds every op of
     # a B = 1 prefill and a B = 4 step giving its rows the bits of B = 6; at
@@ -3534,13 +3964,14 @@ def main() -> int:
         cut = dataclasses.replace(cfg_, n_layers=2, dtype="float32")
         stats_match_cpu(torch, np, dev, cut,
                         init_params(model_spec(cut), 0, device="cpu"), label)
-        for name in ours:
+        for name in (*ours, "norm", "decode_attention"):
             launches[name] += e["launches"][name]
         log(f"phase 8: {label}: DecodeEngine({ENGINE_SLOTS} slots, max_len "
             f"{ENGINE_MAX_LEN}, bf16 cache) behind an engine-only Server: "
             f"{ENGINE_REQUESTS} staggered requests of {ENGINE_PROMPT} tokens, "
             f"{ENGINE_NEW} new each, in {e['n_steps']} steps; tokens == "
-            f"greedy_generate of the six prompts as one batch; 2 cache "
+            f"greedy_generate of the six prompts as one batch and of each "
+            f"alone; 2 cache "
             f"misses (capture run {e['capture_wall']:.3f} s); launches "
             f"{e['launches']}; "
             f"first request's tokens {e['first']}")
@@ -3558,13 +3989,13 @@ def main() -> int:
         log(f"phase 8: {label}: stats " + json.dumps(e["stats"]))
 
     # -- 9. the MoE and MLA blocks: moonshot-v1-16b-a3b, deepseek-v2-236b -----
+    phase_done("9")
     # Phases 5-8's models, caches and cuts are freed by then; each
     # family is served through the decode engine at full width on a bf16
     # tree (moonshot 48 layers; deepseek its dense first layer and three
     # MLA + MoE layers), then a 2-layer f32 cut of each is held against the
     # CPU (deepseek's shared experts and dense first layer run on the card
     # only in its runs here).
-    t_moe = time.perf_counter()
     torch.cuda.empty_cache()
     log(f"phase 9: device memory before the phase: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
@@ -3573,7 +4004,8 @@ def main() -> int:
         e = serve_engine(torch, np, dev, cfg_,
                          {"flash_attention": (cfg_.n_layers, 0)},
                          tree_dtype=torch.bfloat16)
-        launches["flash_attention"] += e["launches"]["flash_attention"]
+        for name in ("flash_attention", "norm", "decode_attention"):
+            launches[name] += e["launches"][name]
         log(f"phase 9: {arch}: {cfg_.n_layers} layers at full width "
             f"(d_model {cfg_.d_model}, {cfg_.n_heads} heads, Dk {e['dims'][0]}"
             f" / Dv {e['dims'][1]}, {cfg_.n_experts} experts of {cfg_.d_ff_expert}, top-"
@@ -3585,7 +4017,8 @@ def main() -> int:
             f"DecodeEngine({ENGINE_SLOTS} slots, max_len {ENGINE_MAX_LEN}): "
             f"{ENGINE_REQUESTS} staggered requests of {ENGINE_PROMPT} tokens, "
             f"{ENGINE_NEW} new each, in {e['n_steps']} steps; tokens == "
-            f"greedy_generate of the six prompts as one batch; 2 cache "
+            f"greedy_generate of the six prompts as one batch and of each "
+            f"alone; 2 cache "
             f"misses (capture run {e['capture_wall']:.3f} s); launches "
             f"{e['launches']}; the prefill ran {e['flash']}; first request's "
             f"tokens {e['first']}")
@@ -3616,31 +4049,30 @@ def main() -> int:
             f"CPU's; {time.perf_counter() - t0:.1f} s")
         del cut_tree
     torch.cuda.empty_cache()
-    log(f"phase 9: {time.perf_counter() - t_moe:.1f} s")
 
     # -- 10. the Mamba block and the vision frontend: jamba, paligemma --------
+    phase_done("10")
     # Phase 9's models are freed by then.  10a serves jamba's first four
     # layers at full width through the decode engine (mamba_scan on every
     # prefill's mamba layers); 10b serves paligemma at full width and depth
     # with image + text requests (flash_attention at Dk = Dv = 256).
-    t_p10 = time.perf_counter()
     torch.cuda.empty_cache()
     log(f"phase 10: device memory before the phase: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
     moved = serve_mamba(torch, np, dev, get_arch(MAMBA_ARCH), card)
-    for name in ("mamba_scan", "flash_attention"):
+    for name in ("mamba_scan", "flash_attention", "norm", "decode_attention"):
         launches[name] += moved[name]
-    launches["flash_attention"] += serve_vision(
-        torch, np, dev, get_arch(PALI_ARCH), card)["flash_attention"]
-    log(f"phase 10: {time.perf_counter() - t_p10:.1f} s")
+    moved = serve_vision(torch, np, dev, get_arch(PALI_ARCH), card)
+    for name in ("flash_attention", "norm", "decode_attention"):
+        launches[name] += moved[name]
 
     # -- 11. the training path: stablelm-1.6b, the 86M example, hubert ------------
+    phase_done("11")
     # Phase 10's models are freed by then.  11a trains stablelm-1.6b at full
     # width and depth through the launcher's train_loop (flash_attention and
     # flash_attention_bwd on every layer of every step) and holds a 2-layer
     # f32 cut to the CPU; 11b trains the example model and restarts it from
     # a checkpoint; 11c encodes with hubert (forward without a gradient).
-    t_p11 = time.perf_counter()
     torch.cuda.empty_cache()
     log(f"phase 11: device memory before the phase: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
@@ -3648,11 +4080,11 @@ def main() -> int:
     train_cut(torch, np, dev, get_arch(TRAIN_ARCH), card)
     moved.append(train_example(torch, np, dev, card))
     moved.append(encode_hubert(torch, np, dev, get_arch(ENCODE_ARCH), card))
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "norm"):
         launches[name] += sum(m[name] for m in moved)
-    log(f"phase 11: {time.perf_counter() - t_p11:.1f} s")
 
     # -- 12. summary --------------------------------------------------------------
+    phase_done()
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]

@@ -59,6 +59,20 @@
 //   programmatic dependent launch (griddepcontrol), so its launch overlaps
 //   the split kernel's tail.
 //
+// With lengths (the model's decode step, models/attention.py:attend_decode)
+// row b attends to keys [0, lengths[b]) only: a split wholly past it loads
+// nothing and gives the no-key partial.  The step's weights are the JAX
+// model's: p = exp(s - m) from the row's global max m, rounded to the cache
+// dtype before p @ v, while l sums p unrounded (its einsum over
+// pexp.astype(cache dtype)); so a third kernel, decode_max_kernel, writes
+// each split's max score first, and the split kernel, launched as its
+// programmatic dependent (its producer streams keys while the maxima are
+// found), then runs with that fixed max (alpha = 1) and rounds each p it
+// multiplies.  Without the
+// rounding (p kept in f32, as the TPU kernel keeps it) the card's step
+// parted from the CPU's by 2^-9 of a weight, enough to flip an MoE
+// routing near-tie.
+//
 // Arithmetic per tile, as the TPU kernel orders it: s = (q . k) * scale in
 // f32, m_new = max(m, max s), p = exp(s - m_new), alpha = exp(m - m_new),
 // l = l * alpha + sum p, acc = acc * alpha + p @ v; out = acc / l with
@@ -117,12 +131,36 @@ struct Args {
   float* acc_s;     // (n_splits, B, H, Dv) f32 scratch when n_splits > 1
   float* m_s;       // (n_splits, B, H)
   float* l_s;       // (n_splits, B, H)
+  const long long* lengths;   // (B,): keys [0, lengths[b]) of row b, or null (all T)
+  float* mx_s;      // (n_splits, B, H) f32: each split's max score, or null;
+                    // non-null: the model's weights (see decode_max_kernel)
   int b, h, kvh, t, dk, dv;
   long long q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   float scale;
   int partial, n_splits, kps;
+  int out_f32;      // the normalised out in f32 (else q's dtype)
   int vec;          // every k and v row is 16-byte aligned, whole 16-byte chunks
 };
+
+// Keys of row b the call attends to: [0, lengths[b]) clamped to [0, T].
+__device__ __forceinline__ int row_length(const Args& a, int b) {
+  if (a.lengths == nullptr) return a.t;
+  const long long n = a.lengths[b];
+  return n < 0 ? 0 : n > a.t ? a.t : static_cast<int>(n);
+}
+
+// x rounded to T (the cache dtype) and back.
+__device__ __forceinline__ float round_as(float x, float) { return x; }
+__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The normalised output, in q's dtype or (out_f32) in f32.
+template <typename T>
+__device__ __forceinline__ void store_out(const Args& a, long long i, float x) {
+  if (a.out_f32) static_cast<float*>(a.o)[i] = x;
+  else store_as(static_cast<T*>(a.o) + i, x);
+}
 
 // Heads a pass holds: HB * DPL q values and HB * DPL accumulators per lane.
 template <int DPL>
@@ -335,8 +373,10 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = a.h / a.kvh;
   const int key_begin = split * a.kps;
-  const int key_end = min(a.t, key_begin + a.kps);
-  const int n_tiles = (key_end - key_begin + kTile - 1) / kTile;
+  const int key_end = min(row_length(a, b), key_begin + a.kps);
+  // a split wholly past the row's length loads nothing: its partial is the
+  // no-key one (m at the sentinel, l = 0, acc = 0)
+  const int n_tiles = key_end > key_begin ? (key_end - key_begin + kTile - 1) / kTile : 0;
   const int n_pass = (group + HB - 1) / HB;
   // the combine kernel may launch now: it waits for this grid to finish
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -404,7 +444,17 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
     const int h_own = e_own % HB;
     const int key_own = (lane / 16) * 2 + e_own / HB;   // of the warp's 4 keys
     float* pw = pbuf + warp * (kKeysPerWarp + 1) * HB;
+    // the model's weights (mx_s): every weight from the row's global max,
+    // the max over the splits' maxima (exact, so its order does not matter)
     float m_run = kNegInf, l_run = 0.f, acc[HB][DPL];
+    if (a.mx_s != nullptr) {
+      // this grid is a programmatic dependent of decode_max_kernel: its
+      // producer streams keys already; the maxima are read once it is done
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      m_run = h_own < nh ? kNegInf : 0.f;            // (a head past the group: unused)
+      for (int sp = 0; sp < a.n_splits && h_own < nh; ++sp)
+        m_run = fmaxf(m_run, a.mx_s[(static_cast<long long>(sp) * a.b + b) * a.h + head0 + h_own]);
+    }
 #pragma unroll
     for (int hh = 0; hh < HB; ++hh)
 #pragma unroll
@@ -442,14 +492,16 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
       const float sv = valid ? part[0] * a.scale : kNegInf;
       float mx = fmaxf(sv, __shfl_xor_sync(0xffffffffu, sv, 8));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = expf(m_run - m_new);
+      const float m_new = a.mx_s != nullptr ? m_run : fmaxf(m_run, mx);
+      const float alpha = a.mx_s != nullptr ? 1.f : expf(m_run - m_new);
       const float p = valid ? expf(sv - m_new) : 0.f;
       float ps = p + __shfl_xor_sync(0xffffffffu, p, 8);
       ps += __shfl_xor_sync(0xffffffffu, ps, 16);
       l_run = l_run * alpha + ps;
       m_run = m_new;
-      if (lane % R == 0) pw[key_own * HB + h_own] = p;
+      // the weight of p @ v: p itself, or (the model's) p rounded to the
+      // cache dtype, while l sums p unrounded
+      if (lane % R == 0) pw[key_own * HB + h_own] = a.mx_s != nullptr ? round_as(p, T()) : p;
       if (lane < HB * R && lane % R == 0) pw[kKeysPerWarp * HB + h_own] = alpha;
       __syncwarp();
 
@@ -521,7 +573,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
       } else if (a.partial) {
         static_cast<float*>(a.o)[row * a.dv + c] = av;
       } else {
-        store_as(static_cast<T*>(a.o) + row * a.dv + c, av / (lv == 0.f ? 1.f : lv));
+        store_out<T>(a, row * a.dv + c, av / (lv == 0.f ? 1.f : lv));
       }
       if (a.n_splits == 1 && c == 0 && a.m_out) {
         a.m_out[row] = mm;
@@ -573,12 +625,78 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(Args a)
     if (a.partial) {
       static_cast<float*>(a.o)[row * a.dv + c] = acc;
     } else {
-      store_as(static_cast<T*>(a.o) + row * a.dv + c, acc / (l == 0.f ? 1.f : l));
+      store_out<T>(a, row * a.dv + c, acc / (l == 0.f ? 1.f : l));
     }
     if (c == 0 && a.m_out) {
       a.m_out[row] = m;
       a.l_out[row] = l;
     }
+  }
+}
+
+// The model's weights need each row's global max before any weight is
+// rounded: one block per (split, kv head, b) writes the max of its split's
+// scaled scores (q . k) * scale for each head of the group into mx_s;
+// warp w takes keys w, w + 8, ...; lane l the head-dim elements l, l + 32,
+// ...; a butterfly sums each score.  A split past the row's length writes
+// the sentinel.
+constexpr int kMaxThreads = 256;
+constexpr int kMaxHeads = 8;                          // heads a pass
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) decode_max_kernel(Args a) {
+  __shared__ float red[kMaxThreads / 32][kMaxHeads];
+  // the split kernel may launch now: it waits for this grid before it
+  // reads the maxima
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = a.h / a.kvh;
+  const int key_begin = split * a.kps;
+  const int key_end = min(row_length(a, b), key_begin + a.kps);
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb;
+  const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  for (int h0 = 0; h0 < group; h0 += kMaxHeads) {
+    float qr[kMaxHeads][8];                           // Dk <= 256: 8 a lane
+#pragma unroll
+    for (int hh = 0; hh < kMaxHeads; ++hh)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int d = lane + 32 * i;
+        qr[hh][i] = h0 + hh < group && d < a.dk
+                        ? to_f32(q[(kvh * group + h0 + hh) * a.q_sh + d]) : 0.f;
+      }
+    float mx[kMaxHeads];
+#pragma unroll
+    for (int hh = 0; hh < kMaxHeads; ++hh) mx[hh] = kNegInf;
+    for (int key = key_begin + warp; key < key_end; key += kMaxThreads / 32) {
+      const T* krow = kg + static_cast<long long>(key) * a.k_st;
+      float kv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int d = lane + 32 * i;
+        kv[i] = d < a.dk ? to_f32(krow[d]) : 0.f;
+      }
+#pragma unroll
+      for (int hh = 0; hh < kMaxHeads; ++hh) {
+        float sc = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sc = fmaf(qr[hh][i], kv[i], sc);
+        mx[hh] = fmaxf(mx[hh], warp_sum(sc) * a.scale);
+      }
+    }
+    if (lane == 0)
+#pragma unroll
+      for (int hh = 0; hh < kMaxHeads; ++hh) red[warp][hh] = mx[hh];
+    __syncthreads();
+    if (threadIdx.x < kMaxHeads && h0 + threadIdx.x < group) {
+      float m = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kMaxThreads / 32; ++w) m = fmaxf(m, red[w][threadIdx.x]);
+      a.mx_s[(static_cast<long long>(split) * a.b + b) * a.h + kvh * group + h0 +
+             threadIdx.x] = m;
+    }
+    __syncthreads();
   }
 }
 
@@ -591,14 +709,34 @@ int launch_split(const Args& a, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<dim3(a.n_splits, a.kvh, a.b), kThreads, smem, stream>>>(a);
-  return REPRO_LAUNCH_STATUS();
+  if (a.mx_s == nullptr) {
+    kernel<<<dim3(a.n_splits, a.kvh, a.b), kThreads, smem, stream>>>(a);
+    return REPRO_LAUNCH_STATUS();
+  }
+  // after decode_max_kernel, as its programmatic dependent
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_splits, a.kvh, a.b);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <typename T, int DPL>
 int launch_dpl(const Args& a, cudaStream_t stream) {
   constexpr int kMax = max_heads_per_pass<DPL>();
   const int group = a.h / a.kvh;
+  if (a.mx_s != nullptr) {
+    decode_max_kernel<T><<<dim3(a.n_splits, a.kvh, a.b), kMaxThreads, 0, stream>>>(a);
+    const int e = REPRO_LAUNCH_STATUS();
+    if (e != 0) return e;
+  }
   const int err = group <= 4 ? launch_split<T, DPL, 4>(a, stream)
                              : launch_split<T, DPL, kMax>(a, stream);
   if (err != 0 || a.n_splits == 1) return err;
@@ -624,9 +762,10 @@ bool aligned16(const void* p, long long a_, long long b_, long long c_, int es) 
 template <typename T>
 int decode_entry(const void* q, const void* k, const void* v, void* o,
                  float* m_out, float* l_out, float* acc_s, float* m_s,
-                 float* l_s, int b, int h, int kvh, int t, int dk, int dv,
-                 const long long* strides, float scale, int partial,
-                 int n_splits, int kps, int device, void* stream) {
+                 float* l_s, const long long* lengths, float* mx_s, int b, int h, int kvh,
+                 int t, int dk, int dv, const long long* strides, float scale,
+                 int partial, int out_f32, int n_splits, int kps, int device,
+                 void* stream) {
   REPRO_SET_DEVICE(device);
   if (b <= 0 || h <= 0) return 0;
   constexpr int es = sizeof(T);
@@ -634,15 +773,16 @@ int decode_entry(const void* q, const void* k, const void* v, void* o,
       dv > 256 || n_splits <= 0 || kps <= 0 || kps % kTile != 0 ||
       static_cast<long long>(n_splits) * kps < t ||
       static_cast<long long>(n_splits - 1) * kps >= t ||
-      (n_splits > 1 && (!acc_s || !m_s || !l_s || n_splits > 4096)))
+      (n_splits > 1 && (!acc_s || !m_s || !l_s || n_splits > 4096)) ||
+      (mx_s != nullptr && (partial || dk > 8 * 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = (dk * es) % 16 == 0 && (dv * es) % 16 == 0 &&
                   aligned16(k, strides[2], strides[3], strides[4], es) &&
                   aligned16(v, strides[5], strides[6], strides[7], es);
-  Args a{q, k, v, o, m_out, l_out, acc_s, m_s, l_s, b, h, kvh, t, dk, dv,
+  Args a{q, k, v, o, m_out, l_out, acc_s, m_s, l_s, lengths, mx_s, b, h, kvh, t, dk, dv,
          strides[0], strides[1], strides[2], strides[3], strides[4],
          strides[5], strides[6], strides[7], scale, partial, n_splits, kps,
-         vec};
+         out_f32, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int d = dk > dv ? dk : dv;
   if (d <= 32) return launch_dpl<T, 1>(a, st);
@@ -658,23 +798,31 @@ int decode_entry(const void* q, const void* k, const void* v, void* o,
 // out, m and l are contiguous, and m, l may be null.  n_splits and kps
 // (keys per split, a multiple of 32) cover [0, T) with no empty split; when
 // n_splits > 1, acc_s (n_splits, B, H, Dv), m_s and l_s (n_splits, B, H)
-// are f32 scratch.
+// are f32 scratch.  lengths: null, or (B,) int64 on the device: row b
+// attends to keys [0, lengths[b]) (clamped to [0, T]); the plan is the same
+// whatever the lengths.  mx_s: null, or (n_splits, B, H) f32 scratch: the
+// model's weights (decode_max_kernel first, then every weight from the
+// row's global max, rounded to the cache dtype before p @ v; not with
+// partial).  out_f32: the normalised out in f32, not q's dtype.
 REPRO_API int repro_decode_attention_f32(
     const void* q, const void* k, const void* v, void* o, float* m, float* l,
-    float* acc_s, float* m_s, float* l_s, int b, int h, int kvh, int t,
-    int dk, int dv, const long long* strides, float scale, int partial,
-    int n_splits, int kps, int device, void* stream) {
-  return decode_entry<float>(q, k, v, o, m, l, acc_s, m_s, l_s, b, h, kvh, t,
-                             dk, dv, strides, scale, partial, n_splits, kps,
-                             device, stream);
+    float* acc_s, float* m_s, float* l_s, const long long* lengths,
+    float* mx_s, int b, int h, int kvh, int t, int dk, int dv, const long long* strides,
+    float scale, int partial, int out_f32, int n_splits, int kps, int device,
+    void* stream) {
+  return decode_entry<float>(q, k, v, o, m, l, acc_s, m_s, l_s, lengths, mx_s, b, h,
+                             kvh, t, dk, dv, strides, scale, partial, out_f32,
+                             n_splits, kps, device, stream);
 }
 
 REPRO_API int repro_decode_attention_bf16(
     const void* q, const void* k, const void* v, void* o, float* m, float* l,
-    float* acc_s, float* m_s, float* l_s, int b, int h, int kvh, int t,
-    int dk, int dv, const long long* strides, float scale, int partial,
-    int n_splits, int kps, int device, void* stream) {
-  return decode_entry<__nv_bfloat16>(q, k, v, o, m, l, acc_s, m_s, l_s, b, h,
-                                     kvh, t, dk, dv, strides, scale, partial,
-                                     n_splits, kps, device, stream);
+    float* acc_s, float* m_s, float* l_s, const long long* lengths,
+    float* mx_s, int b, int h, int kvh, int t, int dk, int dv, const long long* strides,
+    float scale, int partial, int out_f32, int n_splits, int kps, int device,
+    void* stream) {
+  return decode_entry<__nv_bfloat16>(q, k, v, o, m, l, acc_s, m_s, l_s, lengths,
+                                     mx_s, b, h, kvh, t, dk, dv, strides, scale,
+                                     partial, out_f32, n_splits, kps, device,
+                                     stream);
 }

@@ -20,40 +20,55 @@
 // rounding (2^-9 of |O|) into every dS, far past one bf16 ulp of a small
 // gradient; the plain version's autograd uses the f32 output.
 //
-// Two kernels, FlashAttention-2's deterministic schedule without atomics:
+// Two routes, chosen by the caller (repro_torch/kernels/flash_attention/
+// flash_attention.py:bwd_route) by dtype and head dim, each
+// FlashAttention-2's deterministic two-kernel schedule without atomics:
 //
-// * flash_dq_kernel, one block per (q tile of 64 rows, head, batch): Q and dO
-//   stay in shared memory while K and V tiles of 32 rows stream past twice,
-//   first to sum D (each row's 32 columns a tile over the 16 lanes of a
-//   half warp, then a butterfly: every lane ends with the same bits),
-//   which it writes for the second kernel, then to accumulate dQ in
-//   registers; each q row's dQ is written once;
-// * flash_dkdv_kernel, one block per (kv tile of 32 rows, kv head, batch): K and
-//   V stay in shared memory; it loops over the q heads of its GQA group and
-//   over the q tiles of 32 rows that can see the tile (causal: those at or
-//   below it), recomputing P and dS, and accumulates dV += P^T dO and dK +=
-//   dS^T Q in registers; dK and dV are written once, so the group's sum
-//   runs in one fixed order.
+// * bfloat16 at d in {32, 64, 96, 128}: flash_dq_wgmma_kernel and
+//   flash_dkdv_wgmma_kernel, every product on the tensor cores (wgmma, TMA,
+//   mbarrier rings; see the note above them);
+// * float32 (which must match a full-precision product, so no TF32), and
+//   bfloat16 at d = 80 (hubert's heads, which no wgmma tile width takes
+//   without padding): flash_dq_kernel and flash_dkdv_kernel, f32 FMAs on
+//   the CUDA cores (the first kernels of this file, which took every bf16 d
+//   before the tensor-core route):
+//   - flash_dq_kernel, one block per (q tile of 64 rows, head, batch): Q and
+//     dO stay in shared memory while K and V tiles of 32 rows stream past
+//     twice, first to sum D (each row's 32 columns a tile over the 16 lanes
+//     of a half warp, then a butterfly: every lane ends with the same bits),
+//     which it writes for the second kernel, then to accumulate dQ in
+//     registers; each q row's dQ is written once;
+//   - flash_dkdv_kernel, one block per (kv tile of 32 rows, kv head,
+//     batch): K and V stay in shared memory; it loops over the q heads of
+//     its GQA group and over the q tiles of 32 rows that can see the tile
+//     (causal: those at or below it), recomputing P and dS, and accumulates
+//     dV += P^T dO and dK += dS^T Q in registers; dK and dV are written
+//     once, so the group's sum runs in one fixed order.
+//   Products are f32 FMAs (bf16 inputs widened on load), 128 threads a
+//   block in 8 half warps: a half warp owns rows ty + 8 i of a score tile,
+//   its lanes columns tx + 16 jj and output columns tx * VEC + 16 VEC u + e
+//   (the forward kernel's layout).
 //
 // Every sum runs in a fixed order that no batch size, head count or launch
 // changes: two calls give the same bits, and a row of a B = 4 call the bits
-// of the same row called alone.  Products are f32 FMAs on the CUDA cores
-// (bf16 inputs widened on load), 128 threads a block in 8 half warps: a
-// half warp owns rows ty + 8 i of a score tile, its lanes columns tx + 16 jj
-// and output columns tx * VEC + 16 VEC u + e (the forward kernel's layout).
+// of the same row called alone.
 //
 // What bounds it on the H100: at stablelm-1.6b's training shape (B = 8, 32
 // heads of 64, S = T = 128, causal, bf16) a backward needs five products
 // over the causal half (QK^T again, dO V^T, P^T dO, dS K, dS^T Q), 0.68 G
 // multiply-adds, against 29.4 MB of q, k, v, dO, dQ, dK and dV: 8.8 us of
 // bytes against 1.4 us at the bf16 tensor-core peak, so bytes bound it.
-// This kernel does seven products (QK^T and dO V^T twice, for D) on the
-// CUDA cores: 28 us at their f32 peak of 67 TFLOP/s.  Running on the CUDA
-// cores is the simple design of a first kernel; tensor cores (wgmma, TMA)
-// are later work (ROADMAP.md queue 2 item 6).
+// The CUDA-core route does seven products (QK^T and dO V^T twice, for D):
+// 28 us at the f32 peak of 67 TFLOP/s; it took 0.212 ms there.  The
+// tensor-core route does those seven on wgmma, P and dS each as two bf16
+// parts (six products a tile in each kernel): 2.8 us at the bf16 peak,
+// under the byte bound's time.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -88,6 +103,8 @@ struct BwdArgs {
   int b, h, kvh, s, t;
   float scale;
   int causal;
+  float* part;        // null, or the tensor-core route's f32 dK/dV partials of
+                      // each head of a GQA group: [2][group][B][KVH][T][D]
 };
 
 // Each thread owns output columns tx * kVec + kTX * kVec * u + e.
@@ -389,19 +406,481 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
   return REPRO_LAUNCH_STATUS();
 }
 
-// Head dims this file takes, Dk = Dv = d in {32, 64, 80, 96, 128}
-// (repro_torch/kernels/flash_attention/flash_attention.py:BWD_HEAD_DIMS
-// lists the same).
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores: flash_dq_wgmma_kernel, flash_dkdv_wgmma_kernel.
+//
+// Each block is one consumer warpgroup (warps 0-3), which owns 64 rows of
+// the result (q rows of dQ; kv rows of dK and dV), and a producer warp
+// (warp 4) whose lane 0 issues every TMA copy: the block's own 64-row tiles
+// once, then the tiles it streams through a 2-stage ring, each stage with a
+// full and an empty mbarrier.  Every tile is one or two 128-byte-swizzled
+// boxes of 64 bf16 columns and 64 rows (flash_wgmma_kernel's boxes and
+// descriptors, csrc/hopper.cuh); TMA zero-fills columns past d and rows
+// past S and T.  Products, in wgmma's accumulator layout (thread (warp w,
+// lane l) holds rows 16w + l/4 and + 8, columns 8j + 2(l%4) + {0, 1}):
+//
+// * flash_dq_wgmma_kernel, one block per (q tile, head, batch), Q and dO
+//   resident, K and V tiles streamed twice.  S = Q K^T and dP = dO V^T on
+//   wgmma.m64n64k16 with both operands K-major from shared memory; P =
+//   exp(scale S - lse), masked to 0.  The first pass sums D_i = sum_j P_ij
+//   dP_ij per thread in tile and register order, then over the 4 lanes of a
+//   row (every lane the same bits), and writes D for the second kernel; the
+//   second pass forms dS = P (dP - D) and accumulates dQ += dS K with A =
+//   dS from registers (two n8 accumulator tiles are one k16 A fragment) and
+//   B = the K tile with the transpose bit (MN-major): K is never staged
+//   transposed;
+// * flash_dkdv_wgmma_kernel, one block per (kv tile, kv head, batch), K and V
+//   resident; the q heads of the GQA group and, for each, the q tiles that
+//   see the kv tile (causal: from its own diagonal on) stream past as (Q,
+//   dO) tiles.  It computes S^T = K Q^T and dP^T = V dO^T directly, so P^T
+//   and dS^T come out in the accumulator layout that is the A-from-registers
+//   operand of dV += P^T dO and dK += dS^T Q (dO and Q MN-major): no
+//   transposition through shared memory.  Each q column's lse and D are
+//   read from device memory (L2) before the products are issued.  With a
+//   GQA group (H > KVH) one block takes one head of the group instead, and
+//   writes its f32 dK and dV partials; flash_dkdv_sum_kernel adds the
+//   group's in head order.  One block a kv head walking the whole group
+//   left most SMs idle (qwen's 16 over 2 heads: 32 blocks of 32 tiles).
+//
+// P and dS are f32; each is fed to its product as p_hi + p_lo, two bf16
+// parts multiplied in turn (the forward's P): about 16 bits of each, where
+// one bf16 rounding keeps 8, so the gradients hold to the f32 plain version
+// within the check's bf16 tolerance.  Q K^T and dO V^T take bf16 inputs,
+// whose products are exact in f32.  No atomics: dQ, dK and dV are each
+// written once by the block that owns their rows.
+constexpr int kMmaRows = 64;                 // result rows a block owns; rows a tile
+constexpr int kMmaStages = 2;
+constexpr int kMmaThreads = 128 + 32;        // a consumer warpgroup and a producer warp
+constexpr int kMmaBoxBytes = kMmaRows * 128; // one swizzled box: 64 rows x 64 bf16
+
+struct MmaPerm {                             // tensor-map dims of q, k, v and dout
+  int q[3], k[3], v[3], o[3];
+};
+
+template <int D>
+__host__ __device__ constexpr int mma_boxes() { return (D + kBox - 1) / kBox; }
+
+// The resident pair and the ring's pairs of tiles, the barriers, and slack
+// to align the boxes to 1024 bytes.
+template <int D>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return (1 + kMmaStages) * 2 * mma_boxes<D>() * kMmaBoxBytes + (1 + 2 * kMmaStages) * 8 +
+         1024;
+}
+
+// acc (64 x 64) = A B^T over d: A and B 64-row tiles, both K-major.
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&acc)[32], const unsigned char* a,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk % 4) * 32;           // bytes: 16 columns a step
+    wgmma_ss_n64(acc, sw128_desc(a + (kk / 4) * kMmaBoxBytes + off, 16, 1024),
+                 sw128_desc(b + (kk / 4) * kMmaBoxBytes + off, 16, 1024), kk > 0);
+  }
+}
+
+// The A fragments of a 64 x 64 accumulator tile x, as x_hi + x_lo.
+__device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // r: (row g, k lo), (row g + 8, k lo), (row g, k hi), (row g + 8, k hi)
+      const float* sv = x + 4 * (2 * kk + r / 2) + 2 * (r % 2);
+      hi[kk][r] = pack_bf16(sv[0], sv[1]);
+      const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi[kk][r]);
+      lo[kk][r] = pack_bf16(sv[0] - __low2float(h2), sv[1] - __high2float(h2));
+    }
+}
+
+// acc (64 x D) += (hi + lo) (64 x 64) @ M, M a 64-row tile of D columns
+// read MN-major, in steps of 16 of its rows.
+template <int D>
+__device__ __forceinline__ void mma_accumulate(float (&acc)[D / 2], const uint32_t (&hi)[4][4],
+                                               const uint32_t (&lo)[4][4],
+                                               const unsigned char* m) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = sw128_desc(m + kk * 16 * 128, kMmaBoxBytes, 1024);
+    wgmma_rs<D>(acc, hi[kk], desc);
+    wgmma_rs<D>(acc, lo[kk], desc);
+  }
+}
+
+// Rows row0 and row0 + 8 of a 64 x D accumulator, times mul, to a bf16 (n, D)
+// matrix; rows >= n skipped.
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2],
+                                          int row0, int n, float mul, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D + nt * 8 +
+                                         2 * t4) =
+          __floats2bfloat162_rn(acc[4 * nt + 2 * r] * mul, acc[4 * nt + 2 * r + 1] * mul);
+  }
+}
+
+// The same rows in f32, unscaled.
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* out, const float (&acc)[D / 2], int row0,
+                                              int n, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(out + static_cast<long long>(row) * D + nt * 8 + 2 * t4) =
+          make_float2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
+  }
+}
+
+// Barriers after the tiles: the resident pair's, then full and empty per stage.
+__device__ __forceinline__ void mma_init_barriers(uint64_t* res_full, uint64_t* full,
+                                                  uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kMmaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);                 // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, BwdArgs a, MmaPerm perm) {
+  constexpr int NB = mma_boxes<D>(), PAIR = 2 * NB * kMmaBoxBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* res = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = res + PAIR;            // stage s: K boxes, then V boxes
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(ring + kMmaStages * PAIR);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + kMmaStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;           // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv_head = h / (a.h / a.kvh);
+  const int q0 = q_tile * kMmaRows;
+  const int kv_end = a.causal ? min(a.t, min(q0 + kMmaRows, a.s)) : a.t;
+  const int n_tiles = (kv_end + kMmaRows - 1) / kMmaRows;
+  mma_init_barriers(res_full, full, empty);
+
+  if (warp == 4) {
+    // producer: Q and dO once, then every K and V tile, twice
+    if (lane == 0) {
+      mbar_arrive_tx(res_full, PAIR);
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        tma_load(res + x * kMmaBoxBytes, &tq, perm.q, x * kBox, q0, h, b, res_full);
+        tma_load(res + (NB + x) * kMmaBoxBytes, &to, perm.o, x * kBox, q0, h, b, res_full);
+      }
+      for (int g = 0; g < 2 * n_tiles; ++g) {
+        const int s = g % kMmaStages, k0 = (g % n_tiles) * kMmaRows;
+        mbar_wait(&empty[s], ((g / kMmaStages) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], PAIR);
+        unsigned char* st = ring + s * PAIR;
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          tma_load(st + x * kMmaBoxBytes, &tk, perm.k, x * kBox, k0, kv_head, b, &full[s]);
+          tma_load(st + (NB + x) * kMmaBoxBytes, &tv, perm.v, x * kBox, k0, kv_head, b,
+                   &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;          // this thread's two q rows
+  const long long qrow = (static_cast<long long>(b) * a.h + h) * a.s;
+  const float lse[2] = {r0 < a.s ? a.lse[qrow + r0] : 0.f, r1 < a.s ? a.lse[qrow + r1] : 0.f};
+  float dsum[2] = {0.f, 0.f};
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const int pass = it / n_tiles, s = it % kMmaStages;
+    const int k0 = (it % n_tiles) * kMmaRows;
+    mbar_wait(&full[s], (it / kMmaStages) & 1);
+    const unsigned char* st = ring + s * PAIR;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f, dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_scores<D>(sc, res, st);                              // S = Q K^T
+    mma_scores<D>(dp, res + NB * kMmaBoxBytes, st + NB * kMmaBoxBytes);   // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + nt * 8 + 2 * t4 + (e & 1);
+        const int qi = e < 2 ? r0 : r1;
+        const bool vis = qi < a.s && kj < a.t && (!a.causal || qi >= kj);
+        float& p = sc[4 * nt + e];
+        p = vis ? expf(p * a.scale - lse[e / 2]) : 0.f;
+      }
+    if (pass == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dsum[(i % 4) / 2] = fmaf(sc[i], dp[i], dsum[(i % 4) / 2]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = sc[i] * (dp[i] - dsum[(i % 4) / 2]);   // dS
+      uint32_t hi[4][4], lo[4][4];
+      split_frags(sc, hi, lo);
+      fence_regs(dq);
+      wgmma_fence();
+      mma_accumulate<D>(dq, hi, lo, st);                     // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);                 // this warp is done with stage s
+    if (it == n_tiles - 1) {                                // D, for pass 2 and flash_dkdv_wgmma_kernel
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dsum[r] = quad_sum(dsum[r]);
+        const int row = r == 0 ? r0 : r1;
+        if (t4 == 0 && row < a.s) a.delta[qrow + row] = dsum[r];
+      }
+    }
+  }
+  store_acc<D>(static_cast<__nv_bfloat16*>(a.dq) + qrow * D, dq, r0, a.s, a.scale, t4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap to, BwdArgs a, MmaPerm perm) {
+  constexpr int NB = mma_boxes<D>(), PAIR = 2 * NB * kMmaBoxBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* res = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = res + PAIR;            // stage s: Q boxes, then dO boxes
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(ring + kMmaStages * PAIR);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + kMmaStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kv_tile = blockIdx.x;                           // tile 0 sees the most rows
+  const int group = a.h / a.kvh;
+  // with partials, one block a head of the group (grid y = KVH * group),
+  // else one a kv head, looping over its group's heads
+  const bool split = a.part != nullptr;
+  const int kvh = split ? blockIdx.y / group : blockIdx.y, b = blockIdx.z;
+  const int head0 = kvh * group + (split ? blockIdx.y % group : 0);
+  const int k0 = kv_tile * kMmaRows;
+  // q tiles that see the kv tile: causal, those from its diagonal on
+  const int first_q = a.causal ? kv_tile : 0;
+  const int q_tiles = max(0, (a.s + kMmaRows - 1) / kMmaRows - first_q);
+  const int n_tiles = (split ? 1 : group) * q_tiles;
+  mma_init_barriers(res_full, full, empty);
+
+  if (warp == 4) {
+    // producer: K and V once, then (Q, dO) tiles head by head
+    if (lane == 0) {
+      mbar_arrive_tx(res_full, PAIR);
+#pragma unroll
+      for (int x = 0; x < NB; ++x) {
+        tma_load(res + x * kMmaBoxBytes, &tk, perm.k, x * kBox, k0, kvh, b, res_full);
+        tma_load(res + (NB + x) * kMmaBoxBytes, &tv, perm.v, x * kBox, k0, kvh, b, res_full);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kMmaStages;
+        const int hh = head0 + it / q_tiles, q0 = (first_q + it % q_tiles) * kMmaRows;
+        mbar_wait(&empty[s], ((it / kMmaStages) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], PAIR);
+        unsigned char* st = ring + s * PAIR;
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          tma_load(st + x * kMmaBoxBytes, &tq, perm.q, x * kBox, q0, hh, b, &full[s]);
+          tma_load(st + (NB + x) * kMmaBoxBytes, &to, perm.o, x * kBox, q0, hh, b, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4, t4 = lane % 4;
+  const int j0 = k0 + warp * 16 + g, j1 = j0 + 8;          // this thread's two kv rows
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kMmaStages;
+    const int hh = head0 + it / q_tiles, q0 = (first_q + it % q_tiles) * kMmaRows;
+    const long long qrow = (static_cast<long long>(b) * a.h + hh) * a.s;
+    // lse and D of this thread's 16 q columns
+    float lq[16], dl[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int qi = q0 + (c / 2) * 8 + 2 * t4 + (c % 2);
+      lq[c] = qi < a.s ? a.lse[qrow + qi] : 0.f;
+      dl[c] = qi < a.s ? a.delta[qrow + qi] : 0.f;
+    }
+    mbar_wait(&full[s], (it / kMmaStages) & 1);
+    const unsigned char* st = ring + s * PAIR;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f, dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_scores<D>(sc, res, st);                                          // S^T = K Q^T
+    mma_scores<D>(dp, res + NB * kMmaBoxBytes, st + NB * kMmaBoxBytes);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 2 * nt + (e & 1);
+        const int qi = q0 + nt * 8 + 2 * t4 + (e & 1);
+        const int kj = e < 2 ? j0 : j1;
+        const bool vis = qi < a.s && kj < a.t && (!a.causal || qi >= kj);
+        const float p = vis ? expf(sc[4 * nt + e] * a.scale - lq[c]) : 0.f;
+        sc[4 * nt + e] = p;                                  // P^T
+        dp[4 * nt + e] = p * (dp[4 * nt + e] - dl[c]);       // dS^T
+      }
+    uint32_t phi[4][4], plo[4][4], shi[4][4], slo[4][4];
+    split_frags(sc, phi, plo);
+    split_frags(dp, shi, slo);
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+    mma_accumulate<D>(dv, phi, plo, st + NB * kMmaBoxBytes);   // dV += P^T dO
+    mma_accumulate<D>(dk, shi, slo, st);                       // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  const long long krow = (static_cast<long long>(b) * a.kvh + kvh) * a.t;
+  if (split) {
+    // this head's f32 partials; flash_dkdv_sum_kernel adds the group's
+    const long long n = static_cast<long long>(a.b) * a.kvh * a.t * D;
+    float* pk = a.part + (head0 - kvh * group) * n + krow * D;
+    store_acc_f32<D>(pk, dk, j0, a.t, t4);
+    store_acc_f32<D>(pk + group * n, dv, j0, a.t, t4);
+    return;
+  }
+  store_acc<D>(static_cast<__nv_bfloat16*>(a.dk) + krow * D, dk, j0, a.t, a.scale, t4);
+  store_acc<D>(static_cast<__nv_bfloat16*>(a.dv) + krow * D, dv, j0, a.t, 1.f, t4);
+}
+
+// A GQA group's dK and dV from its heads' f32 partials, added in head order
+// (dK then times the scale), as bf16.
+template <int D>
+__global__ void __launch_bounds__(256) flash_dkdv_sum_kernel(BwdArgs a) {
+  const long long n = static_cast<long long>(a.b) * a.kvh * a.t * D;
+  const int group = a.h / a.kvh;
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    float sk = 0.f, sv = 0.f;
+    for (int g = 0; g < group; ++g) {
+      sk += a.part[g * n + i];
+      sv += a.part[(group + g) * n + i];
+    }
+    static_cast<__nv_bfloat16*>(a.dk)[i] = __float2bfloat16_rn(sk * a.scale);
+    static_cast<__nv_bfloat16*>(a.dv)[i] = __float2bfloat16_rn(sv);
+  }
+}
+
+template <int D>
+int launch_wgmma_bwd(const BwdArgs& a, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, to;
+  MmaPerm perm;
+  const long long d = D;
+  const long long qs[3] = {d, a.s * d, static_cast<long long>(a.h) * a.s * d};
+  const long long ks[3] = {d, a.t * d, static_cast<long long>(a.kvh) * a.t * d};
+  const bool ok = encode_map(&tq, a.q, D, {a.s, a.h, a.b}, qs, kMmaRows, perm.q) &&
+                  encode_map(&to, a.dout, D, {a.s, a.h, a.b}, qs, kMmaRows, perm.o) &&
+                  encode_map(&tk, a.k, D, {a.t, a.kvh, a.b}, ks, kMmaRows, perm.k) &&
+                  encode_map(&tv, a.v, D, {a.t, a.kvh, a.b}, ks, kMmaRows, perm.v);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = mma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(flash_dkdv_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_dq_wgmma_kernel<D><<<dim3((a.s + kMmaRows - 1) / kMmaRows, a.h, a.b), kMmaThreads, smem,
+                          st>>>(tq, tk, tv, to, a, perm);
+  const int err = REPRO_LAUNCH_STATUS();
+  if (err != 0) return err;
+  const int group = a.h / a.kvh;
+  flash_dkdv_wgmma_kernel<D><<<dim3((a.t + kMmaRows - 1) / kMmaRows,
+                                   a.part != nullptr ? a.kvh * group : a.kvh, a.b),
+                              kMmaThreads, smem, st>>>(tq, tk, tv, to, a, perm);
+  if (a.part == nullptr) return REPRO_LAUNCH_STATUS();
+  const int err2 = REPRO_LAUNCH_STATUS();
+  if (err2 != 0) return err2;
+  const long long n = static_cast<long long>(a.b) * a.kvh * a.t * D;
+  const long long blocks = (n + 255) / 256;
+  flash_dkdv_sum_kernel<D><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                             st>>>(a);
+  return REPRO_LAUNCH_STATUS();
+}
+
+// Head dims this file takes, Dk = Dv = d: float32 at {32, 64, 80, 96, 128}
+// and bfloat16 at 80 on the CUDA cores, bfloat16 at {32, 64, 96, 128} on the
+// tensor cores (``wgmma``)
+// (repro_torch/kernels/flash_attention/flash_attention.py:BWD_HEAD_DIMS and
+// BWD_MMA_HEAD_DIMS list the same).
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int b,
-               int h, int kvh, int s, int t, int d, float scale, int causal, int device,
-               void* stream) {
+               int h, int kvh, int s, int t, int d, float scale, int causal, int wgmma,
+               float* part, int device, void* stream) {
   REPRO_SET_DEVICE(device);
   if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || s <= 0 || t <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, scale, causal};
+  if (part != nullptr && (!wgmma || h == kvh)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, scale, causal, part};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // bf16: the tensor cores, but at d = 80 (no wgmma tile width)
+    if (!wgmma) return d == 80 ? launch_d<T, 80>(a, st) : static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 32: return launch_wgmma_bwd<32>(a, st);
+      case 64: return launch_wgmma_bwd<64>(a, st);
+      case 96: return launch_wgmma_bwd<96>(a, st);
+      case 128: return launch_wgmma_bwd<128>(a, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (wgmma) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 32: return launch_d<T, 32>(a, st);
     case 64: return launch_d<T, 64>(a, st);
@@ -415,23 +894,26 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, dout, dq (B, H, S, d); k, v, dk, dv (B, KVH, T, d), all contiguous;
-// lse and delta (B, H, S) f32, delta scratch that the first kernel writes.
+// lse and delta (B, H, S) f32, delta scratch that the first kernel writes;
+// wgmma: 1 for the tensor-core route (bfloat16, d in {32, 64, 96, 128});
+// part: null, or on that route with a GQA group (H > KVH) f32 scratch of
+// 2 * H * B * T * d floats for each head's dK and dV partials.
 REPRO_API int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             float* delta, void* dq, void* dk, void* dv,
                                             int b, int h, int kvh, int s, int t, int d,
-                                            float scale, int causal, int device,
-                                            void* stream) {
+                                            float scale, int causal, int wgmma,
+                                            float* part, int device, void* stream) {
   return launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, d,
-                           scale, causal, device, stream);
+                           scale, causal, wgmma, part, device, stream);
 }
 
 REPRO_API int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              float* delta, void* dq, void* dk, void* dv,
                                              int b, int h, int kvh, int s, int t, int d,
-                                             float scale, int causal, int device,
-                                             void* stream) {
+                                             float scale, int causal, int wgmma,
+                                             float* part, int device, void* stream) {
   return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s,
-                                   t, d, scale, causal, device, stream);
+                                   t, d, scale, causal, wgmma, part, device, stream);
 }

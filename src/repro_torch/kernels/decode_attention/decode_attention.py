@@ -8,9 +8,10 @@ as split-T flash-decoding: :func:`plan_decode_splits` cuts T into
 warp streams the chunk with TMA bulk copies through a ring of tiles of
 :data:`KEY_TILE` keys and 8 consumer warps keep (acc, m, l) in f32 for the
 group's heads; a second kernel merges the chunks in a fixed order.  The
-tail of T is masked, so nothing is padded.  The plan does not read the
-batch size, so a sequence's bits do not depend on the batch it shares a
-launch with.
+tail of T is masked, so nothing is padded; with ``lengths`` each row's keys
+past its length are masked too, and a split wholly past it loads nothing.
+The plan reads neither the batch size nor the lengths, so a sequence's bits
+do not depend on the batch it shares a launch with.
 """
 
 from __future__ import annotations
@@ -40,8 +41,7 @@ BLOCKS_PER_SM = 2
 PLAN_BATCH = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-         ctypes.c_float, _I, _I, _I, _I, _P]
+_ARGS = [_P] * 11 + [_I] * 6 + [_P, ctypes.c_float, _I, _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_decode_attention_f32",
            torch.bfloat16: "repro_decode_attention_bf16"}
 
@@ -73,18 +73,26 @@ def plan_decode_splits(kvh: int, t: int, sm_count: int) -> Tuple[int, int]:
 def launch_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, m: Optional[torch.Tensor],
                             l: Optional[torch.Tensor], *, scale: float,
-                            partial: bool) -> None:
+                            partial: bool,
+                            lengths: Optional[torch.Tensor] = None) -> None:
     """Launch on CUDA tensors of one dtype, q (B,H,Dk), k (B,KVH,T,Dk), v
     (B,KVH,T,Dv), each with a contiguous last axis, into the contiguous
-    ``out`` (B,H,Dv) (q's dtype, or f32 when ``partial``) and f32 ``m``,
-    ``l`` (B,H,1) or None, on the current stream: the split kernel, then,
-    when the plan gives more than one split, the combine kernel, over f32
-    scratch allocated here.  Counts one launch."""
+    ``out`` (B,H,Dv) (q's dtype or f32; f32 when ``partial``) and f32
+    ``m``, ``l`` (B,H,1) or None, on the current stream: the split kernel,
+    then, when the plan gives more than one split, the combine kernel, over
+    f32 scratch allocated here.  ``lengths``, a contiguous (B,) int64 CUDA
+    tensor or None, limits row b to keys ``[0, lengths[b])`` and gives the
+    model's weights (from each row's global max, found by a first kernel
+    into f32 scratch, and rounded to the cache dtype before ``p @ v``); the
+    plan does not read it.  Counts one launch."""
     b, h, dk = q.shape
     kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_splits, kps = plan_decode_splits(kvh, t, sms)
-    acc_s = m_s = l_s = None
+    acc_s = m_s = l_s = mx_s = None
+    if lengths is not None:
+        mx_s = torch.empty((n_splits, b, h), dtype=torch.float32,
+                           device=q.device)
     if n_splits > 1:
         acc_s = torch.empty((n_splits, b, h, dv), dtype=torch.float32,
                             device=q.device)
@@ -92,7 +100,10 @@ def launch_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l_s = torch.empty_like(m_s)
     strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3],
                                       *v.stride()[:3])
+    out_f32 = not partial and out.dtype == torch.float32
     launch("decode_attention", _SYMBOL[q.dtype], _ARGS, ptr(q), ptr(k), ptr(v),
-           ptr(out), ptr(m), ptr(l), ptr(acc_s), ptr(m_s), ptr(l_s), b, h,
-           kvh, t, dk, dv, ctypes.cast(strides, _P), float(scale),
-           int(partial), n_splits, kps, q.device.index, stream_of(q))
+           ptr(out), ptr(m), ptr(l), ptr(acc_s), ptr(m_s), ptr(l_s),
+           ptr(lengths), ptr(mx_s), b, h, kvh, t, dk, dv,
+           ctypes.cast(strides, _P),
+           float(scale), int(partial), int(out_f32), n_splits, kps,
+           q.device.index, stream_of(q))

@@ -9,8 +9,11 @@ tensors.  On the card one call is one launch of the op (the launch counter
 moves by one), whether the plan of
 :func:`~repro_torch.kernels.decode_attention.decode_attention.plan_decode_splits`
 runs the split kernel alone or the split and the combine kernels.  The
-family is reached through the registry, as in the JAX package; no model
-calls it (dense decode uses plain products).
+family is reached through the registry, as in the JAX package, with the
+JAX signature; the models' decode step calls the wrapper with each row's
+``lengths`` (whose plain version is
+:func:`~repro_torch.kernels.decode_attention.ref.decode_attention_masked_ref`,
+the step's own products).
 """
 
 from __future__ import annotations
@@ -22,24 +25,36 @@ from ...core.program import kernel_family
 from ...core.runtime import Kernel
 from ..common import check_dtype, on_card
 from .decode_attention import DTYPES, MAX_HEAD_DIM, launch_decode_attention
-from .ref import (combine_partials, counts, decode_attention_partial_ref,
-                  decode_attention_ref, decode_attention_split_ref)
+from .ref import (combine_partials, counts, decode_attention_masked_ref,
+                  decode_attention_partial_ref, decode_attention_ref,
+                  decode_attention_split_ref)
 
 __all__ = ["decode_attention", "combine_partials", "counts",
-           "decode_attention_partial_ref", "decode_attention_ref",
-           "decode_attention_split_ref", "build_kernel"]
+           "decode_attention_masked_ref", "decode_attention_partial_ref",
+           "decode_attention_ref", "decode_attention_split_ref",
+           "build_kernel"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     scale: float | None = None, partial: bool = False):
+                     scale: float | None = None, partial: bool = False,
+                     lengths: torch.Tensor | None = None,
+                     out_dtype: torch.dtype | None = None):
     """One-token attention q (B,H,Dk) against cache k/v (B,KVH,T,D*), KVH
     dividing H.
 
-    Returns out (B,H,Dv) in q's dtype; with ``partial=True`` the
-    unnormalized (acc (B,H,Dv) f32, m (B,H,1) f32, l (B,H,1) f32) that
-    :func:`combine_partials` merges across T-shards.  On the card q, k and v
-    share a dtype (float32 or bfloat16), Dk and Dv are at most 256, and k
-    and v may be strided views whose last axis is contiguous.
+    Returns out (B,H,Dv) in ``out_dtype`` (q's dtype by default, or
+    float32); with ``partial=True`` the unnormalized (acc (B,H,Dv) f32, m
+    (B,H,1) f32, l (B,H,1) f32) that :func:`combine_partials` merges across
+    T-shards.  ``lengths``, a (B,) integer tensor on q's device, limits row
+    b to keys ``[0, lengths[b])`` (each at least 1; not with ``partial``)
+    and computes the model's decode step: the softmax weights from each
+    row's global max, rounded to the cache dtype before the weighted sum
+    (the JAX model's einsum over ``pexp.astype(dtype)``); its plain version
+    is :func:`decode_attention_masked_ref`, without it
+    :func:`decode_attention_ref` (the TPU kernel's f32 weights).  On the
+    card q, k and v share a dtype (float32 or bfloat16), Dk and Dv are at
+    most 256, and k and v may be strided views whose last axis is
+    contiguous.
     """
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention takes q (B,H,Dk), k (B,KVH,T,Dk), "
@@ -51,10 +66,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(
             f"decode_attention shapes do not fit (T >= 1, KVH divides H): "
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not on_card(q, k, v):
+    if out_dtype not in (None, q.dtype, torch.float32) or (
+            partial and out_dtype is not None):
+        raise ValueError(f"decode_attention: out_dtype {out_dtype} (q's "
+                         f"dtype or float32, and none with partial=True)")
+    if lengths is not None:
+        if partial:
+            raise ValueError("decode_attention: lengths with partial=True")
+        if tuple(lengths.shape) != (b,):
+            raise ValueError(f"decode_attention: lengths "
+                             f"{tuple(lengths.shape)} for a batch of {b}")
+    if not on_card(q, k, v, *(() if lengths is None else (lengths,))):
+        if lengths is not None:
+            return decode_attention_masked_ref(q, k, v, lengths, scale=scale,
+                                               out_dtype=out_dtype)
         if partial:
             return decode_attention_partial_ref(q, k, v, scale=scale)
-        return decode_attention_ref(q, k, v, scale=scale)
+        if out_dtype in (None, q.dtype):
+            return decode_attention_ref(q, k, v, scale=scale)
+        acc, _, l = decode_attention_partial_ref(q, k, v, scale=scale)
+        return acc / l
     check_dtype("decode_attention q", q, DTYPES)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention inputs must share a dtype, got "
@@ -67,15 +98,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("decode_attention: the kernel takes a contiguous "
                          "last axis")
     scale = (dk ** -0.5) if scale is None else scale
-    out = torch.empty((b, h, dv), dtype=torch.float32 if partial else q.dtype,
-                      device=q.device)
+    if lengths is not None:
+        lengths = lengths.to(torch.int64).contiguous()
+    out = torch.empty((b, h, dv), dtype=torch.float32 if partial
+                      else (out_dtype or q.dtype), device=q.device)
     m = l = None
     if partial:
         m = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
         l = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
     if out.numel():
         launch_decode_attention(q, k, v, out, m, l, scale=scale,
-                                partial=partial)
+                                partial=partial, lengths=lengths)
     return (out, m, l) if partial else out
 
 

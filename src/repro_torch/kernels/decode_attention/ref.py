@@ -9,7 +9,9 @@ exact algebraic identity.
 These are the JAX package's ``kernels/decode_attention/ref.py``.  Its XLA
 path (``ops.decode_attention`` off a TPU) is :func:`decode_attention_ref`
 itself, so the ref functions are the kernel's plain versions: the wrapper
-``ops.decode_attention`` runs them for CPU and ``meta`` tensors.
+``ops.decode_attention`` runs them for CPU and ``meta`` tensors.  With a
+row's ``lengths`` the plain version is :func:`decode_attention_masked_ref`,
+the model's decode-step products (``models/attention.py:attend_decode``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,37 @@ def decode_attention_partial_ref(q, k, v, *, scale=None):
     l = p.sum(-1, keepdim=True)
     acc = torch.einsum("bht,bhtd->bhd", p, v.float())
     return acc, m, l
+
+
+#: the score of a masked key (the models' attention sentinel)
+NEG_INF = -1e30
+
+
+def decode_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lengths: torch.Tensor, *,
+                                scale: float | None = None,
+                                out_dtype: torch.dtype | None = None
+                                ) -> torch.Tensor:
+    """Row b of q (B,H,Dk) attends to keys ``[0, lengths[b])`` of k/v
+    (B,KVH,T,D*): the model's decode step as products (the JAX package's
+    ``preferred_element_type=f32`` einsums over the cache dtype).  q, k and
+    v share the cache dtype; both operands of each product are widened to
+    f32 (a product of two bf16 values is exact in f32), and the softmax
+    weights are rounded to the cache dtype before the weighted sum.
+    Returns out (B,H,Dv) in ``out_dtype`` (default q's dtype)."""
+    b, h, dk = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = (dk ** -0.5) if scale is None else scale
+    qd = q.reshape(b, kvh, group, dk)
+    s = torch.matmul(qd.float(), k.float().transpose(-1, -2)) * scale
+    valid = torch.arange(t, device=q.device) < lengths[:, None]   # (B, T)
+    s = torch.where(valid[:, None, None], s, NEG_INF)             # (B,KVH,G,T)
+    m = s.amax(-1, keepdim=True)
+    pexp = torch.exp(s - m)
+    l = pexp.sum(-1, keepdim=True)
+    o = torch.matmul(pexp.to(k.dtype).float(), v.float()) / l
+    return o.reshape(b, h, v.shape[3]).to(out_dtype or q.dtype)
 
 
 def merge_partials(parts):

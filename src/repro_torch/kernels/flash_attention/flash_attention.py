@@ -17,8 +17,13 @@ f32 FMAs on the CUDA cores.  Both kernels can also write each row's
 log-sum-exp for the backward.
 
 ``csrc/flash_attention_bwd.cu`` is that kernel's gradient (dQ, dK, dV,
-FlashAttention-2's deterministic two-kernel backward on the CUDA cores),
-for Dk = Dv in :data:`BWD_HEAD_DIMS`, counted as ``flash_attention_bwd``.
+FlashAttention-2's deterministic two-kernel backward), for Dk = Dv in
+:data:`BWD_HEAD_DIMS`, counted as ``flash_attention_bwd``.  bfloat16 at the
+head dims of :data:`BWD_MMA_HEAD_DIMS` runs its tensor-core kernels (TMA,
+``wgmma``; q, k, v and the output's gradient read through tensor maps);
+float32 and bfloat16 at D = 80 run its CUDA-core kernels
+(:func:`bwd_route`).  Neither is a fallback of the other: a failed build or
+launch raises.
 """
 
 from __future__ import annotations
@@ -47,13 +52,17 @@ CONTIGUOUS_COPIES = 0
 
 #: head dims (Dk = Dv) csrc/flash_attention_bwd.cu is compiled for
 BWD_HEAD_DIMS = (32, 64, 80, 96, 128)
+#: of those, the bfloat16 head dims its tensor-core kernels
+#: (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) take: the widths a
+#: wgmma tile of 64-column boxes takes without padding (80 does not)
+BWD_MMA_HEAD_DIMS = (32, 64, 96, 128)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
          _I, _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_flash_attention_f32",
            torch.bfloat16: "repro_flash_attention_bf16"}
-_BWD_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P, _I, _P]
 _BWD_SYMBOL = {torch.float32: "repro_flash_attention_bwd_f32",
                torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 
@@ -106,19 +115,40 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            int(bq), int(bk), q.device.index, stream_of(q))
 
 
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """Which kernels of ``csrc/flash_attention_bwd.cu`` compute the
+    gradient at Dk = Dv = ``d``: ``"wgmma"`` (the tensor cores) for
+    bfloat16 at :data:`BWD_MMA_HEAD_DIMS`, ``"cuda_cores"`` for float32
+    and the other head dims of :data:`BWD_HEAD_DIMS`.  Raises
+    ``ValueError`` for a head dim neither takes."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash-attention backward kernels take Dk = Dv "
+                         f"in {BWD_HEAD_DIMS}; got {d}")
+    if dtype == torch.bfloat16 and d in BWD_MMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
+
+
 def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, dout: torch.Tensor,
                                lse: torch.Tensor, delta: torch.Tensor,
                                dq: torch.Tensor, dk: torch.Tensor,
                                dv: torch.Tensor, *, causal: bool,
                                scale: float) -> None:
-    """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels, one count) on
-    contiguous CUDA tensors of one dtype: q, dout, dq (B,H,S,D), k, v, dk,
-    dv (B,KVH,T,D), D in :data:`BWD_HEAD_DIMS`; ``lse`` the forward's f32
-    (B,H,S) and ``delta`` f32 (B,H,S) scratch."""
+    """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels of the route
+    :func:`bwd_route` picks, one count) on contiguous CUDA tensors of one
+    dtype: q, dout, dq (B,H,S,D), k, v, dk, dv (B,KVH,T,D), D in
+    :data:`BWD_HEAD_DIMS`; ``lse`` the forward's f32 (B,H,S) and ``delta``
+    f32 (B,H,S) scratch.  On the tensor-core route q, k, v and dout must be
+    16-byte aligned (:func:`tma_view`), and a GQA group (H > KVH) takes one
+    block a head for dK and dV, into f32 partials allocated here, which a
+    third kernel adds in head order."""
     b, h, s, d = q.shape
     kvh, t = k.shape[1], k.shape[2]
+    wgmma = bwd_route(q.dtype, d) == "wgmma"
+    part = (torch.empty((2, h, b, t, d), dtype=torch.float32, device=q.device)
+            if wgmma and h > kvh else None)
     launch("flash_attention_bwd", _BWD_SYMBOL[q.dtype], _BWD_ARGS, ptr(q),
            ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq), ptr(dk),
-           ptr(dv), b, h, kvh, s, t, d, float(scale), int(causal),
-           q.device.index, stream_of(q))
+           ptr(dv), b, h, kvh, s, t, d, float(scale), int(causal), int(wgmma),
+           ptr(part), q.device.index, stream_of(q))

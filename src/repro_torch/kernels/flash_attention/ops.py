@@ -22,7 +22,7 @@ import torch
 
 from ..common import check_dtype, on_card
 from .flash_attention import (BWD_HEAD_DIMS, COMPILED_DV, DTYPES, MAX_DK,
-                              MMA_HEAD_DIMS, launch_flash_attention,
+                              MMA_HEAD_DIMS, bwd_route, launch_flash_attention,
                               launch_flash_attention_bwd, supports_head_dims,
                               tma_view)
 from .ref import (block_sizes, counts, flash_attention_bwd_plain,
@@ -146,8 +146,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``dout`` share a dtype (float32 or bfloat16), Dk = Dv in
     :data:`BWD_HEAD_DIMS` (else ``ValueError``), ``lse`` is the forward
     kernel's f32 (B, H, S) row log-sum-exp; views are copied contiguous
-    first.  On CPU and ``meta`` tensors it runs the plain version, autograd
-    of :func:`flash_attention_plain` (``lse`` unused)."""
+    first.  bfloat16 at the head dims of ``BWD_MMA_HEAD_DIMS`` runs the
+    tensor-core kernels, float32 and bfloat16 at D = 80 the CUDA-core ones
+    (:func:`~repro_torch.kernels.flash_attention.flash_attention.bwd_route`,
+    by dtype and shape; no fallback between them).  On CPU and ``meta``
+    tensors it runs the plain version, autograd of
+    :func:`flash_attention_plain` (``lse`` unused)."""
     dk_, dv_ = q.shape[3], v.shape[3]
     scale = (dk_ ** -0.5) if scale is None else scale
     if not on_card(q, k, v, dout):
@@ -158,6 +162,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention_bwd inputs must share a dtype")
     check_backward(dk_, dv_, 0)
     q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
+    if bwd_route(q.dtype, dk_) == "wgmma":     # read through tensor maps
+        q, k, v, dout = (tma_view(x) for x in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     b, h, s, _ = q.shape
     if not (q.numel() and k.numel()):

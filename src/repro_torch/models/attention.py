@@ -5,8 +5,9 @@ mapping shared by the call modes:
 
 * :func:`attend_full`   — prefill over a whole sequence, through the
   flash-attention wrapper (the hand-written kernel on the card);
-* :func:`attend_decode` — one new token against the cache: plain products
-  on the card (the JAX package's einsum, not a kernel);
+* :func:`attend_decode` — one new token against the cache, through the
+  decode-attention wrapper (the hand-written kernel on the card; the JAX
+  package's einsums on the CPU);
 * cache init/update helpers used by the serving layer.
 
 Projection weights keep *flattened* head dims — (d_model, H*hd) — as in
@@ -20,9 +21,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
-from .layers import NEG_INF, apply_rotary, cdtype, rows_matmul
+from .layers import apply_rotary, cdtype, rows_matmul
 from .params import ParamSpec, dense_spec, state_device
 
 
@@ -155,15 +157,22 @@ def attend_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
     The step reads no position on the host, so it runs on ``meta`` tensors
     at capture.  An ``int`` goes through the same arithmetic as a tensor.
 
-    The scores and the weighted sum read the bf16 cache with f32
-    accumulation, as the JAX package's ``preferred_element_type=f32``
-    einsums do: q and the softmax weights are rounded to the cache dtype
-    first, then both operands of each product are widened to f32 (a
-    product of two bf16 values is exact in f32, so only the order of the
-    sums differs from XLA's).
+    The attention itself is the decode-attention kernel on the card
+    (``kernels/decode_attention``), each row limited to its keys ``[0, pos
+    + 1)`` by ``lengths``; its split plan reads no batch size and every sum
+    has a fixed order, so a row gets the same bits in any batch, and it
+    computes the step's weights (from the row's global max, rounded to the
+    cache dtype before the weighted sum).  q goes in the cache dtype.  On the CPU (and on ``meta``) the wrapper runs the
+    step's products (:func:`~repro_torch.kernels.decode_attention.ref.
+    decode_attention_masked_ref`): the scores and the weighted sum read the
+    bf16 cache with f32 accumulation, as the JAX package's
+    ``preferred_element_type=f32`` einsums do (q and the softmax weights
+    rounded to the cache dtype first, then both operands of each product
+    widened to f32: a product of two bf16 values is exact in f32, so only
+    the order of the sums differs from XLA's).
     """
     b = x.shape[0]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, hd = cfg.n_heads, cfg.head_dim
     pos = _row_positions(pos, b, x.device)                      # (B,)
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
 
@@ -175,17 +184,9 @@ def attend_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
     k_cache[rows, :, at] = k_new[:, :, 0].to(dtype)
     v_cache[rows, :, at] = v_new[:, :, 0].to(dtype)
 
-    group = h // kvh
-    qd = q[:, :, 0].reshape(b, kvh, group, hd).to(dtype)
-    scale = hd ** -0.5
-    s = torch.matmul(qd.float(), k_cache.float().transpose(-1, -2)) * scale
-    valid = torch.arange(t, device=x.device) <= pos[:, None]   # (B, T)
-    s = torch.where(valid[:, None, None], s, NEG_INF)           # (B,KVH,G,T)
-    m = s.amax(-1, keepdim=True)
-    pexp = torch.exp(s - m)
-    l = pexp.sum(-1, keepdim=True)
-    o = torch.matmul(pexp.to(dtype).float(), v_cache.float()) / l
-    o = o.reshape(b, 1, h * hd)
     dt = cdtype(cfg)
+    o = decode_attention(q[:, :, 0].to(dtype), k_cache, v_cache,
+                         scale=hd ** -0.5, lengths=at + 1, out_dtype=dt)
+    o = o.reshape(b, 1, h * hd)
     y = torch.matmul(o.to(dt), p["wo"].to(dt))
     return y, cache

@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from ..kernels.norm.ops import group_norm
 from .config import ModelConfig
 from .layers import cdtype, sinusoidal_positions
 from .params import ParamSpec, dense_spec
@@ -47,14 +48,11 @@ def embed_vision(p, patches: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def embed_audio(p, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Precomputed frame features (B, S, F) -> (B, S, D) with sinusoidal
     positions (stand-in for hubert's conv positional encoder), layer-normed
-    in f32 with the population variance."""
+    in f32 with the population variance (the norm kernel on the card)."""
     dt = cdtype(cfg)
     x = torch.matmul(frames.to(dt), p["proj"].to(dt))
     pos = sinusoidal_positions(x.shape[1], cfg.d_model,
                                device=x.device).to(dt)
     x = x + pos[None]
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    xn = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-    return (xn * p["ln_scale"].float() + p["ln_bias"].float()).to(dt)
+    return group_norm(x, p["ln_scale"], p["ln_bias"], x.shape[-1],
+                      cfg.norm_eps)

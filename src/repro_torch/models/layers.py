@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..kernels.norm.ops import layer_norm, rms_norm
 from .config import ModelConfig
 from .params import ParamSpec, dense_spec
 
@@ -55,26 +56,19 @@ def norm_spec(cfg: ModelConfig, stacked: int = 0) -> Dict[str, ParamSpec]:
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    xf = x.float()
+    """The block's norm over the last axis, in f32, cast back to x's dtype:
+    the norm kernel on the card, its plain version
+    (:mod:`repro_torch.kernels.norm.ref`) on the CPU."""
     if cfg.norm == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * p["scale"].float() + p["bias"].float()
-    else:
-        ms = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + cfg.norm_eps)
-        y = y * p["scale"].float()
-    return y.to(x.dtype)
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
 def rms_norm_1d(x: torch.Tensor, scale: torch.Tensor, eps: float
                 ) -> torch.Tensor:
     """RMS norm over the last axis with a bare scale vector (MLA's latent
     norms), in f32, cast back to ``x``'s dtype."""
-    xf = x.float()
-    ms = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    return rms_norm(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------

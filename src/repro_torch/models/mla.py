@@ -10,7 +10,9 @@ cache holds only ``c_kv`` and ``k_rope`` per token.
   Dk = nope + rope against Dv = v_head_dim;
 * decode: the **absorbed** form — W_UK folds into the query, W_UV into the
   output — so attention runs MQA-style against the latent cache as plain
-  products (the JAX package's einsums, not a kernel).
+  products (the JAX package's einsums, not a kernel: the latent width of
+  576 / 512 is over the decode kernel's 256), one row at a time, so that
+  no product's shape depends on the batch.
 
 Dtypes follow the JAX package, which reads its f32 masters: the model keeps
 :data:`F32_LEAVES` in f32; the prefill casts ``wk_b``/``wv_b`` to the
@@ -191,25 +193,30 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
     c_kv[rows, at] = c_new[:, 0].to(dtype)
     k_rope[rows, at] = k_rope_new[:, 0, 0].to(dtype)
 
-    # absorb W_UK into the query: q_lat (B, H, kvl), in f32
+    # the absorbed attention runs one row at a time: every product and
+    # reduction below has a shape that no batch size changes (the library
+    # picks a batched product's kernel, and its order of sums, by the batch
+    # count), so a row gets the bits it has alone
     wk_b = p["wk_b"].float().reshape(kvl, h, nope)
-    q_lat = torch.einsum("bhd,khd->bhk", q_nope[:, :, 0].float(), wk_b)
-    scale = (nope + rope) ** -0.5
-    s_lat = torch.matmul(q_lat.to(dtype).float(),
-                         c_kv.float().transpose(-1, -2))       # (B, H, T)
-    s_rope = torch.matmul(q_rope[:, :, 0].to(dtype).float(),
-                          k_rope.float().transpose(-1, -2))
-    s = (s_lat + s_rope) * scale
-    valid = torch.arange(t, device=x.device) <= pos[:, None]    # (B, T)
-    s = torch.where(valid[:, None], s, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    pexp = torch.exp(s - m)
-    l = pexp.sum(-1, keepdim=True)
-    o_lat = torch.matmul(pexp.to(dtype).float(), c_kv.float()) / l
-
-    # absorb W_UV into the output: (B, H, kvl) x (kvl, H, vd) -> (B, H, vd)
     wv_b = p["wv_b"].float().reshape(kvl, h, vd)
-    o = torch.einsum("bhk,khd->bhd", o_lat, wv_b)
-    o = o.reshape(b, 1, h * vd)
+    scale = (nope + rope) ** -0.5
+    keys = torch.arange(t, device=x.device)
+    rows_o = []
+    for i in range(b):
+        # absorb W_UK into the query: q_lat (H, kvl), in f32
+        q_lat = torch.einsum("hd,khd->hk", q_nope[i, :, 0].float(), wk_b)
+        c_i = c_kv[i].float()                                   # (T, kvl)
+        s_lat = torch.matmul(q_lat.to(dtype).float(), c_i.T)    # (H, T)
+        s_rope = torch.matmul(q_rope[i, :, 0].to(dtype).float(),
+                              k_rope[i].float().T)
+        s = (s_lat + s_rope) * scale
+        s = torch.where(keys <= pos[i], s, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        pexp = torch.exp(s - m)
+        l = pexp.sum(-1, keepdim=True)
+        o_lat = torch.matmul(pexp.to(dtype).float(), c_i) / l  # (H, kvl)
+        # absorb W_UV into the output: (H, kvl) x (kvl, H, vd) -> (H, vd)
+        rows_o.append(torch.einsum("hk,khd->hd", o_lat, wv_b))
+    o = torch.stack(rows_o).reshape(b, 1, h * vd)
     y = torch.matmul(o.to(dt), p["wo"].to(dt))
     return y, cache

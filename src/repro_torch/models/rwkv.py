@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..kernels.norm.ops import group_norm
 from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from .config import ModelConfig
 from .layers import cdtype, sigmoid, silu
@@ -90,13 +91,9 @@ def _heads(x: torch.Tensor, h: int, hd: int) -> torch.Tensor:
 
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, h: int, hd: int,
                 eps: float) -> torch.Tensor:
-    """Per-head LayerNorm of the WKV output (B, T, D), population variance."""
-    b, t, _ = x.shape
-    xh = x.reshape(b, t, h, hd).float()
-    mu = xh.mean(-1, keepdim=True)
-    var = torch.var(xh, dim=-1, keepdim=True, unbiased=False)
-    xn = (xh - mu) * torch.rsqrt(var + eps)
-    return (xn.reshape(b, t, h * hd) * scale.float()).to(x.dtype)
+    """Per-head LayerNorm of the WKV output (B, T, D), population variance:
+    the norm kernel over groups of ``hd`` columns on the card."""
+    return group_norm(x, scale, None, hd, eps)
 
 
 def _mix_inputs(p, x: torch.Tensor, xx: torch.Tensor, cfg: ModelConfig):
