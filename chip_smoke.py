@@ -36,9 +36,10 @@ Phases (any failure exits non-zero and prints no result line):
    moonshot's prefill (B = 1, H = KVH = 16, S = T = 256, D = 128, bf16,
    on ``flash_wgmma_kernel`` with a GQA group of one; a B = 1 call
    bit-equal to row 2 of B = 4), deepseek's MLA prefill (B = 1, H = 128,
-   S = T = 256, Dk 192, Dv 128,
-   bf16, on the CUDA-core kernel; a B = 1 call bit-equal to row 2 of
-   B = 4 with k built as the MLA block builds it, and no view copied),
+   S = T = 256, Dk 192, Dv 128, bf16 on ``flash_wgmma_kernel<192, 128>``
+   and f32 on the CUDA-core kernel; a B = 1 call bit-equal to row 2 of
+   B = 4 with k built as the MLA block builds it, and no view copied) and
+   its training shape (B = 8, H = 128, S = T = 128, bf16 and f32),
    paligemma's prefill (B = 4, H = 8, KVH = 1, S = T = 320, Dk = Dv = 256,
    bf16 and f32, causal and not, on the CUDA-core kernel; a B = 1 call
    bit-equal to row 2 of B = 4 in both dtypes), hubert's heads (H = 16,
@@ -75,12 +76,15 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 and f32: stablelm-1.6b's training shape (B = 8, 32 heads of 64,
    S = T = 128, causal), qwen's GQA (16 over 2 heads of 128, S = T = 256),
    the example model's (12 over 4 of 64), hubert's (16 of 80, S = T = 256,
-   non-causal) and ragged S = 77 and 100 at D = 32 and 96; the forward's
-   output bit-equal with and without the log-sum-exp it keeps for the
-   backward, two calls bit-equal and a B = 1 call bit-equal to row 2 of
-   B = 4 or 8 (stablelm's and qwen's shapes), and Dk = Dv = 256 refused
-   with a ``ValueError`` (no fallback); bf16 at D 32, 64, 96 and 128 runs
-   the tensor-core kernels, f32 and D 80 the CUDA-core ones;
+   non-causal), ragged S = 77 and 100 at D = 32 and 96, and deepseek's
+   MLA (Dk 192, Dv 128) at its training shape (B = 8, 128 heads, S = T =
+   128), phase 9's prefill (B = 1, S = T = 256) and a ragged S = 77; the
+   forward's output bit-equal with and without the log-sum-exp it keeps
+   for the backward, two calls bit-equal and a B = 1 call bit-equal to row
+   2 of B = 4 or 8 (stablelm's, qwen's and deepseek's training shapes),
+   and Dk = Dv = 256 refused with a ``ValueError`` (no fallback); bf16 at
+   D 32, 64, 96 and 128 and at (192, 128) runs the tensor-core kernels, f32
+   and D 80 the CUDA-core ones;
    ``decode_attention`` with each row's ``lengths``, as the model's decode
    step calls it, against the masked plain version: lengths 1, mid, T and
    33 at qwen's step, a ragged T = 300, paligemma's D = 256 and T = 32768
@@ -117,9 +121,10 @@ Phases (any failure exits non-zero and prints no result line):
    calls and the launch floor.
    The GeMM is also timed at 2048³, where launch latency no longer hides
    the kernel's own rate; flash attention at qwen's prefill shape and at
-   B = 1, S = T = 4096, at deepseek's MLA prefill (Dk 192, Dv 128) and at
-   paligemma's (B = 4, H = 8, KVH = 1, S = T = 320, D = 256), against
-   ``F.scaled_dot_product_attention``;
+   B = 1, S = T = 4096, at deepseek's MLA prefill (Dk 192, Dv 128), at
+   paligemma's (B = 4, H = 8, KVH = 1, S = T = 320, D = 256) and at
+   stablelm's and deepseek's training shapes (keeping the log-sum-exp),
+   against ``F.scaled_dot_product_attention``;
    ``rwkv6_scan`` at rwkv6-3b's prefill (B = 4, T = 256) and decode-step
    (T = 1) shapes, with B = 1, T = 4096 beside them; ``decode_attention``
    at qwen's decode shape and at T = 32768, against SDPA with one query,
@@ -136,7 +141,13 @@ Phases (any failure exits non-zero and prints no result line):
    forward) and ``scaled_dot_product_attention``'s backward (its forward
    and backward less its forward), its device time by kernel, and qwen's
    GQA shape (B = 4, 16 over 2 heads of 128,
-   S = T = 256); ``decode_attention`` with lengths at qwen's step (the row
+   S = T = 256), and deepseek's MLA at its training and prefill shapes
+   (beside SDPA's forward and its forward + backward, by kernel; a
+   profiler trace of a forward and a backward at (192, 128) must name
+   ``flash_wgmma_kernel<192, 128>`` and ``flash_{dq,dkdv}_wgmma_kernel<192,
+   128>`` in bf16, ``flash_kernel<float, 128>`` and
+   ``flash_{dq,dkdv}_kernel<float, 192, 128>`` in f32, once each);
+   ``decode_attention`` with lengths at qwen's step (the row
    the kernels line reports) against SDPA with a mask; ``norm`` at qwen's
    step and prefill, stablelm's training forward, rwkv's group norm and
    deepseek's latent norm, against ``F.rms_norm``, ``F.layer_norm`` and
@@ -264,9 +275,9 @@ Phases (any failure exits non-zero and prints no result line):
    kernel of ours, no view copied for a tensor map, tokens equal to the
    card's ``greedy_generate`` of the six prompts as one batch and of each
    alone, 2 cache misses; a ``torch.profiler`` trace of
-   one warm prefill names the flash kernel that ran (moonshot's D = 128
-   on ``flash_wgmma_kernel``, deepseek's Dk 192 / Dv 128 on the CUDA-core
-   ``flash_kernel``) and no library attention kernel.  Walls, tokens/s,
+   one warm prefill names the flash kernel that ran, and only it
+   (moonshot's D = 128 and deepseek's Dk 192 / Dv 128 on
+   ``flash_wgmma_kernel``), and no library attention kernel.  Walls, tokens/s,
    a warm step's busy time and idle share, and the peak memory after each
    model are printed.  Then a 2-layer f32 cut of each at full width
    (deepseek: its dense first layer and one MoE layer, so the shared
@@ -324,7 +335,23 @@ Phases (any failure exits non-zero and prints no result line):
    the uninterrupted run's losses bit for bit.  11c: hubert-xlarge's
    encode at full width and depth (48 layers, bf16) on 4 x 256 frames:
    ``flash_attention`` once a layer on ``flash_kernel<__nv_bfloat16, 80>``,
-   bit-equal on a second call; a 2-layer f32 cut against the CPU;
+   bit-equal on a second call; a 2-layer f32 cut against the CPU.  11d-11f
+   (``TRAIN_FAMILIES``): moonshot-v1-16b-a3b at full width cut to 4 layers
+   (2.95 G parameters; its 48 are ~337 GB of training state),
+   deepseek-v2-236b cut to its dense MLA first layer (1.39 G; one MoE
+   layer more would not fit beside it) and hubert-xlarge at full width and
+   depth, each as 11a (5 steps through ``train_loop`` with the launch
+   counters read; then a trainer's first and warm step walls, tokens/s,
+   peak memory and a profiled step, in which each flash kernel of the
+   arch's route must run once a layer: deepseek's bf16 forward on
+   ``flash_wgmma_kernel<192, 128>`` and its backward on
+   ``flash_{dq,dkdv}_wgmma_kernel<192, 128>``, hubert's on the CUDA
+   cores); the first loss within 0.5 of ln V + 1/2 plus the MoE layers'
+   aux at a uniform routing; then an f32 cut (moonshot 2 layers, deepseek
+   its first layer, hubert 2 layers) on the card against the CPU: every
+   MoE routing slot equal first, then the loss, ``load_balance`` and
+   ``router_z`` within 1e-5 relative, every gradient within 1e-4 of its
+   max |g|, remat bit-equal;
 
 12. one ``{"kernels": [...]}`` line for all eleven kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
@@ -343,6 +370,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -432,6 +460,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 5
 EXAMPLE_STEPS, EXAMPLE_BATCH, EXAMPLE_SEQ = 150, 4, 64
 ENCODE_ARCH = "hubert-xlarge"
 ENCODE_BATCH, ENCODE_FRAMES = 4, 256
+# 11d-11f: (phase, arch, layers trained at full width (None: all), layers
+# of the f32 cut held against the CPU).  moonshot's 48 layers are ~28 G
+# parameters, ~337 GB of training state at 12 bytes each (f32 master and
+# gradient, bf16 moments): four layers are 2.95 G, ~35 GB.  deepseek's
+# dense MLA first layer alone is 1.39 G (~17 GB); one MoE layer of 162
+# experts more would be 5.36 G (~64 GB, and ~15 GB of bf16 expert casts
+# and their gradients): its MoE training is held on the CPU, moonshot's
+# carries routed experts at full width here.  hubert trains whole (0.95 G).
+TRAIN_FAMILIES = (("11d", "moonshot-v1-16b-a3b", 4, 2),
+                  ("11e", "deepseek-v2-236b", 1, 1),
+                  ("11f", "hubert-xlarge", None, 2))
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
@@ -452,18 +491,26 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+def attn_dims(cfg):
+    """(Dk, Dv) of ``cfg``'s attention: an MLA block's nope + rope against
+    v_head_dim, else the head dim twice."""
+    if cfg.attn_kind == "mla":
+        return cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
 def engine_flash_dims(cfg):
     """The decode engine's prefill of one ENGINE_PROMPT-token prompt as it
     reaches flash_attention for ``cfg``: ((B, H, KVH, S, T, Dk, Dv),
     scale).  An MLA block attends each head to its own keys (KVH = H) at
     Dk = nope + rope against Dv, scaled by Dk ** -0.5 (None: the kernel's
     default, Dk ** -0.5 too)."""
+    dk, dv = attn_dims(cfg)
     if cfg.attn_kind == "mla":
-        dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
         return ((1, cfg.n_heads, cfg.n_heads, ENGINE_PROMPT, ENGINE_PROMPT,
-                 dk, cfg.v_head_dim), dk ** -0.5)
+                 dk, dv), dk ** -0.5)
     return ((1, cfg.n_heads, cfg.n_kv_heads, ENGINE_PROMPT, ENGINE_PROMPT,
-             cfg.head_dim, cfg.head_dim), None)
+             dk, dv), None)
 
 
 def norms_per_pass(cfg) -> int:
@@ -559,14 +606,29 @@ def nvidia_smi(query: str) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def device_profile(torch, fn):
+#: the device kernel of ``torch.cuda._sleep``, launched first in every
+#: profiled window and left out of what the window reports: a trace on the
+#: card can miss the first device event of a session (a profiled call of
+#: one ``fir`` launch came back with no kernel, and a forward-then-backward
+#: window without its forward), so that event is one of no interest
+MARKER_KERNEL = "spin_kernel"
+
+
+def profiler_marker(torch) -> None:
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def device_profile(torch, fn, counts=None):
     """Run ``fn`` once under ``torch.profiler``: (host wall s, device busy
     s, device microseconds by kernel name).  Only device-side events
     (kernels and copies) count — a CPU op's row would count its kernels'
-    time a second time — and busy time is the union of their intervals."""
+    time a second time — and busy time is the union of their intervals.
+    A ``counts`` dict receives the number of device events by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_marker(torch)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -574,11 +636,13 @@ def device_profile(torch, fn):
     per_kernel = {}
     spans = []
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or MARKER_KERNEL in ev.name:
             continue
         t0_us, t1_us = ev.time_range.start, ev.time_range.end
         spans.append((t0_us, t1_us))
         per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + (t1_us - t0_us)
+        if counts is not None:
+            counts[ev.name] = counts.get(ev.name, 0) + 1
     busy_us, reach = 0.0, -math.inf
     for t0_us, t1_us in sorted(spans):
         busy_us += max(0.0, t1_us - max(t0_us, reach))
@@ -610,10 +674,12 @@ def device_kernels(torch, fn, calls: int):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_marker(torch)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and MARKER_KERNEL not in ev.name]
 
 
 def launch_floor(common):
@@ -917,13 +983,13 @@ def serve_engine(torch, np, dev, cfg, ours, tree_dtype=None):
           f"{library}")
     flash = sorted(k for k in p_kernels
                    if any(n in k for n in FLASH_KERNEL_NAMES))
-    dims = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
-            if cfg.attn_kind == "mla" else (cfg.head_dim, cfg.head_dim))
+    dims = attn_dims(cfg)
     if "flash_attention" in ours:
         tensor_cores = dims in fa_module.MMA_HEAD_DIMS
-        check(tensor_cores == any("flash_wgmma_kernel" in k for k in flash),
-              f"{arch}: (Dk, Dv) = {dims} ran {flash}, expected the "
-              f"{'tensor-core' if tensor_cores else 'CUDA-core'} kernel")
+        want = FLASH_KERNEL_NAMES[tensor_cores]
+        check(bool(flash) and all(want in k for k in flash),
+              f"{arch}: (Dk, Dv) = {dims} ran {flash}, expected only the "
+              f"{'tensor-core' if tensor_cores else 'CUDA-core'} {want}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     out = {"dims": dims, "n_params": n_params, "init_s": init_s,
            "model_gib": model_gib, "launches": moved, "n_steps": n_steps,
@@ -1159,49 +1225,72 @@ def check_train_launches(moved, what, cfg, steps):
               f"{moved[name]} times, expected {want.get(name, 0)}")
 
 
-def check_train_kernels(per_kernel, what, cfg):
+def check_train_kernels(per_kernel, counts, what, cfg):
     """A profiled train step ran the hand-written forward and backward
-    kernels (the backward's on the tensor cores where ``bwd_route`` says
-    so), the norm kernel, and no library attention kernel (SDPA's forward
-    or backward: flash, memory-efficient or cuDNN)."""
-    from repro_torch.kernels.flash_attention.flash_attention import bwd_route
+    kernels of ``cfg``'s route and no other: bf16 at the tensor-core head
+    dims (``MMA_HEAD_DIMS``, ``bwd_route``) ``flash_wgmma_kernel`` and
+    ``flash_{dq,dkdv}_wgmma_kernel``, else ``flash_kernel`` and the
+    CUDA-core ``flash_{dq,dkdv}_kernel``; each once a layer (``counts``, the
+    profiler's events by name); the norm kernel; and no library attention
+    kernel (SDPA's forward or backward: flash, memory-efficient or cuDNN).
+    -> the flash kernels' names."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        MMA_HEAD_DIMS, bwd_route)
     check(any(n in k for k in per_kernel for n in NORM_KERNEL_NAMES),
           f"{what}: the profiled step ran no norm kernel")
     library = [k for k in per_kernel
                if any(t in k.lower() for t in LIBRARY_ATTENTION)]
     check(not library, f"{what}: the step ran library attention kernels: "
           f"{library}")
+    dims = attn_dims(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    mma = dtype == torch.bfloat16 and dims in MMA_HEAD_DIMS
+    wgmma = bwd_route(dtype, *dims) == "wgmma"
     ours = sorted(k[k.index(n):].split("(")[0] for k in per_kernel
                   for n in FLASH_KERNEL_NAMES + FLASH_BWD_KERNEL_NAMES
                   if n in k)
-    import torch
-    wgmma = bwd_route(getattr(torch, cfg.dtype), cfg.head_dim) == "wgmma"
-    for names in (FLASH_KERNEL_NAMES, FLASH_BWD_DQ_NAMES[not wgmma:][:1],
-                  FLASH_BWD_DKDV_NAMES[not wgmma:][:1]):
-        check(any(k.startswith(names) for k in ours),
-              f"{what}: the profiled step ran none of {names}: {ours}")
+    # (the forward's names list the CUDA-core kernel first, the
+    # backward's the tensor-core one)
+    for names, want in ((FLASH_KERNEL_NAMES, FLASH_KERNEL_NAMES[mma]),
+                        (FLASH_BWD_DQ_NAMES, FLASH_BWD_DQ_NAMES[not wgmma]),
+                        (FLASH_BWD_DKDV_NAMES,
+                         FLASH_BWD_DKDV_NAMES[not wgmma])):
+        ran = {k: c for k, c in counts.items()
+               if any(n in k for n in names)}
+        check(bool(ran) and all(want in k for k in ran),
+              f"{what}: the profiled step ran {sorted(ran)}, expected only "
+              f"{want}")
+        check(sum(ran.values()) == cfg.n_layers,
+              f"{what}: {sum(ran.values())} launches of {want} in the "
+              f"profiled step, expected one a layer ({cfg.n_layers})")
     return ours
 
 
-def train_full(torch, np, dev, cfg, card):
-    """Phase 11a: ``cfg`` (stablelm-1.6b) at full width and depth through
+def train_full(torch, np, dev, cfg, card, phase="11a"):
+    """Phase 11a (11d-11f): ``cfg`` (stablelm-1.6b; moonshot-v1-16b-a3b,
+    deepseek-v2-236b and hubert-xlarge cut in depth) at full width through
     the launcher's code path (``launch.train.train_loop``, as ``python -m
     repro_torch.launch.train --steps 5`` runs it: batch 8, seq 128, f32
     masters drawn on the card from seed 0, bf16 compute, bf16 moments, remat
     "none", WSD over the 5 steps), with the launch counters reset just
     before and read just after: ``flash_attention`` and
     ``flash_attention_bwd`` once a layer a step, nothing else of ours; every
-    loss finite, the first within 0.5 of ln V + 1/2 (the expected loss of
-    logits of variance 1: a LayerNorm'd hidden state against an lm_head
-    drawn with variance 1/d).  Then the walls: a trainer from
+    loss finite, the first within 0.5 of ln V + 1/2 (the expected
+    cross-entropy of logits of variance 1: a normed hidden state against an
+    lm_head drawn with variance 1/d) plus, for an MoE stack, the aux
+    losses' share at a uniform routing (0.01 x a load balance of 1, 0.001 x
+    a router z of (ln E)^2 a layer).  Then the walls: a trainer from
     ``build_host_trainer`` steps once warm, three timed steps (host clock to
-    a synchronize) and one profiled (busy, idle share, kernels by name: the
-    hand-written forward and backward, no library attention), peak device
-    memory.  -> the counted run's launches."""
+    a synchronize) and one profiled (busy, idle share, kernels by name and
+    count: the hand-written forward and backward of ``cfg``'s route once a
+    layer, no library attention), peak device memory.  -> the counted run's
+    launches."""
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import common
     from repro_torch.launch.train import build_host_trainer, train_loop
     from repro_torch.models.params import leaves_with_path, map_tree
+    from repro_torch.models.transformer import AUX_LB_COEF, AUX_Z_COEF
     from repro_torch.train.step import TrainConfig
     tcfg = TrainConfig(peak_lr=3e-4, total_steps=TRAIN_STEPS, remat="none",
                        microbatches=1)
@@ -1217,12 +1306,14 @@ def train_full(torch, np, dev, cfg, card):
     moved = dict(common.LAUNCHES)
     check_train_launches(moved, f"{cfg.name} train_loop", cfg,
                          TRAIN_STEPS)
-    expect = math.log(cfg.vocab) + 0.5
+    moe_layers = sum(m == "moe" for m in cfg.mlp_pattern) * cfg.n_groups
+    expect = math.log(cfg.vocab) + 0.5 + moe_layers * (
+        AUX_LB_COEF + AUX_Z_COEF * math.log(max(cfg.n_experts, 1)) ** 2)
     check(all(math.isfinite(x) for x in losses),
           f"{cfg.name}: a loss is not finite: {losses}")
     check(abs(losses[0] - expect) <= 0.5,
           f"{cfg.name}: first loss {losses[0]} is not within 0.5 of "
-          f"ln V + 1/2 = {expect}")
+          f"ln V + 1/2 (+ the aux losses' share) = {expect}")
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
@@ -1245,81 +1336,143 @@ def train_full(torch, np, dev, cfg, card):
         one(i)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    p_wall, p_busy, p_kernels = device_profile(torch, lambda: one(4))
-    ran = check_train_kernels(p_kernels, cfg.name, cfg)
+    counts = {}
+    p_wall, p_busy, p_kernels = device_profile(torch, lambda: one(4), counts)
+    ran = check_train_kernels(p_kernels, counts, cfg.name, cfg)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_wall = sorted(walls)[1]
     bwd_us = sum(v for k, v in p_kernels.items()
                  if any(n in k for n in FLASH_BWD_KERNEL_NAMES))
     fwd_us = sum(v for k, v in p_kernels.items()
                  if any(n in k for n in FLASH_KERNEL_NAMES))
-    log(f"phase 11a: {cfg.name}: {cfg.n_layers} layers at full width "
-        f"(d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}), {n_params} f32 parameters; "
+    flash_counts = {kernel_name(k) + k[k.index("<"):k.index(">") + 1]: c
+                    for k, c in counts.items()
+                    if any(n in k for n in FLASH_KERNEL_NAMES
+                           + FLASH_BWD_KERNEL_NAMES)}
+    dk, dv = attn_dims(cfg)
+    shape = (f"d_model {cfg.d_model}, {cfg.n_heads} heads of Dk {dk} / Dv "
+             f"{dv}" + (f", {moe_layers} MoE layers of {cfg.n_experts} experts "
+                        f"of {cfg.d_ff_expert}, top-{cfg.top_k}, "
+                        f"{cfg.n_shared_experts} shared"
+                        if moe_layers else
+                        f", d_ff {cfg.d_ff}" if cfg.n_groups else "")
+             + (f", a dense first layer (d_ff {cfg.d_ff_dense or cfg.d_ff})"
+                if cfg.first_layer_dense else "")
+             + (f", {cfg.frontend} frontend" if cfg.frontend != "none" else "")
+             + f", vocab {cfg.vocab}")
+    log(f"phase {phase}: {cfg.name}: {cfg.n_layers} layers at full width "
+        f"({shape}), {n_params} f32 parameters; "
         f"train_loop {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
         f"tokens in {loop_wall:.3f} s, losses "
         + ", ".join(f"{x:.4f}" for x in losses)
-        + f" (ln V + 1/2 = {expect:.4f}); launches {moved} "
+        + f" (expected first {expect:.4f}); launches {moved} "
         f"({cfg.n_layers} flash_attention and {cfg.n_layers} "
         f"flash_attention_bwd a step)")
-    log(f"phase 11a: {cfg.name} on {card}: first step {first_wall:.3f} s; "
+    log(f"phase {phase}: {cfg.name} on {card}: first step {first_wall:.3f} s; "
         f"warm step wall {step_wall * 1e3:.3f} ms (median of 3; "
         + ", ".join(f"{w * 1e3:.3f}" for w in walls)
         + f"), {TRAIN_BATCH * TRAIN_SEQ / step_wall:.1f} tokens/s; peak "
         f"device memory {peak:.3f} GiB ({before:.3f} GiB allocated before "
         f"the trainer was built); hand-written kernels in the "
         f"profiled step: forward {fwd_us / 1e3:.4f} ms, backward "
-        f"{bwd_us / 1e3:.4f} ms ({ran})")
-    log(f"phase 11a: {cfg.name}: " + profile_line("one warm train step",
-                                                 p_wall, p_busy, p_kernels))
+        f"{bwd_us / 1e3:.4f} ms; device launches a step {flash_counts} "
+        f"({ran})")
+    log(f"phase {phase}: {cfg.name}: " + profile_line(
+        "one warm train step", p_wall, p_busy, p_kernels))
     del state, step_fn
     torch.cuda.empty_cache()
     return moved
 
 
-def train_cut(torch, np, dev, base, card):
-    """Phase 11a's cut: ``base`` at full width, 2 layers, f32, the same
-    parameters (drawn on the CPU, seed 0) and batch (2 x 128 tokens) on the
-    card and the CPU.  The card's f32 products (TF32 off) and kernels sum in
-    another order than the CPU's: the loss within 1e-5 relative, every
-    leaf's gradient within 1e-4 of that leaf's max |g| (the CPU tests' rule
-    against the JAX package); after two train steps (launcher defaults, a
-    constant lr of 3e-4, so both steps move the parameters: WSD's first
-    step has lr 0) each bf16 moment leaf within one bf16 ulp in norm,
-    ``|m_card - m_cpu| <= 2^-7 |m_cpu|`` (the gradients agree to 1e-4 of
-    their max, and a moment rounded to bf16 can land one ulp apart; taken
-    element by element, the elements of a near-zero leaf such as the key
-    bias's are rounding noise); and the parameters within 1e-5
-    of each leaf's max |p| plus twice the summed learning rates element by
-    element (Adam scales a near-zero gradient's rounding noise to a whole
-    step, of either sign) and plus 3 % of that sum on average over each
-    leaf (but the key bias ``bk``, whose gradient is zero in exact
-    arithmetic: softmax ignores a shift common to a query's scores).
-    ``remat="dots"`` and ``"full"`` give the card's gradients bit for
-    bit."""
+def routes_match(torch, cut, card_routes, cpu_routes):
+    """Every MoE routing group's slots on the card ``==`` the CPU's (f32
+    router products in another summation order); on a difference, the first
+    token that parts, its slots and the gap in router logits between its
+    k-th choice and the next on the CPU."""
+    check(len(card_routes) == len(cpu_routes),
+          f"{cut.name} cut: {len(card_routes)} routing calls on the card, "
+          f"{len(cpu_routes)} on the CPU")
+    k = cut.top_k
+    for layer, ((cs, _), (ws, wl)) in enumerate(zip(card_routes, cpu_routes)):
+        cs = cs.cpu()
+        if torch.equal(cs, ws):
+            continue
+        n, a = map(int, (cs != ws).nonzero()[0])
+        tok = a // k
+        top = torch.sort(wl[n, tok].double(), descending=True).values
+        raise SmokeFailure(
+            f"{cut.name} cut: MoE layer {layer}, group {n}, token {tok} routes "
+            f"to slots {cs[n, tok * k:(tok + 1) * k].tolist()} on the card, "
+            f"{ws[n, tok * k:(tok + 1) * k].tolist()} on the CPU; its gap "
+            f"between choice {k} and {k + 1} in router logits on the CPU "
+            f"{float(top[k - 1] - top[k]):.3g}")
+    return sum(int(w.numel()) for w, _ in cpu_routes)
+
+
+def train_cut(torch, np, dev, base, card, *, n_layers=2, batch=2,
+              steps=True, phase="11a"):
+    """Phase 11a's cut (and 11d-11f's): ``base`` at full width,
+    ``n_layers`` layers, f32, the same parameters (drawn on the CPU, seed 0)
+    and batch (``batch`` x 128 tokens) on the card and the CPU.  An MoE
+    stack's routing first: every group's slots equal (:func:`routes_match`).
+    The card's f32 products (TF32 off) and kernels sum in another order
+    than the CPU's: the loss, ``load_balance`` and ``router_z`` within 1e-5
+    relative, every leaf's gradient within 1e-4 of that leaf's max |g| (the
+    CPU tests' rule against the JAX package); ``remat="dots"`` and
+    ``"full"`` give the card's gradients bit for bit.  With ``steps``, after
+    two train steps (launcher defaults, a constant lr of 3e-4, so both steps
+    move the parameters: WSD's first step has lr 0) each bf16 moment leaf
+    within one bf16 ulp in norm, ``|m_card - m_cpu| <= 2^-7 |m_cpu|`` (the
+    gradients agree to 1e-4 of their max, and a moment rounded to bf16 can
+    land one ulp apart; taken element by element, the elements of a
+    near-zero leaf such as the key bias's are rounding noise); and the
+    parameters within 1e-5 of each leaf's max |p| plus twice the summed
+    learning rates element by element (Adam scales a near-zero gradient's
+    rounding noise to a whole step, of either sign) and plus 3 % of that
+    sum on average over each leaf (but the key bias ``bk``, whose gradient
+    is zero in exact arithmetic: softmax ignores a shift common to a
+    query's scores)."""
     from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import moe as moe_module
     from repro_torch.models.params import init_params, leaves_with_path, map_tree
     from repro_torch.models.transformer import Transformer, bind_grads, model_spec
     from repro_torch.optim import adamw_init, constant_schedule
     from repro_torch.train.step import TrainConfig, make_train_step, value_and_grad
-    cut = dataclasses.replace(base, n_layers=2, dtype="float32")
+    cut = dataclasses.replace(base, n_layers=n_layers, dtype="float32")
     t0 = time.perf_counter()
     tree = init_params(model_spec(cut), 0, device="cpu")
-    batch = SyntheticLMData(DataConfig(2, TRAIN_SEQ, cut.vocab), cut).batch_at(0)
+    data_batch = SyntheticLMData(DataConfig(batch, TRAIN_SEQ, cut.vocab),
+                                 cut).batch_at(0)
+    route = moe_module.route
 
-    def grads_on(device, cfg):
+    def grads_on(device, cfg, routes=None):
         params = map_tree(lambda t: t.to(device, copy=True), tree)
         model = Transformer(cfg, params, trainable=True)
         grads = map_tree(torch.zeros_like, params)
         bind_grads(model, grads)
-        m = value_and_grad(model, grads, map_tree(
-            lambda a: torch.from_numpy(a).to(device), batch), cfg)
-        return float(m["loss"]), grads
 
-    cpu_loss, cpu_grads = grads_on("cpu", cut)
-    card_loss, card_grads = grads_on(dev, cut)
-    check(abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
-          f"{cut.name} cut: card loss {card_loss} vs CPU {cpu_loss}")
+        def recording(logits, cfg_, c, *, with_aux=False):
+            out = route(logits, cfg_, c, with_aux=with_aux)
+            routes.append((out[0].detach(), logits.detach().cpu()))
+            return out
+
+        if routes is not None:
+            moe_module.route = recording
+        try:
+            m = value_and_grad(model, grads, map_tree(
+                lambda a: torch.from_numpy(a).to(device), data_batch), cfg)
+        finally:
+            moe_module.route = route
+        return {k: float(v) for k, v in m.items()}, grads
+
+    cpu_routes, card_routes = [], []
+    cpu_m, cpu_grads = grads_on("cpu", cut, cpu_routes)
+    card_m, card_grads = grads_on(dev, cut, card_routes)
+    routed = routes_match(torch, cut, card_routes, cpu_routes)
+    del cpu_routes, card_routes
+    for key in ("loss", "load_balance", "router_z"):
+        check(abs(card_m[key] - cpu_m[key]) <= 1e-5 * abs(cpu_m[key]),
+              f"{cut.name} cut: card {key} {card_m[key]} vs CPU {cpu_m[key]}")
     worst = 0.0
     for (path, g), (_, w) in zip(leaves_with_path(card_grads),
                                  leaves_with_path(cpu_grads)):
@@ -1336,6 +1489,20 @@ def train_cut(torch, np, dev, base, card):
             f"remat='none' on the card")
         del remat_grads
     del card_grads, cpu_grads
+    torch.cuda.empty_cache()
+    what = (f"{n_layers}-layer full-width f32 cut, card vs CPU on {batch} x "
+            f"{TRAIN_SEQ} " + ("frames" if cut.frontend == "audio" else "tokens")
+            + (f" ({routed} routing slots equal)" if routed else "")
+            + f": loss {card_m['loss']:.6f} vs {cpu_m['loss']:.6f}, "
+            f"load_balance {card_m['load_balance']:.6f} vs "
+            f"{cpu_m['load_balance']:.6f}, router_z {card_m['router_z']:.6f} "
+            f"vs {cpu_m['router_z']:.6f}; every gradient within 1e-4 of its "
+            f"max |g| (worst {worst:.3g}); remat='dots' and 'full' gradients "
+            f"bit-equal to remat='none' on the card")
+    if not steps:
+        log(f"phase {phase}: {base.name}: {what}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        return
 
     tcfg = TrainConfig(peak_lr=3e-4, total_steps=2, remat="none")
     states, lr_sum = {}, 0.0
@@ -1343,7 +1510,7 @@ def train_cut(torch, np, dev, base, card):
         params = map_tree(lambda t: t.to(device, copy=True), tree)
         state = {"params": params, "opt": adamw_init(params)}
         step = make_train_step(cut, tcfg, constant_schedule(3e-4))
-        data = SyntheticLMData(DataConfig(2, TRAIN_SEQ, cut.vocab), cut)
+        data = SyntheticLMData(DataConfig(batch, TRAIN_SEQ, cut.vocab), cut)
         lr_sum = 0.0
         for i in range(2):
             state, m = step(state, map_tree(
@@ -1357,30 +1524,25 @@ def train_cut(torch, np, dev, base, card):
         b = cpu_state["params"] if part == "params" else cpu_state["opt"][part]
         for (path, x), (_, y) in zip(leaves_with_path(a), leaves_with_path(b)):
             x, y = x.cpu().float(), y.float()
-            what = f"{cut.name} cut: {part} {path} after 2 steps"
+            what_ = f"{cut.name} cut: {part} {path} after 2 steps"
             if part != "params":
                 rel = float(torch.linalg.vector_norm(x - y)) / max(
                     float(torch.linalg.vector_norm(y)), 1e-30)
                 moment_err[part] = max(moment_err.get(part, 0.0), rel)
-                check(rel <= 2.0 ** -7, f"{what}: |error| / |leaf| {rel}")
+                check(rel <= 2.0 ** -7, f"{what_}: |error| / |leaf| {rel}")
                 continue
             scale = float(y.abs().max())
             diff = (x - y).abs()
             check(float(diff.max()) <= 1e-5 * scale + 2.0 * lr_sum,
-                  f"{what}: error {float(diff.max())} against the summed lr "
+                  f"{what_}: error {float(diff.max())} against the summed lr "
                   f"{lr_sum}")
             check(path.endswith("['bk']")
                   or float(diff.mean()) <= 1e-5 * scale + 0.03 * lr_sum,
-                  f"{what}: mean error {float(diff.mean())} against the "
+                  f"{what_}: mean error {float(diff.mean())} against the "
                   f"summed lr {lr_sum}")
-    log(f"phase 11a: {base.name}: 2-layer full-width f32 cut, card vs CPU "
-        f"on 2 x {TRAIN_SEQ} tokens: loss {card_loss:.6f} vs {cpu_loss:.6f}; "
-        f"every gradient within 1e-4 of its max |g| (worst {worst:.3g}); "
-        f"parameters and moments after 2 steps within their tolerances "
-        f"(moments' worst |error| / |leaf|: m {moment_err['m']:.3g}, v "
-        f"{moment_err['v']:.3g}); "
-        f"remat='dots' and 'full' gradients bit-equal to remat='none' on the "
-        f"card; "
+    log(f"phase {phase}: {base.name}: {what}; parameters and moments after "
+        f"2 steps within their tolerances (moments' worst |error| / |leaf|: "
+        f"m {moment_err['m']:.3g}, v {moment_err['v']:.3g}); "
         f"{time.perf_counter() - t0:.1f} s")
     del states, card_state, cpu_state
     torch.cuda.empty_cache()
@@ -1537,6 +1699,13 @@ def encode_hubert(torch, np, dev, cfg, card):
 
 
 def main() -> int:
+    # Keep CUPTI initialised between profiler sessions (PyTorch's own
+    # setting for traces beside CUDA graphs, which this script replays):
+    # with the default teardown and re-initialisation after every session,
+    # traces on the card came back with no device event, or without a
+    # session's first kernel, in some sessions of a run.
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1931,6 +2100,10 @@ def main() -> int:
     # tensor cores) and deepseek's MLA
     moe_dims, _ = engine_flash_dims(get_arch(MOE_ARCHS[0][0]))
     mla_dims, mla_scale = engine_flash_dims(get_arch(MOE_ARCHS[1][0]))
+    # deepseek's training shape (phase 11e): the launcher's batch of 8 x
+    # 128 tokens, each of its 128 heads attending to its own keys
+    mla_train_dims = (TRAIN_BATCH, mla_dims[1], mla_dims[2], TRAIN_SEQ,
+                      TRAIN_SEQ, mla_dims[5], mla_dims[6])
     pali_cfg = get_arch(PALI_ARCH)
     pali_h, pali_kvh, pali_d = (pali_cfg.n_heads, pali_cfg.n_kv_heads,
                                 pali_cfg.head_dim)
@@ -1973,11 +2146,23 @@ def main() -> int:
         "moonshot B=1 H=KVH={} S=T={} D={} bf16".format(
             moe_dims[1], moe_dims[3], moe_dims[5]): flash_case(
             "moonshot", moe_dims, bf16),
-        # deepseek's MLA prefill (phase 9): Dk nope + rope against Dv, on
-        # the CUDA-core kernel, at MLA's scale
+        # deepseek's MLA prefill (phase 9) and training shape (phase 11e):
+        # Dk nope + rope against Dv, at MLA's scale; bf16 on
+        # flash_wgmma_kernel<192, 128>, f32 on the CUDA-core kernel
         "MLA B=1 H={} S=T={} Dk={} Dv={} bf16".format(
             mla_dims[1], mla_dims[3], mla_dims[5], mla_dims[6]): flash_case(
             "MLA", mla_dims, bf16, scale=mla_scale),
+        "MLA B=1 H={} S=T={} Dk={} Dv={} f32".format(
+            mla_dims[1], mla_dims[3], mla_dims[5], mla_dims[6]): flash_case(
+            "MLA f32", mla_dims, torch.float32, scale=mla_scale),
+        "MLA train B={} H={} S=T={} Dk={} Dv={} bf16".format(
+            *mla_train_dims[:2], *mla_train_dims[3:4],
+            *mla_train_dims[5:]): flash_case(
+            "MLA train", mla_train_dims, bf16, scale=mla_scale),
+        "MLA train B={} H={} S=T={} Dk={} Dv={} f32".format(
+            *mla_train_dims[:2], *mla_train_dims[3:4],
+            *mla_train_dims[5:]): flash_case(
+            "MLA train f32", mla_train_dims, torch.float32, scale=mla_scale),
     }
     # paligemma's prefill (phase 10b): 8 heads over one kv head of 256, 256
     # patch rows + 64 tokens, on the CUDA-core kernel at Dv 256; hubert's
@@ -2125,13 +2310,24 @@ def main() -> int:
                 ("ragged B=2 H=4 KVH=2 S=T=77 D=32 causal",
                  (2, 4, 2, 77, 77, 32, 32), True),
                 ("ragged B=1 H=2 KVH=1 S=T=100 D=96 causal",
-                 (1, 2, 1, 100, 100, 96, 96), True)):
+                 (1, 2, 1, 100, 100, 96, 96), True),
+                # deepseek's MLA (Dk 192, Dv 128; MLA's scale is Dk ** -0.5,
+                # the kernel's default) at its training shape and phase 9's
+                # prefill, and a ragged S
+                (f"MLA train B={TRAIN_BATCH} H={mla_dims[1]} S=T={TRAIN_SEQ} "
+                 f"Dk={mla_dims[5]} Dv={mla_dims[6]} causal", mla_train_dims,
+                 True),
+                (f"MLA prefill B=1 H={mla_dims[1]} S=T={mla_dims[3]} "
+                 f"Dk={mla_dims[5]} Dv={mla_dims[6]} causal", mla_dims, True),
+                ("MLA ragged B=2 H=4 S=T=77 Dk=192 Dv=128 causal",
+                 (2, 4, 4, 77, 77, 192, 128), True)):
             bwd_err[f"{label} {dt}"], bwd_inputs[label, dtype] = bwd_case(
                 label, dims, dtype, causal)
     # two calls give the same bits; a B = 1 call the bits of row 2 of the
-    # batched call (stablelm's and qwen's shapes, bf16 and f32)
+    # batched call (stablelm's, qwen's and deepseek's training shapes, bf16
+    # and f32)
     for (label, dtype), (q, k, v, dout, got) in bwd_inputs.items():
-        if not label.startswith(("stablelm", "qwen")):
+        if not label.startswith(("stablelm", "qwen", "MLA train")):
             continue
         _, again = kernel_grads(q, k, v, dout, True)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -2156,8 +2352,9 @@ def main() -> int:
         f"D={sl_cfg.head_dim} causal bfloat16"]
     log("phase 2: flash_attention_bwd ok (output bits unchanged by the "
         "log-sum-exp; two calls bit-equal and a row alone bit-equal to the "
-        "batched row at stablelm's and qwen's shapes, bf16 and f32; Dk = Dv "
-        "= 256 refused; max abs err vs autograd of the plain version: "
+        "batched row at stablelm's, qwen's and deepseek's training shapes, "
+        "bf16 and f32; Dk = Dv = 256 refused; max abs err vs autograd of the "
+        "plain version: "
         + ", ".join(f"{k} {v:.3g}" for k, v in bwd_err.items()) + ")")
 
     # The three scans and decode attention against their plain versions.
@@ -2838,8 +3035,9 @@ def main() -> int:
     # and at B=1, S=T=4096.  Bound: q, k, v read once and the output
     # written once in bf16 over 3.35 TB/s, against 2 (Dk + Dv) flops for
     # each (q, k) pair the causal mask keeps over the bf16 peak.
-    def fa_bound(b, h, kvh, s, t, dk, dv):
+    def fa_bound(b, h, kvh, s, t, dk, dv, lse=False):
         nbytes = 2.0 * (b * h * s * dk + b * kvh * t * (dk + dv) + b * h * s * dv)
+        nbytes += 4.0 * b * h * s if lse else 0.0       # the training forward's
         pairs = sum(min(t, i + 1) for i in range(s))
         return bound(nbytes, 2.0 * b * h * pairs * (dk + dv), PEAK_BF16_FLOPS)
 
@@ -2856,16 +3054,24 @@ def main() -> int:
             # another)
             ("MLA", mla_dims, mla_scale, 20),
             # paligemma's prefill: Dk = Dv = 256 on the CUDA-core kernel
-            ("paligemma", pali_dims, None, 10)):
+            ("paligemma", pali_dims, None, 10),
+            # the training forwards, keeping the log-sum-exp for the
+            # backward: stablelm's (phase 11a) and deepseek's (11e)
+            ("stablelm train", sl_dims, None, 20),
+            ("MLA train", mla_train_dims, mla_scale, 20)):
         b_, h_, kvh_, s_, _, dk_, dv_ = dims
+        train = label.endswith("train")
         q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
         check(err(sdpa(q, k, v, scale),
                   flash_attention_plain(q, k, v, scale=scale)) <= 5e-2,
               f"SDPA differs from the plain version at {label}")
-        b_ms, b_by = fa_bound(*dims)
+        b_ms, b_by = fa_bound(*dims, lse=train)
+        kernel = ((lambda: _card_forward(
+            q, k, v, True, dk_ ** -0.5 if scale is None else scale, 0, s_,
+            s_, with_lse=True)) if train
+            else (lambda: flash_attention(q, k, v, scale=scale)))
         fa_rows[label] = dict(
-            ms=device_ms(torch, lambda: flash_attention(q, k, v, scale=scale),
-                         per_graph),
+            ms=device_ms(torch, kernel, per_graph),
             plain_ms=device_ms(torch, lambda: flash_attention_plain(
                 q, k, v, scale=scale), 1),
             library_ms=device_ms(torch, lambda: sdpa(q, k, v, scale),
@@ -2873,7 +3079,9 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by)
         r = fa_rows[label]
         log(f"phase 3: flash_attention {label} B={b_} H={h_} KVH={kvh_} "
-            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 causal: device time per call: "
+            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 causal"
+            + (" (keeping the log-sum-exp)" if train else "")
+            + ": device time per call: "
             f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
             f"(SDPA) {fmt(r['library_ms'])}; bound {b_ms:.6f} ms ({b_by}); "
             f"kernel {r['ms'] / b_ms:.1f}x its bound ({b_ms / r['ms']:.3f} of "
@@ -2884,16 +3092,20 @@ def main() -> int:
     # reports it), bf16, causal, from the forward kernel's log-sum-exp.
     # Bound: q, k, v, dout read once and dq, dk, dv written once in bf16 (and
     # the f32 lse read once) over 3.35 TB/s, against the five products a
-    # backward needs (QK^T again, dO V^T, P^T dO, dS K, dS^T Q: 2 D flops
-    # each per (q, k) pair the causal mask keeps) over the bf16 peak.  The
+    # backward needs (QK^T again, dO V^T, P^T dO, dS K, dS^T Q: 2 (3 Dk +
+    # 2 Dv) flops per (q, k) pair the causal mask keeps) over the bf16
+    # peak; q, dq and k, dk are Dk wide, dout and v, dv Dv wide.  The
     # plain version is autograd through flash_attention_plain (its forward
     # included: the backward needs it); the library's is
     # scaled_dot_product_attention's backward, timed as its forward and
     # backward together less its forward.
-    def fa_bwd_bound(b, h, kvh, s, t, d):
-        nbytes = 2.0 * (3 * b * h * s * d + 4 * b * kvh * t * d) + 4.0 * b * h * s
+    def fa_bwd_bound(b, h, kvh, s, t, dk, dv=None):
+        dv = dk if dv is None else dv
+        nbytes = 2.0 * (b * h * s * (2 * dk + dv)
+                        + 2 * b * kvh * t * (dk + dv)) + 4.0 * b * h * s
         pairs = sum(min(t, i + 1) for i in range(s))
-        return bound(nbytes, 5 * 2.0 * b * h * pairs * d, PEAK_BF16_FLOPS)
+        return bound(nbytes, 2.0 * b * h * pairs * (3 * dk + 2 * dv),
+                     PEAK_BF16_FLOPS)
 
     b_, h_, kvh_, s_, _, d_, _ = sl_dims
     q, k, v = (x.contiguous() for x in qkv(*sl_dims, bf16))
@@ -2960,6 +3172,84 @@ def main() -> int:
         f"backward) {g_lib:.6f} ms; bound {g_bound[0]:.6f} ms ({g_bound[1]}); "
         f"kernel {g_ms / g_bound[0]:.1f}x its bound, {g_ms / g_lib:.2f}x "
         f"SDPA's backward")
+    # ... and at deepseek's MLA (Dk 192, Dv 128, MLA's scale): its training
+    # shape (phase 11e) and phase 9's prefill shape, each beside its bound,
+    # the plain version, SDPA's forward and SDPA's forward + backward, and
+    # its device time by kernel
+    for label, dims in (("MLA train", mla_train_dims),
+                        ("MLA prefill", mla_dims)):
+        b_, h_, kvh_, s_, _, dk_, dv_ = dims
+        q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
+        dout = torch.randn(q.shape[:3] + (dv_,), device=dev).to(bf16)
+        _, lse = _card_forward(q, k, v, True, mla_scale, 0, s_, s_,
+                               with_lse=True)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def mla_sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 scale=mla_scale)
+            return torch.autograd.grad(out, (qg, kg, vg), dout)
+
+        plain_grads = flash_attention_bwd_plain(q.float(), k.float(),
+                                                v.float(), dout.float())
+        check(all(err(a, b) <= 1e-2 * float(b.abs().max())
+                  for a, b in zip(mla_sdpa_fwd_bwd(), plain_grads)),
+              f"SDPA's gradient differs from the plain version's at {label}")
+        del plain_grads
+        m_bound = fa_bwd_bound(b_, h_, kvh_, s_, s_, dk_, dv_)
+        m_ms = device_ms(torch, lambda: flash_attention_bwd(q, k, v, dout, lse),
+                         20)
+        m_plain = device_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, dout), 1)
+        m_fb = device_ms(torch, mla_sdpa_fwd_bwd, 20)
+        m_f = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=mla_scale), 20)
+        m_fwd = device_ms(torch, lambda: _card_forward(
+            q, k, v, True, mla_scale, 0, s_, s_, with_lse=True), 20)
+        _, _, per_kernel = device_profile(torch, lambda: [
+            flash_attention_bwd(q, k, v, dout, lse) for _ in range(20)])
+        # the route at (192, 128): bf16 on the tensor cores both ways, f32
+        # on the CUDA cores; one device kernel a forward, two a backward
+        routes = {}
+        for dtype in (bf16, torch.float32):
+            x3 = [x.to(dtype) for x in (q, k, v, dout)]
+            _, lse3 = _card_forward(*x3[:3], True, mla_scale, 0, s_, s_,
+                                    with_lse=True)
+            counts = {}
+            device_profile(torch, lambda: (
+                _card_forward(*x3[:3], True, mla_scale, 0, s_, s_,
+                              with_lse=True),
+                flash_attention_bwd(*x3, lse3)), counts)
+            routes[str(dtype)[6:]] = sorted(
+                kernel_name(n) + n[n.index("<"):n.index(">") + 1]
+                for n in counts if "flash" in n)
+            check(all(c == 1 for n, c in counts.items() if "flash" in n),
+                  f"flash_attention {label} {dtype}: device launches {counts}")
+        want = {"bfloat16": sorted(["flash_wgmma_kernel<192, 128>",
+                                    "flash_dq_wgmma_kernel<192, 128>",
+                                    "flash_dkdv_wgmma_kernel<192, 128>"]),
+                "float32": sorted(["flash_kernel<float, 128>",
+                                   "flash_dq_kernel<float, 192, 128>",
+                                   "flash_dkdv_kernel<float, 192, 128>"])}
+        check(routes == want, f"flash_attention {label}: the kernels that "
+              f"ran {routes}, expected {want}")
+        rows["flash_attention_bwd"][label] = dict(
+            ms=m_ms, plain_ms=m_plain, library_ms=m_fb - m_f,
+            bound_ms=m_bound[0])
+        log(f"phase 3: flash_attention_bwd {label} B={b_} H=KVH={h_} "
+            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 causal: kernel {m_ms:.6f} ms "
+            f"(dQ, then dK/dV in two passes: dV, then dK), plain "
+            f"{m_plain:.6f} ms, library (SDPA backward: forward + backward "
+            f"{m_fb:.6f} less forward {m_f:.6f}) {m_fb - m_f:.6f} ms; bound "
+            f"{m_bound[0]:.6f} ms ({m_bound[1]}); kernel "
+            f"{m_ms / m_bound[0]:.1f}x its bound, {m_ms / (m_fb - m_f):.2f}x "
+            f"SDPA's backward; the forward kernel keeping the log-sum-exp "
+            f"{m_fwd:.6f} ms (SDPA's forward {m_f:.6f}); kernels of a forward "
+            f"and a backward by dtype {routes}; device us a call by "
+            f"kernel (torch.profiler over 20 calls): " + ", ".join(
+                f"{kernel_name(k_)} {v_ / 20:.2f}"
+                for k_, v_ in sorted(per_kernel.items(), key=lambda kv: -kv[1])))
+        del q, k, v, dout, lse, qg, kg, vg
 
     # decode attention as the model's decode step calls it: qwen's step
     # (B = 4, H = 16 over 2 kv heads of 128, a bf16 cache of 512 keys), each
@@ -4080,6 +4370,17 @@ def main() -> int:
     train_cut(torch, np, dev, get_arch(TRAIN_ARCH), card)
     moved.append(train_example(torch, np, dev, card))
     moved.append(encode_hubert(torch, np, dev, get_arch(ENCODE_ARCH), card))
+    # 11d-11f: the MoE, MLA and audio families, each at full width (cut in
+    # depth where its training state fits no card), then its f32 cut
+    # against the CPU
+    for phase, arch, n_layers_, cut_layers in TRAIN_FAMILIES:
+        phase_done(phase)
+        base = get_arch(arch)
+        cfg_ = (dataclasses.replace(base, n_layers=n_layers_) if n_layers_
+                else base)
+        moved.append(train_full(torch, np, dev, cfg_, card, phase))
+        train_cut(torch, np, dev, base, card, n_layers=cut_layers,
+                  steps=False, phase=phase)
     for name in ("flash_attention", "flash_attention_bwd", "norm"):
         launches[name] += sum(m[name] for m in moved)
 

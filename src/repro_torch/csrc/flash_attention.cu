@@ -37,9 +37,10 @@
 // Two kernels compute this, chosen by dtype and head dims:
 //
 // * flash_wgmma_kernel, for bfloat16 at (Dk, Dv) in {(32, 32), (64, 64),
-//   (96, 96), (128, 128), (96, 64)}: a producer warp brings Q once and K
-//   and V tiles through a shared-memory ring with TMA, and two consumer
-//   warpgroups run both products on wgmma (bf16 inputs, f32 accumulation),
+//   (96, 96), (128, 128), (96, 64), (192, 128)}: a producer warp brings Q
+//   once and K and V tiles through a shared-memory ring with TMA, and two
+//   consumer warpgroups run both products on wgmma (bf16 inputs, f32
+//   accumulation),
 //   p kept to about 16 bits as the sum of two bf16 parts (see the note
 //   above the kernel);
 // * flash_kernel, for float32 (which must match a full-precision product,
@@ -319,8 +320,12 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 // stage with a full and an empty mbarrier.  Everything lands in
 // 128-byte-swizzled boxes of 64 bf16 columns (a 128-wide head is two
 // boxes; 96 is two, the second half zero-filled by TMA; 32 one, half
-// zero), rows past S and T zero-filled by TMA too.  Per kv tile, each
-// consumer warpgroup:
+// zero; MLA's Dk of 192 three, 12 k-steps of 16), rows past S and T
+// zero-filled by TMA too.  At (192, 128) the block holds 3 Q boxes of 128
+// rows (48 KB) and 3 stages of 3 K and 2 V boxes (120 KB): 173,112 bytes
+// with the barriers and the alignment slack, one block an SM, the same
+// registers as (128, 128) (the scores and Dv's accumulators do not grow
+// with Dk).  Per kv tile, each consumer warpgroup:
 //
 // * S = Q K^T: wgmma.m64n64k16, A = its 64 q rows and B = the K tile as it
 //   lies (both K-major), Dk / 16 steps, f32 accumulators in registers;
@@ -615,6 +620,7 @@ int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
     if (dk == 64 && dv == 64) return launch_wgmma<64, 64>(a, dv, st);
     if (dk == 32 && dv == 32) return launch_wgmma<32, 32>(a, dv, st);
     if (dk == 96 && dv == 64) return launch_wgmma<96, 64>(a, dv, st);
+    if (dk == 192 && dv == 128) return launch_wgmma<192, 128>(a, dv, st);   // MLA
   }
   switch (dv) {
     case 32: return launch_dv<T, 32>(a, st);

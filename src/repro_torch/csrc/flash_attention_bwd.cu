@@ -1,6 +1,7 @@
-// FlashAttention-2 backward (GQA, causal with q_offset 0 or non-causal,
-// Dk = Dv in {32, 64, 80, 96, 128}), for float32 and bfloat16 q/k/v; the
-// gradients take the inputs' dtype, every sum is f32.
+// FlashAttention-2 backward (GQA, causal with q_offset 0 or non-causal), for
+// float32 and bfloat16 q/k/v at the (Dk, Dv) pairs (32, 32), (64, 64),
+// (80, 80), (96, 96), (128, 128) and MLA's (192, 128); the gradients take
+// the inputs' dtype, every sum is f32.
 //
 // The gradient of the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py:_flash_kernel
@@ -15,23 +16,24 @@
 //   dS   = P o (dP - D)
 //   dQ   = scale dS K,   dK = scale dS^T Q,   dV = P^T dO
 //
-// D is summed from P and dP here, not from the saved output: in bfloat16
-// the output is rounded to 8 bits, and D taken from it would carry that
-// rounding (2^-9 of |O|) into every dS, far past one bf16 ulp of a small
-// gradient; the plain version's autograd uses the f32 output.
+// Q, K, dQ and dK are Dk wide; V, dO and dV are Dv wide.  D is summed from
+// P and dP here, not from the saved output: in bfloat16 the output is
+// rounded to 8 bits, and D taken from it would carry that rounding (2^-9 of
+// |O|) into every dS, far past one bf16 ulp of a small gradient; the plain
+// version's autograd uses the f32 output.
 //
 // Two routes, chosen by the caller (repro_torch/kernels/flash_attention/
-// flash_attention.py:bwd_route) by dtype and head dim, each
+// flash_attention.py:bwd_route) by dtype and head dims, each
 // FlashAttention-2's deterministic two-kernel schedule without atomics:
 //
-// * bfloat16 at d in {32, 64, 96, 128}: flash_dq_wgmma_kernel and
-//   flash_dkdv_wgmma_kernel, every product on the tensor cores (wgmma, TMA,
-//   mbarrier rings; see the note above them);
-// * float32 (which must match a full-precision product, so no TF32), and
-//   bfloat16 at d = 80 (hubert's heads, which no wgmma tile width takes
-//   without padding): flash_dq_kernel and flash_dkdv_kernel, f32 FMAs on
-//   the CUDA cores (the first kernels of this file, which took every bf16 d
-//   before the tensor-core route):
+// * bfloat16 at (32, 32), (64, 64), (96, 96), (128, 128) and (192, 128):
+//   flash_dq_wgmma_kernel and flash_dkdv_wgmma_kernel, every product on the
+//   tensor cores (wgmma, TMA, mbarrier rings; see the note above them);
+// * float32 (which must match a full-precision product, so no TF32) at
+//   every pair, and bfloat16 at (80, 80) (hubert's heads, which no wgmma
+//   tile width takes without padding): flash_dq_kernel and
+//   flash_dkdv_kernel, f32 FMAs on the CUDA cores (the first kernels of
+//   this file, which took every bf16 d before the tensor-core route):
 //   - flash_dq_kernel, one block per (q tile of 64 rows, head, batch): Q and
 //     dO stay in shared memory while K and V tiles of 32 rows stream past
 //     twice, first to sum D (each row's 32 columns a tile over the 16 lanes
@@ -62,7 +64,9 @@
 // 28 us at the f32 peak of 67 TFLOP/s; it took 0.212 ms there.  The
 // tensor-core route does those seven on wgmma, P and dS each as two bf16
 // parts (six products a tile in each kernel): 2.8 us at the bf16 peak,
-// under the byte bound's time.
+// under the byte bound's time.  At deepseek-v2's MLA training shape (B = 8,
+// 128 heads, S = T = 128, (192, 128)) the bytes are 302 MB (90 us) against
+// 14 GFLOP of the five products (14 us at the peak): bytes again.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -91,12 +95,12 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
 }
 
 struct BwdArgs {
-  const void* q;      // (B, H, S, D), contiguous
-  const void* k;      // (B, KVH, T, D)
-  const void* v;      // (B, KVH, T, D)
-  const void* dout;   // (B, H, S, D)
+  const void* q;      // (B, H, S, Dk), contiguous
+  const void* k;      // (B, KVH, T, Dk)
+  const void* v;      // (B, KVH, T, Dv)
+  const void* dout;   // (B, H, S, Dv)
   const float* lse;   // (B, H, S), natural log
-  float* delta;       // (B, H, S): D_i, written by flash_dq_kernel
+  float* delta;       // (B, H, S): D_i, written by the dQ kernel
   void* dq;
   void* dk;
   void* dv;
@@ -104,7 +108,8 @@ struct BwdArgs {
   float scale;
   int causal;
   float* part;        // null, or the tensor-core route's f32 dK/dV partials of
-                      // each head of a GQA group: [2][group][B][KVH][T][D]
+                      // each head of a GQA group: [group][B][KVH][T][Dk], then
+                      // [group][B][KVH][T][Dv]
 };
 
 // Each thread owns output columns tx * kVec + kTX * kVec * u + e.
@@ -227,28 +232,31 @@ __device__ __forceinline__ bool visible(const BwdArgs& a, int qi, int kj) {
   return qi < a.s && kj < a.t && (!a.causal || qi >= kj);
 }
 
-template <int D>
+// Q and dO resident, K and V streamed, and the dS tile.
+template <int DK, int DV>
 __host__ __device__ constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * ((2 * kDqRows + 2 * kDqCols) * static_cast<size_t>(Cols<D>::kLd) +
+  return sizeof(float) * ((kDqRows + kDqCols) * static_cast<size_t>(Cols<DK>::kLd + Cols<DV>::kLd) +
                           kDqRows * kLdW);
 }
 
-template <int D>
+// K and V resident, Q and dO streamed, and the P and dS tiles.
+template <int DK, int DV>
 __host__ __device__ constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) * ((2 * kKvRows + 2 * kKvCols) * static_cast<size_t>(Cols<D>::kLd) +
+  return sizeof(float) * ((kKvRows + kKvCols) * static_cast<size_t>(Cols<DK>::kLd + Cols<DV>::kLd) +
                           2 * kKvRows * kLdW);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
-  using C = Cols<D>;
+  using CK = Cols<DK>;
+  using CV = Cols<DV>;
   constexpr int R = kDqRows / kTY, J = kDqCols / kTX;   // 8 rows, 2 columns a thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* dos = qs + kDqRows * C::kLd;
-  float* ks = dos + kDqRows * C::kLd;
-  float* vs = ks + kDqCols * C::kLd;
-  float* dss = vs + kDqCols * C::kLd;
+  float* dos = qs + kDqRows * CK::kLd;
+  float* ks = dos + kDqRows * CV::kLd;
+  float* vs = ks + kDqCols * CK::kLd;
+  float* dss = vs + kDqCols * CV::kLd;
 
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int q_tile = gridDim.x - 1 - blockIdx.x;          // heaviest causal tiles first
@@ -257,10 +265,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   const int q0 = q_tile * kDqRows;
   const long long qrow = (static_cast<long long>(b) * a.h + hh) * a.s;   // (b, hh)'s row 0
   const long long krow = (static_cast<long long>(b) * a.kvh + kv_head) * a.t;
-  const T* k = static_cast<const T*>(a.k) + krow * D;
-  const T* v = static_cast<const T*>(a.v) + krow * D;
-  load_tile<T, D>(qs, static_cast<const T*>(a.q) + qrow * D, q0, kDqRows, a.s);
-  load_tile<T, D>(dos, static_cast<const T*>(a.dout) + qrow * D, q0, kDqRows, a.s);
+  const T* k = static_cast<const T*>(a.k) + krow * DK;
+  const T* v = static_cast<const T*>(a.v) + krow * DV;
+  load_tile<T, DK>(qs, static_cast<const T*>(a.q) + qrow * DK, q0, kDqRows, a.s);
+  load_tile<T, DV>(dos, static_cast<const T*>(a.dout) + qrow * DV, q0, kDqRows, a.s);
 
   float lse[R], dsum[R];
 #pragma unroll
@@ -275,11 +283,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   // P and dP of the tile at k0 for this thread's (row, column) pairs
   auto scores = [&](int k0, float (&p)[R][J], float (&dp)[R][J]) {
     __syncthreads();  // every thread is done with the previous K/V tile
-    load_tile<T, D>(ks, k, k0, kDqCols, a.t);
-    load_tile<T, D>(vs, v, k0, kDqCols, a.t);
+    load_tile<T, DK>(ks, k, k0, kDqCols, a.t);
+    load_tile<T, DV>(vs, v, k0, kDqCols, a.t);
     __syncthreads();
-    dots<D, R, J>(p, qs, ks, ty, tx);
-    dots<D, R, J>(dp, dos, vs, ty, tx);
+    dots<DK, R, J>(p, qs, ks, ty, tx);
+    dots<DV, R, J>(dp, dos, vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -306,11 +314,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   }
 
   // pass 2: dQ = scale dS K
-  float acc[R][C::kPer];
+  float acc[R][CK::kPer];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int c = 0; c < C::kPer; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CK::kPer; ++c) acc[i][c] = 0.f;
   for (int j = 0; j < n_tiles; ++j) {
     float p[R][J], dp[R][J];
     scores(j * kDqCols, p, dp);
@@ -320,21 +328,22 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
       for (int jj = 0; jj < J; ++jj)
         dss[(ty + kTY * i) * kLdW + tx + kTX * jj] = p[i][jj] * (dp[i][jj] - dsum[i]);
     __syncwarp();  // a row's dS is written and read by the same half warp
-    accumulate<D, R>(acc, dss, ks, ty, tx);
+    accumulate<DK, R>(acc, dss, ks, ty, tx);
   }
-  store_rows<T, D, R>(static_cast<T*>(a.dq) + qrow * D, acc, q0, a.s, a.scale, ty, tx);
+  store_rows<T, DK, R>(static_cast<T*>(a.dq) + qrow * DK, acc, q0, a.s, a.scale, ty, tx);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
-  using C = Cols<D>;
+  using CK = Cols<DK>;
+  using CV = Cols<DV>;
   constexpr int R = kKvRows / kTY, J = kKvCols / kTX;   // 4 rows, 2 columns a thread
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
-  float* vs = ks + kKvRows * C::kLd;
-  float* qs = vs + kKvRows * C::kLd;
-  float* dos = qs + kKvCols * C::kLd;
-  float* ps = dos + kKvCols * C::kLd;
+  float* vs = ks + kKvRows * CK::kLd;
+  float* qs = vs + kKvRows * CV::kLd;
+  float* dos = qs + kKvCols * CK::kLd;
+  float* ps = dos + kKvCols * CV::kLd;
   float* dss = ps + kKvRows * kLdW;
 
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
@@ -343,30 +352,33 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
   const int group = a.h / a.kvh;
   const int k0 = kv_tile * kKvRows;
   const long long krow = (static_cast<long long>(b) * a.kvh + kvh) * a.t;
-  load_tile<T, D>(ks, static_cast<const T*>(a.k) + krow * D, k0, kKvRows, a.t);
-  load_tile<T, D>(vs, static_cast<const T*>(a.v) + krow * D, k0, kKvRows, a.t);
+  load_tile<T, DK>(ks, static_cast<const T*>(a.k) + krow * DK, k0, kKvRows, a.t);
+  load_tile<T, DV>(vs, static_cast<const T*>(a.v) + krow * DV, k0, kKvRows, a.t);
 
-  float dk[R][C::kPer], dv[R][C::kPer];
+  float dk[R][CK::kPer], dv[R][CV::kPer];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int c = 0; c < C::kPer; ++c) dk[i][c] = 0.f, dv[i][c] = 0.f;
+    for (int c = 0; c < CK::kPer; ++c) dk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CV::kPer; ++c) dv[i][c] = 0.f;
+  }
   // causal: q rows below k0 see none of the tile
   const int q_start = a.causal ? (k0 / kKvCols) * kKvCols : 0;
 
   for (int g = 0; g < group; ++g) {
     const int hh = kvh * group + g;
     const long long qrow = (static_cast<long long>(b) * a.h + hh) * a.s;
-    const T* q = static_cast<const T*>(a.q) + qrow * D;
-    const T* dout = static_cast<const T*>(a.dout) + qrow * D;
+    const T* q = static_cast<const T*>(a.q) + qrow * DK;
+    const T* dout = static_cast<const T*>(a.dout) + qrow * DV;
     for (int q0 = q_start; q0 < a.s; q0 += kKvCols) {
       __syncthreads();  // every thread is done with the previous Q/dO tile
-      load_tile<T, D>(qs, q, q0, kKvCols, a.s);
-      load_tile<T, D>(dos, dout, q0, kKvCols, a.s);
+      load_tile<T, DK>(qs, q, q0, kKvCols, a.s);
+      load_tile<T, DV>(dos, dout, q0, kKvCols, a.s);
       __syncthreads();
       float p[R][J], dp[R][J];
-      dots<D, R, J>(p, ks, qs, ty, tx);    // (kv row, q row): S^T
-      dots<D, R, J>(dp, vs, dos, ty, tx);  // dP^T
+      dots<DK, R, J>(p, ks, qs, ty, tx);    // (kv row, q row): S^T
+      dots<DV, R, J>(dp, vs, dos, ty, tx);  // dP^T
 #pragma unroll
       for (int jj = 0; jj < J; ++jj) {
         const int qi = q0 + tx + kTX * jj;
@@ -381,28 +393,30 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
         }
       }
       __syncwarp();  // a kv row's P and dS are written and read by one half warp
-      accumulate<D, R>(dv, ps, dos, ty, tx);
-      accumulate<D, R>(dk, dss, qs, ty, tx);
+      accumulate<DV, R>(dv, ps, dos, ty, tx);
+      accumulate<DK, R>(dk, dss, qs, ty, tx);
     }
   }
-  store_rows<T, D, R>(static_cast<T*>(a.dk) + krow * D, dk, k0, a.t, a.scale, ty, tx);
-  store_rows<T, D, R>(static_cast<T*>(a.dv) + krow * D, dv, k0, a.t, 1.f, ty, tx);
+  store_rows<T, DK, R>(static_cast<T*>(a.dk) + krow * DK, dk, k0, a.t, a.scale, ty, tx);
+  store_rows<T, DV, R>(static_cast<T*>(a.dv) + krow * DV, dv, k0, a.t, 1.f, ty, tx);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_d(const BwdArgs& a, cudaStream_t st) {
-  constexpr size_t s1 = dq_smem_bytes<D>(), s2 = dkdv_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<T, D>,
+  constexpr size_t s1 = dq_smem_bytes<DK, DV>(), s2 = dkdv_smem_bytes<DK, DV>();
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<T, DK, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(s1));
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(s2));
+  e = cudaFuncSetAttribute(flash_dkdv_kernel<T, DK, DV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s2));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_dq_kernel<T, D><<<dim3((a.s + kDqRows - 1) / kDqRows, a.h, a.b), kThreads, s1, st>>>(a);
+  flash_dq_kernel<T, DK, DV><<<dim3((a.s + kDqRows - 1) / kDqRows, a.h, a.b), kThreads, s1,
+                               st>>>(a);
   const int err = REPRO_LAUNCH_STATUS();
   if (err != 0) return err;
-  flash_dkdv_kernel<T, D><<<dim3((a.t + kKvRows - 1) / kKvRows, a.kvh, a.b), kThreads, s2, st>>>(a);
+  flash_dkdv_kernel<T, DK, DV><<<dim3((a.t + kKvRows - 1) / kKvRows, a.kvh, a.b), kThreads, s2,
+                                 st>>>(a);
   return REPRO_LAUNCH_STATUS();
 }
 
@@ -413,22 +427,23 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
 // the result (q rows of dQ; kv rows of dK and dV), and a producer warp
 // (warp 4) whose lane 0 issues every TMA copy: the block's own 64-row tiles
 // once, then the tiles it streams through a 2-stage ring, each stage with a
-// full and an empty mbarrier.  Every tile is one or two 128-byte-swizzled
+// full and an empty mbarrier.  Every tile is one to three 128-byte-swizzled
 // boxes of 64 bf16 columns and 64 rows (flash_wgmma_kernel's boxes and
-// descriptors, csrc/hopper.cuh); TMA zero-fills columns past d and rows
-// past S and T.  Products, in wgmma's accumulator layout (thread (warp w,
-// lane l) holds rows 16w + l/4 and + 8, columns 8j + 2(l%4) + {0, 1}):
+// descriptors, csrc/hopper.cuh): Dk's boxes first, then Dv's; TMA
+// zero-fills columns past the head dim and rows past S and T.  Products, in
+// wgmma's accumulator layout (thread (warp w, lane l) holds rows 16w + l/4
+// and + 8, columns 8j + 2(l%4) + {0, 1}):
 //
 // * flash_dq_wgmma_kernel, one block per (q tile, head, batch), Q and dO
-//   resident, K and V tiles streamed twice.  S = Q K^T and dP = dO V^T on
-//   wgmma.m64n64k16 with both operands K-major from shared memory; P =
-//   exp(scale S - lse), masked to 0.  The first pass sums D_i = sum_j P_ij
-//   dP_ij per thread in tile and register order, then over the 4 lanes of a
-//   row (every lane the same bits), and writes D for the second kernel; the
-//   second pass forms dS = P (dP - D) and accumulates dQ += dS K with A =
-//   dS from registers (two n8 accumulator tiles are one k16 A fragment) and
-//   B = the K tile with the transpose bit (MN-major): K is never staged
-//   transposed;
+//   resident, K and V tiles streamed twice.  S = Q K^T (Dk / 16 k-steps)
+//   and dP = dO V^T (Dv / 16) on wgmma.m64n64k16 with both operands K-major
+//   from shared memory; P = exp(scale S - lse), masked to 0.  The first
+//   pass sums D_i = sum_j P_ij dP_ij per thread in tile and register order,
+//   then over the 4 lanes of a row (every lane the same bits), and writes D
+//   for the second kernel; the second pass forms dS = P (dP - D) and
+//   accumulates dQ += dS K (wgmma.m64nDk) with A = dS from registers (two
+//   n8 accumulator tiles are one k16 A fragment) and B = the K tile with the
+//   transpose bit (MN-major): K is never staged transposed;
 // * flash_dkdv_wgmma_kernel, one block per (kv tile, kv head, batch), K and V
 //   resident; the q heads of the GQA group and, for each, the q tiles that
 //   see the kv tile (causal: from its own diagonal on) stream past as (Q,
@@ -441,6 +456,17 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
 //   writes its f32 dK and dV partials; flash_dkdv_sum_kernel adds the
 //   group's in head order.  One block a kv head walking the whole group
 //   left most SMs idle (qwen's 16 over 2 heads: 32 blocks of 32 tiles).
+//
+//   Where dK and dV do not fit one thread's registers together (Dk + Dv >
+//   256: MLA's (192, 128) would hold 96 + 64 accumulators a thread beside
+//   S^T, dP^T and the lse and D of its 16 columns), the kernel makes two
+//   passes over the (Q, dO) tiles instead of one (dkdv_passes): the first
+//   recomputes S^T and P^T and accumulates dV alone, stores it and frees
+//   its registers; the second recomputes S^T, forms dP^T and dS^T and
+//   accumulates dK.  Each pass streams the tiles again (from L2 mostly) and
+//   S^T is computed twice, which costs one more K Q^T a tile than the
+//   fused pass; splitting dK and dV over two consumer warpgroups instead
+//   would cost the same products and a bigger block.
 //
 // P and dS are f32; each is fed to its product as p_hi + p_lo, two bf16
 // parts multiplied in turn (the forward's P): about 16 bits of each, where
@@ -460,13 +486,24 @@ struct MmaPerm {                             // tensor-map dims of q, k, v and d
 template <int D>
 __host__ __device__ constexpr int mma_boxes() { return (D + kBox - 1) / kBox; }
 
+// The boxes of one tile pair: Dk's (Q or K), then Dv's (dO or V).
+template <int DK, int DV>
+__host__ __device__ constexpr int mma_pair_bytes() {
+  return (mma_boxes<DK>() + mma_boxes<DV>()) * kMmaBoxBytes;
+}
+
 // The resident pair and the ring's pairs of tiles, the barriers, and slack
 // to align the boxes to 1024 bytes.
-template <int D>
+template <int DK, int DV>
 __host__ __device__ constexpr int mma_smem_bytes() {
-  return (1 + kMmaStages) * 2 * mma_boxes<D>() * kMmaBoxBytes + (1 + 2 * kMmaStages) * 8 +
-         1024;
+  return (1 + kMmaStages) * mma_pair_bytes<DK, DV>() + (1 + 2 * kMmaStages) * 8 + 1024;
 }
+
+// Passes of flash_dkdv_wgmma_kernel over its (Q, dO) tiles: 1 (dK and dV
+// together), or 2 (dV, then dK) where their accumulators do not fit beside
+// the scores.
+template <int DK, int DV>
+__host__ __device__ constexpr int dkdv_passes() { return DK + DV > 256 ? 2 : 1; }
 
 // acc (64 x 64) = A B^T over d: A and B 64-row tiles, both K-major.
 template <int D>
@@ -555,13 +592,13 @@ __device__ __forceinline__ void mma_init_barriers(uint64_t* res_full, uint64_t* 
   __syncthreads();
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap to, BwdArgs a, MmaPerm perm) {
-  constexpr int NB = mma_boxes<D>(), PAIR = 2 * NB * kMmaBoxBytes;
+  constexpr int NK = mma_boxes<DK>(), NV = mma_boxes<DV>(), PAIR = mma_pair_bytes<DK, DV>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* res = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -584,21 +621,23 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     if (lane == 0) {
       mbar_arrive_tx(res_full, PAIR);
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
+      for (int x = 0; x < NK; ++x)
         tma_load(res + x * kMmaBoxBytes, &tq, perm.q, x * kBox, q0, h, b, res_full);
-        tma_load(res + (NB + x) * kMmaBoxBytes, &to, perm.o, x * kBox, q0, h, b, res_full);
-      }
+#pragma unroll
+      for (int x = 0; x < NV; ++x)
+        tma_load(res + (NK + x) * kMmaBoxBytes, &to, perm.o, x * kBox, q0, h, b, res_full);
       for (int g = 0; g < 2 * n_tiles; ++g) {
         const int s = g % kMmaStages, k0 = (g % n_tiles) * kMmaRows;
         mbar_wait(&empty[s], ((g / kMmaStages) & 1) ^ 1);
         mbar_arrive_tx(&full[s], PAIR);
         unsigned char* st = ring + s * PAIR;
 #pragma unroll
-        for (int x = 0; x < NB; ++x) {
+        for (int x = 0; x < NK; ++x)
           tma_load(st + x * kMmaBoxBytes, &tk, perm.k, x * kBox, k0, kv_head, b, &full[s]);
-          tma_load(st + (NB + x) * kMmaBoxBytes, &tv, perm.v, x * kBox, k0, kv_head, b,
+#pragma unroll
+        for (int x = 0; x < NV; ++x)
+          tma_load(st + (NK + x) * kMmaBoxBytes, &tv, perm.v, x * kBox, k0, kv_head, b,
                    &full[s]);
-        }
       }
     }
     return;
@@ -609,9 +648,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const long long qrow = (static_cast<long long>(b) * a.h + h) * a.s;
   const float lse[2] = {r0 < a.s ? a.lse[qrow + r0] : 0.f, r1 < a.s ? a.lse[qrow + r1] : 0.f};
   float dsum[2] = {0.f, 0.f};
-  float dq[D / 2];
+  float dq[DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
   mbar_wait(res_full, 0);
 
   for (int it = 0; it < 2 * n_tiles; ++it) {
@@ -625,8 +664,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     fence_regs(sc);
     fence_regs(dp);
     wgmma_fence();
-    mma_scores<D>(sc, res, st);                              // S = Q K^T
-    mma_scores<D>(dp, res + NB * kMmaBoxBytes, st + NB * kMmaBoxBytes);   // dP = dO V^T
+    mma_scores<DK>(sc, res, st);                                             // S = Q K^T
+    mma_scores<DV>(dp, res + NK * kMmaBoxBytes, st + NK * kMmaBoxBytes);     // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -651,7 +690,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       split_frags(sc, hi, lo);
       fence_regs(dq);
       wgmma_fence();
-      mma_accumulate<D>(dq, hi, lo, st);                     // dQ += dS K
+      mma_accumulate<DK>(dq, hi, lo, st);                    // dQ += dS K
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -667,16 +706,82 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       }
     }
   }
-  store_acc<D>(static_cast<__nv_bfloat16*>(a.dq) + qrow * D, dq, r0, a.s, a.scale, t4);
+  store_acc<DK>(static_cast<__nv_bfloat16*>(a.dq) + qrow * DK, dq, r0, a.s, a.scale, t4);
 }
 
-template <int D>
+// One (Q, dO) tile of flash_dkdv_wgmma_kernel, once stage ``st`` is full
+// (``full`` at ``parity``): S^T = K Q^T and P^T; with WANT_DK also
+// dP^T = V dO^T and dS^T; then dV += P^T dO (WANT_DV) and dK += dS^T Q
+// (WANT_DK), in one commit group.  An accumulator the pass does not want is
+// never touched.
+template <int DK, int DV, bool WANT_DV, bool WANT_DK>
+__device__ __forceinline__ void dkdv_tile(float (&dv)[DV / 2], float (&dk)[DK / 2],
+                                          const unsigned char* res, const unsigned char* st,
+                                          uint64_t* full, unsigned parity, const BwdArgs& a,
+                                          long long qrow, int q0, int j0, int j1, int t4) {
+  constexpr int V_OFF = mma_boxes<DK>() * kMmaBoxBytes;    // V after K, dO after Q
+  // lse and D of this thread's 16 q columns
+  float lq[16], dl[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int qi = q0 + (c / 2) * 8 + 2 * t4 + (c % 2);
+    lq[c] = qi < a.s ? a.lse[qrow + qi] : 0.f;
+    if constexpr (WANT_DK) dl[c] = qi < a.s ? a.delta[qrow + qi] : 0.f;
+  }
+  mbar_wait(full, parity);
+  float sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sc[i] = 0.f;
+    if constexpr (WANT_DK) dp[i] = 0.f;
+  }
+  fence_regs(sc);
+  if constexpr (WANT_DK) fence_regs(dp);
+  wgmma_fence();
+  mma_scores<DK>(sc, res, st);                                             // S^T = K Q^T
+  if constexpr (WANT_DK) mma_scores<DV>(dp, res + V_OFF, st + V_OFF);      // dP^T = V dO^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if constexpr (WANT_DK) fence_regs(dp);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 2 * nt + (e & 1);
+      const int qi = q0 + nt * 8 + 2 * t4 + (e & 1);
+      const int kj = e < 2 ? j0 : j1;
+      const bool vis = qi < a.s && kj < a.t && (!a.causal || qi >= kj);
+      const float p = vis ? expf(sc[4 * nt + e] * a.scale - lq[c]) : 0.f;
+      sc[4 * nt + e] = p;                                                  // P^T
+      if constexpr (WANT_DK) dp[4 * nt + e] = p * (dp[4 * nt + e] - dl[c]);  // dS^T
+    }
+  uint32_t phi[4][4], plo[4][4], shi[4][4], slo[4][4];
+  if constexpr (WANT_DV) {
+    split_frags(sc, phi, plo);
+    fence_regs(dv);
+  }
+  if constexpr (WANT_DK) {
+    split_frags(dp, shi, slo);
+    fence_regs(dk);
+  }
+  wgmma_fence();
+  if constexpr (WANT_DV) mma_accumulate<DV>(dv, phi, plo, st + V_OFF);     // dV += P^T dO
+  if constexpr (WANT_DK) mma_accumulate<DK>(dk, shi, slo, st);             // dK += dS^T Q
+  wgmma_commit();
+  wgmma_wait<0>();
+  if constexpr (WANT_DV) fence_regs(dv);
+  if constexpr (WANT_DK) fence_regs(dk);
+}
+
+template <int DK, int DV>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap to, BwdArgs a, MmaPerm perm) {
-  constexpr int NB = mma_boxes<D>(), PAIR = 2 * NB * kMmaBoxBytes;
+  constexpr int NK = mma_boxes<DK>(), NV = mma_boxes<DV>(), PAIR = mma_pair_bytes<DK, DV>();
+  constexpr int PASSES = dkdv_passes<DK, DV>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* res = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -697,29 +802,31 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   // q tiles that see the kv tile: causal, those from its diagonal on
   const int first_q = a.causal ? kv_tile : 0;
   const int q_tiles = max(0, (a.s + kMmaRows - 1) / kMmaRows - first_q);
-  const int n_tiles = (split ? 1 : group) * q_tiles;
+  const int n_tiles = (split ? 1 : group) * q_tiles;       // (Q, dO) tiles a pass
   mma_init_barriers(res_full, full, empty);
 
   if (warp == 4) {
-    // producer: K and V once, then (Q, dO) tiles head by head
+    // producer: K and V once, then (Q, dO) tiles head by head, once a pass
     if (lane == 0) {
       mbar_arrive_tx(res_full, PAIR);
 #pragma unroll
-      for (int x = 0; x < NB; ++x) {
+      for (int x = 0; x < NK; ++x)
         tma_load(res + x * kMmaBoxBytes, &tk, perm.k, x * kBox, k0, kvh, b, res_full);
-        tma_load(res + (NB + x) * kMmaBoxBytes, &tv, perm.v, x * kBox, k0, kvh, b, res_full);
-      }
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kMmaStages;
-        const int hh = head0 + it / q_tiles, q0 = (first_q + it % q_tiles) * kMmaRows;
+#pragma unroll
+      for (int x = 0; x < NV; ++x)
+        tma_load(res + (NK + x) * kMmaBoxBytes, &tv, perm.v, x * kBox, k0, kvh, b, res_full);
+      for (int it = 0; it < PASSES * n_tiles; ++it) {
+        const int s = it % kMmaStages, j = it % n_tiles;
+        const int hh = head0 + j / q_tiles, q0 = (first_q + j % q_tiles) * kMmaRows;
         mbar_wait(&empty[s], ((it / kMmaStages) & 1) ^ 1);
         mbar_arrive_tx(&full[s], PAIR);
         unsigned char* st = ring + s * PAIR;
 #pragma unroll
-        for (int x = 0; x < NB; ++x) {
+        for (int x = 0; x < NK; ++x)
           tma_load(st + x * kMmaBoxBytes, &tq, perm.q, x * kBox, q0, hh, b, &full[s]);
-          tma_load(st + (NB + x) * kMmaBoxBytes, &to, perm.o, x * kBox, q0, hh, b, &full[s]);
-        }
+#pragma unroll
+        for (int x = 0; x < NV; ++x)
+          tma_load(st + (NK + x) * kMmaBoxBytes, &to, perm.o, x * kBox, q0, hh, b, &full[s]);
       }
     }
     return;
@@ -727,193 +834,210 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
   const int g = lane / 4, t4 = lane % 4;
   const int j0 = k0 + warp * 16 + g, j1 = j0 + 8;          // this thread's two kv rows
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = 0.f, dv[i] = 0.f;
+  const long long krow = (static_cast<long long>(b) * a.kvh + kvh) * a.t;
+  // this head's f32 partials (flash_dkdv_sum_kernel adds the group's), or
+  // the kv head's bf16 rows
+  const long long nk = static_cast<long long>(a.b) * a.kvh * a.t * DK;
+  const long long nv = static_cast<long long>(a.b) * a.kvh * a.t * DV;
+  const int gi = head0 - kvh * group;
+  auto store_dk = [&](const float (&dk)[DK / 2]) {
+    if (split)
+      store_acc_f32<DK>(a.part + gi * nk + krow * DK, dk, j0, a.t, t4);
+    else
+      store_acc<DK>(static_cast<__nv_bfloat16*>(a.dk) + krow * DK, dk, j0, a.t, a.scale, t4);
+  };
+  auto store_dv = [&](const float (&dv)[DV / 2]) {
+    if (split)
+      store_acc_f32<DV>(a.part + group * nk + gi * nv + krow * DV, dv, j0, a.t, t4);
+    else
+      store_acc<DV>(static_cast<__nv_bfloat16*>(a.dv) + krow * DV, dv, j0, a.t, 1.f, t4);
+  };
   mbar_wait(res_full, 0);
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % kMmaStages;
-    const int hh = head0 + it / q_tiles, q0 = (first_q + it % q_tiles) * kMmaRows;
-    const long long qrow = (static_cast<long long>(b) * a.h + hh) * a.s;
-    // lse and D of this thread's 16 q columns
-    float lq[16], dl[16];
+  // ring iteration it: tile it % n_tiles of pass it / n_tiles
+  auto tile_args = [&](int it, int& s, int& q0, long long& qrow) {
+    const int j = it % n_tiles;
+    s = it % kMmaStages;
+    q0 = (first_q + j % q_tiles) * kMmaRows;
+    qrow = (static_cast<long long>(b) * a.h + head0 + j / q_tiles) * a.s;
+  };
+  if constexpr (PASSES == 1) {
+    float dk[DK / 2], dv[DV / 2];
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const int qi = q0 + (c / 2) * 8 + 2 * t4 + (c % 2);
-      lq[c] = qi < a.s ? a.lse[qrow + qi] : 0.f;
-      dl[c] = qi < a.s ? a.delta[qrow + qi] : 0.f;
+    for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+    for (int it = 0; it < n_tiles; ++it) {
+      int s, q0;
+      long long qrow;
+      tile_args(it, s, q0, qrow);
+      dkdv_tile<DK, DV, true, true>(dv, dk, res, ring + s * PAIR, &full[s],
+                                    (it / kMmaStages) & 1, a, qrow, q0, j0, j1, t4);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    mbar_wait(&full[s], (it / kMmaStages) & 1);
-    const unsigned char* st = ring + s * PAIR;
-    float sc[32], dp[32];
+    store_dk(dk);
+    store_dv(dv);
+  } else {
+    {  // pass 1: dV
+      float dv[DV / 2], unused[DK / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f, dp[i] = 0.f;
-    fence_regs(sc);
-    fence_regs(dp);
-    wgmma_fence();
-    mma_scores<D>(sc, res, st);                                          // S^T = K Q^T
-    mma_scores<D>(dp, res + NB * kMmaBoxBytes, st + NB * kMmaBoxBytes);  // dP^T = V dO^T
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 2 * nt + (e & 1);
-        const int qi = q0 + nt * 8 + 2 * t4 + (e & 1);
-        const int kj = e < 2 ? j0 : j1;
-        const bool vis = qi < a.s && kj < a.t && (!a.causal || qi >= kj);
-        const float p = vis ? expf(sc[4 * nt + e] * a.scale - lq[c]) : 0.f;
-        sc[4 * nt + e] = p;                                  // P^T
-        dp[4 * nt + e] = p * (dp[4 * nt + e] - dl[c]);       // dS^T
+      for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+      for (int it = 0; it < n_tiles; ++it) {
+        int s, q0;
+        long long qrow;
+        tile_args(it, s, q0, qrow);
+        dkdv_tile<DK, DV, true, false>(dv, unused, res, ring + s * PAIR, &full[s],
+                                       (it / kMmaStages) & 1, a, qrow, q0, j0, j1, t4);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
       }
-    uint32_t phi[4][4], plo[4][4], shi[4][4], slo[4][4];
-    split_frags(sc, phi, plo);
-    split_frags(dp, shi, slo);
-    fence_regs(dv);
-    fence_regs(dk);
-    wgmma_fence();
-    mma_accumulate<D>(dv, phi, plo, st + NB * kMmaBoxBytes);   // dV += P^T dO
-    mma_accumulate<D>(dk, shi, slo, st);                       // dK += dS^T Q
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+      store_dv(dv);
+    }
+    {  // pass 2: dK
+      float dk[DK / 2], unused[DV / 2];
+#pragma unroll
+      for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
+      for (int it = n_tiles; it < 2 * n_tiles; ++it) {
+        int s, q0;
+        long long qrow;
+        tile_args(it, s, q0, qrow);
+        dkdv_tile<DK, DV, false, true>(unused, dk, res, ring + s * PAIR, &full[s],
+                                       (it / kMmaStages) & 1, a, qrow, q0, j0, j1, t4);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      store_dk(dk);
+    }
   }
-  const long long krow = (static_cast<long long>(b) * a.kvh + kvh) * a.t;
-  if (split) {
-    // this head's f32 partials; flash_dkdv_sum_kernel adds the group's
-    const long long n = static_cast<long long>(a.b) * a.kvh * a.t * D;
-    float* pk = a.part + (head0 - kvh * group) * n + krow * D;
-    store_acc_f32<D>(pk, dk, j0, a.t, t4);
-    store_acc_f32<D>(pk + group * n, dv, j0, a.t, t4);
-    return;
-  }
-  store_acc<D>(static_cast<__nv_bfloat16*>(a.dk) + krow * D, dk, j0, a.t, a.scale, t4);
-  store_acc<D>(static_cast<__nv_bfloat16*>(a.dv) + krow * D, dv, j0, a.t, 1.f, t4);
 }
 
 // A GQA group's dK and dV from its heads' f32 partials, added in head order
 // (dK then times the scale), as bf16.
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(256) flash_dkdv_sum_kernel(BwdArgs a) {
-  const long long n = static_cast<long long>(a.b) * a.kvh * a.t * D;
+  const long long rows = static_cast<long long>(a.b) * a.kvh * a.t;
+  const long long nk = rows * DK, nv = rows * DV;
   const int group = a.h / a.kvh;
-  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * 256) {
-    float sk = 0.f, sv = 0.f;
-    for (int g = 0; g < group; ++g) {
-      sk += a.part[g * n + i];
-      sv += a.part[(group + g) * n + i];
-    }
+  const long long stride = static_cast<long long>(gridDim.x) * 256;
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < nk;
+       i += stride) {
+    float sk = 0.f;
+    for (int g = 0; g < group; ++g) sk += a.part[g * nk + i];
     static_cast<__nv_bfloat16*>(a.dk)[i] = __float2bfloat16_rn(sk * a.scale);
+  }
+  const float* pv = a.part + group * nk;
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < nv;
+       i += stride) {
+    float sv = 0.f;
+    for (int g = 0; g < group; ++g) sv += pv[g * nv + i];
     static_cast<__nv_bfloat16*>(a.dv)[i] = __float2bfloat16_rn(sv);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_wgmma_bwd(const BwdArgs& a, cudaStream_t st) {
   CUtensorMap tq, tk, tv, to;
   MmaPerm perm;
-  const long long d = D;
-  const long long qs[3] = {d, a.s * d, static_cast<long long>(a.h) * a.s * d};
-  const long long ks[3] = {d, a.t * d, static_cast<long long>(a.kvh) * a.t * d};
-  const bool ok = encode_map(&tq, a.q, D, {a.s, a.h, a.b}, qs, kMmaRows, perm.q) &&
-                  encode_map(&to, a.dout, D, {a.s, a.h, a.b}, qs, kMmaRows, perm.o) &&
-                  encode_map(&tk, a.k, D, {a.t, a.kvh, a.b}, ks, kMmaRows, perm.k) &&
-                  encode_map(&tv, a.v, D, {a.t, a.kvh, a.b}, ks, kMmaRows, perm.v);
+  const long long dk = DK, dv = DV;
+  const long long qs[3] = {dk, a.s * dk, static_cast<long long>(a.h) * a.s * dk};
+  const long long os[3] = {dv, a.s * dv, static_cast<long long>(a.h) * a.s * dv};
+  const long long ks[3] = {dk, a.t * dk, static_cast<long long>(a.kvh) * a.t * dk};
+  const long long vs[3] = {dv, a.t * dv, static_cast<long long>(a.kvh) * a.t * dv};
+  const bool ok = encode_map(&tq, a.q, DK, {a.s, a.h, a.b}, qs, kMmaRows, perm.q) &&
+                  encode_map(&to, a.dout, DV, {a.s, a.h, a.b}, os, kMmaRows, perm.o) &&
+                  encode_map(&tk, a.k, DK, {a.t, a.kvh, a.b}, ks, kMmaRows, perm.k) &&
+                  encode_map(&tv, a.v, DV, {a.t, a.kvh, a.b}, vs, kMmaRows, perm.v);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = mma_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma_kernel<D>,
+  constexpr int smem = mma_smem_bytes<DK, DV>();
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_wgmma_kernel<DK, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_dkdv_wgmma_kernel<D>,
+  e = cudaFuncSetAttribute(flash_dkdv_wgmma_kernel<DK, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_dq_wgmma_kernel<D><<<dim3((a.s + kMmaRows - 1) / kMmaRows, a.h, a.b), kMmaThreads, smem,
-                          st>>>(tq, tk, tv, to, a, perm);
+  flash_dq_wgmma_kernel<DK, DV><<<dim3((a.s + kMmaRows - 1) / kMmaRows, a.h, a.b), kMmaThreads,
+                                  smem, st>>>(tq, tk, tv, to, a, perm);
   const int err = REPRO_LAUNCH_STATUS();
   if (err != 0) return err;
   const int group = a.h / a.kvh;
-  flash_dkdv_wgmma_kernel<D><<<dim3((a.t + kMmaRows - 1) / kMmaRows,
-                                   a.part != nullptr ? a.kvh * group : a.kvh, a.b),
-                              kMmaThreads, smem, st>>>(tq, tk, tv, to, a, perm);
+  flash_dkdv_wgmma_kernel<DK, DV><<<dim3((a.t + kMmaRows - 1) / kMmaRows,
+                                         a.part != nullptr ? a.kvh * group : a.kvh, a.b),
+                                    kMmaThreads, smem, st>>>(tq, tk, tv, to, a, perm);
   if (a.part == nullptr) return REPRO_LAUNCH_STATUS();
   const int err2 = REPRO_LAUNCH_STATUS();
   if (err2 != 0) return err2;
-  const long long n = static_cast<long long>(a.b) * a.kvh * a.t * D;
+  const long long n = static_cast<long long>(a.b) * a.kvh * a.t * (DK > DV ? DK : DV);
   const long long blocks = (n + 255) / 256;
-  flash_dkdv_sum_kernel<D><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
-                             st>>>(a);
+  flash_dkdv_sum_kernel<DK, DV><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                                  st>>>(a);
   return REPRO_LAUNCH_STATUS();
 }
 
-// Head dims this file takes, Dk = Dv = d: float32 at {32, 64, 80, 96, 128}
-// and bfloat16 at 80 on the CUDA cores, bfloat16 at {32, 64, 96, 128} on the
-// tensor cores (``wgmma``)
-// (repro_torch/kernels/flash_attention/flash_attention.py:BWD_HEAD_DIMS and
-// BWD_MMA_HEAD_DIMS list the same).
+// The (Dk, Dv) pairs this file takes: float32 at (32, 32), (64, 64),
+// (80, 80), (96, 96), (128, 128) and (192, 128), and bfloat16 at (80, 80)
+// on the CUDA cores; bfloat16 at (32, 32), (64, 64), (96, 96), (128, 128)
+// and (192, 128) on the tensor cores (``wgmma``)
+// (repro_torch/kernels/flash_attention/flash_attention.py:BWD_PAIRS and
+// BWD_MMA_PAIRS list the same).
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int b,
-               int h, int kvh, int s, int t, int d, float scale, int causal, int wgmma,
-               float* part, int device, void* stream) {
+               int h, int kvh, int s, int t, int d_k, int d_v, float scale, int causal,
+               int wgmma, float* part, int device, void* stream) {
   REPRO_SET_DEVICE(device);
   if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || s <= 0 || t <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (part != nullptr && (!wgmma || h == kvh)) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, scale, causal, part};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto is = [&](int x, int y) { return d_k == x && d_v == y; };
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    // bf16: the tensor cores, but at d = 80 (no wgmma tile width)
-    if (!wgmma) return d == 80 ? launch_d<T, 80>(a, st) : static_cast<int>(cudaErrorInvalidValue);
-    switch (d) {
-      case 32: return launch_wgmma_bwd<32>(a, st);
-      case 64: return launch_wgmma_bwd<64>(a, st);
-      case 96: return launch_wgmma_bwd<96>(a, st);
-      case 128: return launch_wgmma_bwd<128>(a, st);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (wgmma) return static_cast<int>(cudaErrorInvalidValue);
-  switch (d) {
-    case 32: return launch_d<T, 32>(a, st);
-    case 64: return launch_d<T, 64>(a, st);
-    case 80: return launch_d<T, 80>(a, st);
-    case 96: return launch_d<T, 96>(a, st);
-    case 128: return launch_d<T, 128>(a, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    // bf16: the tensor cores, but at (80, 80) (no wgmma tile width)
+    if (!wgmma)
+      return is(80, 80) ? launch_d<T, 80, 80>(a, st) : static_cast<int>(cudaErrorInvalidValue);
+    if (is(32, 32)) return launch_wgmma_bwd<32, 32>(a, st);
+    if (is(64, 64)) return launch_wgmma_bwd<64, 64>(a, st);
+    if (is(96, 96)) return launch_wgmma_bwd<96, 96>(a, st);
+    if (is(128, 128)) return launch_wgmma_bwd<128, 128>(a, st);
+    if (is(192, 128)) return launch_wgmma_bwd<192, 128>(a, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (wgmma) return static_cast<int>(cudaErrorInvalidValue);
+    if (is(32, 32)) return launch_d<T, 32, 32>(a, st);
+    if (is(64, 64)) return launch_d<T, 64, 64>(a, st);
+    if (is(80, 80)) return launch_d<T, 80, 80>(a, st);
+    if (is(96, 96)) return launch_d<T, 96, 96>(a, st);
+    if (is(128, 128)) return launch_d<T, 128, 128>(a, st);
+    if (is(192, 128)) return launch_d<T, 192, 128>(a, st);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q, dout, dq (B, H, S, d); k, v, dk, dv (B, KVH, T, d), all contiguous;
-// lse and delta (B, H, S) f32, delta scratch that the first kernel writes;
-// wgmma: 1 for the tensor-core route (bfloat16, d in {32, 64, 96, 128});
-// part: null, or on that route with a GQA group (H > KVH) f32 scratch of
-// 2 * H * B * T * d floats for each head's dK and dV partials.
+// q, dout, dq (B, H, S, Dk / Dv / Dk); k, v, dk, dv (B, KVH, T, Dk / Dv /
+// Dk / Dv), all contiguous; lse and delta (B, H, S) f32, delta scratch that
+// the first kernel writes; wgmma: 1 for the tensor-core route (bfloat16 at
+// the pairs above); part: null, or on that route with a GQA group (H > KVH)
+// f32 scratch of H * B * T * (Dk + Dv) floats for each head's dK and dV
+// partials.
 REPRO_API int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             float* delta, void* dq, void* dk, void* dv,
-                                            int b, int h, int kvh, int s, int t, int d,
-                                            float scale, int causal, int wgmma,
+                                            int b, int h, int kvh, int s, int t, int d_k,
+                                            int d_v, float scale, int causal, int wgmma,
                                             float* part, int device, void* stream) {
-  return launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, d,
+  return launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, d_k, d_v,
                            scale, causal, wgmma, part, device, stream);
 }
 
 REPRO_API int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              float* delta, void* dq, void* dk, void* dv,
-                                             int b, int h, int kvh, int s, int t, int d,
-                                             float scale, int causal, int wgmma,
+                                             int b, int h, int kvh, int s, int t, int d_k,
+                                             int d_v, float scale, int causal, int wgmma,
                                              float* part, int device, void* stream) {
-  return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s,
-                                   t, d, scale, causal, wgmma, part, device, stream);
+  return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t,
+                                   d_k, d_v, scale, causal, wgmma, part, device, stream);
 }

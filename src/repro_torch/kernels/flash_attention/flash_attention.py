@@ -17,13 +17,13 @@ f32 FMAs on the CUDA cores.  Both kernels can also write each row's
 log-sum-exp for the backward.
 
 ``csrc/flash_attention_bwd.cu`` is that kernel's gradient (dQ, dK, dV,
-FlashAttention-2's deterministic two-kernel backward), for Dk = Dv in
-:data:`BWD_HEAD_DIMS`, counted as ``flash_attention_bwd``.  bfloat16 at the
-head dims of :data:`BWD_MMA_HEAD_DIMS` runs its tensor-core kernels (TMA,
-``wgmma``; q, k, v and the output's gradient read through tensor maps);
-float32 and bfloat16 at D = 80 run its CUDA-core kernels
-(:func:`bwd_route`).  Neither is a fallback of the other: a failed build or
-launch raises.
+FlashAttention-2's deterministic two-kernel backward), for the (Dk, Dv)
+pairs of :data:`BWD_PAIRS` (Dk = Dv in :data:`BWD_HEAD_DIMS`, and MLA's
+(192, 128)), counted as ``flash_attention_bwd``.  bfloat16 at the pairs of
+:data:`BWD_MMA_PAIRS` runs its tensor-core kernels (TMA, ``wgmma``; q, k, v
+and the output's gradient read through tensor maps); float32 and bfloat16
+at (80, 80) run its CUDA-core kernels (:func:`bwd_route`).  Neither is a
+fallback of the other: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ from ..common import launch, ptr, stream_of
 
 #: (Dk, Dv) pairs the tensor-core (bf16) kernel, flash_wgmma_kernel, is
 #: compiled for
-MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64))
+MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64),
+                 (192, 128))
 #: Dv values csrc/flash_attention.cu is compiled for (each thread's output
 #: strip is Dv / 16 registers wide): 80 is hubert's head dim, 256
 #: paligemma's
@@ -56,13 +57,21 @@ BWD_HEAD_DIMS = (32, 64, 80, 96, 128)
 #: (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) take: the widths a
 #: wgmma tile of 64-column boxes takes without padding (80 does not)
 BWD_MMA_HEAD_DIMS = (32, 64, 96, 128)
+#: (Dk, Dv) pairs with Dk != Dv it is compiled for: MLA's (deepseek-v2's
+#: nope 128 + rope 64 against v 128), float32 on the CUDA cores and bfloat16
+#: on the tensor cores
+BWD_MLA_PAIRS = ((192, 128),)
+#: every (Dk, Dv) pair the backward takes, and those bfloat16 takes on the
+#: tensor cores
+BWD_PAIRS = tuple((d, d) for d in BWD_HEAD_DIMS) + BWD_MLA_PAIRS
+BWD_MMA_PAIRS = tuple((d, d) for d in BWD_MMA_HEAD_DIMS) + BWD_MLA_PAIRS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
          _I, _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_flash_attention_f32",
            torch.bfloat16: "repro_flash_attention_bf16"}
-_BWD_ARGS = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P, _I, _P]
+_BWD_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _P, _I, _P]
 _BWD_SYMBOL = {torch.float32: "repro_flash_attention_bwd_f32",
                torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 
@@ -115,16 +124,18 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            int(bq), int(bk), q.device.index, stream_of(q))
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> str:
+def bwd_route(dtype: torch.dtype, dk: int, dv: Optional[int] = None) -> str:
     """Which kernels of ``csrc/flash_attention_bwd.cu`` compute the
-    gradient at Dk = Dv = ``d``: ``"wgmma"`` (the tensor cores) for
-    bfloat16 at :data:`BWD_MMA_HEAD_DIMS`, ``"cuda_cores"`` for float32
-    and the other head dims of :data:`BWD_HEAD_DIMS`.  Raises
-    ``ValueError`` for a head dim neither takes."""
-    if d not in BWD_HEAD_DIMS:
+    gradient at (Dk, Dv) = (``dk``, ``dv``) (``dv`` None: Dk = Dv):
+    ``"wgmma"`` (the tensor cores) for bfloat16 at :data:`BWD_MMA_PAIRS`,
+    ``"cuda_cores"`` for float32 and the other pairs of :data:`BWD_PAIRS`.
+    Raises ``ValueError`` for a pair neither takes."""
+    pair = (dk, dk if dv is None else dv)
+    if pair not in BWD_PAIRS:
         raise ValueError(f"the flash-attention backward kernels take Dk = Dv "
-                         f"in {BWD_HEAD_DIMS}; got {d}")
-    if dtype == torch.bfloat16 and d in BWD_MMA_HEAD_DIMS:
+                         f"in {BWD_HEAD_DIMS} and the (Dk, Dv) pairs "
+                         f"{BWD_MLA_PAIRS}; got {pair}")
+    if dtype == torch.bfloat16 and pair in BWD_MMA_PAIRS:
         return "wgmma"
     return "cuda_cores"
 
@@ -137,18 +148,19 @@ def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                scale: float) -> None:
     """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels of the route
     :func:`bwd_route` picks, one count) on contiguous CUDA tensors of one
-    dtype: q, dout, dq (B,H,S,D), k, v, dk, dv (B,KVH,T,D), D in
-    :data:`BWD_HEAD_DIMS`; ``lse`` the forward's f32 (B,H,S) and ``delta``
-    f32 (B,H,S) scratch.  On the tensor-core route q, k, v and dout must be
-    16-byte aligned (:func:`tma_view`), and a GQA group (H > KVH) takes one
-    block a head for dK and dV, into f32 partials allocated here, which a
-    third kernel adds in head order."""
-    b, h, s, d = q.shape
-    kvh, t = k.shape[1], k.shape[2]
-    wgmma = bwd_route(q.dtype, d) == "wgmma"
-    part = (torch.empty((2, h, b, t, d), dtype=torch.float32, device=q.device)
+    dtype: q, dq (B,H,S,Dk), dout (B,H,S,Dv), k, dk (B,KVH,T,Dk), v, dv
+    (B,KVH,T,Dv), (Dk, Dv) in :data:`BWD_PAIRS`; ``lse`` the forward's f32
+    (B,H,S) and ``delta`` f32 (B,H,S) scratch.  On the tensor-core route q,
+    k, v and dout must be 16-byte aligned (:func:`tma_view`), and a GQA
+    group (H > KVH) takes one block a head for dK and dV, into f32 partials
+    allocated here, which a third kernel adds in head order."""
+    b, h, s, d_k = q.shape
+    kvh, t, d_v = k.shape[1], k.shape[2], v.shape[3]
+    wgmma = bwd_route(q.dtype, d_k, d_v) == "wgmma"
+    part = (torch.empty((h * b * t * (d_k + d_v),), dtype=torch.float32,
+                        device=q.device)
             if wgmma and h > kvh else None)
     launch("flash_attention_bwd", _BWD_SYMBOL[q.dtype], _BWD_ARGS, ptr(q),
            ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq), ptr(dk),
-           ptr(dv), b, h, kvh, s, t, d, float(scale), int(causal), int(wgmma),
-           ptr(part), q.device.index, stream_of(q))
+           ptr(dv), b, h, kvh, s, t, d_k, d_v, float(scale), int(causal),
+           int(wgmma), ptr(part), q.device.index, stream_of(q))

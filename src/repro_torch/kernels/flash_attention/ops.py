@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 
 from ..common import check_dtype, on_card
-from .flash_attention import (BWD_HEAD_DIMS, COMPILED_DV, DTYPES, MAX_DK,
+from .flash_attention import (BWD_PAIRS, COMPILED_DV, DTYPES, MAX_DK,
                               MMA_HEAD_DIMS, bwd_route, launch_flash_attention,
                               launch_flash_attention_bwd, supports_head_dims,
                               tma_view)
@@ -47,11 +47,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and a row that sees no key (``q_offset < 0``) gets what the plain
     version's blocking gives it.
     On the card q, k and v share a dtype (float32 or bfloat16), Dk is a
-    multiple of 4 up to 256, Dv one of 32, 64, 96, 128, and each may be a
-    strided view whose last axis is contiguous.  In bfloat16 at the head
-    dims of ``MMA_HEAD_DIMS`` the kernel reads q, k and v through TMA tensor
-    maps: a view that none describes (a base or a stride that is not a
-    multiple of 16 bytes) is first copied contiguous, and the copy is
+    multiple of 4 up to 256, Dv one of 32, 64, 80, 96, 128, 256, and each
+    may be a strided view whose last axis is contiguous.  In bfloat16 at the
+    head dims of ``MMA_HEAD_DIMS`` the kernel reads q, k and v through TMA
+    tensor maps: a view that none describes (a base or a stride that is not
+    a multiple of 16 bytes) is first copied contiguous, and the copy is
     counted in ``flash_attention.CONTIGUOUS_COPIES``.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -90,12 +90,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def check_backward(dk: int, dv: int, q_offset: int) -> None:
     """Raise ``ValueError`` for a call whose gradient the backward kernel
-    does not compute (no plain fallback on the card)."""
-    if dk != dv or dk not in BWD_HEAD_DIMS or q_offset != 0:
+    does not compute (no plain fallback on the card): a (Dk, Dv) pair
+    outside :data:`BWD_PAIRS`, or a ``q_offset`` other than 0."""
+    if (dk, dv) not in BWD_PAIRS or q_offset != 0:
         raise ValueError(
-            f"the flash-attention backward kernel takes Dk = Dv in "
-            f"{BWD_HEAD_DIMS} and q_offset 0; got Dk={dk}, Dv={dv}, "
-            f"q_offset={q_offset} (ROADMAP.md queue 2 item 6 extends it)")
+            f"the flash-attention backward kernel takes (Dk, Dv) in "
+            f"{BWD_PAIRS} and q_offset 0; got Dk={dk}, Dv={dv}, "
+            f"q_offset={q_offset} (ROADMAP.md queue 2 item 6 extends it: "
+            f"(256, 256) for paligemma)")
 
 
 def _card_forward(q, k, v, causal, scale, q_offset, bq, bk, with_lse=False):
@@ -143,11 +145,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its input's dtype and shape.
 
     On CUDA tensors it launches ``csrc/flash_attention_bwd.cu``: q, k, v
-    and ``dout`` share a dtype (float32 or bfloat16), Dk = Dv in
-    :data:`BWD_HEAD_DIMS` (else ``ValueError``), ``lse`` is the forward
+    and ``dout`` share a dtype (float32 or bfloat16), (Dk, Dv) in
+    :data:`BWD_PAIRS` (else ``ValueError``), ``lse`` is the forward
     kernel's f32 (B, H, S) row log-sum-exp; views are copied contiguous
-    first.  bfloat16 at the head dims of ``BWD_MMA_HEAD_DIMS`` runs the
-    tensor-core kernels, float32 and bfloat16 at D = 80 the CUDA-core ones
+    first.  bfloat16 at the pairs of ``BWD_MMA_PAIRS`` runs the
+    tensor-core kernels, float32 and bfloat16 at (80, 80) the CUDA-core ones
     (:func:`~repro_torch.kernels.flash_attention.flash_attention.bwd_route`,
     by dtype and shape; no fallback between them).  On CPU and ``meta``
     tensors it runs the plain version, autograd of
@@ -162,7 +164,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention_bwd inputs must share a dtype")
     check_backward(dk_, dv_, 0)
     q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
-    if bwd_route(q.dtype, dk_) == "wgmma":     # read through tensor maps
+    if bwd_route(q.dtype, dk_, dv_) == "wgmma":     # read through tensor maps
         q, k, v, dout = (tma_view(x) for x in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     b, h, s, _ = q.shape

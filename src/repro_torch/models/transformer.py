@@ -25,10 +25,12 @@ training loss) and :func:`train_loss`.  Training takes a model built with
 the block leaves viewed per layer, so an in-place optimizer step writes the
 tree), cast to the compute dtype inside the graph at every use, as the JAX
 layers cast them; :func:`bind_grads` points their gradients at a tree of
-the same layout.  This slice trains the stacks of ``attn`` blocks with a
-dense MLP and no frontend (:data:`TRAINED`); :func:`check_trainable` raises
-``NotImplementedError`` for the rest, naming the ``ROADMAP.md`` item that
-trains them.
+the same layout.  The port trains the stacks of ``attn`` blocks with a
+dense or MoE MLP and of ``mla`` blocks with an MoE MLP (:data:`TRAINED`),
+behind deepseek's dense first layer and hubert's audio frontend too; an
+MoE layer's load-balance and router-z losses enter the loss as in the JAX
+package.  :func:`check_trainable` raises ``NotImplementedError`` for the
+rest, naming the ``ROADMAP.md`` item that trains them.
 """
 
 from __future__ import annotations
@@ -68,21 +70,17 @@ PORTED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe"),
 FIRST_LAYER_KINDS = {"attn", "mla"}
 #: modality frontends it builds
 FRONTENDS = {"none", "vision", "audio"}
-#: (block kind, mlp kind) pairs the port trains, and the ROADMAP.md item
-#: that trains each other kind
-TRAINED = {("attn", "dense")}
+#: (block kind, mlp kind) pairs the port trains (a dense first layer of a
+#: kind of FIRST_LAYER_KINDS trains with them), and the ROADMAP.md item that
+#: trains each other block kind or frontend
+TRAINED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe")}
 UNTRAINED = {
     "rwkv": "ROADMAP.md queue 1, step 7b (rwkv6-3b: a rwkv6_scan backward "
             "kernel)",
     "mamba": "ROADMAP.md queue 1, step 7c (jamba: a mamba_scan backward "
              "kernel)",
-    "mla": "ROADMAP.md queue 1, step 7e (MLA: the (192, 128) flash "
-           "backward)",
-    "moe": "ROADMAP.md queue 1, step 7d (MoE: the load-balance and router-z "
-           "aux losses)",
-    "vision": "ROADMAP.md queue 1, step 7f (paligemma: the Dv 256 flash "
+    "vision": "ROADMAP.md queue 1, step 7f (paligemma: the (256, 256) flash "
               "backward)",
-    "audio": "ROADMAP.md queue 1, step 7f (hubert: the audio loss)",
 }
 
 _BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "mamba": mamba_spec,
@@ -114,14 +112,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig, *, frontend: bool = False) -> None:
     """Raise ``NotImplementedError`` for an arch :func:`train_loss` does not
-    train (``frontend=True``: :func:`forward` without a gradient, which
-    also runs a vision or audio frontend, as hubert's encode does)."""
+    train: a stacked (block, mlp) pair outside :data:`TRAINED`, or the
+    vision frontend (``frontend=True``: :func:`forward` without a gradient,
+    which also runs it, as paligemma's image prefix does).  A dense first
+    layer and the audio frontend train."""
     check_supported(cfg)
     pairs = list(zip(cfg.block_pattern, cfg.mlp_pattern))
-    kinds = [k if k != "attn" else m for k, m in pairs if (k, m) not in TRAINED]
-    if cfg.first_layer_dense:
-        kinds.insert(0, cfg.block_pattern[0])
-    if cfg.frontend != "none" and not frontend:
+    kinds = [k for k, m in pairs if (k, m) not in TRAINED]
+    if cfg.frontend in UNTRAINED and not frontend:
         kinds.append(cfg.frontend)
     if kinds:
         raise NotImplementedError(
@@ -155,7 +153,9 @@ def _position_spec(cfg: ModelConfig, kind: str, mlp_kind: str,
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """The JAX package's parameter tree (``blocks.pos{i}`` stacked over
     ``n_groups``, plus deepseek's unstacked ``layer0`` and paligemma's
-    ``frontend``) for an arch this slice builds."""
+    ``frontend``) for an arch this slice builds.  A config with no stacked
+    group (deepseek cut to its dense first layer, ``n_layers`` 1) has empty
+    ``blocks``."""
     check_supported(cfg)
     spec: Dict[str, Any] = {
         "embed": embed_spec(cfg),
@@ -163,7 +163,8 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         "blocks": {f"pos{i}": _position_spec(cfg, kind, mlp_kind,
                                               cfg.n_groups)
                    for i, (kind, mlp_kind) in enumerate(
-                       zip(cfg.block_pattern, cfg.mlp_pattern))},
+                       zip(cfg.block_pattern, cfg.mlp_pattern))
+                   if cfg.n_groups},
     }
     if cfg.first_layer_dense:
         spec["layer0"] = {
@@ -318,15 +319,17 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     mlp_kind: str, *, mode: str = "prefill", cache=None,
                     pos=None, moe_group_size: Optional[int] = None):
     """One layer of block ``kind`` with feed-forward ``mlp_kind``.  Returns
-    (x, new_cache): None in ``mode="train"`` (an ``attn`` block over the
-    whole sequence, keeping no cache); for ``attn`` the prefill's (k, v) or
-    the decode step's cache (written in place); for ``mla`` the prefill's latents (c_kv,
+    (x, new_cache): for ``attn`` the prefill's (k, v) or the decode step's
+    cache (written in place); for ``mla`` the prefill's latents (c_kv,
     k_rope) or the decode step's cache (written in place); for ``rwkv`` the
     state (tlast, wkv, clast) and for ``mamba`` the state (conv window, ssm)
-    after the prefill, or the decode step's cache (written in place).  An
+    after the prefill, or the decode step's cache (written in place).  In
+    ``mode="train"`` (an ``attn`` or ``mla`` block over the whole sequence,
+    keeping no cache) it returns (x, aux) instead: the layer's (2,) f32
+    [load_balance, router_z], an MoE layer's mean over its routing groups
+    (one a sequence, the JAX stack's rule) and zeros for a dense MLP.  An
     MoE layer routes groups of ``moe_group_size`` tokens (None:
-    :func:`moe_group`); its aux losses are not computed (no training path
-    reads them yet)."""
+    :func:`moe_group`); only the train mode computes its aux losses."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     rs = residual_scale(cfg)
@@ -354,6 +357,8 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     elif kind == "mla":
         if mode == "decode":
             out, new_cache = mla_decode(p["block"], h, cache, pos, cfg)
+        elif mode == "train":
+            out, new_cache = mla_full(p["block"], h, cfg), None
         else:
             out, new_cache = mla_full(p["block"], h, cfg, return_cache=True)
     elif mode == "decode":
@@ -364,14 +369,18 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         out, new_cache = attend_full(p["block"], h, cfg, return_kv=True)
     x = x + mul_scalar(out, rs)
     h2 = apply_norm(p["norm2"], x, cfg)
+    train = mode == "train"
     if mlp_kind == "moe":
         b, s, _ = h2.shape
         gs = moe_group_size or moe_group(mode, b, s)
-        m_out, _ = apply_moe(p["mlp"], h2, cfg, group_size=gs)
+        m_out, aux = apply_moe(p["mlp"], h2, cfg, group_size=gs,
+                               with_aux=train)
     else:
         m_out = apply_mlp(p["mlp"], h2, cfg)
+        aux = (torch.zeros(2, dtype=torch.float32, device=x.device)
+               if train else None)
     x = x + mul_scalar(m_out, rs)
-    return x, new_cache
+    return x, (aux if train else new_cache)
 
 
 def _write_state(cache: Tuple[torch.Tensor, ...],
@@ -607,24 +616,28 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return _apply_position(p, x, cfg, "attn", "dense", mode="train")[0]
+def _layer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, mlp_kind: str
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _apply_position(p, x, cfg, kind, mlp_kind, mode="train")
 
 
-def _remat_layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _remat_layer(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 mlp_kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer under ``cfg.remat``, as the JAX scan body's
     ``jax.checkpoint``: ``"none"`` keeps every activation for the backward,
     ``"full"`` keeps only the layer's input and recomputes the rest,
     ``"dots"`` keeps the matmul outputs as well (selective checkpointing).
-    The recomputation is the same arithmetic, so the gradients' bits do not
-    depend on the policy."""
+    -> (x, the layer's aux losses).  The recomputation is the same
+    arithmetic (an MoE layer routes its tokens to the same slots again), so
+    neither the gradients' bits nor the aux depend on the policy."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return _layer(p, x, cfg)
+        return _layer(p, x, cfg, kind, mlp_kind)
     if cfg.remat not in ("dots", "full"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     context = {} if cfg.remat == "full" else {"context_fn": functools.partial(
         create_selective_checkpoint_contexts, _dots_policy)}
-    return checkpoint(_layer, p, x, cfg, use_reentrant=False, **context)
+    return checkpoint(_layer, p, x, cfg, kind, mlp_kind, use_reentrant=False,
+                      **context)
 
 
 def _as_model(model_or_tree, cfg: ModelConfig) -> Transformer:
@@ -643,19 +656,27 @@ def forward(model_or_tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig
     ``model_or_tree`` is a :class:`Transformer` (``trainable=True`` to
     train it) or a parameter tree in the JAX layout (a serving model is
     built from it).  ``inputs`` as :func:`embed_inputs` takes them.  Runs
-    the stacks of ``attn`` blocks with a dense MLP (:data:`TRAINED`),
-    behind a vision or audio frontend too; each layer under ``cfg.remat``.
-    The aux losses are zero: no block of these stacks has any (MoE's come
-    with its training, :data:`UNTRAINED`).  The JAX package's FSDP weight
-    gathers (``cfg.fsdp_gather_weights``) are the distribution slice's; on
-    one device there is nothing to gather, and the flag is not read."""
+    the stacks of :data:`TRAINED` (behind a vision or audio frontend too):
+    a dense first layer (``layer0``, deepseek's) first, as the JAX
+    ``_apply_layer0``, outside the remat policy and with no aux; then each
+    scanned layer under ``cfg.remat``.  The aux losses are the layers'
+    [load_balance, router_z] summed in layer order from zero, as the JAX
+    scan carries them: zeros for a stack without an MoE layer.  The JAX
+    package's FSDP weight gathers (``cfg.fsdp_gather_weights``) are the
+    distribution slice's; on one device there is nothing to gather, and the
+    flag is not read."""
     check_trainable(cfg, frontend=True)
     model = _as_model(model_or_tree, cfg)
     x = embed_inputs(model, inputs)
-    for p in model.layers:
-        x = _remat_layer(p, x, cfg)
+    if cfg.first_layer_dense:
+        x, _ = _apply_position(model.layer0, x, cfg, cfg.block_pattern[0],
+                               "dense", mode="train")
+    aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+    for layer, p in enumerate(model.layers):
+        x, a = _remat_layer(p, x, cfg, *_layer_kinds(cfg, layer))
+        aux = aux + a
     x = apply_norm(model.final_norm, x, cfg)
-    return x, torch.zeros(2, dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 #: the JAX package's aux-loss coefficients (``models/transformer.py``)
@@ -665,10 +686,12 @@ AUX_Z_COEF = 0.001
 
 def train_loss(model_or_tree, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: {"tokens", "labels" (B, S), optional "mask" (B, S)} ->
-    (loss, metrics ``ce``, ``load_balance``, ``router_z``, ``loss``), each a
-    0-d f32 tensor.  Raises ``NotImplementedError`` for an arch this slice
-    does not train (:func:`check_trainable`)."""
+    """batch: {"tokens" (or an audio model's "frames" (B, S, F)),
+    "labels" (B, S), optional "mask" (B, S)} -> (loss, metrics ``ce``,
+    ``load_balance``, ``router_z``, ``loss``), each a 0-d f32 tensor: the
+    cross-entropy plus 0.01 load balance plus 0.001 router z, as the JAX
+    package's.  Raises ``NotImplementedError`` for an arch the port does
+    not train (:func:`check_trainable`)."""
     check_trainable(cfg)
     model = _as_model(model_or_tree, cfg)
     hidden, aux = forward(model, batch, cfg)

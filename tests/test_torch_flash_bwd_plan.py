@@ -2,8 +2,9 @@
 
 ``csrc/flash_attention_bwd.cu`` has two routes: its tensor-core kernels
 (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) for bfloat16 at
-Dk = Dv in ``BWD_MMA_HEAD_DIMS``, and its CUDA-core kernels for float32 and
-bfloat16 at D = 80.  The route is chosen on the host by dtype and head dim
+Dk = Dv in ``BWD_MMA_HEAD_DIMS`` (and MLA's (192, 128): see
+``tests/test_torch_flash_mla_backward.py``), and its CUDA-core kernels for
+float32 and bfloat16 at D = 80.  The route is chosen on the host by dtype and head dim
 (``bwd_route``) and passed to the C entry point; a head dim neither route
 takes is refused with a ``ValueError`` naming the roadmap item that extends
 it, never computed some other way.  The kernels themselves run only on the
@@ -45,7 +46,7 @@ def test_a_head_dim_no_route_takes_is_refused(dtype, d):
         fa.bwd_route(dtype, d)
 
 
-@pytest.mark.parametrize("dk,dv", [(192, 128), (256, 256), (96, 64)])
+@pytest.mark.parametrize("dk,dv", [(192, 192), (256, 256), (96, 64)])
 def test_unported_shapes_are_refused_naming_the_roadmap(dk, dv):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 6"):
         check_backward(dk, dv, 0)
@@ -74,10 +75,10 @@ def test_the_launch_passes_the_route(monkeypatch, dtype, d, route):
     assert args[0] == "flash_attention_bwd"
     assert args[1] == {torch.bfloat16: "repro_flash_attention_bwd_bf16",
                        torch.float32: "repro_flash_attention_bwd_f32"}[dtype]
-    # ..., b, h, kvh, s, t, d, scale, causal, wgmma, part, device, stream
-    assert args[12:21] == (b, h, kvh, s, t, d, 0.125, 1, route)
+    # ..., b, h, kvh, s, t, dk, dv, scale, causal, wgmma, part, device, stream
+    assert args[12:22] == (b, h, kvh, s, t, d, d, 0.125, 1, route)
     # the GQA group's f32 dK/dV partials on the tensor-core route only
-    assert (args[21].value is not None) == bool(route)
+    assert (args[22].value is not None) == bool(route)
     assert len(args[2]) == len(args) - 3          # one ctypes type an argument
 
 
@@ -90,7 +91,7 @@ def test_an_mha_call_takes_no_partials(monkeypatch):
     lse = torch.zeros(2, 4, 5)
     fa.launch_flash_attention_bwd(q, q, q, q, lse, lse, q, q, q, causal=True,
                                   scale=0.125)
-    assert calls[0][20] == 1 and calls[0][21].value is None
+    assert calls[0][21] == 1 and calls[0][22].value is None
 
 
 def test_the_cpu_gradient_is_the_plain_versions():
