@@ -15,10 +15,8 @@ A copy of the JAX package's ``configs/__init__.py`` without its JAX part:
 ``input_specs`` (abstract inputs for the dry-run) comes with the dry-run
 slice.  The ten ``configs/*.py`` data files are copies of the JAX
 package's.  The port builds all ten (hubert encodes, the others
-serve); it trains the stacks of
-``attn`` blocks with a ``dense`` MLP and no frontend (qwen2.5-3b,
-stablelm-1.6b, minicpm-2b, mistral-large-123b), and the others raise
-``NotImplementedError`` where the loss is taken
+serve); it trains all but rwkv6-3b and jamba-1.5-large-398b, which
+raise ``NotImplementedError`` where the loss is taken
 (:func:`repro_torch.models.transformer.check_trainable`).
 """
 

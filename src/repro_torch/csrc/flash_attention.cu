@@ -37,10 +37,10 @@
 // Two kernels compute this, chosen by dtype and head dims:
 //
 // * flash_wgmma_kernel, for bfloat16 at (Dk, Dv) in {(32, 32), (64, 64),
-//   (96, 96), (128, 128), (96, 64), (192, 128)}: a producer warp brings Q
-//   once and K and V tiles through a shared-memory ring with TMA, and two
-//   consumer warpgroups run both products on wgmma (bf16 inputs, f32
-//   accumulation),
+//   (96, 96), (128, 128), (96, 64), (192, 128), (256, 256)}: a producer
+//   warp brings Q once and K and V tiles through a shared-memory ring with
+//   TMA, and two consumer warpgroups run both products on wgmma (bf16
+//   inputs, f32 accumulation),
 //   p kept to about 16 bits as the sum of two bf16 parts (see the note
 //   above the kernel);
 // * flash_kernel, for float32 (which must match a full-precision product,
@@ -49,9 +49,9 @@
 //   and an 8 x (Dv / 16) strip of the output, reading q and p rows as
 //   float4 broadcasts and k and v rows as contiguous float4/float2 runs (or
 //   one float at a time at Dv 80, hubert's heads).  At Dv 256 (paligemma's
-//   heads) a thread's strip is 128 f32 accumulators (ptxas: 255 registers
-//   a thread, no spills), and the block's shared memory at Dk 256 is
-//   141,824 bytes: one block an SM.
+//   heads, here in float32 only) a thread's strip is 128 f32 accumulators
+//   (ptxas: 255 registers a thread, no spills), and the block's shared
+//   memory at Dk 256 is 141,824 bytes: one block an SM.
 //
 // What bounds it on the H100: for qwen2.5-3b's prefill (16 heads over 2 kv
 // heads of 128, S = T = 256, bf16, batch 4) the work is 0.54 G causal
@@ -305,7 +305,14 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 //
 // One block per (128 q rows, head, batch), 384 threads: two consumer
 // warpgroups, each owning 64 of the block's q rows, and a producer
-// warpgroup whose first warp's lane 0 issues every copy.  The producer
+// warpgroup whose first warp's lane 0 issues every copy.  At Dv 256
+// (paligemma's heads) a warpgroup's 64 x 256 f32 accumulators alone take
+// 128 registers a thread, and beside the scores and P's two parts the
+// consumers' code spilled (ptxas: 260 bytes of spill stores, whatever the
+// setmaxnreg split); so there the block owns 64 q rows, and both consumer
+// warpgroups take all of them, each computing S and P for them and
+// accumulating its own half of Dv's columns (wg_split_dv): the same
+// registers as (128, 128), at one more Q K^T a tile.  The producer
 // warpgroup drops to 24 registers a thread (setmaxnreg.dec) and the
 // consumers raise theirs to 240 (setmaxnreg.inc): the exchange works on
 // whole warpgroups, and a lone producer warp would free registers in one
@@ -325,7 +332,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 // rows (48 KB) and 3 stages of 3 K and 2 V boxes (120 KB): 173,112 bytes
 // with the barriers and the alignment slack, one block an SM, the same
 // registers as (128, 128) (the scores and Dv's accumulators do not grow
-// with Dk).  Per kv tile, each consumer warpgroup:
+// with Dk).  At (256, 256) it holds 4 Q boxes of 64 rows (32 KB) and 3
+// stages of 4 K and 4 V boxes (192 KB): 230,456 bytes.  Per kv tile, each
+// consumer warpgroup:
 //
 // * S = Q K^T: wgmma.m64n64k16, A = its 64 q rows and B = the K tile as it
 //   lies (both K-major), Dk / 16 steps, f32 accumulators in registers;
@@ -334,9 +343,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 //   flash_kernel's per-element arithmetic: scale, columns >= T and causal
 //   columns to the -1e30 sentinel, m, alpha, p, l, row reductions over the
 //   4 lanes of a quad;
-// * acc += P V: wgmma.m64nDvk16 with A = P from registers (the score
-//   accumulators of two n8 tiles are exactly one k16 A fragment) and B =
-//   the V tile with the transpose bit (MN-major), so V is never staged
+// * acc += P V: wgmma.m64nNk16 (N = Dv, or Dv / 2 at Dv 256, B starting
+//   at the warpgroup's half of the V boxes) with A = P from registers (the
+//   score accumulators of two n8 tiles are exactly one k16 A fragment) and
+//   B = the V tile with the transpose bit (MN-major), so V is never staged
 //   transposed.  P is p_hi + p_lo, two bf16 parts multiplied in turn: p
 //   to about 16 bits, where
 //   one bf16 rounding keeps 8, so the result holds to the f32-p plain
@@ -351,15 +361,26 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 // are not loaded; a warpgroup whose rows all lie above a loaded tile skips
 // its products for it.  Rows >= S are never stored.
 constexpr int kWgRows = 64;                 // q rows per consumer warpgroup
-constexpr int kWgBQ = 2 * kWgRows;          // q rows per block
 constexpr int kWgBK = 64;                   // kv rows per tile
 constexpr int kWgStages = 3;
 constexpr int kWgConsumers = 2 * 128;
 constexpr int kWgThreads = kWgConsumers + 128;   // and a producer warpgroup
+constexpr int kMaxSmem = 232448;            // shared memory a block can have
+
+// Whether the two consumer warpgroups split Dv's columns over the same 64
+// q rows (Dv 256), instead of each owning 64 rows with all of Dv.
+template <int DK, int DV>
+__host__ __device__ constexpr bool wg_split_dv() { return DV > 192; }
+
+// q rows per block
+template <int DK, int DV>
+__host__ __device__ constexpr int wg_block_rows() {
+  return wg_split_dv<DK, DV>() ? kWgRows : 2 * kWgRows;
+}
 
 template <int DK, int DV>
 __host__ __device__ constexpr int wg_smem_bytes() {
-  return ((DK + kBox - 1) / kBox) * kWgBQ * 128 +
+  return ((DK + kBox - 1) / kBox) * wg_block_rows<DK, DV>() * 128 +
          kWgStages * (((DK + kBox - 1) / kBox) + ((DV + kBox - 1) / kBox)) * kWgBK * 128 +
          (1 + 2 * kWgStages) * 8 + 1024;   // barriers, and slack to align to 1024
 }
@@ -371,9 +392,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                        const __grid_constant__ CUtensorMap tv, Args a, Perm perm) {
   constexpr int NQ = (DK + kBox - 1) / kBox, NV = (DV + kBox - 1) / kBox;
   constexpr int KSTEPS = DK / 16;
-  constexpr int BOXQ = kWgBQ * 128, BOXKV = kWgBK * 128;   // bytes of one box
+  constexpr bool SPLIT = wg_split_dv<DK, DV>();
+  constexpr int BQ = wg_block_rows<DK, DV>();
+  constexpr int DVW = SPLIT ? DV / 2 : DV;                 // Dv columns a warpgroup owns
+  constexpr int BOXQ = BQ * 128, BOXKV = kWgBK * 128;      // bytes of one box
   constexpr int K_BYTES = NQ * BOXKV, STAGE = K_BYTES + NV * BOXKV;
-  static_assert(DK % 16 == 0 && DV % 32 == 0 && DV <= 128, "head dims");
+  static_assert(DK % 16 == 0 && DV % 32 == 0 && DVW <= 192 && (!SPLIT || DVW % kBox == 0),
+                "head dims");
+  static_assert(wg_smem_bytes<DK, DV>() <= kMaxSmem, "shared memory of a block");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -386,9 +412,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int q_tile = gridDim.x - 1 - blockIdx.x;           // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kv_head = h / (a.h / a.kvh);
-  const int q0 = q_tile * kWgBQ;
+  const int q0 = q_tile * BQ;
   int kv_end = a.t;
-  if (a.causal) kv_end = min(kv_end, a.q_offset + min(q0 + kWgBQ, a.s));
+  if (a.causal) kv_end = min(kv_end, a.q_offset + min(q0 + BQ, a.s));
   const int n_tiles = kv_end > 0 ? (kv_end + kWgBK - 1) / kWgBK : 0;
 
   if (threadIdx.x == 0) {
@@ -429,20 +455,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // consumers
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int wg = warp / 4, wq = warp % 4, g = lane / 4, t4 = lane % 4;
-  const int row0 = q0 + wg * kWgRows;                      // the warpgroup's first row
+  const int row0 = q0 + (SPLIT ? 0 : wg * kWgRows);       // the warpgroup's first row
+  const int col0 = SPLIT ? wg * DVW : 0;                   // and its first Dv column
   const bool live = row0 < a.s;
   const int last = a.q_offset + min(row0 + kWgRows, a.s) - 1;   // its last position
   const int qi0 = a.q_offset + row0 + wq * 16 + g, qi1 = qi0 + 8;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[DV / 2];
+  float o[DVW / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DVW / 2; ++i) o[i] = 0.f;
   // the tiles this warpgroup multiplies: all, or (causal) those that start
   // at or before its last row; the rest it only hands back
   const int n_wg = !live ? 0
                    : !a.causal ? n_tiles
                    : last < 0 ? 0 : min(n_tiles, last / kWgBK + 1);
-  const unsigned char* qw = qs + wg * kWgRows * 128;       // this warpgroup's rows
+  const unsigned char* qw = qs + (row0 - q0) * 128;       // this warpgroup's rows
 
   mbar_wait(q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -495,7 +522,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
 #pragma unroll
-      for (int nt = 0; nt < DV / 8; ++nt) {
+      for (int nt = 0; nt < DVW / 8; ++nt) {
         o[4 * nt] *= alpha[0], o[4 * nt + 1] *= alpha[0];
         o[4 * nt + 2] *= alpha[1], o[4 * nt + 3] *= alpha[1];
       }
@@ -516,9 +543,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgBK / 16; ++kk) {
-        const uint64_t dv = sw128_desc(st + K_BYTES + kk * 16 * 128, BOXKV, 1024);
-        wgmma_rs<DV>(o, hi[kk], dv);
-        wgmma_rs<DV>(o, lo[kk], dv);
+        const uint64_t dv =
+            sw128_desc(st + K_BYTES + (col0 / kBox) * BOXKV + kk * 16 * 128, BOXKV, 1024);
+        wgmma_rs<DVW>(o, hi[kk], dv);
+        wgmma_rs<DVW>(o, lo[kk], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -535,11 +563,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int row = row0 + wq * 16 + g + 8 * r;
     if (row >= a.s) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
-    if (a.lse != nullptr && t4 == 0)
+    if (a.lse != nullptr && t4 == 0 && col0 == 0)
       a.lse[(static_cast<long long>(b) * a.h + h) * a.s + row] = m[r] + logf(l[r]);
 #pragma unroll
-    for (int nt = 0; nt < DV / 8; ++nt) {
-      const int col = nt * 8 + 2 * t4;
+    for (int nt = 0; nt < DVW / 8; ++nt) {
+      const int col = col0 + nt * 8 + 2 * t4;
       *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * DV + col) =
           __floats2bfloat162_rn(o[4 * nt + 2 * r] / denom, o[4 * nt + 2 * r + 1] / denom);
     }
@@ -550,8 +578,9 @@ template <int DK, int DV>
 int launch_wgmma(const Args& a, int dv, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   Perm perm;
+  constexpr int BQ = wg_block_rows<DK, DV>();
   const bool ok =
-      encode_map(&tq, a.q, DK, {a.s, a.h, a.b}, {a.q_ss, a.q_sh, a.q_sb}, kWgBQ, perm.q) &&
+      encode_map(&tq, a.q, DK, {a.s, a.h, a.b}, {a.q_ss, a.q_sh, a.q_sb}, BQ, perm.q) &&
       encode_map(&tk, a.k, DK, {a.t, a.kvh, a.b}, {a.k_ss, a.k_sh, a.k_sb}, kWgBK, perm.k) &&
       encode_map(&tv, a.v, dv, {a.t, a.kvh, a.b}, {a.v_ss, a.v_sh, a.v_sb}, kWgBK, perm.v);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -560,7 +589,7 @@ int launch_wgmma(const Args& a, int dv, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.s + kWgBQ - 1) / kWgBQ, a.h, a.b);
+  const dim3 grid((a.s + BQ - 1) / BQ, a.h, a.b);
   kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, a, perm);
   return REPRO_LAUNCH_STATUS();
 }
@@ -621,6 +650,7 @@ int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
     if (dk == 32 && dv == 32) return launch_wgmma<32, 32>(a, dv, st);
     if (dk == 96 && dv == 64) return launch_wgmma<96, 64>(a, dv, st);
     if (dk == 192 && dv == 128) return launch_wgmma<192, 128>(a, dv, st);   // MLA
+    if (dk == 256 && dv == 256) return launch_wgmma<256, 256>(a, dv, st);   // paligemma
   }
   switch (dv) {
     case 32: return launch_dv<T, 32>(a, st);

@@ -1,7 +1,7 @@
 // FlashAttention-2 backward (GQA, causal with q_offset 0 or non-causal), for
 // float32 and bfloat16 q/k/v at the (Dk, Dv) pairs (32, 32), (64, 64),
-// (80, 80), (96, 96), (128, 128) and MLA's (192, 128); the gradients take
-// the inputs' dtype, every sum is f32.
+// (80, 80), (96, 96), (128, 128), MLA's (192, 128) and paligemma's (256,
+// 256); the gradients take the inputs' dtype, every sum is f32.
 //
 // The gradient of the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py:_flash_kernel
@@ -26,9 +26,10 @@
 // flash_attention.py:bwd_route) by dtype and head dims, each
 // FlashAttention-2's deterministic two-kernel schedule without atomics:
 //
-// * bfloat16 at (32, 32), (64, 64), (96, 96), (128, 128) and (192, 128):
-//   flash_dq_wgmma_kernel and flash_dkdv_wgmma_kernel, every product on the
-//   tensor cores (wgmma, TMA, mbarrier rings; see the note above them);
+// * bfloat16 at (32, 32), (64, 64), (96, 96), (128, 128), (192, 128) and
+//   (256, 256): flash_dq_wgmma_kernel and flash_dkdv_wgmma_kernel, every
+//   product on the tensor cores (wgmma, TMA, mbarrier rings; see the note
+//   above them);
 // * float32 (which must match a full-precision product, so no TF32) at
 //   every pair, and bfloat16 at (80, 80) (hubert's heads, which no wgmma
 //   tile width takes without padding): flash_dq_kernel and
@@ -466,7 +467,12 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
 //   accumulates dK.  Each pass streams the tiles again (from L2 mostly) and
 //   S^T is computed twice, which costs one more K Q^T a tile than the
 //   fused pass; splitting dK and dV over two consumer warpgroups instead
-//   would cost the same products and a bigger block.
+//   would cost the same products and a bigger block.  At Dk 256 dK's 128
+//   accumulators do not fit beside S^T, dP^T and the lse and D of the
+//   thread's 16 q columns either, so dK takes two passes of 128 columns
+//   each (dk_parts): three passes, S^T three times and dP^T twice a tile,
+//   224 registers and no spills (230 for the dQ kernel, whose 128 dQ
+//   accumulators fit beside S, dP and the two rows' lse and D).
 //
 // P and dS are f32; each is fed to its product as p_hi + p_lo, two bf16
 // parts multiplied in turn (the forward's P): about 16 bits of each, where
@@ -499,11 +505,19 @@ __host__ __device__ constexpr int mma_smem_bytes() {
   return (1 + kMmaStages) * mma_pair_bytes<DK, DV>() + (1 + 2 * kMmaStages) * 8 + 1024;
 }
 
-// Passes of flash_dkdv_wgmma_kernel over its (Q, dO) tiles: 1 (dK and dV
-// together), or 2 (dV, then dK) where their accumulators do not fit beside
-// the scores.
+// Column parts of dK in flash_dkdv_wgmma_kernel's dK passes: 1, or 2 at
+// Dk 256, whose 128 accumulators a thread would not fit beside S^T, dP^T
+// and the lse and D of its 16 q columns.
 template <int DK, int DV>
-__host__ __device__ constexpr int dkdv_passes() { return DK + DV > 256 ? 2 : 1; }
+__host__ __device__ constexpr int dk_parts() { return DK > 192 ? 2 : 1; }
+
+// Passes of flash_dkdv_wgmma_kernel over its (Q, dO) tiles: 1 (dK and dV
+// together), or, where their accumulators do not fit beside the scores, one
+// for dV and then one for each part of dK's columns.
+template <int DK, int DV>
+__host__ __device__ constexpr int dkdv_passes() {
+  return DK + DV > 256 ? 1 + dk_parts<DK, DV>() : 1;
+}
 
 // acc (64 x 64) = A B^T over d: A and B 64-row tiles, both K-major.
 template <int D>
@@ -546,9 +560,9 @@ __device__ __forceinline__ void mma_accumulate(float (&acc)[D / 2], const uint32
   }
 }
 
-// Rows row0 and row0 + 8 of a 64 x D accumulator, times mul, to a bf16 (n, D)
-// matrix; rows >= n skipped.
-template <int D>
+// Rows row0 and row0 + 8 of a 64 x D accumulator, times mul, to D columns
+// of a bf16 matrix of n rows LD apart; rows >= n skipped.
+template <int D, int LD = D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2],
                                           int row0, int n, float mul, int t4) {
 #pragma unroll
@@ -557,14 +571,14 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)
     if (row >= n) continue;
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * D + nt * 8 +
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * LD + nt * 8 +
                                          2 * t4) =
           __floats2bfloat162_rn(acc[4 * nt + 2 * r] * mul, acc[4 * nt + 2 * r + 1] * mul);
   }
 }
 
 // The same rows in f32, unscaled.
-template <int D>
+template <int D, int LD = D>
 __device__ __forceinline__ void store_acc_f32(float* out, const float (&acc)[D / 2], int row0,
                                               int n, int t4) {
 #pragma unroll
@@ -573,7 +587,7 @@ __device__ __forceinline__ void store_acc_f32(float* out, const float (&acc)[D /
     if (row >= n) continue;
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<float2*>(out + static_cast<long long>(row) * D + nt * 8 + 2 * t4) =
+      *reinterpret_cast<float2*>(out + static_cast<long long>(row) * LD + nt * 8 + 2 * t4) =
           make_float2(acc[4 * nt + 2 * r], acc[4 * nt + 2 * r + 1]);
   }
 }
@@ -711,11 +725,11 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
 // One (Q, dO) tile of flash_dkdv_wgmma_kernel, once stage ``st`` is full
 // (``full`` at ``parity``): S^T = K Q^T and P^T; with WANT_DK also
-// dP^T = V dO^T and dS^T; then dV += P^T dO (WANT_DV) and dK += dS^T Q
-// (WANT_DK), in one commit group.  An accumulator the pass does not want is
-// never touched.
-template <int DK, int DV, bool WANT_DV, bool WANT_DK>
-__device__ __forceinline__ void dkdv_tile(float (&dv)[DV / 2], float (&dk)[DK / 2],
+// dP^T = V dO^T and dS^T; then dV += P^T dO (WANT_DV) and dK's columns
+// [DK0, DK0 + DKC) += dS^T Q (WANT_DK), in one commit group.  An
+// accumulator the pass does not want is never touched.
+template <int DK, int DV, bool WANT_DV, bool WANT_DK, int DKC = DK, int DK0 = 0>
+__device__ __forceinline__ void dkdv_tile(float (&dv)[DV / 2], float (&dk)[DKC / 2],
                                           const unsigned char* res, const unsigned char* st,
                                           uint64_t* full, unsigned parity, const BwdArgs& a,
                                           long long qrow, int q0, int j0, int j1, int t4) {
@@ -767,7 +781,8 @@ __device__ __forceinline__ void dkdv_tile(float (&dv)[DV / 2], float (&dk)[DK / 
   }
   wgmma_fence();
   if constexpr (WANT_DV) mma_accumulate<DV>(dv, phi, plo, st + V_OFF);     // dV += P^T dO
-  if constexpr (WANT_DK) mma_accumulate<DK>(dk, shi, slo, st);             // dK += dS^T Q
+  if constexpr (WANT_DK)                                                   // dK += dS^T Q
+    mma_accumulate<DKC>(dk, shi, slo, st + DK0 / kBox * kMmaBoxBytes);
   wgmma_commit();
   wgmma_wait<0>();
   if constexpr (WANT_DV) fence_regs(dv);
@@ -840,11 +855,14 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const long long nk = static_cast<long long>(a.b) * a.kvh * a.t * DK;
   const long long nv = static_cast<long long>(a.b) * a.kvh * a.t * DV;
   const int gi = head0 - kvh * group;
-  auto store_dk = [&](const float (&dk)[DK / 2]) {
+  // dK's columns [c0, c0 + DKC)
+  auto store_dk = [&](const auto& dk, int c0) {
+    constexpr int DKC = 2 * sizeof(dk) / sizeof(float);
     if (split)
-      store_acc_f32<DK>(a.part + gi * nk + krow * DK, dk, j0, a.t, t4);
+      store_acc_f32<DKC, DK>(a.part + gi * nk + krow * DK + c0, dk, j0, a.t, t4);
     else
-      store_acc<DK>(static_cast<__nv_bfloat16*>(a.dk) + krow * DK, dk, j0, a.t, a.scale, t4);
+      store_acc<DKC, DK>(static_cast<__nv_bfloat16*>(a.dk) + krow * DK + c0, dk, j0, a.t,
+                         a.scale, t4);
   };
   auto store_dv = [&](const float (&dv)[DV / 2]) {
     if (split)
@@ -876,7 +894,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
-    store_dk(dk);
+    store_dk(dk, 0);
     store_dv(dv);
   } else {
     {  // pass 1: dV
@@ -894,21 +912,27 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       }
       store_dv(dv);
     }
-    {  // pass 2: dK
-      float dk[DK / 2], unused[DV / 2];
+    // passes 2 ..: dK, DKC of its columns a pass
+    auto dk_pass = [&](auto part) {
+      constexpr int DKC = DK / dk_parts<DK, DV>(), DK0 = decltype(part)::value * DKC;
+      float dk[DKC / 2], unused[DV / 2];
 #pragma unroll
-      for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
-      for (int it = n_tiles; it < 2 * n_tiles; ++it) {
+      for (int i = 0; i < DKC / 2; ++i) dk[i] = 0.f;
+      const int it0 = (1 + decltype(part)::value) * n_tiles;
+      for (int it = it0; it < it0 + n_tiles; ++it) {
         int s, q0;
         long long qrow;
         tile_args(it, s, q0, qrow);
-        dkdv_tile<DK, DV, false, true>(unused, dk, res, ring + s * PAIR, &full[s],
-                                       (it / kMmaStages) & 1, a, qrow, q0, j0, j1, t4);
+        dkdv_tile<DK, DV, false, true, DKC, DK0>(unused, dk, res, ring + s * PAIR, &full[s],
+                                                 (it / kMmaStages) & 1, a, qrow, q0, j0, j1,
+                                                 t4);
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);
       }
-      store_dk(dk);
-    }
+      store_dk(dk, DK0);
+    };
+    dk_pass(std::integral_constant<int, 0>());
+    if constexpr (dk_parts<DK, DV>() > 1) dk_pass(std::integral_constant<int, 1>());
   }
 }
 
@@ -975,9 +999,9 @@ int launch_wgmma_bwd(const BwdArgs& a, cudaStream_t st) {
 }
 
 // The (Dk, Dv) pairs this file takes: float32 at (32, 32), (64, 64),
-// (80, 80), (96, 96), (128, 128) and (192, 128), and bfloat16 at (80, 80)
-// on the CUDA cores; bfloat16 at (32, 32), (64, 64), (96, 96), (128, 128)
-// and (192, 128) on the tensor cores (``wgmma``)
+// (80, 80), (96, 96), (128, 128), (192, 128) and (256, 256), and bfloat16
+// at (80, 80) on the CUDA cores; bfloat16 at (32, 32), (64, 64), (96, 96),
+// (128, 128), (192, 128) and (256, 256) on the tensor cores (``wgmma``)
 // (repro_torch/kernels/flash_attention/flash_attention.py:BWD_PAIRS and
 // BWD_MMA_PAIRS list the same).
 template <typename T>
@@ -1001,6 +1025,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     if (is(96, 96)) return launch_wgmma_bwd<96, 96>(a, st);
     if (is(128, 128)) return launch_wgmma_bwd<128, 128>(a, st);
     if (is(192, 128)) return launch_wgmma_bwd<192, 128>(a, st);
+    if (is(256, 256)) return launch_wgmma_bwd<256, 256>(a, st);
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (wgmma) return static_cast<int>(cudaErrorInvalidValue);
@@ -1010,6 +1035,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     if (is(96, 96)) return launch_d<T, 96, 96>(a, st);
     if (is(128, 128)) return launch_d<T, 128, 128>(a, st);
     if (is(192, 128)) return launch_d<T, 192, 128>(a, st);
+    if (is(256, 256)) return launch_d<T, 256, 256>(a, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
 }

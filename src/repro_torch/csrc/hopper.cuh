@@ -123,9 +123,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
   else {
-    static_assert(N == 192, "wgmma_rs widths: 32, 64, 96, 128, 192");
-    wgmma_rs_n192(d, a, db);
+    static_assert(N == 256, "wgmma_rs widths: 32, 64, 96, 128, 192, 256");
+    wgmma_rs_n256(d, a, db);
   }
 }
 

@@ -36,12 +36,12 @@ import torch
 from ..common import launch, ptr, stream_of
 
 #: (Dk, Dv) pairs the tensor-core (bf16) kernel, flash_wgmma_kernel, is
-#: compiled for
+#: compiled for: MLA's (192, 128) and paligemma's (256, 256) among them
 MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64),
-                 (192, 128))
+                 (192, 128), (256, 256))
 #: Dv values csrc/flash_attention.cu is compiled for (each thread's output
-#: strip is Dv / 16 registers wide): 80 is hubert's head dim, 256
-#: paligemma's
+#: strip of the CUDA-core kernel is Dv / 16 registers wide): 80 is hubert's
+#: head dim, 256 paligemma's
 COMPILED_DV = (32, 64, 80, 96, 128, 256)
 #: Dk: any multiple of 4 up to this (a loop bound; Qs and Ks grow with it)
 MAX_DK = 256
@@ -51,12 +51,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: of the tensor-core kernel (a copy, then the same kernel) in this process
 CONTIGUOUS_COPIES = 0
 
-#: head dims (Dk = Dv) csrc/flash_attention_bwd.cu is compiled for
-BWD_HEAD_DIMS = (32, 64, 80, 96, 128)
+#: head dims (Dk = Dv) csrc/flash_attention_bwd.cu is compiled for: 256 is
+#: paligemma's
+BWD_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 #: of those, the bfloat16 head dims its tensor-core kernels
 #: (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) take: the widths a
 #: wgmma tile of 64-column boxes takes without padding (80 does not)
-BWD_MMA_HEAD_DIMS = (32, 64, 96, 128)
+BWD_MMA_HEAD_DIMS = (32, 64, 96, 128, 256)
 #: (Dk, Dv) pairs with Dk != Dv it is compiled for: MLA's (deepseek-v2's
 #: nope 128 + rope 64 against v 128), float32 on the CUDA cores and bfloat16
 #: on the tensor cores

@@ -96,8 +96,8 @@ def check_backward(dk: int, dv: int, q_offset: int) -> None:
         raise ValueError(
             f"the flash-attention backward kernel takes (Dk, Dv) in "
             f"{BWD_PAIRS} and q_offset 0; got Dk={dk}, Dv={dv}, "
-            f"q_offset={q_offset} (ROADMAP.md queue 2 item 6 extends it: "
-            f"(256, 256) for paligemma)")
+            f"q_offset={q_offset} (ROADMAP.md queue 2 item 6 lists the "
+            f"pairs the kernels are compiled for)")
 
 
 def _card_forward(q, k, v, causal, scale, q_offset, bq, bk, with_lse=False):

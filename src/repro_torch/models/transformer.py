@@ -27,8 +27,9 @@ tree), cast to the compute dtype inside the graph at every use, as the JAX
 layers cast them; :func:`bind_grads` points their gradients at a tree of
 the same layout.  The port trains the stacks of ``attn`` blocks with a
 dense or MoE MLP and of ``mla`` blocks with an MoE MLP (:data:`TRAINED`),
-behind deepseek's dense first layer and hubert's audio frontend too; an
-MoE layer's load-balance and router-z losses enter the loss as in the JAX
+behind deepseek's dense first layer, paligemma's vision frontend (its
+image prefix takes no loss) and hubert's audio frontend too; an MoE
+layer's load-balance and router-z losses enter the loss as in the JAX
 package.  :func:`check_trainable` raises ``NotImplementedError`` for the
 rest, naming the ``ROADMAP.md`` item that trains them.
 """
@@ -71,16 +72,14 @@ FIRST_LAYER_KINDS = {"attn", "mla"}
 #: modality frontends it builds
 FRONTENDS = {"none", "vision", "audio"}
 #: (block kind, mlp kind) pairs the port trains (a dense first layer of a
-#: kind of FIRST_LAYER_KINDS trains with them), and the ROADMAP.md item that
-#: trains each other block kind or frontend
+#: kind of FIRST_LAYER_KINDS trains with them, and so does every frontend),
+#: and the ROADMAP.md item that trains each other block kind
 TRAINED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe")}
 UNTRAINED = {
     "rwkv": "ROADMAP.md queue 1, step 7b (rwkv6-3b: a rwkv6_scan backward "
             "kernel)",
     "mamba": "ROADMAP.md queue 1, step 7c (jamba: a mamba_scan backward "
              "kernel)",
-    "vision": "ROADMAP.md queue 1, step 7f (paligemma: the (256, 256) flash "
-              "backward)",
 }
 
 _BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "mamba": mamba_spec,
@@ -110,17 +109,14 @@ def check_supported(cfg: ModelConfig) -> None:
             "ROADMAP.md queue 1 ports it")
 
 
-def check_trainable(cfg: ModelConfig, *, frontend: bool = False) -> None:
+def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for an arch :func:`train_loss` does not
-    train: a stacked (block, mlp) pair outside :data:`TRAINED`, or the
-    vision frontend (``frontend=True``: :func:`forward` without a gradient,
-    which also runs it, as paligemma's image prefix does).  A dense first
-    layer and the audio frontend train."""
+    train: a stacked (block, mlp) pair outside :data:`TRAINED`.  A dense
+    first layer and both frontends (paligemma's image prefix, hubert's
+    frames) train with the stack behind them."""
     check_supported(cfg)
     pairs = list(zip(cfg.block_pattern, cfg.mlp_pattern))
     kinds = [k for k, m in pairs if (k, m) not in TRAINED]
-    if cfg.frontend in UNTRAINED and not frontend:
-        kinds.append(cfg.frontend)
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: the port does not train {kinds[0]!r} yet; "
@@ -665,7 +661,7 @@ def forward(model_or_tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig
     package's FSDP weight gathers (``cfg.fsdp_gather_weights``) are the
     distribution slice's; on one device there is nothing to gather, and the
     flag is not read."""
-    check_trainable(cfg, frontend=True)
+    check_trainable(cfg)
     model = _as_model(model_or_tree, cfg)
     x = embed_inputs(model, inputs)
     if cfg.first_layer_dense:

@@ -175,8 +175,8 @@ def test_kernel_head_dims():
     assert not supports_head_dims(30, 32) and not supports_head_dims(260, 256)
     assert not supports_head_dims(256, 192)        # Dv 192 is not compiled
     assert COMPILED_DV == (32, 64, 80, 96, 128, 256)
-    # bf16 (256, 256) runs the CUDA-core kernel, not the tensor-core one
-    assert (256, 256) not in MMA_HEAD_DIMS and (80, 80) not in MMA_HEAD_DIMS
+    # bf16 (256, 256) runs the tensor-core kernel, (80, 80) the CUDA-core one
+    assert (256, 256) in MMA_HEAD_DIMS and (80, 80) not in MMA_HEAD_DIMS
     # the bf16 tensor-core kernel's pairs are a subset of what the wrapper takes
     assert all(supports_head_dims(dk, dv) for dk, dv in MMA_HEAD_DIMS)
     assert (128, 128) in MMA_HEAD_DIMS            # qwen2.5-3b's heads

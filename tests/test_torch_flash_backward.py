@@ -134,14 +134,14 @@ def test_no_grad_call_is_unchanged():
     assert torch.equal(a, b.detach())
 
 
-@pytest.mark.parametrize("dk,dv,q_offset", [(256, 256, 0), (192, 192, 0),
+@pytest.mark.parametrize("dk,dv,q_offset", [(160, 160, 0), (192, 192, 0),
                                              (64, 64, 5), (48, 48, 0)])
 def test_backward_kernel_refuses_other_shapes(dk, dv, q_offset):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 6"):
         check_backward(dk, dv, q_offset)
 
 
-@pytest.mark.parametrize("d", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128, 256])
 def test_backward_kernel_takes_the_training_head_dims(d):
     check_backward(d, d, 0)
 

@@ -16,7 +16,7 @@ under autograd, on the CPU, against ``jax.grad`` of the JAX package.
 * On the card the gradient is ``csrc/flash_attention_bwd.cu``, which only
   ``chip_smoke.py`` runs; here its pair rule: ``check_backward`` takes
   exactly the compiled pairs and raises a ``ValueError`` naming ROADMAP.md
-  queue 2 item 6 for (256, 256), for Dk != Dv outside the list and for a
+  queue 2 item 6 for (256, 128), for Dk != Dv outside the list and for a
   ``q_offset``; (192, 128) takes the tensor cores in bf16 and the CUDA
   cores in f32, and its launch passes both head dims.
 """
@@ -119,7 +119,7 @@ def test_mla_pair_routes_and_is_the_forwards():
 
 
 @pytest.mark.parametrize("dk,dv,q_offset", [
-    (256, 256, 0),                 # paligemma's heads: queue 2 item 6
+    (256, 128, 0),                 # paligemma's Dk against another Dv
     (48, 32, 0), (128, 192, 0), (192, 64, 0),   # Dk != Dv outside the list
     (192, 128, 16), (192, 128, -4)])
 def test_other_pairs_and_offsets_are_refused(dk, dv, q_offset):

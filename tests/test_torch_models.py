@@ -132,14 +132,14 @@ def test_configs_are_the_reference_configs():
         configs.get("gpt-5")
 
 
-@pytest.mark.parametrize("name", ["paligemma-3b"])
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
-    """paligemma's stack and vision frontend are built (its image + text
-    prefill serves), but its training, the flash backward at (256, 256),
-    is not ported: ROADMAP.md queue 1 step 7f."""
+    """jamba's stack is built (it serves), but its training, a
+    ``mamba_scan`` backward kernel, is not ported: ROADMAP.md queue 1 step
+    7c."""
     cfg = configs.get(name).reduced()
-    assert model_spec(cfg)["frontend"].keys() == {"proj"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 7f"):
+    assert "mamba" in cfg.block_pattern and "blocks" in model_spec(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 7c"):
         train_loss({}, {}, cfg)
 
 
