@@ -101,6 +101,20 @@ Phases (any failure exits non-zero and prints no result line):
    d = 2048, 2560, 4096, 8192, 512 and 1536: a row alone bit-equal to row
    2 of a (4, 64, d) batch, and the autograd backward against the plain
    version's;
+   ``rwkv6_scan_bwd`` and ``mamba_scan_bwd`` (the training path's scan
+   gradients) against autograd of their plain versions on the same values
+   in f32, bf16 and f32: rwkv6-3b's training shape (B = 8, H = 40, T =
+   128, D = 64), a ragged T = 77, D = 32 and T = 1, w drawn log-uniform in
+   [0.05, 1); jamba's (B = 8, T = 128, Dm = 16384, N = 16), ragged Dm =
+   300 and 301 (delta bf16 too), N = 32 and 2; f32 gradients within 1e-5
+   of their largest magnitude, bf16 ones within one bf16 ulp more; every
+   call bit-equal to a second one; ``rwkv6_scan_bwd`` against the float64
+   sequential gradient with w drawn down to 1e-12 (and 5 % of it 0), within
+   1e-4 of each gradient's largest magnitude (the plain chunked version's
+   dw is no yardstick there, and is logged beside); through autograd
+   (``rwkv6_scan``, ``selective_scan`` with inputs requiring grad) one
+   forward and one backward launch, the gradients bit-equal to the
+   backward's own, and a ``state0`` refused;
    2b. the four TinyBio kernels with a leading batch axis, for B = 1, 2,
    4, 8: ``fir`` (f32 and Q15 int16), ``delineate`` (with extrema at every
    row's edges), ``power_spectrum`` on (B, 128, 512) and ``svm`` on
@@ -158,7 +172,9 @@ Phases (any failure exits non-zero and prints no result line):
    the kernels line reports) against SDPA with a mask; ``norm`` at qwen's
    step and prefill, stablelm's training forward, rwkv's group norm and
    deepseek's latent norm, against ``F.rms_norm``, ``F.layer_norm`` and
-   ``F.group_norm``;
+   ``F.group_norm``; ``rwkv6_scan_bwd`` and ``mamba_scan_bwd`` at the
+   training shapes beside their bounds and plain versions (autograd through
+   the plain forward; no library call computes either);
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -363,13 +379,21 @@ Phases (any failure exits non-zero and prints no result line):
    256 patch rows (S = T = 384 in attention), run as 11d-11f: its bf16
    attention on ``flash_wgmma_kernel<256, 256>`` and
    ``flash_{dq,dkdv}_wgmma_kernel<256, 256>`` once a layer, then a
-   2-layer f32 cut against the CPU;
+   2-layer f32 cut against the CPU.  11h-11i (``SCAN_FAMILIES``): rwkv6-3b
+   at full width and depth (32 layers, 3.07 G f32 parameters) and jamba's
+   first layer at full width (mamba + dense MLP, 2.10 G), run as 11a: the
+   scan's forward and backward kernels (``rwkv6_kernel`` and
+   ``rwkv6_bwd_kernel``, ``mamba_kernel`` and ``mamba_bwd_kernel``) once a
+   layer a step, counted and in the profiled step, and no plain scan
+   called on the card (``plain_scan_guard``); then a 1-layer f32 cut of
+   each against the CPU (rwkv's with two train steps, as 11a);
 
-12. one ``{"kernels": [...]}`` line for all eleven kernels (launches: phase
+12. one ``{"kernels": [...]}`` line for all thirteen kernels (launches: phase
    4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
    kernels, phases 8's, 9's, 10's and 11's for ``flash_attention``, 11's
-   for ``flash_attention_bwd``, 8's for ``rwkv6_scan`` and 10's for
-   ``mamba_scan``, phases 5's, 8's, 9's and 10's for ``decode_attention``
+   for ``flash_attention_bwd``, 8's and 11h's for ``rwkv6_scan``, 10's
+   and 11i's for ``mamba_scan``, 11h's and 11i's for ``rwkv6_scan_bwd``
+   and ``mamba_scan_bwd``, phases 5's, 8's, 9's and 10's for ``decode_attention``
    (after 4c's registry launches) and phases 5, 6 and 8-11 for ``norm``),
    then, last, ``{"ok": true, "device": {...}}``.  Each phase logs its
    wall time.
@@ -440,8 +464,19 @@ NORM_KERNELS = {
     "norm": ("src/repro_torch/csrc/norm.cu",
              "none: src/repro/models/layers.py:37 (apply_norm, left to XLA)"),
 }
+# the two scans' gradients, which the JAX package leaves to jax.grad of its
+# XLA paths: the kernels replace no TPU kernel, and name that path
+SCAN_BWD_KERNELS = {
+    "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                       "none: src/repro/kernels/rwkv6_scan/ops.py:22 "
+                       "(jax.grad of the XLA path, _chunk_body)"),
+    "mamba_scan_bwd": ("src/repro_torch/csrc/mamba_scan_bwd.cu",
+                       "none: src/repro/kernels/mamba_scan/ops.py:33 "
+                       "(jax.grad of the XLA path, _chunked_assoc)"),
+}
 KERNELS = {**TINYBIO_KERNELS, **GEMM_KERNELS, **LM_KERNELS, **TRAIN_KERNELS,
-           **REGISTRY_KERNELS, **RWKV_KERNELS, **NORM_KERNELS}
+           **REGISTRY_KERNELS, **RWKV_KERNELS, **NORM_KERNELS,
+           **SCAN_BWD_KERNELS}
 # the LM path's geometry (qwen2.5-3b) and its serving run
 LM_ARCH = "qwen2.5-3b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 256, 16, 512
@@ -486,6 +521,22 @@ TRAIN_FAMILIES = (("11d", "moonshot-v1-16b-a3b", 4, 2),
                   ("11e", "deepseek-v2-236b", 1, 1),
                   ("11f", "hubert-xlarge", None, 2),
                   ("11g", "paligemma-3b", None, 2))
+# 11h-11i: the recurrent families, (phase, arch, layers trained at full
+# width (None: all; jamba's first layers, jamba_cut), layers of the f32 cut,
+# whether the cut also takes two train steps).  rwkv6-3b whole (32 layers,
+# 3.07 G parameters, ~34.3 GiB of training state); jamba's first layer,
+# mamba + dense MLP (2.10 G, ~23.4 GiB): its second, mamba + MoE, is 10.1 G
+# more (~113 GiB) and fits no card, so jamba's MoE after a mamba block
+# trains on the CPU only (tests/test_torch_train_jamba.py), as deepseek's
+# MoE does.  rwkv's cut is one layer: at two, a relative change of 1e-7 in
+# the parameters moves the CPU's own gradients by 1.5e-4 of a leaf's
+# largest magnitude (one layer: 9.4e-6; benchmarks_torch/grad_conditioning.py),
+# so no two f32 summation orders need meet the rule of 1e-4 there.
+SCAN_FAMILIES = (("11h", "rwkv6-3b", None, 1, True),
+                 ("11i", "jamba-1.5-large-398b", 1, 1, False))
+#: (forward, backward) device kernels of each recurrent block's scan
+SCAN_KERNEL_NAMES = {"rwkv": ("rwkv6_kernel<", "rwkv6_bwd_kernel<"),
+                     "mamba": ("mamba_kernel<", "mamba_bwd_kernel<")}
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
@@ -528,27 +579,47 @@ def engine_flash_dims(cfg):
              dk, dv), None)
 
 
+def layer_kinds(cfg) -> list:
+    """The block kind of each layer of ``cfg``: the scanned layers, then a
+    dense first layer's."""
+    from repro_torch.models.transformer import _layer_kinds, n_scanned
+    kinds = [_layer_kinds(cfg, layer)[0] for layer in range(n_scanned(cfg))]
+    if cfg.first_layer_dense:
+        kinds.append(cfg.block_pattern[0])
+    return kinds
+
+
 def norms_per_pass(cfg) -> int:
     """Norm kernel launches of one prefill, one decode step or one forward
     of ``cfg``: two a layer (norm1, norm2), one more a layer for rwkv's
     per-head group norm and two more for MLA's latent norms, the final
     norm, and the audio frontend's LayerNorm."""
-    from repro_torch.models.transformer import _layer_kinds, n_scanned
     per = {"attn": 2, "mamba": 2, "rwkv": 3, "mla": 4}
-    kinds = [_layer_kinds(cfg, layer)[0] for layer in range(n_scanned(cfg))]
-    if cfg.first_layer_dense:
-        kinds.append(cfg.block_pattern[0])
-    return 1 + sum(per[k] for k in kinds) + int(cfg.frontend == "audio")
+    return (1 + sum(per[k] for k in layer_kinds(cfg))
+            + int(cfg.frontend == "audio"))
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of ``cfg`` (remat "none":
+    no forward runs again): the flash forward and backward once an
+    attention or MLA layer a step, the scan's forward and backward once an
+    rwkv or mamba layer a step, ``norm`` once a norm of each forward (its
+    backward is PyTorch ops on the kernel's statistics)."""
+    kinds = layer_kinds(cfg)
+    attn = kinds.count("attn") + kinds.count("mla")
+    want = {"flash_attention": attn, "flash_attention_bwd": attn,
+            "rwkv6_scan": kinds.count("rwkv"),
+            "rwkv6_scan_bwd": kinds.count("rwkv"),
+            "mamba_scan": kinds.count("mamba"),
+            "mamba_scan_bwd": kinds.count("mamba"),
+            "norm": norms_per_pass(cfg)}
+    return {k: v * steps for k, v in want.items() if v}
 
 
 def attn_layers(cfg) -> int:
     """Layers of ``cfg`` whose decode step attends through
     ``decode_attention`` (the ``attn`` blocks; MLA keeps its products)."""
-    from repro_torch.models.transformer import _layer_kinds, n_scanned
-    kinds = [_layer_kinds(cfg, layer)[0] for layer in range(n_scanned(cfg))]
-    if cfg.first_layer_dense:
-        kinds.append(cfg.block_pattern[0])
-    return kinds.count("attn")
+    return layer_kinds(cfg).count("attn")
 
 
 def model_launches(cfg, prefills: int, steps: int, **others) -> dict:
@@ -1255,16 +1326,25 @@ def serve_vision(torch, np, dev, cfg, card):
 
 
 def check_train_launches(moved, what, cfg, steps):
-    """``flash_attention`` and ``flash_attention_bwd`` launched once a layer
-    a step, ``norm`` once a norm of each step's forward (remat "none": no
-    forward runs again; the norm's backward is PyTorch ops), no other
-    kernel of ours."""
-    want = {"flash_attention": cfg.n_layers * steps,
-            "flash_attention_bwd": cfg.n_layers * steps,
-            "norm": norms_per_pass(cfg) * steps}
+    """Every kernel of ours launched as :func:`train_launches` says, and no
+    other."""
+    want = train_launches(cfg, steps)
     for name in KERNELS:
         check(moved[name] == want.get(name, 0), f"{what}: launched {name} "
               f"{moved[name]} times, expected {want.get(name, 0)}")
+
+
+def train_kernel_names(cfg) -> tuple:
+    """Name fragments of the device kernels of ours a train step of ``cfg``
+    runs besides the norm's: the flash forward and backward where it has
+    attention, each recurrent block's scan forward and backward."""
+    kinds = set(layer_kinds(cfg))
+    names = (FLASH_KERNEL_NAMES + FLASH_BWD_KERNEL_NAMES
+             if kinds & {"attn", "mla"} else ())
+    for kind, pair in SCAN_KERNEL_NAMES.items():
+        if kind in kinds:
+            names += pair
+    return names
 
 
 def check_train_kernels(per_kernel, counts, what, cfg):
@@ -1272,10 +1352,11 @@ def check_train_kernels(per_kernel, counts, what, cfg):
     kernels of ``cfg``'s route and no other: bf16 at the tensor-core head
     dims (``MMA_HEAD_DIMS``, ``bwd_route``) ``flash_wgmma_kernel`` and
     ``flash_{dq,dkdv}_wgmma_kernel``, else ``flash_kernel`` and the
-    CUDA-core ``flash_{dq,dkdv}_kernel``; each once a layer (``counts``, the
-    profiler's events by name); the norm kernel; and no library attention
-    kernel (SDPA's forward or backward: flash, memory-efficient or cuDNN).
-    -> the flash kernels' names."""
+    CUDA-core ``flash_{dq,dkdv}_kernel``, each once an attention layer
+    (``counts``, the profiler's events by name); an rwkv or mamba block's
+    scan forward and backward kernels once a layer of its kind; the norm
+    kernel; and no library attention kernel (SDPA's forward or backward:
+    flash, memory-efficient or cuDNN).  -> the kernels' names."""
     import torch
     from repro_torch.kernels.flash_attention.flash_attention import (
         MMA_HEAD_DIMS, bwd_route)
@@ -1285,13 +1366,22 @@ def check_train_kernels(per_kernel, counts, what, cfg):
                if any(t in k.lower() for t in LIBRARY_ATTENTION)]
     check(not library, f"{what}: the step ran library attention kernels: "
           f"{library}")
+    kinds = layer_kinds(cfg)
+    ours = sorted(k[k.index(n):].split("(")[0] for k in per_kernel
+                  for n in train_kernel_names(cfg) if n in k)
+    for kind, (fwd, bwd) in SCAN_KERNEL_NAMES.items():
+        for name in (fwd, bwd):
+            ran = sum(c for k, c in counts.items() if name in k)
+            check(ran == kinds.count(kind),
+                  f"{what}: {ran} launches of {name} in the profiled step, "
+                  f"expected one a {kind} layer ({kinds.count(kind)})")
+    attn = kinds.count("attn") + kinds.count("mla")
+    if not attn:
+        return ours
     dims = attn_dims(cfg)
     dtype = getattr(torch, cfg.dtype)
     mma = dtype == torch.bfloat16 and dims in MMA_HEAD_DIMS
     wgmma = bwd_route(dtype, *dims) == "wgmma"
-    ours = sorted(k[k.index(n):].split("(")[0] for k in per_kernel
-                  for n in FLASH_KERNEL_NAMES + FLASH_BWD_KERNEL_NAMES
-                  if n in k)
     # (the forward's names list the CUDA-core kernel first, the
     # backward's the tensor-core one)
     for names, want in ((FLASH_KERNEL_NAMES, FLASH_KERNEL_NAMES[mma]),
@@ -1303,21 +1393,86 @@ def check_train_kernels(per_kernel, counts, what, cfg):
         check(bool(ran) and all(want in k for k in ran),
               f"{what}: the profiled step ran {sorted(ran)}, expected only "
               f"{want}")
-        check(sum(ran.values()) == cfg.n_layers,
+        check(sum(ran.values()) == attn,
               f"{what}: {sum(ran.values())} launches of {want} in the "
-              f"profiled step, expected one a layer ({cfg.n_layers})")
+              f"profiled step, expected one an attention layer ({attn})")
     return ours
 
 
+class plain_scan_guard:
+    """Within the block, count every call of the scans' plain versions
+    (``rwkv6_scan_plain``, ``mamba_scan_plain`` and their backwards, as the
+    ops modules reach them) on CUDA tensors: on the card the ops launch the
+    kernels or raise, and a training phase shows that they did by finding
+    ``calls`` empty."""
+
+    def __enter__(self):
+        from repro_torch.kernels.mamba_scan import ops as mamba_ops
+        from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
+        self.calls = {}
+        self.kept = []
+        for mod, names in ((rwkv_ops, ("rwkv6_scan_plain",
+                                       "rwkv6_scan_bwd_plain")),
+                           (mamba_ops, ("mamba_scan_plain",
+                                        "mamba_scan_bwd_plain"))):
+            for name in names:
+                fn = getattr(mod, name)
+                self.kept.append((mod, name, fn))
+                setattr(mod, name, self._counting(name, fn))
+        return self
+
+    def _counting(self, name, fn):
+        def counted(*args, **kwargs):
+            if args[0].device.type == "cuda":
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.kept:
+            setattr(mod, name, fn)
+        return False
+
+
+def train_shape(cfg) -> str:
+    """``cfg``'s widths, for the training phases' logs."""
+    kinds = set(layer_kinds(cfg))
+    moe_layers = sum(m == "moe" for m in cfg.mlp_pattern) * cfg.n_groups
+    parts = [f"d_model {cfg.d_model}"]
+    if kinds & {"attn", "mla"}:
+        dk, dv = attn_dims(cfg)
+        parts.append(f"{cfg.n_heads} heads of Dk {dk} / Dv {dv}")
+    if "rwkv" in kinds:
+        parts.append(f"{cfg.rwkv_heads} rwkv heads of {cfg.rwkv_head_dim}")
+    if "mamba" in kinds:
+        parts.append(f"Mamba d_inner {cfg.mamba_d_inner}, d_state "
+                     f"{cfg.mamba_d_state}, dt_rank {cfg.mamba_dt_rank}")
+    if moe_layers:
+        parts.append(f"{moe_layers} MoE layers of {cfg.n_experts} experts of "
+                     f"{cfg.d_ff_expert}, top-{cfg.top_k}, "
+                     f"{cfg.n_shared_experts} shared")
+    elif cfg.n_groups:
+        parts.append(f"d_ff {cfg.d_ff}")
+    if cfg.first_layer_dense:
+        parts.append(f"a dense first layer (d_ff {cfg.d_ff_dense or cfg.d_ff})")
+    if cfg.frontend != "none":
+        parts.append(f"{cfg.frontend} frontend")
+    parts.append(f"vocab {cfg.vocab}")
+    return ", ".join(parts)
+
+
 def train_full(torch, np, dev, cfg, card, phase="11a"):
-    """Phase 11a (11d-11g): ``cfg`` (stablelm-1.6b; moonshot-v1-16b-a3b and
-    deepseek-v2-236b cut in depth, hubert-xlarge and paligemma-3b whole) at
-    full width through the launcher's code path (``launch.train.train_loop``, as ``python -m
+    """Phase 11a (11d-11i): ``cfg`` (stablelm-1.6b; moonshot-v1-16b-a3b and
+    deepseek-v2-236b cut in depth, hubert-xlarge, paligemma-3b and
+    rwkv6-3b whole, jamba's first layer) at full width through the
+    launcher's code path (``launch.train.train_loop``, as ``python -m
     repro_torch.launch.train --steps 5`` runs it: batch 8, seq 128, f32
     masters drawn on the card from seed 0, bf16 compute, bf16 moments, remat
     "none", WSD over the 5 steps), with the launch counters reset just
-    before and read just after: ``flash_attention`` and
-    ``flash_attention_bwd`` once a layer a step, nothing else of ours; every
+    before and read just after: each kernel of ours as
+    :func:`train_launches` says (the flash or scan forward and backward
+    once a layer a step), nothing else of ours, and no plain scan called on
+    the card (:class:`plain_scan_guard`); every
     loss finite, the first within 0.5 of ln V + 1/2 (the expected
     cross-entropy of logits of variance 1: a normed hidden state against an
     lm_head drawn with variance 1/d) plus, for an MoE stack, the aux
@@ -1326,9 +1481,9 @@ def train_full(torch, np, dev, cfg, card, phase="11a"):
     least that less 0.5, and the last loss below the first.  Then the
     walls: a trainer from ``build_host_trainer`` steps once warm, three timed steps (host clock to
     a synchronize) and one profiled (busy, idle share, kernels by name and
-    count: the hand-written forward and backward of ``cfg``'s route once a
-    layer, no library attention), peak device memory.  -> the counted run's
-    launches."""
+    count: the hand-written forward and backward kernels of ``cfg``'s route
+    once a layer, no library attention), peak device memory.  -> the
+    counted run's launches."""
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import common
     from repro_torch.launch.train import build_host_trainer, train_loop
@@ -1340,15 +1495,18 @@ def train_full(torch, np, dev, cfg, card, phase="11a"):
     torch.cuda.synchronize()
     common.reset_launches()
     t0 = time.perf_counter()
-    state, losses = train_loop(cfg, tcfg, steps=TRAIN_STEPS,
-                               global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                               seed=0, device=dev)
+    with plain_scan_guard() as guard:
+        state, losses = train_loop(cfg, tcfg, steps=TRAIN_STEPS,
+                                   global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, seed=0, device=dev)
     torch.cuda.synchronize()
     loop_wall = time.perf_counter() - t0
     del state
     moved = dict(common.LAUNCHES)
     check_train_launches(moved, f"{cfg.name} train_loop", cfg,
                          TRAIN_STEPS)
+    check(not guard.calls, f"{cfg.name} train_loop: plain scans ran on the "
+          f"card: {guard.calls}")
     moe_layers = sum(m == "moe" for m in cfg.mlp_pattern) * cfg.n_groups
     expect = math.log(cfg.vocab) + 0.5 + moe_layers * (
         AUX_LB_COEF + AUX_Z_COEF * math.log(max(cfg.n_experts, 1)) ** 2)
@@ -1389,39 +1547,35 @@ def train_full(torch, np, dev, cfg, card, phase="11a"):
         one(i)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    names = train_kernel_names(cfg)
+    per_step = train_launches(cfg, 1)
+    # the flash backward is two device kernels a layer
+    want = (per_step.get("flash_attention", 0) * 3
+            + sum(per_step.get(k, 0) for k in ("rwkv6_scan", "rwkv6_scan_bwd",
+                                                "mamba_scan",
+                                                "mamba_scan_bwd")))
     p_wall, p_busy, p_kernels, counts = profile_ours(
-        torch, lambda: one(4), FLASH_KERNEL_NAMES + FLASH_BWD_KERNEL_NAMES,
-        3 * cfg.n_layers, f"phase {phase}: {cfg.name}'s profiled step")
+        torch, lambda: one(4), names, want,
+        f"phase {phase}: {cfg.name}'s profiled step")
     ran = check_train_kernels(p_kernels, counts, cfg.name, cfg)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_wall = sorted(walls)[1]
+    bwd_names = FLASH_BWD_KERNEL_NAMES + tuple(
+        pair[1] for pair in SCAN_KERNEL_NAMES.values())
     bwd_us = sum(v for k, v in p_kernels.items()
-                 if any(n in k for n in FLASH_BWD_KERNEL_NAMES))
+                 if any(n in k for n in bwd_names))
     fwd_us = sum(v for k, v in p_kernels.items()
-                 if any(n in k for n in FLASH_KERNEL_NAMES))
-    flash_counts = {kernel_name(k) + k[k.index("<"):k.index(">") + 1]: c
-                    for k, c in counts.items()
-                    if any(n in k for n in FLASH_KERNEL_NAMES
-                           + FLASH_BWD_KERNEL_NAMES)}
-    dk, dv = attn_dims(cfg)
-    shape = (f"d_model {cfg.d_model}, {cfg.n_heads} heads of Dk {dk} / Dv "
-             f"{dv}" + (f", {moe_layers} MoE layers of {cfg.n_experts} experts "
-                        f"of {cfg.d_ff_expert}, top-{cfg.top_k}, "
-                        f"{cfg.n_shared_experts} shared"
-                        if moe_layers else
-                        f", d_ff {cfg.d_ff}" if cfg.n_groups else "")
-             + (f", a dense first layer (d_ff {cfg.d_ff_dense or cfg.d_ff})"
-                if cfg.first_layer_dense else "")
-             + (f", {cfg.frontend} frontend" if cfg.frontend != "none" else "")
-             + f", vocab {cfg.vocab}")
+                 if any(n in k for n in names)
+                 and not any(n in k for n in bwd_names))
+    our_counts = {kernel_name(k) + k[k.index("<"):k.index(">") + 1]: c
+                  for k, c in counts.items() if any(n in k for n in names)}
     log(f"phase {phase}: {cfg.name}: {cfg.n_layers} layers at full width "
-        f"({shape}), {n_params} f32 parameters; "
+        f"({train_shape(cfg)}), {n_params} f32 parameters; "
         f"train_loop {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
         f"tokens in {loop_wall:.3f} s, losses "
         + ", ".join(f"{x:.4f}" for x in losses)
         + f" (expected first {expect:.4f}); launches {moved} "
-        f"({cfg.n_layers} flash_attention and {cfg.n_layers} "
-        f"flash_attention_bwd a step)")
+        f"(a step: {per_step}); no plain scan called on the card")
     log(f"phase {phase}: {cfg.name} on {card}: first step {first_wall:.3f} s; "
         f"warm step wall {step_wall * 1e3:.3f} ms (median of 3; "
         + ", ".join(f"{w * 1e3:.3f}" for w in walls)
@@ -1429,7 +1583,7 @@ def train_full(torch, np, dev, cfg, card, phase="11a"):
         f"device memory {peak:.3f} GiB ({before:.3f} GiB allocated before "
         f"the trainer was built); hand-written kernels in the "
         f"profiled step: forward {fwd_us / 1e3:.4f} ms, backward "
-        f"{bwd_us / 1e3:.4f} ms; device launches a step {flash_counts} "
+        f"{bwd_us / 1e3:.4f} ms; device launches a step {our_counts} "
         f"({ran})")
     log(f"phase {phase}: {cfg.name}: " + profile_line(
         "one warm train step", p_wall, p_busy, p_kernels))
@@ -1813,10 +1967,16 @@ def main() -> int:
                                                   layer_norm_ref, rms_norm_ref)
         from repro_torch.kernels.mamba_scan.mamba_scan import (plan_mamba,
                                                                rows_16b)
-        from repro_torch.kernels.mamba_scan.ops import mamba_scan, selective_scan
-        from repro_torch.kernels.mamba_scan.ref import mamba_scan_plain
-        from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
-        from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_plain
+        from repro_torch.kernels.mamba_scan.ops import (mamba_scan,
+                                                        mamba_scan_bwd,
+                                                        selective_scan)
+        from repro_torch.kernels.mamba_scan.ref import (mamba_scan_bwd_plain,
+                                                        mamba_scan_plain)
+        from repro_torch.kernels.rwkv6_scan.ops import (rwkv6_scan,
+                                                        rwkv6_scan_bwd)
+        from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_bwd_plain,
+                                                        rwkv6_scan_plain,
+                                                        rwkv6_scan_seq_grad)
         from repro_torch.models.params import init_params, leaves_with_path
         from repro_torch.models.transformer import Transformer, model_spec
         from repro_torch.train.serve import (greedy_generate, make_decode_step,
@@ -2856,6 +3016,134 @@ def main() -> int:
             f"{k_} {v_:.3g} {mb_share[k_]:.3f} {mb_paths[k_]}"
             for k_, v_ in mb_err.items()) + ")")
 
+    # the scans' backward kernels (the training path's gradients) against
+    # their plain versions (autograd through the plain forward) on the same
+    # values in f32: f32 gradients within 1e-5 of their largest magnitude,
+    # bf16 ones within one bf16 ulp more (agree: the plain gradient is
+    # rounded to bf16 too); every call bit-equal to a second one.  rwkv's w
+    # is drawn log-uniform in [0.05, 1), where the plain chunked form's dw
+    # is accurate; the shapes are rwkv6-3b's and jamba's training shapes
+    # (B = 8, T = 128) and ragged or narrow ones, D = 64 and 32, N = 16, 32
+    # and 2, delta bf16 (the kernels' three entry points).
+    bwd_err = {}
+
+    def twice(name, fn):
+        first = launched(name, fn)
+        again = launched(name, fn)
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(first, again)),
+              f"{name}: a second call differs")
+        return first
+
+    rw_names = ("dr", "dk", "dv", "dw", "du")
+    for dtype in (f32, bf16):
+        for b_, h_, t_, d_ in ((TRAIN_BATCH, rw_h, TRAIN_SEQ, rw_d),
+                               (2, 8, 77, rw_d), (2, 8, 40, 32),
+                               (1, 2, 1, rw_d)):
+            r_, k_, v_ = (normal(b_, h_, t_, d_, dtype=dtype, sc=0.5)
+                          for _ in range(3))
+            w_ = log_uniform(0.05, 1.0, b_, h_, t_, d_)
+            u_, dy_ = normal(h_, d_, sc=0.5), normal(b_, h_, t_, d_, dtype=dtype)
+            got = twice("rwkv6_scan_bwd",
+                        lambda: rwkv6_scan_bwd(r_, k_, v_, w_, u_, dy_))
+            want = rwkv6_scan_bwd_plain(*(z.float() for z in (r_, k_, v_, w_,
+                                                              u_, dy_)))
+            what = (f"rwkv6_scan_bwd {str(dtype)[6:]} B={b_} H={h_} T={t_} "
+                    f"D={d_}")
+            bwd_err[what] = max(agree(f"{what} {n_}", g_, w0_.to(g_.dtype))
+                                for n_, g_, w0_ in zip(rw_names, got, want))
+    # against the exact gradient where the chunked form is not: w drawn
+    # log-uniform down to 1e-12, and with 5 % of it 0 (dw = d log w / w
+    # would be infinite there; the kernel takes dw as the sum of G * S over
+    # the columns, finite for any w), the sequential recurrence's gradient
+    # in float64 the yardstick: every gradient within 1e-4 of its largest
+    # magnitude.  The plain version's dw error is logged beside it.
+    seq_err = {}
+    for label, zero_share in (("w in [1e-12, 1)", 0.0),
+                              ("w in [1e-12, 1), 5 % zeros", 0.05)):
+        b_, h_, t_, d_ = 2, 4, TRAIN_SEQ, rw_d
+        r_, k_, v_ = (normal(b_, h_, t_, d_, sc=0.5) for _ in range(3))
+        w_ = log_uniform(1e-12, 1.0, b_, h_, t_, d_)
+        w_ = torch.where(torch.rand(w_.shape, device=dev) < zero_share, 0.0, w_)
+        u_, dy_ = normal(h_, d_, sc=0.5), normal(b_, h_, t_, d_)
+        got = launched("rwkv6_scan_bwd",
+                       lambda: rwkv6_scan_bwd(r_, k_, v_, w_, u_, dy_))
+        exact = rwkv6_scan_seq_grad(r_, k_, v_, w_, u_, dy_)
+        plain_dw = rwkv6_scan_bwd_plain(r_, k_, v_, w_, u_, dy_)[3]
+        for n_, g_, e_ in zip(rw_names, got, exact):
+            scale = float(e_.abs().max())
+            e = err(g_, e_)
+            check(e <= 1e-4 * scale and bool(torch.isfinite(g_).all()),
+                  f"rwkv6_scan_bwd {label}: {n_} error {e} against max "
+                  f"{scale} of the f64 sequential gradient")
+            seq_err[f"{label} {n_}"] = e / scale
+        pe = (plain_dw.double() - exact[3]).abs().max()
+        seq_err[f"{label} plain dw"] = float(pe) / float(exact[3].abs().max())
+    for dtype in (f32, bf16):
+        for b_, t_, dm, n_, d_dtype in ((TRAIN_BATCH, TRAIN_SEQ, mb_dm, mb_n, f32),
+                                        (2, 100, 300, 16, f32),
+                                        (2, 50, 256, 32, f32),
+                                        (1, 7, 64, 2, f32),
+                                        (2, 50, 301, 16, dtype)):
+            ins = ssm_inputs(b_, t_, dm, n_, dtype, d_dtype)
+            dy_ = normal(b_, t_, dm, dtype=dtype)
+            got = twice("mamba_scan_bwd", lambda: mamba_scan_bwd(*ins, dy_))
+            want = mamba_scan_bwd_plain(*(z.float() for z in ins), dy_.float())
+            what = (f"mamba_scan_bwd {str(dtype)[6:]} B={b_} T={t_} Dm={dm} "
+                    f"N={n_} delta {str(d_dtype)[6:]}")
+            bwd_err[what] = max(
+                agree(f"{what} {nm}", g_, w0_.to(g_.dtype)) for nm, g_, w0_ in
+                zip(("dx", "ddelta", "da", "db", "dc"), got, want))
+    # through autograd, as the model calls them: the forward kernel and the
+    # backward kernel once each, the gradients bit-equal to the backward's
+    # own; a state0 under autograd is refused (no plain fallback)
+    for name, fwd, bwd, ins in (
+            ("rwkv6_scan", lambda *z: rwkv6_scan(*z)[0],
+             lambda *z: rwkv6_scan_bwd(*z),
+             (*(normal(2, 8, 77, rw_d, dtype=bf16, sc=0.5) for _ in range(3)),
+              log_uniform(0.05, 1.0, 2, 8, 77, rw_d), normal(8, rw_d))),
+            ("mamba_scan", lambda *z: selective_scan(*z)[0],
+             lambda *z: mamba_scan_bwd(*z),
+             ssm_inputs(2, 100, 300, 16, bf16))):
+        leaves = [z.clone().requires_grad_() for z in ins]
+        before = {k_: common.LAUNCHES[k_] for k_ in (name, name + "_bwd")}
+        out = fwd(*leaves)
+        dy_ = torch.randn_like(out)
+        out.backward(dy_)
+        torch.cuda.synchronize()
+        check(all(common.LAUNCHES[k_] == before[k_] + 1 for k_ in before),
+              f"{name} under autograd: launches moved "
+              f"{ {k_: common.LAUNCHES[k_] - before[k_] for k_ in before} }, "
+              f"expected one forward and one backward")
+        direct = bwd(*ins, dy_)
+        check(all(torch.equal(z.grad, g_.to(z.dtype))
+                  for z, g_ in zip(leaves, direct)),
+              f"{name} under autograd: gradients differ from {name}_bwd's")
+        state0 = torch.zeros(
+            (2, 8, rw_d, rw_d) if name == "rwkv6_scan" else (2, 300, 16),
+            device=dev)
+        try:
+            (rwkv6_scan(*leaves, state0) if name == "rwkv6_scan"
+             else selective_scan(*leaves, state0))
+        except NotImplementedError:
+            pass
+        else:
+            raise SmokeFailure(f"{name}: a state0 under autograd was not "
+                               f"refused")
+    max_err["rwkv6_scan_bwd"] = bwd_err[
+        f"rwkv6_scan_bwd bfloat16 B={TRAIN_BATCH} H={rw_h} T={TRAIN_SEQ} D={rw_d}"]
+    max_err["mamba_scan_bwd"] = bwd_err[
+        f"mamba_scan_bwd bfloat16 B={TRAIN_BATCH} T={TRAIN_SEQ} Dm={mb_dm} "
+        f"N={mb_n} delta float32"]
+    log("phase 2: rwkv6_scan_bwd and mamba_scan_bwd ok (against autograd of "
+        "the plain versions on the same values in f32, each bit-equal on a "
+        "second call; max abs err: " + ", ".join(
+            f"{k_} {v_:.3g}" for k_, v_ in bwd_err.items())
+        + "); rwkv6_scan_bwd against the f64 sequential gradient (error / "
+        "max |g|; the plain chunked version is no yardstick there, its dw "
+        "beside): " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in seq_err.items())
+        + "; through autograd one forward and one backward launch each, "
+        "bits equal; state0 under autograd refused")
+
     # -- 2b. the four TinyBio kernels with a leading batch axis ---------------
     phase_done("2b")
     # Serving lifts each stage over a batch (torch.func.vmap); each card
@@ -3551,6 +3839,63 @@ def main() -> int:
             f"{sfu_ms:.6f} ms; kernel {r['ms'] / mb_bound[0]:.2f}x its bound, "
             f"{r['ms'] / sfu_ms:.2f}x the SFU floor")
     rows["mamba_scan"] = mb_rows[1, 256]
+
+    # the scans' backward kernels at the training shapes (rwkv6-3b: B = 8,
+    # H = 40, T = 128, D = 64, r/k/v/dy bf16 and w f32; jamba: B = 8,
+    # T = 128, Dm = 16384, N = 16, x/dy bf16, delta f32), each beside its
+    # bound and its plain version (autograd through the plain forward); no
+    # PyTorch call computes either gradient: library none.  Bounds: rwkv
+    # reads r, k, v, dy (bf16), w (f32) and u once and writes dr, dk, dv
+    # (bf16), dw (f32) and du once, against 6 FMAs (12 f32 flops) a state
+    # entry a step (the S and G recurrences and the products of dr, dk, dv
+    # and dw); mamba reads x, dy (bf16), delta (f32), a, b and c once and
+    # writes dx (bf16), ddelta (f32), da, db and dc once, against 18 f32
+    # flops a step, channel and state (the h and dh recurrences and the
+    # terms of dx, ddelta, da, db and dc), with the special-function unit's
+    # floor (one exponential a step, channel and state) logged beside it.
+    r_, k_, v_ = (normal(TRAIN_BATCH, rw_h, TRAIN_SEQ, rw_d, dtype=bf16,
+                         sc=0.5) for _ in range(3))
+    w_ = torch.exp(-torch.exp(normal(TRAIN_BATCH, rw_h, TRAIN_SEQ, rw_d,
+                                     sc=0.5) - 1.0))
+    u_ = normal(rw_h, rw_d, sc=0.5)
+    dy_ = normal(TRAIN_BATCH, rw_h, TRAIN_SEQ, rw_d, dtype=bf16)
+    n_in = TRAIN_BATCH * rw_h * TRAIN_SEQ * rw_d
+    b_ms, b_by = bound(n_in * (4 * 2 + 4 + 3 * 2 + 4) + 8.0 * rw_h * rw_d,
+                       12.0 * n_in * rw_d)
+    rows["rwkv6_scan_bwd"] = r = dict(
+        ms=device_ms(torch, lambda: rwkv6_scan_bwd(r_, k_, v_, w_, u_, dy_), 20),
+        plain_ms=device_ms(torch, lambda: rwkv6_scan_bwd_plain(
+            r_, k_, v_, w_, u_, dy_), 1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    fwd_ms = device_ms(torch, lambda: rwkv6_scan(r_, k_, v_, w_, u_), 20)
+    log(f"phase 3: rwkv6_scan_bwd rwkv6-3b training B={TRAIN_BATCH} H={rw_h} "
+        f"T={TRAIN_SEQ} D={rw_d} (r/k/v/dy bf16, w f32): device time per "
+        f"call: kernel {fmt(r['ms'])} (the backward and du's sum over B), "
+        f"plain {fmt(r['plain_ms'])} (autograd through the plain forward), "
+        f"library none; bound {b_ms:.6f} ms ({b_by}); kernel "
+        f"{r['ms'] / b_ms:.1f}x its bound; the forward kernel at this shape "
+        f"{fwd_ms:.6f} ms")
+    ins = ssm_inputs(TRAIN_BATCH, TRAIN_SEQ, mb_dm, mb_n, bf16)
+    dy_ = normal(TRAIN_BATCH, TRAIN_SEQ, mb_dm, dtype=bf16)
+    elems = TRAIN_BATCH * TRAIN_SEQ * mb_dm
+    b_ms, b_by = bound(elems * (2 + 2 + 4 + 2 + 4) + 8.0 * (
+        mb_dm * mb_n + 2 * TRAIN_BATCH * TRAIN_SEQ * mb_n),
+        18.0 * elems * mb_n)
+    sfu_ms = elems * mb_n / (SFU_PER_CLK_PER_SM * n_sms * max_sm_mhz * 1e6) * 1e3
+    rows["mamba_scan_bwd"] = r = dict(
+        ms=device_ms(torch, lambda: mamba_scan_bwd(*ins, dy_), 10),
+        plain_ms=device_ms(torch, lambda: mamba_scan_bwd_plain(*ins, dy_), 1,
+                           replays=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    fwd_ms = device_ms(torch, lambda: selective_scan(*ins), 20)
+    log(f"phase 3: mamba_scan_bwd jamba training B={TRAIN_BATCH} T={TRAIN_SEQ} "
+        f"Dm={mb_dm} N={mb_n} (x/dy bf16, delta f32): device time per call: "
+        f"kernel {fmt(r['ms'])} (the backward and the sums of da, db and dc), "
+        f"plain {fmt(r['plain_ms'])} (autograd through the plain forward), "
+        f"library none; bound {b_ms:.6f} ms ({b_by}), SFU floor "
+        f"{sfu_ms:.6f} ms; kernel {r['ms'] / b_ms:.2f}x its bound, "
+        f"{r['ms'] / sfu_ms:.2f}x the SFU floor; the forward kernel at this "
+        f"shape {fwd_ms:.6f} ms")
 
     # -- 4a. the TinyBio main path --------------------------------------------
     phase_done("4a")
@@ -4456,7 +4801,7 @@ def main() -> int:
     for name in ("flash_attention", "norm", "decode_attention"):
         launches[name] += moved[name]
 
-    # -- 11. the training path: stablelm, the 86M example, hubert, 11d-11g -------
+    # -- 11. the training path: stablelm, the 86M example, hubert, 11d-11i -------
     phase_done("11")
     # Phase 10's models are freed by then.  11a trains stablelm-1.6b at full
     # width and depth through the launcher's train_loop (flash_attention and
@@ -4481,7 +4826,21 @@ def main() -> int:
         moved.append(train_full(torch, np, dev, cfg_, card, phase))
         train_cut(torch, np, dev, base, card, n_layers=cut_layers,
                   steps=False, phase=phase)
-    for name in ("flash_attention", "flash_attention_bwd", "norm"):
+    # 11h-11i: the recurrent families, their scans' forward and backward
+    # kernels once a layer a step: rwkv6-3b whole, then its 2-layer f32 cut
+    # with two train steps (as 11a); jamba's first layer (mamba + dense),
+    # then that layer's f32 cut (as 11d-11g)
+    for phase, arch, n_layers_, cut_layers, cut_steps in SCAN_FAMILIES:
+        phase_done(phase)
+        base = get_arch(arch)
+        if n_layers_:
+            base = jamba_cut(base, n_layers_)
+        moved.append(train_full(torch, np, dev, base, card, phase))
+        train_cut(torch, np, dev, base, card, n_layers=cut_layers,
+                  steps=cut_steps, phase=phase)
+    for name in ("flash_attention", "flash_attention_bwd", "norm",
+                 "rwkv6_scan", "rwkv6_scan_bwd", "mamba_scan",
+                 "mamba_scan_bwd"):
         launches[name] += sum(m[name] for m in moved)
 
     # -- 12. summary --------------------------------------------------------------

@@ -51,7 +51,8 @@ LAUNCHES: Dict[str, int] = {"fir": 0, "delineate": 0, "stockham_fft": 0,
                             "svm": 0, "gemm": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0,
                             "decode_attention": 0, "mamba_scan": 0,
-                            "rwkv6_scan": 0, "norm": 0}
+                            "mamba_scan_bwd": 0, "rwkv6_scan": 0,
+                            "rwkv6_scan_bwd": 0, "norm": 0}
 
 
 def reset_launches() -> None:

@@ -12,6 +12,13 @@ chain of steps never waits on device memory; the exponentials are
 ``2^(delta * a log2 e)`` on the special-function unit.  :func:`plan_mamba`
 picks ``lanes``.  The output leaves out the D * x skip term, as the TPU
 kernel does.
+
+``csrc/mamba_scan_bwd.cu`` is the scan's gradient (no state in, no gradient
+into the final state), which replaces no TPU kernel: the JAX package takes
+it from ``jax.grad`` of its XLA path.  One thread a channel of one batch
+row, 128 a block whatever B is (:func:`bwd_blocks`); it recomputes h from
+checkpoints it writes every 8 steps with the forward's own exponentials,
+and sums b's and c's gradients over channels in a fixed order.
 """
 
 from __future__ import annotations
@@ -59,6 +66,13 @@ _SYMBOL = {(torch.float32, torch.float32): "repro_mamba_scan_f32",
            (torch.bfloat16, torch.float32): "repro_mamba_scan_bf16",
            (torch.bfloat16, torch.bfloat16): "repro_mamba_scan_bf16d"}
 DTYPES = tuple(_SYMBOL)
+_BWD_ARGS = [_P] * 15 + [_I] * 5 + [_P]
+_BWD_SYMBOL = {key: name.replace("scan", "scan_bwd")
+               for key, name in _SYMBOL.items()}
+#: the backward kernel's channels a block and steps between the states it
+#: checkpoints (csrc/mamba_scan_bwd.cu: kThreads, kC)
+BWD_CHANNELS = 128
+BWD_CHUNK = 8
 
 
 class MambaPlan(NamedTuple):
@@ -138,3 +152,33 @@ def launch_mamba_scan(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
            ptr(delta), ptr(a), ptr(b), ptr(c), ptr(state0), ptr(y),
            ptr(state), bsz, t, dm, n, lanes, int(copy16),
            x.device.index, stream_of(x))
+
+
+def bwd_blocks(dm: int) -> int:
+    """Blocks of one batch row in the backward kernel (128 channels each):
+    a channel's sums never depend on B."""
+    return cdiv(dm, BWD_CHANNELS)
+
+
+def launch_mamba_scan_bwd(x: torch.Tensor, delta: torch.Tensor,
+                          a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                          dy: torch.Tensor, dx: torch.Tensor,
+                          ddelta: torch.Tensor, da: torch.Tensor,
+                          db: torch.Tensor, dc: torch.Tensor) -> None:
+    """Launch the backward on contiguous CUDA tensors x/delta/dy (B,T,Dm),
+    T >= 1, f32 a (Dm,N) and b/c (B,T,N), into the contiguous ``dx`` (x's
+    dtype), ``ddelta`` (delta's dtype), f32 ``da`` (Dm,N), ``db`` and ``dc``
+    (B,T,N), on the current stream.  The state checkpoints and the partial
+    sums are scratch allocated here."""
+    bsz, t, dm = x.shape
+    n = a.shape[1]
+    f32, dev = torch.float32, x.device
+    ckpt = torch.empty((bsz, cdiv(t, BWD_CHUNK), dm, n), dtype=f32, device=dev)
+    da_part = torch.empty((bsz, dm, n), dtype=f32, device=dev)
+    db_part, dc_part = (torch.empty((bsz, bwd_blocks(dm), t, n), dtype=f32,
+                                    device=dev) for _ in range(2))
+    launch("mamba_scan_bwd", _BWD_SYMBOL[x.dtype, delta.dtype], _BWD_ARGS,
+           ptr(x), ptr(delta), ptr(a), ptr(b), ptr(c), ptr(dy), ptr(ckpt),
+           ptr(dx), ptr(ddelta), ptr(da_part), ptr(db_part), ptr(dc_part),
+           ptr(da), ptr(db), ptr(dc), bsz, t, dm, n, dev.index,
+           stream_of(x))

@@ -14,6 +14,9 @@ Diagonal state-space recurrence per channel d with state size N:
   (an identity step).  It computes what the CUDA kernel
   (``csrc/mamba_scan.cu``) computes; the wrapper ``ops.mamba_scan`` runs it
   for CPU and ``meta`` tensors and adds the skip term on every device.
+* :func:`mamba_scan_bwd_plain` is the gradient of the plain version
+  (autograd through it: the mirror of ``jax.grad`` of ``_chunked_assoc``),
+  which sits beside the backward kernel (``csrc/mamba_scan_bwd.cu``).
 * :func:`counts` is the JAX package's, for the machine model.
 """
 
@@ -114,3 +117,16 @@ def mamba_scan_plain(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
     y = (torch.cat(ys, dim=1)[:, :t] if ys
          else torch.zeros((bsz, 0, dm), dtype=f32, device=x.device))
     return y.to(x.dtype), h
+
+
+def mamba_scan_bwd_plain(x, delta, a, b, c, dy, *, chunk: int = 64):
+    """(dx, ddelta, da, db, dc) of ``sum(y * dy)`` for ``y =
+    mamba_scan_plain(x, delta, a, b, c)[0]`` (the scan without the skip
+    term, no state in, no gradient into the final state), by autograd
+    through the plain version: dx and ddelta in their inputs' dtypes, da,
+    db and dc in f32, as the kernel gives them."""
+    with torch.enable_grad():
+        leaves = [z.detach().requires_grad_() for z in (x, delta, a, b, c)]
+        y = mamba_scan_plain(*leaves, chunk=chunk)[0]
+        dx, ddelta, da, db, dc = torch.autograd.grad(y, leaves, dy.to(y.dtype))
+    return dx, ddelta, da.float(), db.float(), dc.float()

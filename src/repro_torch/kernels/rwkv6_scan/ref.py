@@ -17,6 +17,13 @@ w_t in (0, 1) and per-channel bonus u:
   exponential <= 1, T padded with ``w = 1, k = 0``.  It sits beside the CUDA
   kernel (``csrc/rwkv6_scan.cu``): the wrapper ``ops.rwkv6_scan`` runs it
   for CPU and ``meta`` tensors.
+* :func:`rwkv6_scan_bwd_plain` is the gradient of the plain version
+  (autograd through it: the mirror of ``jax.grad`` of the XLA path), which
+  sits beside the backward kernel (``csrc/rwkv6_scan_bwd.cu``).  Its dw, like
+  ``jax.grad``'s, comes from differences of cumulative log-decays, and loses
+  accuracy where w is small (ROADMAP.md queue 3);
+  :func:`rwkv6_scan_seq_grad`, autograd through the sequential loop in a
+  dtype the caller names (f64), is the yardstick there.
 * :func:`counts` is the JAX package's, for the machine model.
 """
 
@@ -34,12 +41,16 @@ def rwkv6_scan_ref(r, k, v, w, u, state0=None):
 
     ``state0`` (B, H, D, D) seeds the recurrence (decode / chunk chaining).
     """
-    b, h, t, d = r.shape
     f32 = torch.float32
-    r, k, v, w = (x.to(f32) for x in (r, k, v, w))
-    u = u.to(f32)
-    s = (torch.zeros((b, h, d, d), dtype=f32, device=r.device)
-         if state0 is None else state0.to(f32))
+    return _recurrence(*(x.to(f32) for x in (r, k, v, w, u)),
+                       None if state0 is None else state0.to(f32))
+
+
+def _recurrence(r, k, v, w, u, s=None):
+    """The sequential scan in the dtype of its inputs: (y, final state)."""
+    b, h, t, d = r.shape
+    if s is None:
+        s = torch.zeros((b, h, d, d), dtype=r.dtype, device=r.device)
     ys = []
     for i in range(t):
         kv = k[:, :, i, :, None] * v[:, :, i, None, :]       # (B, H, D, D)
@@ -47,7 +58,7 @@ def rwkv6_scan_ref(r, k, v, w, u, state0=None):
                                s + u[None, :, :, None] * kv))
         s = w[:, :, i, :, None] * s + kv
     y = (torch.stack(ys, dim=2) if ys
-         else torch.zeros((b, h, 0, d), dtype=f32, device=r.device))
+         else torch.zeros((b, h, 0, d), dtype=r.dtype, device=r.device))
     return y, s
 
 
@@ -114,3 +125,31 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       w[:, :, part], uf, strict, eye)
         ys.append(y)
     return torch.cat(ys, dim=2)[:, :, :t].to(dtype), s
+
+
+def _grads(fn, inputs, dy, dtype=None):
+    """Autograd of ``fn(*inputs)[0]`` against ``dy``, the inputs taken in
+    ``dtype`` (None: their own) -> one gradient per input."""
+    with torch.enable_grad():
+        leaves = [x.detach().to(dtype or x.dtype).requires_grad_()
+                  for x in inputs]
+        y = fn(*leaves)[0]
+        return torch.autograd.grad(y, leaves, dy.to(y.dtype))
+
+
+def rwkv6_scan_bwd_plain(r, k, v, w, u, dy, *, chunk: int = 32):
+    """(dr, dk, dv, dw, du) of ``sum(y * dy)`` for ``y = rwkv6_scan_plain(r,
+    k, v, w, u)[0]`` (no state in, no gradient into the final state), by
+    autograd through the plain version: dr, dk, dv in their inputs' dtypes,
+    dw and du in f32, as the kernel gives them."""
+    dr, dk, dv, dw, du = _grads(
+        lambda *x: rwkv6_scan_plain(*x, chunk=chunk), (r, k, v, w, u), dy)
+    return dr, dk, dv, dw.float(), du.float()
+
+
+def rwkv6_scan_seq_grad(r, k, v, w, u, dy, dtype=torch.float64):
+    """(dr, dk, dv, dw, du), all in ``dtype``, by autograd through the
+    sequential recurrence (``rwkv6_scan_ref``'s loop) run in ``dtype``: its
+    dw is the product of running decays, exact to the dtype's rounding for
+    any w, where the chunked log-decay form's is not."""
+    return _grads(_recurrence, (r, k, v, w, u), dy, dtype)

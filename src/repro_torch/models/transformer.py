@@ -25,13 +25,14 @@ training loss) and :func:`train_loss`.  Training takes a model built with
 the block leaves viewed per layer, so an in-place optimizer step writes the
 tree), cast to the compute dtype inside the graph at every use, as the JAX
 layers cast them; :func:`bind_grads` points their gradients at a tree of
-the same layout.  The port trains the stacks of ``attn`` blocks with a
-dense or MoE MLP and of ``mla`` blocks with an MoE MLP (:data:`TRAINED`),
-behind deepseek's dense first layer, paligemma's vision frontend (its
-image prefix takes no loss) and hubert's audio frontend too; an MoE
+the same layout.  The port trains every stack it builds (:data:`PORTED`):
+``attn`` blocks with a dense or MoE MLP, ``mla`` blocks with an MoE MLP,
+``rwkv`` blocks (the WKV scan's gradient a kernel of its own on the card)
+and ``mamba`` blocks with a dense or MoE MLP (likewise the selective
+scan's), behind deepseek's dense first layer, paligemma's vision frontend
+(its image prefix takes no loss) and hubert's audio frontend too; an MoE
 layer's load-balance and router-z losses enter the loss as in the JAX
-package.  :func:`check_trainable` raises ``NotImplementedError`` for the
-rest, naming the ``ROADMAP.md`` item that trains them.
+package.
 """
 
 from __future__ import annotations
@@ -71,17 +72,6 @@ PORTED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe"),
 FIRST_LAYER_KINDS = {"attn", "mla"}
 #: modality frontends it builds
 FRONTENDS = {"none", "vision", "audio"}
-#: (block kind, mlp kind) pairs the port trains (a dense first layer of a
-#: kind of FIRST_LAYER_KINDS trains with them, and so does every frontend),
-#: and the ROADMAP.md item that trains each other block kind
-TRAINED = {("attn", "dense"), ("attn", "moe"), ("mla", "moe")}
-UNTRAINED = {
-    "rwkv": "ROADMAP.md queue 1, step 7b (rwkv6-3b: a rwkv6_scan backward "
-            "kernel)",
-    "mamba": "ROADMAP.md queue 1, step 7c (jamba: a mamba_scan backward "
-             "kernel)",
-}
-
 _BLOCK_SPECS = {"attn": attn_spec, "mla": mla_spec, "mamba": mamba_spec,
                 "rwkv": rwkv_spec}
 #: leaves the model keeps in float32 besides the norms (the JAX blocks read
@@ -111,16 +101,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for an arch :func:`train_loss` does not
-    train: a stacked (block, mlp) pair outside :data:`TRAINED`.  A dense
-    first layer and both frontends (paligemma's image prefix, hubert's
-    frames) train with the stack behind them."""
+    train: one the port does not build (:func:`check_supported`).  Every
+    (block, mlp) pair of :data:`PORTED` trains, and so do a dense first
+    layer and both frontends (paligemma's image prefix, hubert's frames)
+    with the stack behind them."""
     check_supported(cfg)
-    pairs = list(zip(cfg.block_pattern, cfg.mlp_pattern))
-    kinds = [k for k, m in pairs if (k, m) not in TRAINED]
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not train {kinds[0]!r} yet; "
-            f"{UNTRAINED[kinds[0]]} trains it")
 
 
 # ---------------------------------------------------------------------------
@@ -320,16 +305,24 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     k_rope) or the decode step's cache (written in place); for ``rwkv`` the
     state (tlast, wkv, clast) and for ``mamba`` the state (conv window, ssm)
     after the prefill, or the decode step's cache (written in place).  In
-    ``mode="train"`` (an ``attn`` or ``mla`` block over the whole sequence,
-    keeping no cache) it returns (x, aux) instead: the layer's (2,) f32
-    [load_balance, router_z], an MoE layer's mean over its routing groups
-    (one a sequence, the JAX stack's rule) and zeros for a dense MLP.  An
-    MoE layer routes groups of ``moe_group_size`` tokens (None:
-    :func:`moe_group`); only the train mode computes its aux losses."""
+    ``mode="train"`` (any block over the whole sequence from a zero state,
+    keeping no cache or state) it returns (x, aux) instead: the layer's (2,)
+    f32 [load_balance, router_z], an MoE layer's mean over its routing
+    groups (one a sequence, the JAX stack's rule) and zeros for a dense MLP
+    or an rwkv block.  An MoE layer routes groups of ``moe_group_size``
+    tokens (None: :func:`moe_group`); only the train mode computes its aux
+    losses."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     rs = residual_scale(cfg)
     h = apply_norm(p["norm1"], x, cfg)
+    if kind == "rwkv" and mode == "train":
+        # the JAX train branch: the time mix from a zero state and the
+        # channel mix with no last token, keeping neither
+        x = x + mul_scalar(rwkv_time_mix(p["block"], h, cfg), rs)
+        h2 = apply_norm(p["norm2"], x, cfg)
+        x = x + mul_scalar(rwkv_channel_mix(p["block"], h2, cfg), rs)
+        return x, torch.zeros(2, dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         # the JAX prefill seeds every layer with init_rwkv_state's zeros;
         # None is the same state (the kernel starts from zeros)
@@ -348,6 +341,8 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         if mode == "decode":
             out, new_cache = mamba_decode(p["block"], h, cache, cfg)
             new_cache = _write_state(cache, new_cache)
+        elif mode == "train":
+            out, new_cache = mamba_full(p["block"], h, cfg), None
         else:
             out, new_cache = mamba_full(p["block"], h, cfg, return_state=True)
     elif kind == "mla":
@@ -652,7 +647,7 @@ def forward(model_or_tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig
     ``model_or_tree`` is a :class:`Transformer` (``trainable=True`` to
     train it) or a parameter tree in the JAX layout (a serving model is
     built from it).  ``inputs`` as :func:`embed_inputs` takes them.  Runs
-    the stacks of :data:`TRAINED` (behind a vision or audio frontend too):
+    every stack of :data:`PORTED` (behind a vision or audio frontend too):
     a dense first layer (``layer0``, deepseek's) first, as the JAX
     ``_apply_layer0``, outside the remat policy and with no aux; then each
     scanned layer under ``cfg.remat``.  The aux losses are the layers'
@@ -686,8 +681,9 @@ def train_loss(model_or_tree, batch: Dict[str, torch.Tensor],
     "labels" (B, S), optional "mask" (B, S)} -> (loss, metrics ``ce``,
     ``load_balance``, ``router_z``, ``loss``), each a 0-d f32 tensor: the
     cross-entropy plus 0.01 load balance plus 0.001 router z, as the JAX
-    package's.  Raises ``NotImplementedError`` for an arch the port does
-    not train (:func:`check_trainable`)."""
+    package's (an rwkv or a dense stack adds zeros).  Raises
+    ``NotImplementedError`` for an arch the port does not build
+    (:func:`check_trainable`)."""
     check_trainable(cfg)
     model = _as_model(model_or_tree, cfg)
     hidden, aux = forward(model, batch, cfg)

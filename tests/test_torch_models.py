@@ -49,8 +49,7 @@ from repro_torch.models.params import (init_params, leaves_with_path,
                                        map_tree, param_bytes)
 from repro_torch.models.transformer import (Transformer, cache_axes,
                                             cache_struct, decode_step,
-                                            init_cache, model_spec, prefill,
-                                            train_loss)
+                                            init_cache, model_spec, prefill)
 from repro_torch.train.serve import (greedy_generate, make_decode_step,
                                      make_prefill_step)
 
@@ -130,17 +129,6 @@ def test_configs_are_the_reference_configs():
     assert configs.get("qwen2.5-3b").param_count() == 3_085_697_024
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get("gpt-5")
-
-
-@pytest.mark.parametrize("name", ["jamba-1.5-large-398b"])
-def test_unported_archs_raise_naming_the_roadmap(name):
-    """jamba's stack is built (it serves), but its training, a
-    ``mamba_scan`` backward kernel, is not ported: ROADMAP.md queue 1 step
-    7c."""
-    cfg = configs.get(name).reduced()
-    assert "mamba" in cfg.block_pattern and "blocks" in model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 7c"):
-        train_loss({}, {}, cfg)
 
 
 # -- params -------------------------------------------------------------------

@@ -263,24 +263,36 @@ def test_train_state_defaults_to_the_card_and_bf16_params():
                for _, t in leaves_with_path(state["params"]))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("rwkv6-3b", "7b"), ("jamba-1.5-large-398b", "7c")])
-def test_untrained_families_raise_naming_the_roadmap(arch, item):
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_trains_through_every_entry_point(arch):
+    """rwkv6-3b (the WKV scan's gradient) and jamba (the selective scan's,
+    beside its MoE and attention layers) train through ``check_trainable``,
+    ``train_loss``, ``make_train_step`` and ``init_train_state``: finite
+    losses from the shared pipeline's batches, and a step that moves every
+    block's parameters."""
     cfg = configs.get(arch).reduced()
-    for call in (lambda: check_trainable(cfg),
-                 lambda: train_loss({}, {}, cfg),
-                 lambda: make_train_step(cfg, TrainConfig(), None),
-                 lambda: init_train_state(cfg, TrainConfig(), 0,
-                                          device="meta")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1, step {item}"):
-            call()
+    jcfg = jconfigs.ARCHS[arch].reduced()
+    check_trainable(cfg)
+    step = make_train_step(cfg, TrainConfig(remat="none"),
+                           wsd_schedule(1e-3, 10))
+    state = init_train_state(cfg, TrainConfig(), 0, device="cpu")
+    before = map_tree(torch.clone, state["params"]["blocks"])
+    for i in range(2):            # WSD's first step has lr 0: the second moves
+        state, m = step(state, map_tree(torch.from_numpy,
+                                        _batch(cfg, jcfg, i)))
+        assert math.isfinite(float(m["loss"]))
+    for (path, a), (_, b) in zip(leaves_with_path(state["params"]["blocks"]),
+                                 leaves_with_path(before)):
+        assert not torch.equal(a, b), path
+    loss, _ = train_loss(state["params"],
+                         map_tree(torch.from_numpy, _batch(cfg, jcfg, 2)), cfg)
+    assert math.isfinite(float(loss))
 
 
 def test_paligemma_trains_through_every_entry_point():
-    """The entry points that refuse rwkv6-3b and jamba take paligemma-3b
-    (the vision frontend; its heads of 256 on the (256, 256) flash backward
-    on the card): a finite loss from its image + text batch."""
+    """The entry points take paligemma-3b (the vision frontend; its heads
+    of 256 on the (256, 256) flash backward on the card): a finite loss
+    from its image + text batch."""
     cfg = configs.get("paligemma-3b").reduced()
     jcfg = jconfigs.ARCHS["paligemma-3b"].reduced()
     check_trainable(cfg)

@@ -144,7 +144,7 @@ def test_256_routes_to_the_tensor_cores_in_bf16(dtype, route):
 def test_paligemma_is_trainable():
     for cfg in (configs.get(ARCH), configs.get(ARCH).reduced(), _cfgs()[0]):
         check_trainable(cfg)
-    assert "vision" not in transformer.UNTRAINED
+    assert "vision" in transformer.FRONTENDS
 
 
 def test_the_vision_batch_is_the_jax_pipelines():
