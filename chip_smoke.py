@@ -302,9 +302,10 @@ Phases (any failure exits non-zero and prints no result line):
    (moonshot's D = 128 and deepseek's Dk 192 / Dv 128 on
    ``flash_wgmma_kernel``), and no library attention kernel.  Walls, tokens/s,
    a warm step's busy time and idle share, and the peak memory after each
-   model are printed.  Then a 2-layer f32 cut of each at full width
-   (deepseek: its dense first layer and one MoE layer, so the shared
-   experts and the dense layer run on the card only there), the same
+   model are printed.  Then an f32 cut of each at full width (moonshot:
+   one layer, its layers being all alike; deepseek: its dense first layer
+   and one MoE layer, so the shared experts and the dense layer run on the
+   card only there), the same
    parameters on the card and the CPU: prefill of 2 × 64 tokens and 4
    decode steps teacher-forced from the CPU's tokens within 5b's
    tolerances, greedy tokens equal, and every modeled ``stats()`` field of
@@ -386,11 +387,38 @@ Phases (any failure exits non-zero and prints no result line):
    ``rwkv6_bwd_kernel``, ``mamba_kernel`` and ``mamba_bwd_kernel``) once a
    layer a step, counted and in the profiled step, and no plain scan
    called on the card (``plain_scan_guard``); then a 1-layer f32 cut of
-   each against the CPU (rwkv's with two train steps, as 11a);
+   each against the CPU (rwkv's with two train steps on 2 x 128 tokens,
+   as 11a; jamba's on 1 x 128, the CPU's own time being most of it);
 
-12. one ``{"kernels": [...]}`` line for all thirteen kernels (launches: phase
-   4's main paths, plus phase 4d's and phase 7's for the GeMM and TinyBio
-   kernels, phases 8's, 9's, 10's and 11's for ``flash_attention``, 11's
+12. the distribution layer.  12a: TinyBio at full size (65,536 samples,
+   a 128-tap FIR, 128 windows of 512, an SVM of 256 x 36) served as 16
+   requests through ``Server`` with ``EGPU_16T`` on three sharded lanes
+   (``SHARDED_LANES``): a ``ShardedWorker`` over the card at one mesh
+   position, at two positions (``data=2``, the one H100 at both; each
+   micro-batch of 4 splits into two launches, one a position, each on its
+   position's own stream) and the ``max_batch=3`` fallback (3 rows do not
+   split over 2, so one replicated launch); the counters reset just before
+   each lane's run and read just after, then around single micro-batches:
+   each TinyBio kernel launched once a micro-batch a shard, nothing else;
+   a profiled run of the same requests gives the idle share (its trace
+   must hold no more of those kernels than ran; one that lost some in
+   every window is logged, its idle share not read).  Every output bit-equal to a plain
+   ``QueueWorker`` lane on the card; on a virtual clock every modeled
+   ``ServeReport`` field (shards, mesh axes and utilization among them)
+   and the cache stats equal the same lane's CPU run.  The wall per
+   request and the idle share are printed.  12b: the collective layer on
+   NCCL in a world of one rank (``launch.mesh.make_host_mesh()``):
+   ``compressed_psum`` of stablelm-1.6b's embedding gradient (100352 x
+   2048 f32, 822 MB), its mean and new error equal to the CPU codec's bits
+   and its gathered payload int8 (the collective wrapped and its dtype
+   read); the ~86M example model's tree distributed under
+   ``TRAIN_FSDP_RULES``, gathered, saved and restored with
+   ``restore_sharded`` onto the mesh, every leaf's bits kept; the group
+   destroyed at the end of the phase;
+
+13. one ``{"kernels": [...]}`` line for all thirteen kernels (launches: phase
+   4's main paths, plus phase 4d's, phase 7's and phase 12's for the GeMM
+   and TinyBio kernels, phases 8's, 9's, 10's and 11's for ``flash_attention``, 11's
    for ``flash_attention_bwd``, 8's and 11h's for ``rwkv6_scan``, 10's
    and 11i's for ``mamba_scan``, 11h's and 11i's for ``rwkv6_scan_bwd``
    and ``mamba_scan_bwd``, phases 5's, 8's, 9's and 10's for ``decode_attention``
@@ -487,9 +515,11 @@ RWKV_BATCH, RWKV_PROMPT, RWKV_NEW, RWKV_MAX_LEN = 4, 256, 16, 512
 # the decode engine's serving run (phase 8), for both models
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_MAX_LEN = (
     4, 6, 256, 16, 512)
-# the MoE and MLA families (phase 9): (arch, layers served on the card);
-# deepseek-v2-236b's 60 layers (471 GB in bf16) fit no card
-MOE_ARCHS = (("moonshot-v1-16b-a3b", 48), ("deepseek-v2-236b", 4))
+# the MoE and MLA families (phase 9): (arch, layers served on the card,
+# layers of the f32 cut held against the CPU); deepseek-v2-236b's 60 layers
+# (471 GB in bf16) fit no card, and its cut needs the dense first layer and
+# one MoE layer; moonshot's layers are all alike, so one does
+MOE_ARCHS = (("moonshot-v1-16b-a3b", 48, 1), ("deepseek-v2-236b", 4, 2))
 MAMBA_ARCH = "jamba-1.5-large-398b"
 # phase 10a: jamba's first four layers (mamba/dense, mamba/moe, mamba/dense,
 # attn/moe) at full width; one period of 8 (88 GB in bf16) fits no card
@@ -523,7 +553,8 @@ TRAIN_FAMILIES = (("11d", "moonshot-v1-16b-a3b", 4, 2),
                   ("11g", "paligemma-3b", None, 2))
 # 11h-11i: the recurrent families, (phase, arch, layers trained at full
 # width (None: all; jamba's first layers, jamba_cut), layers of the f32 cut,
-# whether the cut also takes two train steps).  rwkv6-3b whole (32 layers,
+# whether the cut also takes two train steps, the cut's batch of 128-token
+# rows: the cut's time is mostly the CPU's).  rwkv6-3b whole (32 layers,
 # 3.07 G parameters, ~34.3 GiB of training state); jamba's first layer,
 # mamba + dense MLP (2.10 G, ~23.4 GiB): its second, mamba + MoE, is 10.1 G
 # more (~113 GiB) and fits no card, so jamba's MoE after a mamba block
@@ -532,8 +563,8 @@ TRAIN_FAMILIES = (("11d", "moonshot-v1-16b-a3b", 4, 2),
 # the parameters moves the CPU's own gradients by 1.5e-4 of a leaf's
 # largest magnitude (one layer: 9.4e-6; benchmarks_torch/grad_conditioning.py),
 # so no two f32 summation orders need meet the rule of 1e-4 there.
-SCAN_FAMILIES = (("11h", "rwkv6-3b", None, 1, True),
-                 ("11i", "jamba-1.5-large-398b", 1, 1, False))
+SCAN_FAMILIES = (("11h", "rwkv6-3b", None, 1, True, 2),
+                 ("11i", "jamba-1.5-large-398b", 1, 1, False, 1))
 #: (forward, backward) device kernels of each recurrent block's scan
 SCAN_KERNEL_NAMES = {"rwkv": ("rwkv6_kernel<", "rwkv6_bwd_kernel<"),
                      "mamba": ("mamba_kernel<", "mamba_bwd_kernel<")}
@@ -900,7 +931,8 @@ def stats_match_cpu(torch, np, dev, cut, tree, what):
     cpu_stats = cut_stats(torch, np, cut, tree, "cpu")
     for key in cpu_stats:
         check(card_stats[key] == cpu_stats[key],
-              f"{what} 2-layer cut: stats()[{key!r}] {card_stats[key]} on "
+              f"{what} {cut.n_layers}-layer cut: stats()[{key!r}] "
+              f"{card_stats[key]} on "
               f"the card, {cpu_stats[key]} on the CPU")
 
 
@@ -1904,6 +1936,281 @@ def encode_hubert(torch, np, dev, cfg, card):
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return moved
+
+
+#: phase 12a's sharded lanes: (label, mesh positions, max_batch, shards
+#: a micro-batch launch splits into)
+SHARDED_LANES = (("one position", 1, 4, 1), ("two positions", 2, 4, 2),
+                 ("max_batch=3 fallback", 2, 3, 1))
+SHARDED_REQUESTS = 16
+#: the TinyBio kernels' device function names, by counter name
+TINYBIO_DEVICE_NAMES = {"fir": "fir_kernel", "delineate": "delineate_kernel",
+                        "stockham_fft": "stockham_fft_kernel",
+                        "svm": "svm_kernel"}
+#: phase 12b's gradient leaf: this arch's embedding (vocab x d_model, f32)
+PSUM_ARCH = "stablelm-1.6b"
+
+
+class VClock:
+    """A virtual clock: the serving timeline becomes the machine model's,
+    so reports of two runs compare with ==."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def modeled_report(rep) -> dict:
+    """Every ServeReport field but the three read on the host's clock."""
+    measured = ("wall_s", "requests_per_s", "goodput_per_s")
+    return {k: v for k, v in dataclasses.asdict(rep).items()
+            if k not in measured}
+
+
+def serve_sharded(torch, np, dev, card) -> dict:
+    """Phase 12a: TinyBio served on the sharded lanes of ``SHARDED_LANES``
+    (see the module docstring); -> launches of each TinyBio kernel in the
+    counted runs."""
+    from repro_torch.apps import tinybio
+    from repro_torch.core import EGPU_16T
+    from repro_torch.distributed.sharding import LocalMesh
+    from repro_torch.kernels import common
+    from repro_torch.serve import QueueWorker, Server, ShardedWorker, data_mesh
+    n = tinybio.TINYBIO_WORKLOAD["n"]
+    stages = {d: tinybio.tinybio_stages(EGPU_16T, 0, d)[0]
+              for d in ("cuda", "cpu")}
+    signals = [tinybio.synth_signal(n, s) for s in range(SHARDED_REQUESTS)]
+
+    def mesh_of(device, positions):
+        if device == "cuda":
+            return (data_mesh(1) if positions == 1 else
+                    LocalMesh([torch.device(dev)] * positions, ("data",)))
+        return data_mesh(positions, device="cpu")
+
+    def serve(worker, device, max_batch, clock=None):
+        kw = {} if clock is None else {"clock": clock}
+        srv = Server(stages[device], workers=(worker,), bucket_sizes=(n,),
+                     max_batch=max_batch, device=device, **kw)
+        check(srv.warmup(signals[0]) == 1, "sharded lane: warmup captured "
+              "other than one graph")
+        return srv
+
+    def run(srv, clock=None):
+        rids = []
+        for i, sig in enumerate(signals):
+            if clock is not None:
+                clock.t = 1e-4 * i
+            rids.append(srv.submit(sig))
+        if clock is not None:
+            clock.t = 1e-4 * len(signals) + 1e-3
+        srv.flush()
+        return [srv.result(r) for r in rids]
+
+    def same_bits(a, b):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    total = {name: 0 for name in TINYBIO_KERNELS}
+    for label, positions, max_batch, shards in SHARDED_LANES:
+        t_lane = time.perf_counter()
+        plain = run(serve(QueueWorker(EGPU_16T, device="cuda"), "cuda",
+                          max_batch))
+        lane = ShardedWorker(EGPU_16T, mesh_of("cuda", positions),
+                             name=f"mesh{positions}")
+        srv = serve(lane, "cuda", max_batch)
+        run(srv)        # warm: the lane's plan, its streams' first blocks
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        outs = run(srv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = dict(common.LAUNCHES)
+        batches = -(-len(signals) // max_batch)
+        for name in KERNELS:
+            want = batches * shards if name in TINYBIO_KERNELS else 0
+            check(moved[name] == want,
+                  f"12a {label}: {name} launched {moved[name]} times in "
+                  f"{batches} micro-batches, expected {want} (once a shard)")
+            if name in TINYBIO_KERNELS:
+                total[name] += moved[name]
+        for i, (a, b) in enumerate(zip(outs, plain)):
+            check(len(a) == len(b) == 1 and a[0].is_cuda
+                  and same_bits(a[0], b[0]),
+                  f"12a {label}: request {i} differs from the plain lane")
+        (graph,) = srv.cache._graphs.values()
+        check(lane._plan(graph).shards == shards,
+              f"12a {label}: the lane split a micro-batch "
+              f"{lane._plan(graph).shards} ways, expected {shards}")
+        # the modeled report on a virtual clock: the card's == the CPU's
+        reports, caches = [], []
+        for device in ("cuda", "cpu"):
+            vc = VClock()
+            srv_vc = serve(ShardedWorker(EGPU_16T, mesh_of(device, positions),
+                                         name=f"mesh{positions}"),
+                           device, max_batch, vc)
+            outs_vc = run(srv_vc, vc)
+            reports.append(modeled_report(srv_vc.report()))
+            caches.append(srv_vc.cache.stats())
+            if device == "cuda":
+                check(all(same_bits(a[0], b[0]) for a, b in zip(outs_vc, outs)),
+                      f"12a {label}: the virtual-clock run's bits differ")
+        check(reports[0] == reports[1],
+              f"12a {label}: a modeled ServeReport field differs between "
+              "card and CPU")
+        check(caches[0] == caches[1],
+              f"12a {label}: cache stats card {caches[0]} != CPU {caches[1]}")
+        (qs,) = srv.report().queues
+        # one micro-batch at a time, the counters reset just before each:
+        # each TinyBio kernel launched once a shard, nothing else
+        for _ in range(2):
+            torch.cuda.synchronize()
+            common.reset_launches()
+            for sig in signals[:max_batch]:
+                srv.submit(sig)
+            srv.flush()
+            torch.cuda.synchronize()
+            one = dict(common.LAUNCHES)
+            for name in KERNELS:
+                want = shards if name in TINYBIO_KERNELS else 0
+                check(one[name] == want,
+                      f"12a {label}: one micro-batch launched {name} "
+                      f"{one[name]} times, expected {want} (once a shard)")
+        log(f"phase 12a {label}: {len(signals)} requests in {batches} "
+            f"micro-batches of {max_batch}, {shards} launch(es) a micro-batch "
+            f"(mesh {qs.mesh_axes}, utilization {qs.mesh_utilization}, lane "
+            f"width {qs.shards}); launches {moved}, and "
+            f"{ {k: one[k] for k in TINYBIO_KERNELS} } a micro-batch alone; "
+            f"bit-equal to the plain lane; modeled report and cache "
+            f"{caches[0]} == the CPU's; wall {wall * 1e3:.3f} ms, "
+            f"{wall / len(signals) * 1e3:.3f} ms a request ({card})")
+        # the same requests again, profiled, for the idle share.  A trace
+        # may lose device events (whole windows came back empty late in a
+        # run, and others short by a third): it may hold fewer of our
+        # kernels than ran, never more; a short trace in every window is
+        # logged and its idle share not read
+        want = batches * shards
+        prof = profile_ours(torch, lambda: run(srv),
+                            tuple(TINYBIO_DEVICE_NAMES.values()),
+                            len(TINYBIO_DEVICE_NAMES) * want, f"12a {label}")
+        held = {dev_name: sum(c for k, c in prof[3].items() if dev_name in k)
+                for dev_name in TINYBIO_DEVICE_NAMES.values()}
+        check(all(n_ <= want for n_ in held.values()),
+              f"12a {label}: the profiled run's trace holds {held}, more than "
+              f"the {want} launches of each that ran")
+        what = (f"the {len(signals)} requests again, profiled ({batches} "
+                f"micro-batches of {max_batch}, {shards} launch(es) each)")
+        if all(n_ == want for n_ in held.values()):
+            log(f"phase 12a {label}: " + profile_line(what, *prof[:3]))
+        else:
+            log(f"phase 12a {label}: {what}: the trace held {held} of {want} "
+                f"launches each in every window; idle share not measured")
+        log(f"phase 12a {label}: {time.perf_counter() - t_lane:.1f} s of wall")
+    return total
+
+
+def collective_layer(torch, np, dev, card) -> None:
+    """Phase 12b: the int8 compressed all-reduce and elastic restore on
+    NCCL in a world of one rank (see the module docstring)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_sharded, save_checkpoint
+    from repro_torch.configs import example_config, get as get_arch
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.elastic import gather_tree
+    from repro_torch.distributed.sharding import (TRAIN_FSDP_RULES,
+                                                  distribute_tree,
+                                                  param_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import init_params, leaves_with_path, map_tree
+    from repro_torch.models.transformer import model_spec
+
+    def bits(t):
+        t = t.detach()
+        if t.dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int8):
+            t = t.reshape(-1).view(torch.uint8)
+        return t
+
+    mesh = make_host_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+              f"12b: host mesh on {dist.get_backend()} / {mesh.device_type}")
+        cfg = get_arch(PSUM_ARCH)
+        shape = (cfg.vocab, cfg.d_model)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        g = torch.randn(shape, generator=gen, device=dev)
+        e = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        seen = []
+        orig = dist.all_gather_into_tensor
+
+        def wrapped(output, input, *a, **kw):
+            seen.append((input.dtype, input.numel()))
+            return orig(output, input, *a, **kw)
+
+        dist.all_gather_into_tensor = wrapped
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, new_e = compression.compressed_psum(g, e, "data", mesh)
+            torch.cuda.synchronize()
+            psum_s = time.perf_counter() - t0
+        finally:
+            dist.all_gather_into_tensor = orig
+        check(seen == [(torch.int8, g.numel()), (torch.float32, 1)],
+              f"12b: the gathered payloads were {seen}, expected int8 then "
+              "one f32 scale")
+        g_cpu, e_cpu = g.cpu(), e.cpu()
+        del g, e
+        q, scale, e_ref = compression.compress_int8(g_cpu, e_cpu)
+        mean_ref = torch.sum(q.to(torch.float32).view((1,) + shape)
+                             * scale.reshape(1, 1, 1), dim=0) / 1
+        check(torch.equal(bits(mean.cpu()), bits(mean_ref)),
+              "12b: compressed_psum's mean differs from the CPU codec's bits")
+        check(torch.equal(bits(new_e.cpu()), bits(e_ref)),
+              "12b: compressed_psum's new error differs from the CPU codec's")
+        del mean, new_e, g_cpu, e_cpu, q, e_ref, mean_ref
+        log(f"phase 12b: compressed_psum of {PSUM_ARCH}'s embedding gradient "
+            f"{shape} f32 ({shape[0] * shape[1] * 4 / 1e6:.0f} MB) on NCCL, "
+            f"world 1: {psum_s * 1e3:.3f} ms (first call), mean and error "
+            f"bit-equal to the CPU codec, payload int8 ({card})")
+        # elastic restore of the example model's tree onto the mesh
+        ecfg = example_config()
+        spec = model_spec(ecfg)
+        tree = init_params(spec, seed=0, device=dev)
+        placements = param_shardings(spec, TRAIN_FSDP_RULES, mesh)
+        placed = distribute_tree(tree, placements, mesh)
+        whole = gather_tree(placed)
+        n_params = sum(t.numel() for _, t in leaves_with_path(tree))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "step_00000001")
+            t0 = time.perf_counter()
+            save_checkpoint(path, whole, step=1)
+            save_s = time.perf_counter() - t0
+            like = map_tree(lambda _t: None, tree)
+            t0 = time.perf_counter()
+            back, manifest = restore_sharded(path, like, spec,
+                                             TRAIN_FSDP_RULES, mesh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        check(manifest["step"] == 1, "12b: the restored manifest's step")
+        saved = dict(leaves_with_path(tree))
+        for p_, dt in leaves_with_path(back):
+            check(dt.device_mesh is mesh or dt.device_mesh == mesh,
+                  f"12b: {p_} restored on another mesh")
+            check(tuple(dt.placements) == tuple(dict(leaves_with_path(
+                placements))[p_]), f"12b: {p_} restored under other placements")
+            check(dt.to_local().is_cuda and torch.equal(
+                bits(dt.full_tensor()), bits(saved[p_])),
+                f"12b: {p_} changed bits through save + restore_sharded")
+        log(f"phase 12b: the example model's tree ({n_params / 1e6:.1f} M f32 "
+            f"parameters, {len(saved)} leaves) distributed under "
+            f"{TRAIN_FSDP_RULES.name}, saved in {save_s:.2f} s, restored onto "
+            f"the mesh with restore_sharded in {restore_s:.2f} s, every leaf's "
+            "bits kept")
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -4517,15 +4824,6 @@ def main() -> int:
     signals = [tinybio.synth_signal(n_sig, s_) for s_ in range(16)]
     serve_batch = 4
 
-    class VClock:
-        """A virtual clock: the serving timeline becomes the machine
-        model's, so reports of two runs compare with ==."""
-        def __init__(self):
-            self.t = 0.0
-
-        def __call__(self):
-            return self.t
-
     def make_server(device, **kw):
         return Server(serve_stages if device == "cuda" else cpu_serve_stages,
                       workers=(QueueWorker(EGPU_16T, device=device),
@@ -4584,11 +4882,6 @@ def main() -> int:
         f"of {serve_batch}: launches {serve_launches}; cache {srv.cache.stats()}; "
         f"every request bit-equal to its own APU.offload on the card")
     # modeled fields on a virtual clock: the card's run equals the CPU's
-    measured = ("wall_s", "requests_per_s", "goodput_per_s")
-
-    def modeled(rep_):
-        return {k_: v_ for k_, v_ in dataclasses.asdict(rep_).items() if k_ not in measured}
-
     vc_card, vc_cpu = VClock(), VClock()
     srv_vc = make_server("cuda", clock=vc_card)
     srv_vc.warmup(signals[0])
@@ -4596,7 +4889,7 @@ def main() -> int:
     srv_cpu = make_server("cpu", clock=vc_cpu)
     srv_cpu.warmup(signals[0])
     outs_cpu = serve(srv_cpu, vc_cpu)
-    check(modeled(srv_vc.report()) == modeled(srv_cpu.report()),
+    check(modeled_report(srv_vc.report()) == modeled_report(srv_cpu.report()),
           "served TinyBio: a modeled ServeReport field differs between card and CPU")
     check(all(same_bits(a_[0], b_[0]) for a_, b_ in zip(outs_vc, served)),
           "served TinyBio on a virtual clock differs from the real-clock run")
@@ -4616,7 +4909,7 @@ def main() -> int:
     check(schema_errors == [], f"traced serving: chrome trace {schema_errors[:3]}")
     check(all(same_bits(a_[0], b_[0]) for a_, b_ in zip(outs_tr, outs_vc)),
           "traced serving changed the outputs")
-    check(modeled(srv_tr.report()) == modeled(srv_vc.report()),
+    check(modeled_report(srv_tr.report()) == modeled_report(srv_vc.report()),
           "tracing perturbed the modeled report")
     # faults: the 16T lane blacked out for its first two launches plus
     # seeded launch failures; every failed attempt retries on a lane, and
@@ -4728,13 +5021,13 @@ def main() -> int:
     # Phases 5-8's models, caches and cuts are freed by then; each
     # family is served through the decode engine at full width on a bf16
     # tree (moonshot 48 layers; deepseek its dense first layer and three
-    # MLA + MoE layers), then a 2-layer f32 cut of each is held against the
+    # MLA + MoE layers), then an f32 cut of each is held against the
     # CPU (deepseek's shared experts and dense first layer run on the card
     # only in its runs here).
     torch.cuda.empty_cache()
     log(f"phase 9: device memory before the phase: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
-    for arch, n_layers_ in MOE_ARCHS:
+    for arch, n_layers_, _ in MOE_ARCHS:
         cfg_ = dataclasses.replace(get_arch(arch), n_layers=n_layers_)
         e = serve_engine(torch, np, dev, cfg_,
                          {"flash_attention": (cfg_.n_layers, 0)},
@@ -4768,13 +5061,14 @@ def main() -> int:
         log(f"phase 9: {arch}: " + profile_line("one warm engine prefill",
                                                 *e["prefill_profile"]))
         log(f"phase 9: {arch}: stats " + json.dumps(e["stats"]))
-    for arch, _ in MOE_ARCHS:
-        cut = dataclasses.replace(get_arch(arch), n_layers=2, dtype="float32")
+    for arch, _, cut_layers in MOE_ARCHS:
+        cut = dataclasses.replace(get_arch(arch), n_layers=cut_layers,
+                                  dtype="float32")
         t0 = time.perf_counter()
         cut_errs, cut_tree = card_against_cpu(torch, np, dev, cut, arch)
         stats_match_cpu(torch, np, dev, cut, cut_tree, arch)
         n_cut = sum(t.numel() for _, t in leaves_with_path(cut_tree))
-        log(f"phase 9: {arch}: 2-layer full-width f32 cut"
+        log(f"phase 9: {arch}: {cut_layers}-layer full-width f32 cut"
             + (" (the dense first layer and one MLA + MoE layer with its "
                "shared experts)" if cut.first_layer_dense else "")
             + f", {n_cut * 4 / 1e9:.1f} GB, card vs CPU: greedy tokens equal "
@@ -4827,23 +5121,31 @@ def main() -> int:
         train_cut(torch, np, dev, base, card, n_layers=cut_layers,
                   steps=False, phase=phase)
     # 11h-11i: the recurrent families, their scans' forward and backward
-    # kernels once a layer a step: rwkv6-3b whole, then its 2-layer f32 cut
+    # kernels once a layer a step: rwkv6-3b whole, then its 1-layer f32 cut
     # with two train steps (as 11a); jamba's first layer (mamba + dense),
-    # then that layer's f32 cut (as 11d-11g)
-    for phase, arch, n_layers_, cut_layers, cut_steps in SCAN_FAMILIES:
+    # then that layer's f32 cut on one row (as 11d-11g)
+    for (phase, arch, n_layers_, cut_layers, cut_steps,
+         cut_batch) in SCAN_FAMILIES:
         phase_done(phase)
         base = get_arch(arch)
         if n_layers_:
             base = jamba_cut(base, n_layers_)
         moved.append(train_full(torch, np, dev, base, card, phase))
         train_cut(torch, np, dev, base, card, n_layers=cut_layers,
-                  steps=cut_steps, phase=phase)
+                  batch=cut_batch, steps=cut_steps, phase=phase)
     for name in ("flash_attention", "flash_attention_bwd", "norm",
                  "rwkv6_scan", "rwkv6_scan_bwd", "mamba_scan",
                  "mamba_scan_bwd"):
         launches[name] += sum(m[name] for m in moved)
 
-    # -- 12. summary --------------------------------------------------------------
+    # -- 12. the distribution layer: sharded TinyBio lanes, NCCL collectives ----
+    phase_done("12")
+    moved = serve_sharded(torch, np, dev, card)
+    launches.update({name: launches[name] + moved[name]
+                     for name in TINYBIO_KERNELS})
+    collective_layer(torch, np, dev, card)
+
+    # -- 13. summary --------------------------------------------------------------
     phase_done()
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -17,8 +17,10 @@ other's checkpoints bit for bit.
   host memory now and writes it in a background thread, so the train loop
   keeps stepping during serialisation; ``wait()`` joins before the next
   save (one outstanding snapshot).
-* Restoring under a device mesh (the JAX package's ``restore_sharded``) is
-  the distribution slice's (``ROADMAP.md`` queue 1, step 9).
+* **Elastic restore**: :func:`restore_sharded` places the host tensors
+  under the placements a ``DeviceMesh`` derives from the leaves' logical
+  axes; the writing mesh's size does not matter (N -> M restarts are the
+  default path, not a special case).
 """
 
 from __future__ import annotations
@@ -48,6 +50,11 @@ def _host(leaf) -> np.ndarray | torch.Tensor:
     the train step updates the tree in place while the writer thread
     serialises the snapshot."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):
+            raise TypeError(
+                "a DTensor leaf is saved whole: gather the tree first "
+                "(repro_torch.distributed.elastic.gather_tree, a collective "
+                "every rank joins) and save it from one rank")
         t = leaf.detach()
         t = t.clone() if t.device.type == "cpu" else t.cpu()
         if t.dtype == torch.bfloat16:
@@ -127,6 +134,20 @@ def load_checkpoint(path: str, like=None):
     return _unflatten(like, flat), manifest
 
 
+def restore_sharded(path: str, like, spec_tree, rules, mesh):
+    """Elastic restore: (tree of DTensors on ``mesh``, manifest).
+
+    ``spec_tree`` carries the logical axes (a ParamSpec tree of ``like``'s
+    structure); each leaf is placed under
+    :func:`~repro_torch.distributed.sharding.param_shardings` of ``rules`` on
+    ``mesh``, each rank cutting its own block of the whole tensor it loaded.
+    """
+    from ..distributed.sharding import distribute_tree, param_shardings
+    tree, manifest = load_checkpoint(path, like=like)
+    return (distribute_tree(tree, param_shardings(spec_tree, rules, mesh),
+                            mesh), manifest)
+
+
 class CheckpointManager:
     """Rotating async checkpoint manager for the train loop."""
 
@@ -174,14 +195,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore_latest(self, like, spec_tree=None, rules=None, mesh=None):
-        """(tree like ``like`` of CPU tensors, manifest) of the latest
-        checkpoint, or (None, None).  A ``mesh`` raises: elastic restore
-        under a mesh is the distribution slice's."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "restore under a device mesh (restore_sharded) comes with "
-                "the distribution slice: ROADMAP.md queue 1, step 9")
+        """(tree like ``like``, manifest) of the latest checkpoint, or
+        (None, None): CPU tensors, or with ``spec_tree`` and ``mesh`` the
+        DTensors of :func:`restore_sharded`."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return load_checkpoint(self._step_dir(step), like=like)
+        path = self._step_dir(step)
+        if spec_tree is not None and mesh is not None:
+            return restore_sharded(path, like, spec_tree, rules, mesh)
+        return load_checkpoint(path, like=like)

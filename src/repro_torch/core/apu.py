@@ -130,7 +130,8 @@ class APU:
 
     def __init__(self, config: EGPUConfig = EGPU_16T, device: Any = "cuda",
                  explicit_transfers: bool = False,
-                 graph_cache: Optional[Any] = None):
+                 graph_cache: Optional[Any] = None,
+                 placement: Optional[Any] = None):
         self.egpu = Device(config)
         self.host = Device(HOST)
         self.egpu_ctx = Context(self.egpu, device)
@@ -141,6 +142,12 @@ class APU:
         #: (see :meth:`capture_pipeline`)
         self.explicit_transfers = explicit_transfers
         self.graph_cache = graph_cache
+        #: hashable device-placement identity, or None for plain
+        #: single-device execution.  A ShardedWorker stamps its mesh +
+        #: sharding-rule signature here; GraphCache keys include it, so a
+        #: sharded capture and a single-device capture of the same pipeline
+        #: can never collide in a shared cache.
+        self.placement = placement
         # This APU's own launch queue: graph offloads bind their events and
         # modeled totals here.
         self.queue = CommandQueue(self.egpu_ctx)

@@ -69,6 +69,7 @@ write read-only ones.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import inspect
 import math
@@ -1566,21 +1567,48 @@ class CommandGraph:
         for b in donated:
             b.consumed = True
         if queue_events:
-            done = _record_done(outs)
-            target = queue if queue is not None else self.queue
-            slot_buf = dict(zip(self._output_slots(), outs))
-            for i, node in enumerate(self.nodes):
-                node_outs = tuple(slot_buf[s] for s in node.out_slots
-                                  if s in slot_buf)
-                ev = Event(node.kernel, node_outs, node.modeled,
-                           node.energy_j, dispatch if i == 0 else 0.0,
-                           device_done=done)
-                target._events.append(ev)
-                if target._tracer is not None:
-                    target._trace_event(ev)
-                for b in node_outs:      # dataflow edge for later eager
-                    b._event = ev        # consumers, same as enqueue
+            self.book_events(outs, dispatch,
+                             queue if queue is not None else self.queue)
         return outs
+
+    def book_events(self, outs: Tuple[Buffer, ...], dispatch_s: float,
+                    queue: CommandQueue) -> None:
+        """Append one launch's per-node events to ``queue``: each node's
+        captured modeled cost, the first carrying ``dispatch_s``, all sharing
+        a ``torch.cuda.Event`` recorded behind ``outs`` on the current
+        stream.  :meth:`launch` calls it; a caller that ran the launch in
+        pieces (a sharded lane) calls it once for the whole."""
+        done = _record_done(outs)
+        slot_buf = dict(zip(self._output_slots(), outs))
+        for i, node in enumerate(self.nodes):
+            node_outs = tuple(slot_buf[s] for s in node.out_slots
+                              if s in slot_buf)
+            ev = Event(node.kernel, node_outs, node.modeled,
+                       node.energy_j, dispatch_s if i == 0 else 0.0,
+                       device_done=done)
+            queue._events.append(ev)
+            if queue._tracer is not None:
+                queue._trace_event(ev)
+            for b in node_outs:      # dataflow edge for later eager
+                b._event = ev        # consumers, same as enqueue
+
+    def rebind(self, ext_values: Sequence[torch.Tensor]) -> "CommandGraph":
+        """A graph sharing this one's nodes whose launches take externals of
+        ``ext_values``' shapes, dtypes and devices (what :meth:`launch`
+        checks), one per external in capture order; a zero-argument launch
+        uses ``ext_values`` themselves.  The nodes' executors run any batch
+        extent on any device; the captured machine model stays this
+        graph's.  A sharded lane derives one per (shard extent, mesh
+        position)."""
+        if len(ext_values) != len(self._ext_values):
+            raise ValueError(f"graph takes {len(self._ext_values)} externals, "
+                             f"got {len(ext_values)}")
+        g = copy.copy(self)
+        g._ext_values = list(ext_values)
+        g._ext_avals = [_meta_like(t) for t in ext_values]
+        g.queues = list(self.queues)
+        g._verify_memo = {}
+        return g
 
     def launch_prefix(self, inputs: Sequence[Any],
                       **launch_kwargs: Any) -> Tuple[Buffer, ...]:

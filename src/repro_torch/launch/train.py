@@ -13,8 +13,12 @@ The JAX package's ``launch/train.py`` for one device, on the card unless
   checkpoint; ``--simulate-failure k`` exits with code 42 after step k, so
   tests exercise the restart path.
 
-Training under a device mesh (sharded state, elastic restore) is the
-distribution slice's (``ROADMAP.md`` queue 1, step 9).
+The distribution layer (``repro_torch.distributed``: sharding rules as
+DTensor placements, the int8 compressed all-reduce; elastic restore through
+``checkpoint.restore_sharded``; ``launch.mesh``, ``launch.straggler``) is
+ported.  Sharded training through the models — their ``constrain`` hooks
+and the context-parallel attention — waits for the next slice
+(``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations

@@ -34,9 +34,12 @@ Every entry point runs on the card unless the caller asks for the CPU
   front of it.  Engine classes load lazily — pipeline-only servers keep
   the model stack off their import path.
 
-Not ported yet: the sharded lanes of the JAX package (``ShardedWorker`` and
-its helpers, ``ROADMAP.md`` queue 1 step 9, slice D).  Their names resolve
-to an error naming the step.
+* sharded serving — :class:`ShardedWorker` is a lane spanning a device
+  mesh slice (:func:`data_mesh`): each micro-batch's rows split over the
+  mesh's data axes by the :mod:`repro_torch.distributed.sharding` rules, one
+  launch a shard on its position, the modeled totals scaled by
+  :func:`shard_breakdown`; the cache keys on the lane's placement, so
+  sharded and plain entries never collide.
 """
 
 from .batching import (BucketBatcher, MicroBatch, ServeRequest,
@@ -51,6 +54,8 @@ from .faults import (Blackout, FaultDecision, FaultPlan, InjectedFault,
 from .power import LanePrice, PowerBudget
 from .server import (DECOMP_PERCENTILES, DECOMP_PHASES, PERCENTILES,
                      AdmissionError, Server, ServeReport)
+from .sharded import (BATCH_AXIS, ShardedWorker, data_mesh, mesh_signature,
+                      shard_breakdown)
 
 #: engine symbols resolved lazily (PEP 562): importing them pulls the model
 #: stack (repro_torch.models / repro_torch.train), which pipeline-only
@@ -58,13 +63,6 @@ from .server import (DECOMP_PERCENTILES, DECOMP_PHASES, PERCENTILES,
 _ENGINE_EXPORTS = ("DecodeEngine", "DecodeState", "EngineRoofline", "Prefix",
                    "batch_axes", "engine_roofline", "graph_traffic")
 _HTTP_EXPORTS = ("EngineHTTPServer",)
-
-#: names of the JAX package's serve exports this package does not have yet,
-#: and the ROADMAP.md step that brings each
-_NOT_PORTED = {
-    name: "queue 1 step 9 (slice D, sharded serving)"
-    for name in ("BATCH_AXIS", "ShardedWorker", "data_mesh",
-                 "mesh_signature", "shard_breakdown")}
 
 
 def __getattr__(name: str):
@@ -74,10 +72,6 @@ def __getattr__(name: str):
     if name in _HTTP_EXPORTS:
         from . import http
         return getattr(http, name)
-    step = _NOT_PORTED.get(name)
-    if step is not None:
-        raise NotImplementedError(
-            f"repro_torch.serve.{name} is not ported yet (ROADMAP.md {step})")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -91,5 +85,7 @@ __all__ = [
     "LanePrice", "PowerBudget",
     "DECOMP_PERCENTILES", "DECOMP_PHASES", "PERCENTILES",
     "AdmissionError", "Server", "ServeReport",
+    "BATCH_AXIS", "ShardedWorker", "data_mesh", "mesh_signature",
+    "shard_breakdown",
     *_ENGINE_EXPORTS, *_HTTP_EXPORTS,
 ]

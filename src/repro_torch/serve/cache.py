@@ -252,10 +252,14 @@ class GraphCache:
                tuple((n.global_size, n.local_size) for n in ndranges))
         # explicit-transfer captures have a different node structure (write/
         # read nodes, resident kernels) than classic ones — never share.
-        # The inputs sign with the APU's torch device: a graph captured for
-        # the CPU replays the plain versions and must never serve the card,
-        # nor the reverse.
+        # The APU's placement (a ShardedWorker's mesh + sharding-rule
+        # signature, None for single-device callers) keys too: sharded and
+        # single-device entries of one pipeline must never collide.  The
+        # inputs sign with the APU's torch device: a graph captured for the
+        # CPU replays the plain versions and must never serve the card, nor
+        # the reverse.
         return (apu.egpu.config, getattr(apu, "explicit_transfers", False),
+                getattr(apu, "placement", None),
                 pipe, input_signature(inputs, apu.device), ndr)
 
     def get_or_capture(self, apu: APU, stages: Sequence[Stage],

@@ -426,7 +426,7 @@ class QueueStats:
     peak_in_flight: int
     backpressure_stalls: int
     #: mesh lane width: total devices this worker's launches span (1 for a
-    #: single-device QueueWorker, the only kind this package has yet)
+    #: single-device QueueWorker, the mesh's size for a ShardedWorker)
     shards: int = 1
     #: the worker's mesh layout as ((axis, size), ...); () when unsharded
     mesh_axes: Tuple[Tuple[str, int], ...] = ()

@@ -496,7 +496,7 @@ class Server:
         lanes = []
         for i, w in enumerate(workers):
             if isinstance(w, QueueWorker):
-                if w.device != self.device:
+                if canonical_device(w.device) != canonical_device(self.device):
                     raise ValueError(
                         f"worker {w.name!r} runs on {w.device}, the server "
                         f"on {self.device}")

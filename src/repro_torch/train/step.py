@@ -100,16 +100,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     def bind(params) -> Tuple[Transformer, Dict[str, Any]]:
         """The training model and gradient tree of these exact leaves
-        (built again when the state's tensors change, as after a
-        restore)."""
+        (built again when the state's tensors change, as after a restore).
+        The binding is read and replaced as one tuple, so two threads
+        stepping two states (a raced backup on a snapshot) each get their
+        own state's model."""
         key = tuple((id(t), t.data_ptr()) for _, t in leaves_with_path(params))
-        if bound.get("key") != key:
-            bound.clear()
+        entry = bound.get("entry")
+        if entry is None or entry[0] != key:
             model = Transformer(cfg, params, trainable=True)
             grads = map_tree(torch.zeros_like, params)
             bind_grads(model, grads)
-            bound.update(key=key, model=model, grads=grads)
-        return bound["model"], bound["grads"]
+            entry = (key, model, grads)
+            bound["entry"] = entry
+        return entry[1], entry[2]
 
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
              ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
@@ -125,3 +128,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return state, metrics
 
     return step
+
+
+def clone_train_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of a train state (``{"params", "opt"}``, or any tree of
+    nested dicts) that shares no tensor with it, other leaves kept as they
+    are: what the step, which updates its state in place, may run on beside
+    the original (:class:`~repro_torch.launch.straggler.BackupStepRunner`'s
+    backup)."""
+    return map_tree(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                    state)

@@ -79,8 +79,26 @@ def test_manager_rotates_and_restores_the_latest(tmp_path):
     assert manifest["step"] == 12
     _equal_bits(back["opt"]["v"]["blocks"]["pos0"]["wq"],
                 _state(12)["opt"]["v"]["blocks"]["pos0"]["wq"])
-    with pytest.raises(NotImplementedError, match="step 9"):
-        mgr.restore_latest(like=_state(0), mesh=object())
+    # under a mesh: the elastic path places the latest checkpoint's leaves
+    # under the mesh's placements (a world-1 gloo group of this process,
+    # destroyed at the end; N -> M ranks in tests/test_torch_elastic.py)
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import TRAIN_FSDP_RULES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import ParamSpec, map_tree
+    state = _state(0)
+    spec = map_tree(lambda t: ParamSpec(tuple(t.shape),
+                                        (None,) * t.dim()), state)
+    try:
+        mesh = make_host_mesh(device_type="cpu")
+        placed, manifest = mgr.restore_latest(
+            like=state, spec_tree=spec, rules=TRAIN_FSDP_RULES, mesh=mesh)
+        assert manifest["step"] == 12
+        _equal_bits(placed["opt"]["v"]["blocks"]["pos0"]["wq"].full_tensor(),
+                    _state(12)["opt"]["v"]["blocks"]["pos0"]["wq"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_save_async_snapshots_before_an_in_place_update(tmp_path):

@@ -403,9 +403,12 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported():
     assert tserve.EngineHTTPServer.__name__ == "EngineHTTPServer"
     eng = tserve.DecodeEngine(cfg, tree, num_slots=1, max_len=8, device="cpu")
     assert eng.worker.device.type == "cpu"
-    for name in ("ShardedWorker", "BATCH_AXIS", "data_mesh"):
-        with pytest.raises(NotImplementedError, match="step 9"):
-            getattr(tserve, name)
+    # the sharded lane's names resolve to the JAX package's counterparts
+    for name in ("ShardedWorker", "BATCH_AXIS", "data_mesh",
+                 "mesh_signature", "shard_breakdown"):
+        assert name in tserve.__all__ and name in jserve.__all__
+        assert type(getattr(tserve, name)) is type(getattr(jserve, name))
+    assert tserve.BATCH_AXIS == jserve.BATCH_AXIS
 
 
 def test_bench_serve_runs_on_the_cpu():
