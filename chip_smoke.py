@@ -44,7 +44,8 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 and f32, causal and not, bf16 on ``flash_wgmma_kernel<256, 256>``
    and f32 on the CUDA-core kernel; a B = 1 call bit-equal to row 2 of
    B = 4 in both dtypes) and its training shape (B = 8, S = T = 384),
-   hubert's heads (H = 16, D = 80, non-causal, f32 and bf16), a ragged
+   hubert's heads (H = 16, D = 80, non-causal, f32 and bf16, bf16 on
+   ``flash_wgmma_kernel<80, 80>``; and causal at a ragged S = T = 77), a ragged
    Dk = Dv = 256 at 77 rows, rows that see no key (``q_offset = -16``; at
    D = 128 and at Dk = Dv = 256, bf16 and f32), and a bfloat16 view that no
    TMA tensor map describes (rows D + 1 elements apart), which the wrapper
@@ -77,19 +78,19 @@ Phases (any failure exits non-zero and prints no result line):
    against autograd of the plain version on the same values in f32, in
    bf16 and f32: stablelm-1.6b's training shape (B = 8, 32 heads of 64,
    S = T = 128, causal), qwen's GQA (16 over 2 heads of 128, S = T = 256),
-   the example model's (12 over 4 of 64), hubert's (16 of 80, S = T = 256,
-   non-causal), ragged S = 77 and 100 at D = 32 and 96, and deepseek's
+   the example model's (12 over 4 of 64), hubert's (16 of 80, S = T = 256
+   and its training shape B = 8, S = T = 128, non-causal), ragged S = 77
+   and 100 at D = 32, 80 and 96, and deepseek's
    MLA (Dk 192, Dv 128) at its training shape (B = 8, 128 heads, S = T =
    128), phase 9's prefill (B = 1, S = T = 256) and a ragged S = 77, and
    paligemma's heads (8 over one kv head of 256) at its training shape (B
    = 8, S = T = 384), its prefill (B = 4, S = T = 320) and a ragged S =
    77; the forward's output bit-equal with and without the log-sum-exp it
    keeps for the backward, two calls bit-equal and a B = 1 call bit-equal
-   to row 2 of B = 4 or 8 (stablelm's, qwen's, deepseek's and paligemma's
-   training shapes), and (Dk, Dv) = (256, 128) refused with a
-   ``ValueError`` (no fallback); bf16 at D 32, 64, 96, 128 and 256 and at
-   (192, 128) runs the tensor-core kernels, f32 and D 80 the CUDA-core
-   ones;
+   to row 2 of B = 4 or 8 (stablelm's, qwen's, deepseek's, paligemma's
+   and hubert's training shapes), and (Dk, Dv) = (256, 128) refused with a
+   ``ValueError`` (no fallback); bf16 at D 32, 64, 80, 96, 128 and 256 and
+   at (192, 128) runs the tensor-core kernels, f32 the CUDA-core ones;
    ``decode_attention`` with each row's ``lengths``, as the model's decode
    step calls it, against the masked plain version: lengths 1, mid, T and
    33 at qwen's step, a ragged T = 300, paligemma's D = 256 and T = 32768
@@ -167,7 +168,12 @@ Phases (any failure exits non-zero and prints no result line):
    profiler trace of a forward and a backward at (192, 128) must name
    ``flash_wgmma_kernel<192, 128>`` and ``flash_{dq,dkdv}_wgmma_kernel<192,
    128>`` in bf16, ``flash_kernel<float, 128>`` and
-   ``flash_{dq,dkdv}_kernel<float, 192, 128>`` in f32, once each);
+   ``flash_{dq,dkdv}_kernel<192, 128>`` in f32, once each), paligemma's
+   likewise, and hubert's heads (16 of 80, non-causal) at its training
+   shape (B = 8, S = T = 128: the forward keeping the log-sum-exp and the
+   backward, on ``flash_wgmma_kernel<80, 80>`` and
+   ``flash_{dq,dkdv}_wgmma_kernel<80, 80>``) and its encode shape (B = 4,
+   S = T = 256: the forward), each beside SDPA's forward and backward;
    ``decode_attention`` with lengths at qwen's step (the row
    the kernels line reports) against SDPA with a mask; ``norm`` at qwen's
    step and prefill, stablelm's training forward, rwkv's group norm and
@@ -358,7 +364,7 @@ Phases (any failure exits non-zero and prints no result line):
    more; a checkpoint restart (24 steps, killed after 16, resumed) gives
    the uninterrupted run's losses bit for bit.  11c: hubert-xlarge's
    encode at full width and depth (48 layers, bf16) on 4 x 256 frames:
-   ``flash_attention`` once a layer on ``flash_kernel<__nv_bfloat16, 80>``,
+   ``flash_attention`` once a layer on ``flash_wgmma_kernel<80, 80>``,
    bit-equal on a second call; a 2-layer f32 cut against the CPU.  11d-11f
    (``TRAIN_FAMILIES``): moonshot-v1-16b-a3b at full width cut to 4 layers
    (2.95 G parameters; its 48 are ~337 GB of training state),
@@ -369,8 +375,9 @@ Phases (any failure exits non-zero and prints no result line):
    peak memory and a profiled step, in which each flash kernel of the
    arch's route must run once a layer: deepseek's bf16 forward on
    ``flash_wgmma_kernel<192, 128>`` and its backward on
-   ``flash_{dq,dkdv}_wgmma_kernel<192, 128>``, hubert's on the CUDA
-   cores); the first loss within 0.5 of ln V + 1/2 plus the MoE layers'
+   ``flash_{dq,dkdv}_wgmma_kernel<192, 128>``, hubert's on
+   ``flash_wgmma_kernel<80, 80>`` and ``flash_{dq,dkdv}_wgmma_kernel<80,
+   80>``); the first loss within 0.5 of ln V + 1/2 plus the MoE layers'
    aux at a uniform routing; then an f32 cut (moonshot 2 layers, deepseek
    its first layer, hubert 2 layers) on the card against the CPU: every
    MoE routing slot equal first, then the loss, ``load_balance`` and
@@ -1855,7 +1862,7 @@ def encode_hubert(torch, np, dev, cfg, card):
     :data:`ENCODE_BATCH` x :data:`ENCODE_FRAMES` frames of 512 features
     (numpy seed 3), with the launch counters reset before a second call and
     read after it: ``flash_attention`` once a layer (non-causal, Dv 80, on
-    ``flash_kernel<__nv_bfloat16, 80>``), ``norm`` at every norm (the
+    ``flash_wgmma_kernel<80, 80>``), ``norm`` at every norm (the
     frontend's included), nothing else of ours, no library
     attention kernel; the second call's logits bit-equal to the first's.
     Then a 2-layer f32 cut, the card against the CPU on 2 x 64 frames:
@@ -1902,10 +1909,10 @@ def encode_hubert(torch, np, dev, cfg, card):
           f"kernels: {library}")
     flash = sorted(k for k in p_kernels
                    if any(n in k for n in FLASH_KERNEL_NAMES))
-    check(bool(flash) and all("flash_kernel<__nv_bfloat16, 80>" in k
+    check(bool(flash) and all("flash_wgmma_kernel<80, 80>" in k
                               for k in flash),
           f"{cfg.name}: the encode ran {flash}, expected "
-          f"flash_kernel<__nv_bfloat16, 80>")
+          f"flash_wgmma_kernel<80, 80>")
     log(f"phase 11c: {cfg.name}: {cfg.n_layers} layers at full width "
         f"(d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
         f"bidirectional, GELU {cfg.d_ff}), {n_params} parameters in bf16; "
@@ -2600,19 +2607,22 @@ def main() -> int:
         return (arr(b, h, s, dk), arr(b, kvh, t, dk),
                 arr(b, t, kvh, dv).transpose(1, 2))
 
-    def flash_case(what, dims, dtype, **kw):
-        q, k, v = qkv(*dims, dtype)
-        got = launched("flash_attention", lambda: flash_attention(q, k, v, **kw))
+    def held_to_plain(what, got, q, k, v, **kw):
         want = flash_attention_plain(q, k, v, **kw)
-        check(got.shape == want.shape and got.dtype == dtype,
+        check(got.shape == want.shape and got.dtype == q.dtype,
               f"flash_attention {what}: shape or dtype")
         g, w = got.float(), want.float()
         tol = 1e-5 * float(w.abs().max())
-        if dtype == torch.bfloat16:
+        if q.dtype == torch.bfloat16:
             tol = tol + 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
         check(bool(((g - w).abs() <= tol).all()) and bool(torch.isfinite(g).all()),
               f"flash_attention {what}: error {err(got, want)}")
         return err(got, want)
+
+    def flash_case(what, dims, dtype, **kw):
+        q, k, v = qkv(*dims, dtype)
+        got = launched("flash_attention", lambda: flash_attention(q, k, v, **kw))
+        return held_to_plain(what, got, q, k, v, **kw)
 
     bf16 = torch.bfloat16
     lm_cfg = get_arch(LM_ARCH)
@@ -2635,6 +2645,13 @@ def main() -> int:
     pali_train_s = pali_cfg.n_prefix_embed + TRAIN_SEQ
     pali_train_dims = (TRAIN_BATCH, pali_h, pali_kvh, pali_train_s,
                        pali_train_s, pali_d, pali_d)
+    # hubert's training shape (phase 11f: the launcher's 8 x 128 frames)
+    # and its encode shape (phase 11c)
+    hu_cfg = get_arch(ENCODE_ARCH)
+    hu_h, hu_kvh, hu_d = hu_cfg.n_heads, hu_cfg.n_kv_heads, hu_cfg.head_dim
+    hu_train_dims = (TRAIN_BATCH, hu_h, hu_kvh, TRAIN_SEQ, TRAIN_SEQ, hu_d, hu_d)
+    hu_encode_dims = (ENCODE_BATCH, hu_h, hu_kvh, ENCODE_FRAMES, ENCODE_FRAMES,
+                      hu_d, hu_d)
     fa_err = {
         "prefill B=4 S=T=256 bf16": flash_case(
             "prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d, lm_d), bf16),
@@ -2693,7 +2710,9 @@ def main() -> int:
     # paligemma's prefill (phase 10b): 8 heads over one kv head of 256, 256
     # patch rows + 64 tokens, bf16 on flash_wgmma_kernel<256, 256> and f32
     # on the CUDA-core kernel, and its training shape (phase 11g); hubert's
-    # heads (16 of 80, bidirectional) at Dv 80
+    # heads (16 of 80, bidirectional; bf16 on flash_wgmma_kernel<80, 80>)
+    # at its training and encode shapes and at S=T=200, and causal at a
+    # ragged S
     for dtype in (bf16, torch.float32):
         dt = str(dtype)[6:]
         for causal in (True, False):
@@ -2704,9 +2723,15 @@ def main() -> int:
         what = (f"paligemma train B={TRAIN_BATCH} S=T={pali_train_dims[3]} "
                 f"D={pali_d} {dt}")
         fa_err[what] = flash_case(what, pali_train_dims, dtype)
+        for dims in (hu_train_dims, hu_encode_dims):
+            what = (f"hubert B={dims[0]} H={hu_h} S=T={dims[3]} D={hu_d} "
+                    f"non-causal {dt}")
+            fa_err[what] = flash_case(what, dims, dtype, causal=False)
         what = f"hubert B=2 H=16 S=T=200 D=80 non-causal {dt}"
         fa_err[what] = flash_case(what, (2, 16, 16, 200, 200, 80, 80), dtype,
                                   causal=False)
+        what = f"hubert heads B=2 H=4 S=T=77 D=80 ragged causal {dt}"
+        fa_err[what] = flash_case(what, (2, 4, 4, 77, 77, 80, 80), dtype)
         fa_err[f"Dk=Dv=256 S=T=77 ragged causal {dt}"] = flash_case(
             "Dk=Dv=256 ragged", (1, 2, 1, 77, 77, 256, 256), dtype)
         fa_err[f"Dk=Dv=256 no-key rows S=64 T=512 q_offset=-16 {dt}"] = (
@@ -2783,7 +2808,8 @@ def main() -> int:
     # in f32.  The attention rule: gradients within 1e-5 of each one's max
     # |g|, bfloat16 ones within one bf16 ulp of each value plus that.  The
     # forward's out must keep its bits whether or not it writes the
-    # log-sum-exp; two calls must give the same bits, and a B = 1 call the
+    # log-sum-exp, and is held to the plain forward as flash_case holds
+    # it; two calls must give the same bits, and a B = 1 call the
     # bits of row 2 of the batched one.
     def kernel_grads(q, k, v, dout, causal):
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -2804,6 +2830,8 @@ def main() -> int:
         check(torch.equal(out, plain_out),
               f"flash_attention {what}: the output with the log-sum-exp "
               f"written differs from the output without it")
+        lse_err[f"{what} {str(dtype)[6:]}"] = held_to_plain(
+            f"{what} with the log-sum-exp", out, q, k, v, causal=causal)
         want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                          dout.float(), causal=causal)
         errs = []
@@ -2822,10 +2850,10 @@ def main() -> int:
 
     sl_cfg = get_arch(TRAIN_ARCH)
     ex_cfg = example_config()
-    hu_cfg = get_arch(ENCODE_ARCH)
     sl_dims = (TRAIN_BATCH, sl_cfg.n_heads, sl_cfg.n_kv_heads, TRAIN_SEQ,
                TRAIN_SEQ, sl_cfg.head_dim, sl_cfg.head_dim)
     bwd_err = {}
+    lse_err = {}
     bwd_inputs = {}
     for dtype in (bf16, torch.float32):
         dt = str(dtype)[6:]
@@ -2841,6 +2869,14 @@ def main() -> int:
                 (f"hubert B=2 H={hu_cfg.n_heads} S=T=256 D={hu_cfg.head_dim} "
                  f"non-causal", (2, hu_cfg.n_heads, hu_cfg.n_kv_heads, 256,
                                  256, hu_cfg.head_dim, hu_cfg.head_dim), False),
+                # hubert's training shape (phase 11f), and its heads causal
+                # at a ragged S (partial tiles and the diagonal)
+                (f"hubert train B={TRAIN_BATCH} H={hu_cfg.n_heads} "
+                 f"S=T={TRAIN_SEQ} D={hu_cfg.head_dim} non-causal",
+                 hu_train_dims, False),
+                (f"hubert heads ragged B=2 H=4 S=T=77 D={hu_cfg.head_dim} "
+                 f"causal", (2, 4, 4, 77, 77, hu_cfg.head_dim,
+                             hu_cfg.head_dim), True),
                 ("ragged B=2 H=4 KVH=2 S=T=77 D=32 causal",
                  (2, 4, 2, 77, 77, 32, 32), True),
                 ("ragged B=1 H=2 KVH=1 S=T=100 D=96 causal",
@@ -2868,16 +2904,17 @@ def main() -> int:
             bwd_err[f"{label} {dt}"], bwd_inputs[label, dtype] = bwd_case(
                 label, dims, dtype, causal)
     # two calls give the same bits; a B = 1 call the bits of row 2 of the
-    # batched call (stablelm's, qwen's, deepseek's and paligemma's training
-    # shapes, bf16 and f32)
+    # batched call (stablelm's, qwen's, deepseek's, paligemma's and hubert's
+    # training shapes, bf16 and f32)
     for (label, dtype), (q, k, v, dout, got) in bwd_inputs.items():
         if not label.startswith(("stablelm", "qwen", "MLA train",
-                                 "paligemma train")):
+                                 "paligemma train", "hubert train")):
             continue
-        _, again = kernel_grads(q, k, v, dout, True)
+        causal = not label.endswith("non-causal")
+        _, again = kernel_grads(q, k, v, dout, causal)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flash_attention_bwd {label} {dtype}: two calls differ")
-        _, alone = kernel_grads(q[2:3], k[2:3], v[2:3], dout[2:3], True)
+        _, alone = kernel_grads(q[2:3], k[2:3], v[2:3], dout[2:3], causal)
         check(all(torch.equal(a[2:3], b) for a, b in zip(got, alone)),
               f"flash_attention_bwd {label} {dtype}: a row of the batched "
               f"call differs from the row alone")
@@ -2898,9 +2935,11 @@ def main() -> int:
         f"stablelm B={TRAIN_BATCH} H=KVH={sl_cfg.n_heads} S=T={TRAIN_SEQ} "
         f"D={sl_cfg.head_dim} causal bfloat16"]
     log("phase 2: flash_attention_bwd ok (output bits unchanged by the "
-        "log-sum-exp; two calls bit-equal and a row alone bit-equal to the "
-        "batched row at stablelm's, qwen's, deepseek's and paligemma's "
-        "training shapes, bf16 and f32; (Dk, Dv) = (256, 128) refused; max "
+        "log-sum-exp, and that output against the plain forward: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in lse_err.items())
+        + "; two calls bit-equal and a row alone bit-equal to the "
+        "batched row at stablelm's, qwen's, deepseek's, paligemma's and "
+        "hubert's training shapes, bf16 and f32; (Dk, Dv) = (256, 128) refused; max "
         "abs err vs autograd of the plain version: "
         + ", ".join(f"{k} {v:.3g}" for k, v in bwd_err.items()) + ")")
 
@@ -3709,54 +3748,66 @@ def main() -> int:
     # flash_attention at qwen's prefill shape (the kernels line reports it)
     # and at B=1, S=T=4096.  Bound: q, k, v read once and the output
     # written once in bf16 over 3.35 TB/s, against 2 (Dk + Dv) flops for
-    # each (q, k) pair the causal mask keeps over the bf16 peak.
-    def fa_bound(b, h, kvh, s, t, dk, dv, lse=False):
+    # each (q, k) pair the mask keeps (causal, or all S x T) over the bf16
+    # peak.
+    def mask_pairs(s, t, causal):
+        return sum(min(t, i + 1) for i in range(s)) if causal else s * t
+
+    def fa_bound(b, h, kvh, s, t, dk, dv, lse=False, causal=True):
         nbytes = 2.0 * (b * h * s * dk + b * kvh * t * (dk + dv) + b * h * s * dv)
         nbytes += 4.0 * b * h * s if lse else 0.0       # the training forward's
-        pairs = sum(min(t, i + 1) for i in range(s))
-        return bound(nbytes, 2.0 * b * h * pairs * (dk + dv), PEAK_BF16_FLOPS)
+        return bound(nbytes, 2.0 * b * h * mask_pairs(s, t, causal) * (dk + dv),
+                     PEAK_BF16_FLOPS)
 
-    def sdpa(q, k, v, scale=None):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    def sdpa(q, k, v, scale=None, causal=True):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True, scale=scale)
 
+    # hubert's heads (16 of 80, bidirectional): its encode shape (phase
+    # 11c) and its training shape (11f), hu_encode_dims and hu_train_dims
     fa_rows = {}
-    for label, dims, scale, per_graph in (
+    for label, dims, scale, per_graph, causal in (
             ("prefill", (LM_BATCH, lm_h, lm_kvh, LM_PROMPT, LM_PROMPT, lm_d,
-                         lm_d), None, 50),
-            ("long", (1, lm_h, lm_kvh, 4096, 4096, lm_d, lm_d), None, 3),
+                         lm_d), None, 50, True),
+            ("long", (1, lm_h, lm_kvh, 4096, 4096, lm_d, lm_d), None, 3, True),
             # SDPA takes Dv != Dk (its flash backend does not; PyTorch picks
             # another)
-            ("MLA", mla_dims, mla_scale, 20),
+            ("MLA", mla_dims, mla_scale, 20, True),
             # paligemma's prefill: Dk = Dv = 256 on flash_wgmma_kernel
-            ("paligemma", pali_dims, None, 20),
+            ("paligemma", pali_dims, None, 20, True),
+            # hubert's encode: Dk = Dv = 80 on flash_wgmma_kernel
+            ("hubert encode", hu_encode_dims, None, 20, False),
             # the training forwards, keeping the log-sum-exp for the
-            # backward: stablelm's (phase 11a), deepseek's (11e) and
-            # paligemma's (11g)
-            ("stablelm train", sl_dims, None, 20),
-            ("MLA train", mla_train_dims, mla_scale, 20),
-            ("paligemma train", pali_train_dims, None, 20)):
+            # backward: stablelm's (phase 11a), deepseek's (11e),
+            # paligemma's (11g) and hubert's (11f)
+            ("stablelm train", sl_dims, None, 20, True),
+            ("MLA train", mla_train_dims, mla_scale, 20, True),
+            ("paligemma train", pali_train_dims, None, 20, True),
+            ("hubert train", hu_train_dims, None, 20, False)):
         b_, h_, kvh_, s_, _, dk_, dv_ = dims
         train = label.endswith("train")
         q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
-        check(err(sdpa(q, k, v, scale),
-                  flash_attention_plain(q, k, v, scale=scale)) <= 5e-2,
+        check(err(sdpa(q, k, v, scale, causal),
+                  flash_attention_plain(q, k, v, scale=scale,
+                                        causal=causal)) <= 5e-2,
               f"SDPA differs from the plain version at {label}")
-        b_ms, b_by = fa_bound(*dims, lse=train)
+        b_ms, b_by = fa_bound(*dims, lse=train, causal=causal)
         kernel = ((lambda: _card_forward(
-            q, k, v, True, dk_ ** -0.5 if scale is None else scale, 0, s_,
+            q, k, v, causal, dk_ ** -0.5 if scale is None else scale, 0, s_,
             s_, with_lse=True)) if train
-            else (lambda: flash_attention(q, k, v, scale=scale)))
+            else (lambda: flash_attention(q, k, v, scale=scale,
+                                          causal=causal)))
         fa_rows[label] = dict(
             ms=device_ms(torch, kernel, per_graph),
             plain_ms=device_ms(torch, lambda: flash_attention_plain(
-                q, k, v, scale=scale), 1),
-            library_ms=device_ms(torch, lambda: sdpa(q, k, v, scale),
+                q, k, v, scale=scale, causal=causal), 1),
+            library_ms=device_ms(torch, lambda: sdpa(q, k, v, scale, causal),
                                  per_graph),
             bound_ms=b_ms, bound_by=b_by)
         r = fa_rows[label]
         log(f"phase 3: flash_attention {label} B={b_} H={h_} KVH={kvh_} "
-            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 causal"
+            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 "
+            f"{'causal' if causal else 'non-causal'}"
             + (" (keeping the log-sum-exp)" if train else "")
             + ": device time per call: "
             f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
@@ -3776,13 +3827,12 @@ def main() -> int:
     # included: the backward needs it); the library's is
     # scaled_dot_product_attention's backward, timed as its forward and
     # backward together less its forward.
-    def fa_bwd_bound(b, h, kvh, s, t, dk, dv=None):
+    def fa_bwd_bound(b, h, kvh, s, t, dk, dv=None, causal=True):
         dv = dk if dv is None else dv
         nbytes = 2.0 * (b * h * s * (2 * dk + dv)
                         + 2 * b * kvh * t * (dk + dv)) + 4.0 * b * h * s
-        pairs = sum(min(t, i + 1) for i in range(s))
-        return bound(nbytes, 2.0 * b * h * pairs * (3 * dk + 2 * dv),
-                     PEAK_BF16_FLOPS)
+        return bound(nbytes, 2.0 * b * h * mask_pairs(s, t, causal)
+                     * (3 * dk + 2 * dv), PEAK_BF16_FLOPS)
 
     b_, h_, kvh_, s_, _, d_, _ = sl_dims
     q, k, v = (x.contiguous() for x in qkv(*sl_dims, bf16))
@@ -3849,48 +3899,50 @@ def main() -> int:
         f"backward) {g_lib:.6f} ms; bound {g_bound[0]:.6f} ms ({g_bound[1]}); "
         f"kernel {g_ms / g_bound[0]:.1f}x its bound, {g_ms / g_lib:.2f}x "
         f"SDPA's backward")
-    # ... and at deepseek's MLA (Dk 192, Dv 128, MLA's scale) and
-    # paligemma's heads (8 over one kv head of 256): each one's training
-    # shape (phases 11e, 11g) and prefill shape (phases 9, 10b), each beside
-    # its bound, the plain version, SDPA's forward and SDPA's forward +
+    # ... and at deepseek's MLA (Dk 192, Dv 128, MLA's scale),
+    # paligemma's heads (8 over one kv head of 256) and hubert's (16 of 80,
+    # bidirectional): each one's training shape (phases 11e, 11g, 11f) and
+    # the first two's prefill shapes (phases 9, 10b), each beside its
+    # bound, the plain version, SDPA's forward and SDPA's forward +
     # backward, and its device time by kernel
-    for label, dims, scale in (("MLA train", mla_train_dims, mla_scale),
-                               ("MLA prefill", mla_dims, mla_scale),
-                               ("paligemma train", pali_train_dims,
-                                pali_d ** -0.5),
-                               ("paligemma prefill", pali_dims,
-                                pali_d ** -0.5)):
+    for label, dims, scale, causal in (
+            ("MLA train", mla_train_dims, mla_scale, True),
+            ("MLA prefill", mla_dims, mla_scale, True),
+            ("paligemma train", pali_train_dims, pali_d ** -0.5, True),
+            ("paligemma prefill", pali_dims, pali_d ** -0.5, True),
+            ("hubert train", hu_train_dims, hu_cfg.head_dim ** -0.5, False)):
         b_, h_, kvh_, s_, _, dk_, dv_ = dims
         q, k, v = (x.contiguous() for x in qkv(*dims, bf16))
         dout = torch.randn(q.shape[:3] + (dv_,), device=dev).to(bf16)
-        _, lse = _card_forward(q, k, v, True, scale, 0, s_, s_,
+        _, lse = _card_forward(q, k, v, causal, scale, 0, s_, s_,
                                with_lse=True)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
         def pair_sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                                  scale=scale,
                                                  enable_gqa=kvh_ < h_)
             return torch.autograd.grad(out, (qg, kg, vg), dout)
 
-        plain_grads = flash_attention_bwd_plain(q.float(), k.float(),
-                                                v.float(), dout.float())
+        plain_grads = flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), dout.float(), causal=causal)
         check(all(err(a, b) <= 1e-2 * float(b.abs().max())
                   for a, b in zip(pair_sdpa_fwd_bwd(), plain_grads)),
               f"SDPA's gradient differs from the plain version's at {label}")
         del plain_grads
-        m_bound = fa_bwd_bound(b_, h_, kvh_, s_, s_, dk_, dv_)
-        m_ms = device_ms(torch, lambda: flash_attention_bwd(q, k, v, dout, lse),
-                         20)
+        m_bound = fa_bwd_bound(b_, h_, kvh_, s_, s_, dk_, dv_, causal)
+        m_ms = device_ms(torch, lambda: flash_attention_bwd(
+            q, k, v, dout, lse, causal=causal), 20)
         m_plain = device_ms(torch, lambda: flash_attention_bwd_plain(
-            q, k, v, dout), 1)
+            q, k, v, dout, causal=causal), 1)
         m_fb = device_ms(torch, pair_sdpa_fwd_bwd, 20)
         m_f = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=kvh_ < h_), 20)
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=kvh_ < h_), 20)
         m_fwd = device_ms(torch, lambda: _card_forward(
-            q, k, v, True, scale, 0, s_, s_, with_lse=True), 20)
+            q, k, v, causal, scale, 0, s_, s_, with_lse=True), 20)
         _, _, per_kernel = device_profile(torch, lambda: [
-            flash_attention_bwd(q, k, v, dout, lse) for _ in range(20)])
+            flash_attention_bwd(q, k, v, dout, lse, causal=causal)
+            for _ in range(20)])
         # the route: bf16 on the tensor cores both ways, f32 on the CUDA
         # cores; one device kernel a forward, two a backward (and, bf16
         # with a GQA group, the kernel that adds the heads' dK/dV partials).
@@ -3904,17 +3956,18 @@ def main() -> int:
                                    + [f"flash_dkdv_sum_kernel<{pair}>"]
                                    * (kvh_ < h_)),
                 "float32": sorted([f"flash_kernel<float, {dv_}>",
-                                   f"flash_dq_kernel<float, {pair}>",
-                                   f"flash_dkdv_kernel<float, {pair}>"])}
+                                   f"flash_dq_kernel<{pair}>",
+                                   f"flash_dkdv_kernel<{pair}>"])}
         routes = {}
         for dtype in (bf16, torch.float32):
             x3 = [x.to(dtype) for x in (q, k, v, dout)]
-            _, lse3 = _card_forward(*x3[:3], True, scale, 0, s_, s_,
+            _, lse3 = _card_forward(*x3[:3], causal, scale, 0, s_, s_,
                                     with_lse=True)
             *_, counts = profile_ours(torch, lambda: [(
-                _card_forward(*x3[:3], True, scale, 0, s_, s_,
+                _card_forward(*x3[:3], causal, scale, 0, s_, s_,
                               with_lse=True),
-                flash_attention_bwd(*x3, lse3)) for _ in range(ROUTE_CALLS)],
+                flash_attention_bwd(*x3, lse3, causal=causal))
+                for _ in range(ROUTE_CALLS)],
                 ("flash",), ROUTE_CALLS * len(want[str(dtype)[6:]]),
                 f"phase 3: {label} {dtype}")
             routes[str(dtype)[6:]] = sorted(
@@ -3929,10 +3982,12 @@ def main() -> int:
         rows["flash_attention_bwd"][label] = dict(
             ms=m_ms, plain_ms=m_plain, library_ms=m_fb - m_f,
             bound_ms=m_bound[0])
-        passes = ("two passes: dV, then dK" if dk_ <= 192 else
+        passes = ("one pass: dK and dV together" if dk_ + dv_ <= 256 else
+                  "two passes: dV, then dK" if dk_ <= 192 else
                   "three passes: dV, then dK's columns in two halves")
         log(f"phase 3: flash_attention_bwd {label} B={b_} H={h_} KVH={kvh_} "
-            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 causal: kernel {m_ms:.6f} ms "
+            f"S=T={s_} Dk={dk_} Dv={dv_} bf16 "
+            f"{'causal' if causal else 'non-causal'}: kernel {m_ms:.6f} ms "
             f"(dQ, then dK/dV in {passes}), plain "
             f"{m_plain:.6f} ms, library (SDPA backward: forward + backward "
             f"{m_fb:.6f} less forward {m_f:.6f}) {m_fb - m_f:.6f} ms; bound "

@@ -37,7 +37,7 @@
 // Two kernels compute this, chosen by dtype and head dims:
 //
 // * flash_wgmma_kernel, for bfloat16 at (Dk, Dv) in {(32, 32), (64, 64),
-//   (96, 96), (128, 128), (96, 64), (192, 128), (256, 256)}: a producer
+//   (80, 80), (96, 96), (128, 128), (96, 64), (192, 128), (256, 256)}: a producer
 //   warp brings Q once and K and V tiles through a shared-memory ring with
 //   TMA, and two consumer warpgroups run both products on wgmma (bf16
 //   inputs, f32 accumulation),
@@ -48,7 +48,7 @@
 //   CUDA cores.  128 threads hold an 8 x 2 strip of the (64, 32) score tile
 //   and an 8 x (Dv / 16) strip of the output, reading q and p rows as
 //   float4 broadcasts and k and v rows as contiguous float4/float2 runs (or
-//   one float at a time at Dv 80, hubert's heads).  At Dv 256 (paligemma's
+//   one float at a time at Dv 80: hubert's heads in float32).  At Dv 256 (paligemma's
 //   heads, here in float32 only) a thread's strip is 128 f32 accumulators
 //   (ptxas: 255 registers a thread, no spills), and the block's shared
 //   memory at Dk 256 is 141,824 bytes: one block an SM.
@@ -326,9 +326,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 // (cp.async.bulk.tensor, 4-d tensor maps built on the host per call), each
 // stage with a full and an empty mbarrier.  Everything lands in
 // 128-byte-swizzled boxes of 64 bf16 columns (a 128-wide head is two
-// boxes; 96 is two, the second half zero-filled by TMA; 32 one, half
-// zero; MLA's Dk of 192 three, 12 k-steps of 16), rows past S and T
-// zero-filled by TMA too.  At (192, 128) the block holds 3 Q boxes of 128
+// boxes; 96 is two, the second half zero-filled by TMA; hubert's 80 two,
+// all but 16 columns of the second zero-filled, Q K^T in 5 k-steps; 32
+// one, half zero; MLA's Dk of 192 three, 12 k-steps of 16), rows past S
+// and T zero-filled by TMA too.  At (192, 128) the block holds 3 Q boxes of 128
 // rows (48 KB) and 3 stages of 3 K and 2 V boxes (120 KB): 173,112 bytes
 // with the barriers and the alignment slack, one block an SM, the same
 // registers as (128, 128) (the scores and Dv's accumulators do not grow
@@ -344,7 +345,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
 //   columns to the -1e30 sentinel, m, alpha, p, l, row reductions over the
 //   4 lanes of a quad;
 // * acc += P V: wgmma.m64nNk16 (N = Dv, or Dv / 2 at Dv 256, B starting
-//   at the warpgroup's half of the V boxes) with A = P from registers (the
+//   at the warpgroup's half of the V boxes; at Dv 80 N = 96, mma_n: V's
+//   columns 80-95 are TMA's zeros, the last 16 accumulators stay 0 and are
+//   not stored, and no wgmma reads a box at a width that is not a multiple
+//   of 32) with A = P from registers (the
 //   score accumulators of two n8 tiles are exactly one k16 A fragment) and
 //   B = the V tile with the transpose bit (MN-major), so V is never staged
 //   transposed.  P is p_hi + p_lo, two bf16 parts multiplied in turn: p
@@ -395,9 +399,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   constexpr bool SPLIT = wg_split_dv<DK, DV>();
   constexpr int BQ = wg_block_rows<DK, DV>();
   constexpr int DVW = SPLIT ? DV / 2 : DV;                 // Dv columns a warpgroup owns
+  constexpr int DVN = mma_n<DVW>();                        // and the width of its P V
   constexpr int BOXQ = BQ * 128, BOXKV = kWgBK * 128;      // bytes of one box
   constexpr int K_BYTES = NQ * BOXKV, STAGE = K_BYTES + NV * BOXKV;
-  static_assert(DK % 16 == 0 && DV % 32 == 0 && DVW <= 192 && (!SPLIT || DVW % kBox == 0),
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && DVN <= 192 &&
+                    (SPLIT ? DVW % kBox == 0 : DVN <= NV * kBox),
                 "head dims");
   static_assert(wg_smem_bytes<DK, DV>() <= kMaxSmem, "shared memory of a block");
   extern __shared__ unsigned char smem_raw[];
@@ -461,9 +467,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int last = a.q_offset + min(row0 + kWgRows, a.s) - 1;   // its last position
   const int qi0 = a.q_offset + row0 + wq * 16 + g, qi1 = qi0 + 8;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[DVW / 2];
+  float o[DVN / 2];                                        // columns >= DVW stay 0
 #pragma unroll
-  for (int i = 0; i < DVW / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DVN / 2; ++i) o[i] = 0.f;
   // the tiles this warpgroup multiplies: all, or (causal) those that start
   // at or before its last row; the rest it only hands back
   const int n_wg = !live ? 0
@@ -545,8 +551,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int kk = 0; kk < kWgBK / 16; ++kk) {
         const uint64_t dv =
             sw128_desc(st + K_BYTES + (col0 / kBox) * BOXKV + kk * 16 * 128, BOXKV, 1024);
-        wgmma_rs<DVW>(o, hi[kk], dv);
-        wgmma_rs<DVW>(o, lo[kk], dv);
+        wgmma_rs<DVN>(o, hi[kk], dv);
+        wgmma_rs<DVN>(o, lo[kk], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -646,6 +652,7 @@ int launch_main(const Args& a, int dk, int dv, cudaStream_t st) {
     // the head dims the tensor-core kernel is compiled for
     if (dk == 128 && dv == 128) return launch_wgmma<128, 128>(a, dv, st);
     if (dk == 96 && dv == 96) return launch_wgmma<96, 96>(a, dv, st);
+    if (dk == 80 && dv == 80) return launch_wgmma<80, 80>(a, dv, st);      // hubert
     if (dk == 64 && dv == 64) return launch_wgmma<64, 64>(a, dv, st);
     if (dk == 32 && dv == 32) return launch_wgmma<32, 32>(a, dv, st);
     if (dk == 96 && dv == 64) return launch_wgmma<96, 64>(a, dv, st);

@@ -23,18 +23,14 @@
 // version's autograd uses the f32 output.
 //
 // Two routes, chosen by the caller (repro_torch/kernels/flash_attention/
-// flash_attention.py:bwd_route) by dtype and head dims, each
-// FlashAttention-2's deterministic two-kernel schedule without atomics:
+// flash_attention.py:bwd_route) by dtype, each FlashAttention-2's
+// deterministic two-kernel schedule without atomics:
 //
-// * bfloat16 at (32, 32), (64, 64), (96, 96), (128, 128), (192, 128) and
-//   (256, 256): flash_dq_wgmma_kernel and flash_dkdv_wgmma_kernel, every
+// * bfloat16: flash_dq_wgmma_kernel and flash_dkdv_wgmma_kernel, every
 //   product on the tensor cores (wgmma, TMA, mbarrier rings; see the note
 //   above them);
-// * float32 (which must match a full-precision product, so no TF32) at
-//   every pair, and bfloat16 at (80, 80) (hubert's heads, which no wgmma
-//   tile width takes without padding): flash_dq_kernel and
-//   flash_dkdv_kernel, f32 FMAs on the CUDA cores (the first kernels of
-//   this file, which took every bf16 d before the tensor-core route):
+// * float32 (which must match a full-precision product, so no TF32):
+//   flash_dq_kernel and flash_dkdv_kernel, f32 FMAs on the CUDA cores:
 //   - flash_dq_kernel, one block per (q tile of 64 rows, head, batch): Q and
 //     dO stay in shared memory while K and V tiles of 32 rows stream past
 //     twice, first to sum D (each row's 32 columns a tile over the 16 lanes
@@ -47,10 +43,10 @@
 //     (causal: those at or below it), recomputing P and dS, and accumulates
 //     dV += P^T dO and dK += dS^T Q in registers; dK and dV are written
 //     once, so the group's sum runs in one fixed order.
-//   Products are f32 FMAs (bf16 inputs widened on load), 128 threads a
-//   block in 8 half warps: a half warp owns rows ty + 8 i of a score tile,
-//   its lanes columns tx + 16 jj and output columns tx * VEC + 16 VEC u + e
-//   (the forward kernel's layout).
+//   Products are f32 FMAs, 128 threads a block in 8 half warps: a half
+//   warp owns rows ty + 8 i of a score tile, its lanes columns tx + 16 jj
+//   and output columns tx * VEC + 16 VEC u + e (the forward kernel's
+//   layout).
 //
 // Every sum runs in a fixed order that no batch size, head count or launch
 // changes: two calls give the same bits, and a row of a B = 4 call the bits
@@ -88,13 +84,6 @@ constexpr int kKvRows = 32;
 constexpr int kKvCols = 32;
 constexpr int kLdW = 32 + 4;             // row stride of a 32-column score tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 struct BwdArgs {
   const void* q;      // (B, H, S, Dk), contiguous
   const void* k;      // (B, KVH, T, Dk)
@@ -122,15 +111,14 @@ struct Cols {
   static constexpr int kLd = D + 4;      // row stride of a (rows, D) tile
 };
 
-// rows [r0, r0 + rows) of a row-major (n, D) matrix into shared memory as
-// f32, rows past n zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int rows,
+// rows [r0, r0 + rows) of a row-major (n, D) matrix into shared memory,
+// rows past n zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int rows,
                                           int n) {
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    dst[r * Cols<D>::kLd + d] =
-        r0 + r < n ? to_f32(src[static_cast<long long>(r0 + r) * D + d]) : 0.f;
+    dst[r * Cols<D>::kLd + d] = r0 + r < n ? src[static_cast<long long>(r0 + r) * D + d] : 0.f;
   }
 }
 
@@ -205,8 +193,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[R][Cols<D>::kPer], const
 
 // Store a thread's rows of a (rows, D) result, times ``mul``, rows past n
 // skipped.
-template <typename T, int D, int R>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[R][Cols<D>::kPer],
+template <int D, int R>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[R][Cols<D>::kPer],
                                            int r0, int n, float mul, int ty, int tx) {
   using C = Cols<D>;
 #pragma unroll
@@ -218,7 +206,7 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[R][Cols<D>
 #pragma unroll
       for (int w = 0; w < C::kVec; ++w) {
         const int col = tx * C::kVec + kTX * C::kVec * u + w;
-        store_as(out + static_cast<long long>(row) * D + col, acc[i][u * C::kVec + w] * mul);
+        out[static_cast<long long>(row) * D + col] = acc[i][u * C::kVec + w] * mul;
       }
   }
 }
@@ -247,7 +235,7 @@ __host__ __device__ constexpr size_t dkdv_smem_bytes() {
                           2 * kKvRows * kLdW);
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   using CK = Cols<DK>;
   using CV = Cols<DV>;
@@ -266,10 +254,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   const int q0 = q_tile * kDqRows;
   const long long qrow = (static_cast<long long>(b) * a.h + hh) * a.s;   // (b, hh)'s row 0
   const long long krow = (static_cast<long long>(b) * a.kvh + kv_head) * a.t;
-  const T* k = static_cast<const T*>(a.k) + krow * DK;
-  const T* v = static_cast<const T*>(a.v) + krow * DV;
-  load_tile<T, DK>(qs, static_cast<const T*>(a.q) + qrow * DK, q0, kDqRows, a.s);
-  load_tile<T, DV>(dos, static_cast<const T*>(a.dout) + qrow * DV, q0, kDqRows, a.s);
+  const float* k = static_cast<const float*>(a.k) + krow * DK;
+  const float* v = static_cast<const float*>(a.v) + krow * DV;
+  load_tile<DK>(qs, static_cast<const float*>(a.q) + qrow * DK, q0, kDqRows, a.s);
+  load_tile<DV>(dos, static_cast<const float*>(a.dout) + qrow * DV, q0, kDqRows, a.s);
 
   float lse[R], dsum[R];
 #pragma unroll
@@ -284,8 +272,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   // P and dP of the tile at k0 for this thread's (row, column) pairs
   auto scores = [&](int k0, float (&p)[R][J], float (&dp)[R][J]) {
     __syncthreads();  // every thread is done with the previous K/V tile
-    load_tile<T, DK>(ks, k, k0, kDqCols, a.t);
-    load_tile<T, DV>(vs, v, k0, kDqCols, a.t);
+    load_tile<DK>(ks, k, k0, kDqCols, a.t);
+    load_tile<DV>(vs, v, k0, kDqCols, a.t);
     __syncthreads();
     dots<DK, R, J>(p, qs, ks, ty, tx);
     dots<DV, R, J>(dp, dos, vs, ty, tx);
@@ -331,10 +319,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
     __syncwarp();  // a row's dS is written and read by the same half warp
     accumulate<DK, R>(acc, dss, ks, ty, tx);
   }
-  store_rows<T, DK, R>(static_cast<T*>(a.dq) + qrow * DK, acc, q0, a.s, a.scale, ty, tx);
+  store_rows<DK, R>(static_cast<float*>(a.dq) + qrow * DK, acc, q0, a.s, a.scale, ty, tx);
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
   using CK = Cols<DK>;
   using CV = Cols<DV>;
@@ -353,8 +341,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
   const int group = a.h / a.kvh;
   const int k0 = kv_tile * kKvRows;
   const long long krow = (static_cast<long long>(b) * a.kvh + kvh) * a.t;
-  load_tile<T, DK>(ks, static_cast<const T*>(a.k) + krow * DK, k0, kKvRows, a.t);
-  load_tile<T, DV>(vs, static_cast<const T*>(a.v) + krow * DV, k0, kKvRows, a.t);
+  load_tile<DK>(ks, static_cast<const float*>(a.k) + krow * DK, k0, kKvRows, a.t);
+  load_tile<DV>(vs, static_cast<const float*>(a.v) + krow * DV, k0, kKvRows, a.t);
 
   float dk[R][CK::kPer], dv[R][CV::kPer];
 #pragma unroll
@@ -370,12 +358,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
   for (int g = 0; g < group; ++g) {
     const int hh = kvh * group + g;
     const long long qrow = (static_cast<long long>(b) * a.h + hh) * a.s;
-    const T* q = static_cast<const T*>(a.q) + qrow * DK;
-    const T* dout = static_cast<const T*>(a.dout) + qrow * DV;
+    const float* q = static_cast<const float*>(a.q) + qrow * DK;
+    const float* dout = static_cast<const float*>(a.dout) + qrow * DV;
     for (int q0 = q_start; q0 < a.s; q0 += kKvCols) {
       __syncthreads();  // every thread is done with the previous Q/dO tile
-      load_tile<T, DK>(qs, q, q0, kKvCols, a.s);
-      load_tile<T, DV>(dos, dout, q0, kKvCols, a.s);
+      load_tile<DK>(qs, q, q0, kKvCols, a.s);
+      load_tile<DV>(dos, dout, q0, kKvCols, a.s);
       __syncthreads();
       float p[R][J], dp[R][J];
       dots<DK, R, J>(p, ks, qs, ty, tx);    // (kv row, q row): S^T
@@ -398,26 +386,26 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
       accumulate<DK, R>(dk, dss, qs, ty, tx);
     }
   }
-  store_rows<T, DK, R>(static_cast<T*>(a.dk) + krow * DK, dk, k0, a.t, a.scale, ty, tx);
-  store_rows<T, DV, R>(static_cast<T*>(a.dv) + krow * DV, dv, k0, a.t, 1.f, ty, tx);
+  store_rows<DK, R>(static_cast<float*>(a.dk) + krow * DK, dk, k0, a.t, a.scale, ty, tx);
+  store_rows<DV, R>(static_cast<float*>(a.dv) + krow * DV, dv, k0, a.t, 1.f, ty, tx);
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 int launch_d(const BwdArgs& a, cudaStream_t st) {
   constexpr size_t s1 = dq_smem_bytes<DK, DV>(), s2 = dkdv_smem_bytes<DK, DV>();
-  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<T, DK, DV>,
+  cudaError_t e = cudaFuncSetAttribute(flash_dq_kernel<DK, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(s1));
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_dkdv_kernel<T, DK, DV>,
+  e = cudaFuncSetAttribute(flash_dkdv_kernel<DK, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s2));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_dq_kernel<T, DK, DV><<<dim3((a.s + kDqRows - 1) / kDqRows, a.h, a.b), kThreads, s1,
-                               st>>>(a);
+  flash_dq_kernel<DK, DV><<<dim3((a.s + kDqRows - 1) / kDqRows, a.h, a.b), kThreads, s1,
+                            st>>>(a);
   const int err = REPRO_LAUNCH_STATUS();
   if (err != 0) return err;
-  flash_dkdv_kernel<T, DK, DV><<<dim3((a.t + kKvRows - 1) / kKvRows, a.kvh, a.b), kThreads, s2,
-                                 st>>>(a);
+  flash_dkdv_kernel<DK, DV><<<dim3((a.t + kKvRows - 1) / kKvRows, a.kvh, a.b), kThreads, s2,
+                              st>>>(a);
   return REPRO_LAUNCH_STATUS();
 }
 
@@ -431,7 +419,8 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
 // full and an empty mbarrier.  Every tile is one to three 128-byte-swizzled
 // boxes of 64 bf16 columns and 64 rows (flash_wgmma_kernel's boxes and
 // descriptors, csrc/hopper.cuh): Dk's boxes first, then Dv's; TMA
-// zero-fills columns past the head dim and rows past S and T.  Products, in
+// zero-fills columns past the head dim and rows past S and T (hubert's 80
+// is two boxes, 16 columns of the second real).  Products, in
 // wgmma's accumulator layout (thread (warp w, lane l) holds rows 16w + l/4
 // and + 8, columns 8j + 2(l%4) + {0, 1}):
 //
@@ -442,7 +431,9 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
 //   pass sums D_i = sum_j P_ij dP_ij per thread in tile and register order,
 //   then over the 4 lanes of a row (every lane the same bits), and writes D
 //   for the second kernel; the second pass forms dS = P (dP - D) and
-//   accumulates dQ += dS K (wgmma.m64nDk) with A = dS from registers (two
+//   accumulates dQ += dS K (wgmma.m64nNk16, N = mma_n<Dk>: Dk, or 96 at Dk
+//   80, K's columns 80-95 TMA's zeros, so the extra accumulators stay 0
+//   and are not stored) with A = dS from registers (two
 //   n8 accumulator tiles are one k16 A fragment) and B = the K tile with the
 //   transpose bit (MN-major): K is never staged transposed;
 // * flash_dkdv_wgmma_kernel, one block per (kv tile, kv head, batch), K and V
@@ -452,7 +443,8 @@ int launch_d(const BwdArgs& a, cudaStream_t st) {
 //   and dS^T come out in the accumulator layout that is the A-from-registers
 //   operand of dV += P^T dO and dK += dS^T Q (dO and Q MN-major): no
 //   transposition through shared memory.  Each q column's lse and D are
-//   read from device memory (L2) before the products are issued.  With a
+//   read from device memory (L2) before the products are issued; dV and dK
+//   are mma_n<Dv> and mma_n<Dk> wide, as dQ.  With a
 //   GQA group (H > KVH) one block takes one head of the group instead, and
 //   writes its f32 dK and dV partials; flash_dkdv_sum_kernel adds the
 //   group's in head order.  One block a kv head walking the whole group
@@ -546,24 +538,25 @@ __device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)
     }
 }
 
-// acc (64 x D) += (hi + lo) (64 x 64) @ M, M a 64-row tile of D columns
-// read MN-major, in steps of 16 of its rows.
+// acc (64 x mma_n<D>) += (hi + lo) (64 x 64) @ M, M a 64-row tile of D
+// columns read MN-major (zeros past D), in steps of 16 of its rows.
 template <int D>
-__device__ __forceinline__ void mma_accumulate(float (&acc)[D / 2], const uint32_t (&hi)[4][4],
+__device__ __forceinline__ void mma_accumulate(float (&acc)[mma_n<D>() / 2],
+                                               const uint32_t (&hi)[4][4],
                                                const uint32_t (&lo)[4][4],
                                                const unsigned char* m) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t desc = sw128_desc(m + kk * 16 * 128, kMmaBoxBytes, 1024);
-    wgmma_rs<D>(acc, hi[kk], desc);
-    wgmma_rs<D>(acc, lo[kk], desc);
+    wgmma_rs<mma_n<D>()>(acc, hi[kk], desc);
+    wgmma_rs<mma_n<D>()>(acc, lo[kk], desc);
   }
 }
 
-// Rows row0 and row0 + 8 of a 64 x D accumulator, times mul, to D columns
-// of a bf16 matrix of n rows LD apart; rows >= n skipped.
+// Rows row0 and row0 + 8 of a 64 x mma_n<D> accumulator, times mul, to its
+// first D columns of a bf16 matrix of n rows LD apart; rows >= n skipped.
 template <int D, int LD = D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2],
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[mma_n<D>() / 2],
                                           int row0, int n, float mul, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -579,8 +572,8 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)
 
 // The same rows in f32, unscaled.
 template <int D, int LD = D>
-__device__ __forceinline__ void store_acc_f32(float* out, const float (&acc)[D / 2], int row0,
-                                              int n, int t4) {
+__device__ __forceinline__ void store_acc_f32(float* out, const float (&acc)[mma_n<D>() / 2],
+                                              int row0, int n, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -662,9 +655,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const long long qrow = (static_cast<long long>(b) * a.h + h) * a.s;
   const float lse[2] = {r0 < a.s ? a.lse[qrow + r0] : 0.f, r1 < a.s ? a.lse[qrow + r1] : 0.f};
   float dsum[2] = {0.f, 0.f};
-  float dq[DK / 2];
+  float dq[mma_n<DK>() / 2];
 #pragma unroll
-  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < mma_n<DK>() / 2; ++i) dq[i] = 0.f;
   mbar_wait(res_full, 0);
 
   for (int it = 0; it < 2 * n_tiles; ++it) {
@@ -729,7 +722,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 // [DK0, DK0 + DKC) += dS^T Q (WANT_DK), in one commit group.  An
 // accumulator the pass does not want is never touched.
 template <int DK, int DV, bool WANT_DV, bool WANT_DK, int DKC = DK, int DK0 = 0>
-__device__ __forceinline__ void dkdv_tile(float (&dv)[DV / 2], float (&dk)[DKC / 2],
+__device__ __forceinline__ void dkdv_tile(float (&dv)[mma_n<DV>() / 2],
+                                          float (&dk)[mma_n<DKC>() / 2],
                                           const unsigned char* res, const unsigned char* st,
                                           uint64_t* full, unsigned parity, const BwdArgs& a,
                                           long long qrow, int q0, int j0, int j1, int t4) {
@@ -856,15 +850,15 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const long long nv = static_cast<long long>(a.b) * a.kvh * a.t * DV;
   const int gi = head0 - kvh * group;
   // dK's columns [c0, c0 + DKC)
-  auto store_dk = [&](const auto& dk, int c0) {
-    constexpr int DKC = 2 * sizeof(dk) / sizeof(float);
+  constexpr int DKC = DK / dk_parts<DK, DV>();
+  auto store_dk = [&](const float (&dk)[mma_n<DKC>() / 2], int c0) {
     if (split)
       store_acc_f32<DKC, DK>(a.part + gi * nk + krow * DK + c0, dk, j0, a.t, t4);
     else
       store_acc<DKC, DK>(static_cast<__nv_bfloat16*>(a.dk) + krow * DK + c0, dk, j0, a.t,
                          a.scale, t4);
   };
-  auto store_dv = [&](const float (&dv)[DV / 2]) {
+  auto store_dv = [&](const float (&dv)[mma_n<DV>() / 2]) {
     if (split)
       store_acc_f32<DV>(a.part + group * nk + gi * nv + krow * DV, dv, j0, a.t, t4);
     else
@@ -880,11 +874,11 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     qrow = (static_cast<long long>(b) * a.h + head0 + j / q_tiles) * a.s;
   };
   if constexpr (PASSES == 1) {
-    float dk[DK / 2], dv[DV / 2];
+    float dk[mma_n<DK>() / 2], dv[mma_n<DV>() / 2];
 #pragma unroll
-    for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
+    for (int i = 0; i < mma_n<DK>() / 2; ++i) dk[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+    for (int i = 0; i < mma_n<DV>() / 2; ++i) dv[i] = 0.f;
     for (int it = 0; it < n_tiles; ++it) {
       int s, q0;
       long long qrow;
@@ -898,9 +892,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     store_dv(dv);
   } else {
     {  // pass 1: dV
-      float dv[DV / 2], unused[DK / 2];
+      float dv[mma_n<DV>() / 2], unused[mma_n<DK>() / 2];
 #pragma unroll
-      for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+      for (int i = 0; i < mma_n<DV>() / 2; ++i) dv[i] = 0.f;
       for (int it = 0; it < n_tiles; ++it) {
         int s, q0;
         long long qrow;
@@ -914,10 +908,10 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     }
     // passes 2 ..: dK, DKC of its columns a pass
     auto dk_pass = [&](auto part) {
-      constexpr int DKC = DK / dk_parts<DK, DV>(), DK0 = decltype(part)::value * DKC;
-      float dk[DKC / 2], unused[DV / 2];
+      constexpr int DK0 = decltype(part)::value * DKC;
+      float dk[mma_n<DKC>() / 2], unused[mma_n<DV>() / 2];
 #pragma unroll
-      for (int i = 0; i < DKC / 2; ++i) dk[i] = 0.f;
+      for (int i = 0; i < mma_n<DKC>() / 2; ++i) dk[i] = 0.f;
       const int it0 = (1 + decltype(part)::value) * n_tiles;
       for (int it = it0; it < it0 + n_tiles; ++it) {
         int s, q0;
@@ -998,12 +992,11 @@ int launch_wgmma_bwd(const BwdArgs& a, cudaStream_t st) {
   return REPRO_LAUNCH_STATUS();
 }
 
-// The (Dk, Dv) pairs this file takes: float32 at (32, 32), (64, 64),
-// (80, 80), (96, 96), (128, 128), (192, 128) and (256, 256), and bfloat16
-// at (80, 80) on the CUDA cores; bfloat16 at (32, 32), (64, 64), (96, 96),
-// (128, 128), (192, 128) and (256, 256) on the tensor cores (``wgmma``)
-// (repro_torch/kernels/flash_attention/flash_attention.py:BWD_PAIRS and
-// BWD_MMA_PAIRS list the same).
+// The (Dk, Dv) pairs this file takes, each dtype on its own route: float32
+// on the CUDA cores and bfloat16 on the tensor cores (``wgmma``), both at
+// (32, 32), (64, 64), (80, 80), (96, 96), (128, 128), (192, 128) and (256,
+// 256) (repro_torch/kernels/flash_attention/flash_attention.py:BWD_PAIRS
+// and BWD_MMA_PAIRS list the same).
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int b,
@@ -1017,11 +1010,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto is = [&](int x, int y) { return d_k == x && d_v == y; };
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    // bf16: the tensor cores, but at (80, 80) (no wgmma tile width)
-    if (!wgmma)
-      return is(80, 80) ? launch_d<T, 80, 80>(a, st) : static_cast<int>(cudaErrorInvalidValue);
+    if (!wgmma) return static_cast<int>(cudaErrorInvalidValue);
     if (is(32, 32)) return launch_wgmma_bwd<32, 32>(a, st);
     if (is(64, 64)) return launch_wgmma_bwd<64, 64>(a, st);
+    if (is(80, 80)) return launch_wgmma_bwd<80, 80>(a, st);      // hubert
     if (is(96, 96)) return launch_wgmma_bwd<96, 96>(a, st);
     if (is(128, 128)) return launch_wgmma_bwd<128, 128>(a, st);
     if (is(192, 128)) return launch_wgmma_bwd<192, 128>(a, st);
@@ -1029,13 +1021,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (wgmma) return static_cast<int>(cudaErrorInvalidValue);
-    if (is(32, 32)) return launch_d<T, 32, 32>(a, st);
-    if (is(64, 64)) return launch_d<T, 64, 64>(a, st);
-    if (is(80, 80)) return launch_d<T, 80, 80>(a, st);
-    if (is(96, 96)) return launch_d<T, 96, 96>(a, st);
-    if (is(128, 128)) return launch_d<T, 128, 128>(a, st);
-    if (is(192, 128)) return launch_d<T, 192, 128>(a, st);
-    if (is(256, 256)) return launch_d<T, 256, 256>(a, st);
+    if (is(32, 32)) return launch_d<32, 32>(a, st);
+    if (is(64, 64)) return launch_d<64, 64>(a, st);
+    if (is(80, 80)) return launch_d<80, 80>(a, st);
+    if (is(96, 96)) return launch_d<96, 96>(a, st);
+    if (is(128, 128)) return launch_d<128, 128>(a, st);
+    if (is(192, 128)) return launch_d<192, 128>(a, st);
+    if (is(256, 256)) return launch_d<256, 256>(a, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,6 +19,13 @@ namespace {
 constexpr int kBox = 64;                    // bf16 columns per 128-byte swizzled box
 constexpr unsigned kWaitLimit = 1u << 20;   // mbarrier polls before a fault is declared
 
+// The width N of the register-A products (wgmma_rs) that accumulate D
+// result columns: D rounded up to a multiple of 32 (96 for hubert's 80).
+// The B operand's columns past D are the zeros TMA fills past the head dim,
+// so the extra accumulators stay exactly 0 and are never stored.
+template <int D>
+__host__ __device__ constexpr int mma_n() { return (D + 31) / 32 * 32; }
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -125,7 +132,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
   else {
-    static_assert(N == 256, "wgmma_rs widths: 32, 64, 96, 128, 192, 256");
+    static_assert(N == 256, "wgmma_rs widths: 32, 64, 96, 128, 192, 256 (mma_n)");
     wgmma_rs_n256(d, a, db);
   }
 }

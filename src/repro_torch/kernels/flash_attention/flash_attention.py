@@ -19,11 +19,10 @@ log-sum-exp for the backward.
 ``csrc/flash_attention_bwd.cu`` is that kernel's gradient (dQ, dK, dV,
 FlashAttention-2's deterministic two-kernel backward), for the (Dk, Dv)
 pairs of :data:`BWD_PAIRS` (Dk = Dv in :data:`BWD_HEAD_DIMS`, and MLA's
-(192, 128)), counted as ``flash_attention_bwd``.  bfloat16 at the pairs of
-:data:`BWD_MMA_PAIRS` runs its tensor-core kernels (TMA, ``wgmma``; q, k, v
-and the output's gradient read through tensor maps); float32 and bfloat16
-at (80, 80) run its CUDA-core kernels (:func:`bwd_route`).  Neither is a
-fallback of the other: a failed build or launch raises.
+(192, 128)), counted as ``flash_attention_bwd``.  bfloat16 runs its
+tensor-core kernels (TMA, ``wgmma``; q, k, v and the output's gradient read
+through tensor maps), float32 its CUDA-core kernels (:func:`bwd_route`).
+Neither is a fallback of the other: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -36,12 +35,13 @@ import torch
 from ..common import launch, ptr, stream_of
 
 #: (Dk, Dv) pairs the tensor-core (bf16) kernel, flash_wgmma_kernel, is
-#: compiled for: MLA's (192, 128) and paligemma's (256, 256) among them
-MMA_HEAD_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (96, 64),
-                 (192, 128), (256, 256))
+#: compiled for: hubert's (80, 80), MLA's (192, 128) and paligemma's (256,
+#: 256) among them
+MMA_HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (96, 96), (128, 128),
+                 (96, 64), (192, 128), (256, 256))
 #: Dv values csrc/flash_attention.cu is compiled for (each thread's output
 #: strip of the CUDA-core kernel is Dv / 16 registers wide): 80 is hubert's
-#: head dim, 256 paligemma's
+#: head dim (bf16 (80, 80) on the tensor cores), 256 paligemma's
 COMPILED_DV = (32, 64, 80, 96, 128, 256)
 #: Dk: any multiple of 4 up to this (a loop bound; Qs and Ks grow with it)
 MAX_DK = 256
@@ -55,9 +55,10 @@ CONTIGUOUS_COPIES = 0
 #: paligemma's
 BWD_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 #: of those, the bfloat16 head dims its tensor-core kernels
-#: (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) take: the widths a
-#: wgmma tile of 64-column boxes takes without padding (80 does not)
-BWD_MMA_HEAD_DIMS = (32, 64, 96, 128, 256)
+#: (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) take: all of
+#: them (at 80 the products that accumulate 80 columns run 96 wide over
+#: zero-filled columns)
+BWD_MMA_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 #: (Dk, Dv) pairs with Dk != Dv it is compiled for: MLA's (deepseek-v2's
 #: nope 128 + rope 64 against v 128), float32 on the CUDA cores and bfloat16
 #: on the tensor cores
@@ -129,7 +130,8 @@ def bwd_route(dtype: torch.dtype, dk: int, dv: Optional[int] = None) -> str:
     """Which kernels of ``csrc/flash_attention_bwd.cu`` compute the
     gradient at (Dk, Dv) = (``dk``, ``dv``) (``dv`` None: Dk = Dv):
     ``"wgmma"`` (the tensor cores) for bfloat16 at :data:`BWD_MMA_PAIRS`,
-    ``"cuda_cores"`` for float32 and the other pairs of :data:`BWD_PAIRS`.
+    ``"cuda_cores"`` for float32 and any pair of :data:`BWD_PAIRS` outside
+    them (none now).
     Raises ``ValueError`` for a pair neither takes."""
     pair = (dk, dk if dv is None else dv)
     if pair not in BWD_PAIRS:

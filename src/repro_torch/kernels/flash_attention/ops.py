@@ -148,8 +148,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``dout`` share a dtype (float32 or bfloat16), (Dk, Dv) in
     :data:`BWD_PAIRS` (else ``ValueError``), ``lse`` is the forward
     kernel's f32 (B, H, S) row log-sum-exp; views are copied contiguous
-    first.  bfloat16 at the pairs of ``BWD_MMA_PAIRS`` runs the
-    tensor-core kernels, float32 and bfloat16 at (80, 80) the CUDA-core ones
+    first.  bfloat16 at the pairs of ``BWD_MMA_PAIRS`` (all of them) runs
+    the tensor-core kernels, float32 the CUDA-core ones
     (:func:`~repro_torch.kernels.flash_attention.flash_attention.bwd_route`,
     by dtype and shape; no fallback between them).  On CPU and ``meta``
     tensors it runs the plain version, autograd of

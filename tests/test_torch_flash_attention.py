@@ -175,8 +175,8 @@ def test_kernel_head_dims():
     assert not supports_head_dims(30, 32) and not supports_head_dims(260, 256)
     assert not supports_head_dims(256, 192)        # Dv 192 is not compiled
     assert COMPILED_DV == (32, 64, 80, 96, 128, 256)
-    # bf16 (256, 256) runs the tensor-core kernel, (80, 80) the CUDA-core one
-    assert (256, 256) in MMA_HEAD_DIMS and (80, 80) not in MMA_HEAD_DIMS
+    # bf16 (256, 256) and hubert's (80, 80) run the tensor-core kernel
+    assert (256, 256) in MMA_HEAD_DIMS and (80, 80) in MMA_HEAD_DIMS
     # the bf16 tensor-core kernel's pairs are a subset of what the wrapper takes
     assert all(supports_head_dims(dk, dv) for dk, dv in MMA_HEAD_DIMS)
     assert (128, 128) in MMA_HEAD_DIMS            # qwen2.5-3b's heads
@@ -286,3 +286,38 @@ def test_tma_view_copies_only_what_no_map_describes():
     assert fa_module.CONTIGUOUS_COPIES == before + 1
     assert copied.is_contiguous() and torch.equal(copied, view)
     assert tma_describable(copied.data_ptr(), copied.shape, copied.stride(), 2)
+
+
+def test_hubert_attention_needs_no_copy_for_the_tensor_maps(monkeypatch):
+    """hubert-xlarge's q, k and v, as the model's attention builds them at
+    full width (16 heads of 80, bf16, no rotary: each a (B, S, H, 80) ->
+    (B, H, S, 80) transposed view of its projection), are views a tensor map
+    describes: the tensor-core kernel reads them in place, no copy."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.models import attention
+    cfg = get_arch("hubert-xlarge")
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    assert (hd, hd) in MMA_HEAD_DIMS and cfg.dtype == "bfloat16"
+    rng = np.random.default_rng(4)
+    p = {name: torch.from_numpy(rng.standard_normal((d, h * hd)).astype(
+        np.float32) * d ** -0.5).to(torch.bfloat16)
+        for name in ("wq", "wk", "wv", "wo")}
+    x = torch.from_numpy(rng.standard_normal((2, 24, d)).astype(np.float32))
+    seen = []
+
+    def capture(q, k, v, *, causal):
+        seen.append((q, k, v, causal))
+        return torch.zeros(q.shape[:3] + (v.shape[3],), dtype=q.dtype)
+
+    monkeypatch.setattr(attention, "flash_attention", capture)
+    attention.attend_full(p, x, cfg)
+    ((q, k, v, causal),) = seen
+    assert not causal
+    before = fa_module.CONTIGUOUS_COPIES
+    for t in (q, k, v):
+        assert t.shape == (2, h, 24, hd) and t.dtype == torch.bfloat16
+        assert not t.is_contiguous()                  # the transposed view
+        assert tma_describable(t.data_ptr(), t.shape, t.stride(),
+                               t.element_size())
+        assert tma_view(t) is t
+    assert fa_module.CONTIGUOUS_COPIES == before

@@ -3,12 +3,12 @@
 ``csrc/flash_attention_bwd.cu`` has two routes: its tensor-core kernels
 (``flash_dq_wgmma_kernel``, ``flash_dkdv_wgmma_kernel``) for bfloat16 at
 Dk = Dv in ``BWD_MMA_HEAD_DIMS`` (and MLA's (192, 128): see
-``tests/test_torch_flash_mla_backward.py``), and its CUDA-core kernels for
-float32 and bfloat16 at D = 80.  The route is chosen on the host by dtype and head dim
-(``bwd_route``) and passed to the C entry point; a head dim neither route
-takes is refused with a ``ValueError`` naming the roadmap item that extends
-it, never computed some other way.  The kernels themselves run only on the
-card (``chip_smoke.py`` phase 2).
+``tests/test_torch_flash_mla_backward.py``), hubert's D = 80 among them, and
+its CUDA-core kernels for float32.  The route is chosen on the host by dtype
+and head dim (``bwd_route``) and passed to the C entry point; a head dim
+neither route takes is refused with a ``ValueError`` naming the roadmap item
+that extends it, never computed some other way.  The kernels themselves run
+only on the card (``chip_smoke.py`` phase 2).
 """
 
 import pytest
@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention.ops import (check_backward,
                                                      flash_attention)
 
 
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 128, 256])
 def test_bf16_at_the_mma_head_dims_takes_the_tensor_cores(d):
     assert d in fa.BWD_MMA_HEAD_DIMS
     assert fa.bwd_route(torch.bfloat16, d) == "wgmma"
@@ -27,9 +27,12 @@ def test_bf16_at_the_mma_head_dims_takes_the_tensor_cores(d):
 
 
 def test_hubert_heads_stay_on_the_cuda_cores():
-    assert 80 in fa.BWD_HEAD_DIMS and 80 not in fa.BWD_MMA_HEAD_DIMS
-    assert fa.bwd_route(torch.bfloat16, 80) == "cuda_cores"
+    """hubert's heads (D = 80) stay on the CUDA cores in float32 (the CPU
+    parity route) and take the tensor cores in bfloat16, both ways."""
+    assert 80 in fa.BWD_HEAD_DIMS and 80 in fa.BWD_MMA_HEAD_DIMS
+    assert fa.bwd_route(torch.bfloat16, 80) == "wgmma"
     assert fa.bwd_route(torch.float32, 80) == "cuda_cores"
+    assert (80, 80) in fa.MMA_HEAD_DIMS
 
 
 def test_the_mma_head_dims_are_the_forwards():
@@ -59,7 +62,7 @@ def test_a_suffix_q_offset_is_refused():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1), (torch.bfloat16, 32, 1),
-    (torch.bfloat16, 96, 1), (torch.bfloat16, 80, 0), (torch.float32, 64, 0),
+    (torch.bfloat16, 96, 1), (torch.bfloat16, 80, 1), (torch.float32, 64, 0),
     (torch.float32, 128, 0)])
 def test_the_launch_passes_the_route(monkeypatch, dtype, d, route):
     calls = []
