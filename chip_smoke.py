@@ -99,14 +99,19 @@ Phases (any failure exits non-zero and prints no result line):
    past a row's length never read;
    ``norm`` in every form the models run (RMS, LayerNorm, rwkv's groups of
    64, the audio frontend's LayerNorm with a bias), bf16 and f32, at
-   d = 2048, 2560, 4096, 8192, 512 and 1536: a row alone bit-equal to row
-   2 of a (4, 64, d) batch, and the autograd backward against the plain
+   d = 2048, 2560, 4096, 8192, 512, 1536 and 1280: a row alone bit-equal to
+   row 2 of a (4, 64, d) batch; deepseek's latent slice (kv_a[..., :512] of
+   576) read in place, one launch a call and a profiled call running the
+   norm kernel and no copy; and the autograd backward against the plain
    version's;
    ``rwkv6_scan_bwd`` and ``mamba_scan_bwd`` (the training path's scan
    gradients) against autograd of their plain versions on the same values
    in f32, bf16 and f32: rwkv6-3b's training shape (B = 8, H = 40, T =
-   128, D = 64), a ragged T = 77, D = 32 and T = 1, w drawn log-uniform in
-   [0.05, 1); jamba's (B = 8, T = 128, Dm = 16384, N = 16), ragged Dm =
+   128, D = 64), a ragged T = 77, D = 32, T = 1, and T = 256 (whose chunk
+   states go to a scratch buffer), w drawn log-uniform in [0.05, 1), and
+   the model's transposed (B, H, T, D) views read in place (the backward's
+   two kernels and no copy in a profiled call, the gradients in the views'
+   layout); jamba's (B = 8, T = 128, Dm = 16384, N = 16), ragged Dm =
    300 and 301 (delta bf16 too), N = 32 and 2; f32 gradients within 1e-5
    of their largest magnitude, bf16 ones within one bf16 ulp more; every
    call bit-equal to a second one; ``rwkv6_scan_bwd`` against the float64
@@ -178,9 +183,13 @@ Phases (any failure exits non-zero and prints no result line):
    the kernels line reports) against SDPA with a mask; ``norm`` at qwen's
    step and prefill, stablelm's training forward, rwkv's group norm and
    deepseek's latent norm, against ``F.rms_norm``, ``F.layer_norm`` and
-   ``F.group_norm``; ``rwkv6_scan_bwd`` and ``mamba_scan_bwd`` at the
-   training shapes beside their bounds and plain versions (autograd through
-   the plain forward; no library call computes either);
+   ``F.group_norm`` (and deepseek's latent slice read in place);
+   ``rwkv6_scan_bwd`` (also on the model's transposed views) and
+   ``mamba_scan_bwd`` at the training shapes beside their bounds and plain
+   versions (autograd through the plain forward; no library call computes
+   either); the registers and spills of the kernels of ``norm.cu`` and
+   ``rwkv6_scan_bwd.cu`` (``benchmarks_torch/ptxas_report.py``, compiled
+   beside phase 2);
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -393,7 +402,9 @@ Phases (any failure exits non-zero and prints no result line):
    scan's forward and backward kernels (``rwkv6_kernel`` and
    ``rwkv6_bwd_kernel``, ``mamba_kernel`` and ``mamba_bwd_kernel``) once a
    layer a step, counted and in the profiled step, and no plain scan
-   called on the card (``plain_scan_guard``); then a 1-layer f32 cut of
+   called on the card (``plain_scan_guard``); the profiled step's kernels
+   of the scan's backward are logged with their launches and device ms
+   and their share of the busy time; then a 1-layer f32 cut of
    each against the CPU (rwkv's with two train steps on 2 x 128 tokens,
    as 11a; jamba's on 1 x 128, the CPU's own time being most of it);
 
@@ -575,6 +586,9 @@ SCAN_FAMILIES = (("11h", "rwkv6-3b", None, 1, True, 2),
 #: (forward, backward) device kernels of each recurrent block's scan
 SCAN_KERNEL_NAMES = {"rwkv": ("rwkv6_kernel<", "rwkv6_bwd_kernel<"),
                      "mamba": ("mamba_kernel<", "mamba_bwd_kernel<")}
+# every device kernel of a scan's backward call (the partials' sums too)
+SCAN_BWD_KERNEL_NAMES = {"rwkv": ("rwkv6_bwd_kernel<", "rwkv6_du_sum_kernel"),
+                         "mamba": ("mamba_bwd_kernel<", "mamba_bwd_sum_kernel")}
 # the hand-written flash-attention kernels (csrc/flash_attention.cu), and
 # names of library attention kernels the LM path must not run
 FLASH_KERNEL_NAMES = ("flash_kernel<", "flash_wgmma_kernel<")
@@ -586,6 +600,8 @@ FLASH_BWD_KERNEL_NAMES = FLASH_BWD_DQ_NAMES + FLASH_BWD_DKDV_NAMES
 # the norm kernel, and PyTorch's reductions a norm in plain ops runs (its
 # means and torch.var), which no decode step may run
 NORM_KERNEL_NAMES = ("norm_kernel<",)
+# the sources whose kernels' registers and spills phase 3 logs
+PTXAS_SOURCES = ("norm.cu", "rwkv6_scan_bwd.cu")
 NORM_REDUCTIONS = ("MeanOps", "WelfordOps")
 LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
                      "flash_fwd", "flash_bwd")
@@ -1626,6 +1642,17 @@ def train_full(torch, np, dev, cfg, card, phase="11a"):
         f"({ran})")
     log(f"phase {phase}: {cfg.name}: " + profile_line(
         "one warm train step", p_wall, p_busy, p_kernels))
+    for kind, bwd_kernels in SCAN_BWD_KERNEL_NAMES.items():
+        if kind not in layer_kinds(cfg):
+            continue
+        ran = {kernel_name(k): (counts[k], v) for k, v in p_kernels.items()
+               if any(n in k for n in bwd_kernels)}
+        scan_us = sum(v for _, v in ran.values())
+        log(f"phase {phase}: {cfg.name}: the {kind} scan's backward in the "
+            f"profiled step: " + ", ".join(
+                f"{k} {c} launches {v / 1e3:.4f} ms" for k, (c, v) in ran.items())
+            + f"; {scan_us / 1e3:.4f} ms, {scan_us * 1e-6 / p_busy:.4f} of "
+            f"the busy time")
     del state, step_fn
     torch.cuda.empty_cache()
     return moved
@@ -2238,7 +2265,7 @@ def main() -> int:
         from benchmarks_torch import (bench_dispatch, bench_gemm_overhead,
                                       bench_multiqueue, bench_overload,
                                       bench_power, bench_static,
-                                      bench_transfer)
+                                      bench_transfer, ptxas_report)
         from repro_torch.configs import example_config, get as get_arch
         from repro_torch.apps import tinybio
         from repro_torch.core import (APU, EGPU_4T, EGPU_8T, EGPU_16T,
@@ -2288,6 +2315,7 @@ def main() -> int:
                                                         mamba_scan_plain)
         from repro_torch.kernels.rwkv6_scan.ops import (rwkv6_scan,
                                                         rwkv6_scan_bwd)
+        from repro_torch.kernels.rwkv6_scan.rwkv6_scan import bwd_scratch_words
         from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_bwd_plain,
                                                         rwkv6_scan_plain,
                                                         rwkv6_scan_seq_grad)
@@ -2324,6 +2352,11 @@ def main() -> int:
     common.kernel_library()
     log(f"phase 1: kernels {'built' if info['built'] else 'found'} at "
         f"{info['path'].relative_to(ROOT)} in {info['seconds']:.1f} s")
+    # registers and spills of the kernels PTXAS_SOURCES names (ptxas -v), in
+    # a thread whose nvcc processes compile beside phase 2; logged in phase 3
+    from concurrent.futures import ThreadPoolExecutor
+    ptxas_pool = ThreadPoolExecutor(1)
+    ptxas_job = ptxas_pool.submit(ptxas_report.report, PTXAS_SOURCES)
 
     # -- 2. each kernel against its plain version, on the card --------------
     phase_done("2")
@@ -3212,16 +3245,19 @@ def main() -> int:
     # run: RMS (apply_norm, MLA's latent norms), LayerNorm (apply_norm),
     # rwkv's per-head group norm (groups of 64, no bias) and the audio
     # frontend's one-group LayerNorm with a bias; bf16 and f32 at widths
-    # 2048, 2560, 4096, 8192 and the latent widths 512 and 1536, over a
-    # (4, 64, d) batch.  Both sides sum in f32 in other orders and rsqrtf is
-    # within 2 ulp of the square root's reciprocal: agree's rule (1e-5 of max
-    # |y|, and one bf16 ulp of each value in bf16).  A row alone (B = 1)
-    # gets the bits of row 2 of the batch.  The autograd backward (PyTorch
-    # ops on the kernel's statistics) against autograd of the plain version
-    # in f32: 1e-5 of each gradient's max.
+    # 2048, 2560, 4096, 8192, the latent widths 512 and 1536 and hubert's
+    # 1280, over a (4, 64, d) batch.  Both sides sum in f32 in other orders
+    # and rsqrtf is within 2 ulp of the square root's reciprocal: agree's
+    # rule (1e-5 of max |y|, and one bf16 ulp of each value in bf16).  A row
+    # alone (B = 1) gets the bits of row 2 of the batch.  deepseek's latent
+    # slice (models/mla.py: kv_a[..., :512] of (B, S, 512 + 64)) is read in
+    # place: one launch a call, and a profiled call runs the norm kernel and
+    # no copy before it.  The autograd backward (PyTorch ops on the kernel's
+    # statistics) against autograd of the plain version in f32: 1e-5 of
+    # each gradient's max.
     norm_err = {}
     for dtype in (bf16, torch.float32):
-        for d_ in (2048, 2560, 4096, 8192, 512, 1536):
+        for d_ in (2048, 2560, 4096, 8192, 512, 1536, 1280):
             x_ = (normal(4, 64, d_, sc=3.0) + 0.5).to(dtype)
             sc_, bi_ = normal(d_), normal(d_)
             for form, fn, ref in (
@@ -3239,6 +3275,18 @@ def main() -> int:
                 alone = launched("norm", lambda: fn(x_[2:3]))
                 check(torch.equal(alone[0], y_[2]),
                       f"{what}: a row alone differs from row 2 of the batch")
+        kv_a = (normal(4, 64, 576, sc=3.0) + 0.5).to(dtype)
+        latent, sc_ = kv_a[..., :512], normal(512)
+        what = f"norm latent slice d=512 of 576 {str(dtype)[6:]}"
+        y_ = launched("norm", lambda: rms_norm(latent, sc_, 1e-6))
+        norm_err[what] = agree(what, y_, rms_norm_ref(latent, sc_, 1e-6))
+        alone = launched("norm", lambda: rms_norm(latent[2:3], sc_, 1e-6))
+        check(torch.equal(alone[0], y_[2]),
+              f"{what}: a row alone differs from row 2 of the batch")
+        ran = device_kernels(torch, lambda: rms_norm(latent, sc_, 1e-6), 3)
+        check(len(ran) == 3 and all(any(n in k for n in NORM_KERNEL_NAMES)
+                                    for k in ran),
+              f"{what}: three calls ran {ran}, not the norm kernel alone")
     for form in ("rms", "layer"):
         leaves = [normal(4, 16, 2048).requires_grad_(),
                   (normal(2048) + 1).requires_grad_(), normal(2048).requires_grad_()]
@@ -3256,9 +3304,10 @@ def main() -> int:
                   f"norm {form} backward: error {err(g_, w_)}")
     max_err["norm"] = norm_err["norm rms d=2048 bfloat16"]
     log("phase 2: norm ok (RMS, LayerNorm, groups of 64, one group with a "
-        "bias; bf16 and f32 at d = 2048, 2560, 4096, 8192, 512, 1536; a row "
-        "alone bit-equal to row 2 of the batch; autograd backward within "
-        "1e-5 of the plain version's; max abs err vs plain: "
+        "bias; bf16 and f32 at d = 2048, 2560, 4096, 8192, 512, 1536, 1280; "
+        "a row alone bit-equal to row 2 of the batch; deepseek's latent slice "
+        "read in place, one norm kernel a call and no copy; autograd "
+        "backward within 1e-5 of the plain version's; max abs err vs plain: "
         + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in norm_err.items()) + ")")
 
     # mamba_scan at jamba's width with the dtypes the jamba block passes
@@ -3370,7 +3419,13 @@ def main() -> int:
     # is drawn log-uniform in [0.05, 1), where the plain chunked form's dw
     # is accurate; the shapes are rwkv6-3b's and jamba's training shapes
     # (B = 8, T = 128) and ragged or narrow ones, D = 64 and 32, N = 16, 32
-    # and 2, delta bf16 (the kernels' three entry points).
+    # and 2, delta bf16 (the kernels' three entry points); rwkv's T = 256,
+    # whose chunk states do not fit in shared memory beside the rest
+    # (bwd_scratch_words > 0: they go to a scratch buffer); and rwkv on the
+    # transposed (B, H, T, D) views the model passes (models/rwkv.py
+    # _heads, and dy as autograd hands it), read in place: a profiled call
+    # runs the backward's two kernels and no copy, and dr, dk, dv come back
+    # in the views' layout.
     bwd_err = {}
 
     def twice(name, fn):
@@ -3384,7 +3439,7 @@ def main() -> int:
     for dtype in (f32, bf16):
         for b_, h_, t_, d_ in ((TRAIN_BATCH, rw_h, TRAIN_SEQ, rw_d),
                                (2, 8, 77, rw_d), (2, 8, 40, 32),
-                               (1, 2, 1, rw_d)):
+                               (1, 2, 1, rw_d), (1, 4, 256, rw_d)):
             r_, k_, v_ = (normal(b_, h_, t_, d_, dtype=dtype, sc=0.5)
                           for _ in range(3))
             w_ = log_uniform(0.05, 1.0, b_, h_, t_, d_)
@@ -3397,6 +3452,26 @@ def main() -> int:
                     f"D={d_}")
             bwd_err[what] = max(agree(f"{what} {n_}", g_, w0_.to(g_.dtype))
                                 for n_, g_, w0_ in zip(rw_names, got, want))
+    check(bwd_scratch_words(256, rw_d, dev.index or 0) > 0
+          and bwd_scratch_words(TRAIN_SEQ, rw_d, dev.index or 0) == 0,
+          "rwkv6_scan_bwd: T = 256 should spill its chunk states and the "
+          "training shape keep them in shared memory")
+    b_, h_, t_, d_ = 2, 8, 77, rw_d
+    r_, k_, v_, dy_ = (normal(b_, t_, h_, d_, dtype=bf16, sc=sc_).transpose(1, 2)
+                       for sc_ in (0.5, 0.5, 0.5, 1.0))
+    w_ = log_uniform(0.05, 1.0, b_, t_, h_, d_).transpose(1, 2)
+    u_ = normal(h_, d_, sc=0.5)
+    got = twice("rwkv6_scan_bwd", lambda: rwkv6_scan_bwd(r_, k_, v_, w_, u_, dy_))
+    want = rwkv6_scan_bwd_plain(*(z.float() for z in (r_, k_, v_, w_, u_, dy_)))
+    what = f"rwkv6_scan_bwd bfloat16 B={b_} H={h_} T={t_} D={d_} views"
+    bwd_err[what] = max(agree(f"{what} {n_}", g_, w0_.to(g_.dtype))
+                        for n_, g_, w0_ in zip(rw_names, got, want))
+    check(all(g_.stride() == z.stride() for g_, z in zip(got, (r_, k_, v_, w_))),
+          f"{what}: the gradients' strides {[g_.stride() for g_ in got]} are "
+          f"not the views'")
+    ran = device_kernels(torch, lambda: rwkv6_scan_bwd(r_, k_, v_, w_, u_, dy_), 1)
+    check(len(ran) == 2 and all("rwkv6_" in k for k in ran),
+          f"{what}: a call ran {ran}, not the backward's two kernels alone")
     # against the exact gradient where the chunked form is not: w drawn
     # log-uniform down to 1e-12, and with 5 % of it 0 (dw = d log w / w
     # would be infinite there; the kernel takes dw as the sum of G * S over
@@ -4045,7 +4120,9 @@ def main() -> int:
     # (4 rows of 2048, RMS, bf16: the row the kernels line reports) and its
     # prefill (256 rows), stablelm's training forward (1024 rows of 2048,
     # LayerNorm), rwkv's step group norm (4 rows of 40 groups of 64) and
-    # deepseek's latent norm (4 rows of 512).  Bound: x read and y written
+    # deepseek's latent norm (4 rows of 512), that last one also on the
+    # latent slice the model passes (kv_a[..., :512] of 4 x 576, read in
+    # place; the library call reads the same view).  Bound: x read and y written
     # once, the f32 scale (and bias) read once, against ~6 flops an element
     # at the f32 peak.  Plain: the model's norm in PyTorch ops (its plain
     # version); library: F.rms_norm / F.layer_norm (scale and bias in x's
@@ -4057,10 +4134,11 @@ def main() -> int:
             ("qwen prefill RMS", 256, 2048, "rms"),
             ("stablelm train LayerNorm", TRAIN_BATCH * TRAIN_SEQ, 2048, "layer"),
             ("rwkv step groups of 64", RWKV_BATCH, 2560, "group"),
-            ("deepseek latent RMS", LM_BATCH, 512, "rms")):
-        x_ = normal(rows_, d_, dtype=bf16)
+            ("deepseek latent RMS", LM_BATCH, 512, "rms"),
+            ("deepseek latent slice RMS", LM_BATCH, 512, "slice")):
+        x_ = normal(rows_, 576 if form == "slice" else d_, dtype=bf16)[:, :d_]
         sc_, bi_ = normal(d_), normal(d_)
-        if form == "rms":
+        if form in ("rms", "slice"):
             fn = lambda: rms_norm(x_, sc_, 1e-6)  # noqa: E731
             pl = lambda: rms_norm_ref(x_, sc_, 1e-6)  # noqa: E731
             lib = lambda: F.rms_norm(x_, (d_,), sc_.to(bf16), 1e-6)  # noqa: E731
@@ -4230,13 +4308,23 @@ def main() -> int:
             r_, k_, v_, w_, u_, dy_), 1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
     fwd_ms = device_ms(torch, lambda: rwkv6_scan(r_, k_, v_, w_, u_), 20)
+    # the same values in the model's layout: transposed (B, H, T, D) views
+    views = [z.transpose(1, 2).contiguous().transpose(1, 2)
+             for z in (r_, k_, v_, w_, dy_)]
+    view_ms = device_ms(torch, lambda: rwkv6_scan_bwd(
+        views[0], views[1], views[2], views[3], u_, views[4]), 20)
     log(f"phase 3: rwkv6_scan_bwd rwkv6-3b training B={TRAIN_BATCH} H={rw_h} "
         f"T={TRAIN_SEQ} D={rw_d} (r/k/v/dy bf16, w f32): device time per "
-        f"call: kernel {fmt(r['ms'])} (the backward and du's sum over B), "
+        f"call: kernel {fmt(r['ms'])} (the backward and du's sum over B; on "
+        f"the model's transposed views {view_ms:.6f}), "
         f"plain {fmt(r['plain_ms'])} (autograd through the plain forward), "
         f"library none; bound {b_ms:.6f} ms ({b_by}); kernel "
         f"{r['ms'] / b_ms:.1f}x its bound; the forward kernel at this shape "
         f"{fwd_ms:.6f} ms")
+    for src, kname, regs, spill_st, spill_ld, stack in ptxas_job.result():
+        log(f"phase 3: ptxas_report {src}: {regs} registers, spill stores "
+            f"{spill_st} B, spill loads {spill_ld} B, stack {stack} B: {kname}")
+    ptxas_pool.shutdown()
     ins = ssm_inputs(TRAIN_BATCH, TRAIN_SEQ, mb_dm, mb_n, bf16)
     dy_ = normal(TRAIN_BATCH, TRAIN_SEQ, mb_dm, dtype=bf16)
     elems = TRAIN_BATCH * TRAIN_SEQ * mb_dm

@@ -3,7 +3,9 @@
 :func:`rms_norm`, :func:`layer_norm` and :func:`group_norm` launch
 ``csrc/norm.cu`` on CUDA tensors and run their plain versions
 (:mod:`.ref`, each the code of the call site it serves) on CPU and ``meta``
-tensors.  On the card a call is one launch of ``norm``; when an input
+tensors.  On the card a call is one launch of ``norm`` (``norm.py`` says
+how it reads a row once, its sums in an order fixed by the group's width
+and the dtype, and a view's rows in place); when an input
 requires grad, the call goes through :class:`_Norm`, whose forward is the
 same launch keeping each group's f32 mean and rstd, and whose backward is
 PyTorch ops on the saved input and those statistics (the JAX package has no
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..common import check_dtype, on_card
-from .norm import DTYPES, launch_norm
+from .norm import DTYPES, launch_norm, row_stride
 from .ref import group_norm_ref, layer_norm_ref, rms_norm_ref
 
 __all__ = ["rms_norm", "layer_norm", "group_norm", "rms_norm_ref",
@@ -80,11 +82,16 @@ def _forward(x, scale, bias, group, eps, layer, *, stats: bool
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                         Optional[torch.Tensor]]:
     """(y, mean, rstd): one launch; the f32 (rows, d / group) statistics
-    only with ``stats`` (mean only for LayerNorm)."""
-    x = x.contiguous()
+    only with ``stats`` (mean only for LayerNorm).  x is read in place where
+    its rows lie a fixed stride apart (deepseek's latent slice); y is
+    contiguous."""
+    stride = row_stride(x)
+    if stride is None:
+        x = x.contiguous()
+        stride = x.shape[-1]
     d = x.shape[-1]
     rows = x.numel() // d if d else 0
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     mean = rstd = None
     if stats:
         shape = (rows, d // group)
@@ -94,7 +101,7 @@ def _forward(x, scale, bias, group, eps, layer, *, stats: bool
     if x.numel():
         launch_norm(x, y, scale.contiguous(),
                     None if bias is None else bias.contiguous(), mean, rstd,
-                    group=group, eps=eps, layer=layer)
+                    group=group, eps=eps, layer=layer, stride=stride)
     return y, mean, rstd
 
 

@@ -10,8 +10,10 @@ the H100; ``rwkv6_scan.py`` says how) on CUDA tensors, with or without
 package's XLA chunked path) on CPU and ``meta`` tensors.  It is
 differentiable on both: on the card, when an input requires grad, through
 :class:`_RWKV6Scan`, whose forward launches the same kernel and whose
-backward launches ``csrc/rwkv6_scan_bwd.cu`` (:func:`rwkv6_scan_bwd`); on
-the CPU autograd runs through the plain version.  The JAX package
+backward launches ``csrc/rwkv6_scan_bwd.cu`` (:func:`rwkv6_scan_bwd`: the
+forward's chunked form run backwards on the tensor cores, reading the
+model's strided views in place); on the CPU autograd runs through the plain
+version.  The JAX package
 registers no Tiny-OpenCL family for it, so neither does the port.
 """
 
@@ -115,7 +117,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv in r's dtype, dw (B,H,T,D) and du (H,D) in f32.
 
     On CUDA tensors it launches ``csrc/rwkv6_scan_bwd.cu`` (dtypes and D as
-    the forward kernel takes them; views are copied contiguous first); on
+    the forward kernel takes them; r, k, v, w and dy are read in place,
+    views included, and dr, dk, dv, dw take the layouts of r, k, v, w); on
     CPU and ``meta`` tensors it runs the plain version, autograd through
     :func:`rwkv6_scan_plain`."""
     if not on_card(r, k, v, w, u, dy):
@@ -130,13 +133,17 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in COMPILED_D:
         raise ValueError(f"the rwkv6_scan backward kernel is compiled for D "
                          f"in {COMPILED_D}; got D={d}")
-    r, k, v, w = (x.contiguous() for x in (r, k, v, w))
-    dy = dy.to(r.dtype).contiguous()
+    if any(x.stride(-1) != 1 for x in (r, k, v, w)):
+        raise ValueError("rwkv6_scan_bwd: the kernel takes a contiguous last "
+                         "axis")
+    dy = dy.to(r.dtype)
+    if dy.stride(-1) != 1:              # autograd may hand any layout
+        dy = dy.contiguous()
     u = u.to(torch.float32).contiguous()
     dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
-    dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    du = torch.zeros((h, d), dtype=torch.float32, device=r.device)
+    dw = torch.empty_like(w, dtype=torch.float32)
+    du = torch.empty((h, d), dtype=torch.float32, device=r.device)
     if not (b * h * t):
-        return dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(), du
+        return dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(), du.zero_()
     launch_rwkv6_scan_bwd(r, k, v, w, u, dy, dr, dk, dv, dw, du)
     return dr, dk, dv, dw, du

@@ -18,10 +18,17 @@ unpadded.
 
 ``csrc/rwkv6_scan_bwd.cu`` is the scan's gradient (no state in, no gradient
 into the final state), which replaces no TPU kernel: the JAX package takes
-it from ``jax.grad`` of its XLA path.  It keeps the forward's grid and
-clusters, recomputes the states from checkpoints it writes every 8 steps,
-and takes dw from its definition (a sum of G * S over the columns), not
-from differences of log w.
+it from ``jax.grad`` of its XLA path.  It is the forward's chunked form run
+backwards, one block per (batch, head): a forward sweep of the chunked
+state update keeps each chunk's starting state in shared memory (a scratch
+buffer only where they do not fit, :func:`bwd_scratch_words`); then, chunk
+by chunk from the last, the carry dL/dS, dv and the chunk's cross products
+run on the tensor cores (TF32 in three parts) and dr, dk and dw come from
+running recurrences a channel.  dw is taken from its definition (a sum of
+G * S over the columns, expanded into products of decays), never from
+differences of log w.  Inputs are read through their strides and the
+gradients written through theirs, so the model's transposed views need no
+copy.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from ..common import launch, ptr, stream_of
+from ..common import kernel_library, launch, ptr, stream_of
 
 #: head dims the kernel is compiled for (clusters of D / 32 blocks)
 COMPILED_D = (32, 64)
@@ -43,12 +50,9 @@ _SYMBOL = {(torch.float32, torch.float32): "repro_rwkv6_scan_f32",
            (torch.bfloat16, torch.float32): "repro_rwkv6_scan_bf16",
            (torch.bfloat16, torch.bfloat16): "repro_rwkv6_scan_bf16w"}
 DTYPES = tuple(_SYMBOL)
-_BWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+_BWD_ARGS = [_P] * 13 + [_I] * 4 + [_P, _I, _P]
 _BWD_SYMBOL = {key: name.replace("scan", "scan_bwd")
                for key, name in _SYMBOL.items()}
-#: steps between the states the backward kernel checkpoints
-#: (csrc/rwkv6_scan_bwd.cu: kC)
-BWD_CHUNK = 8
 
 
 def launch_rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,20 +71,42 @@ def launch_rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            d, ctypes.cast(strides, _P), r.device.index, stream_of(r))
 
 
+def bwd_scratch_words(t: int, d: int, device: int) -> int:
+    """f32 words of scratch the backward kernel needs a (batch, head) for
+    its chunk states at this T and D on ``device``: 0 where they fit in
+    shared memory (T <= 224 at D = 64)."""
+    fn = kernel_library().repro_rwkv6_scan_bwd_scratch
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, _I]
+        fn.restype = ctypes.c_longlong
+    words = fn(t, d, device)
+    if words < 0:
+        raise RuntimeError(f"repro_rwkv6_scan_bwd_scratch failed for T={t}, "
+                           f"D={d} on cuda:{device}")
+    return words
+
+
 def launch_rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
                           dr: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
                           dw: torch.Tensor, du: torch.Tensor) -> None:
-    """Launch the backward on contiguous CUDA tensors r/k/v/w/dy (B,H,T,D),
-    T >= 1, and the contiguous f32 ``u`` (H,D), into the contiguous ``dr``,
-    ``dk``, ``dv`` (r's dtype), ``dw`` (B,H,T,D) f32 and ``du`` (H,D) f32,
-    on the current stream.  The state checkpoints and du's per-row partials
-    are scratch allocated here."""
+    """Launch the backward on CUDA tensors r/k/v/w/dy (B,H,T,D), T >= 1,
+    each with a contiguous last axis and any other strides, and the
+    contiguous f32 ``u`` (H,D), into ``dr``, ``dk``, ``dv`` (r's dtype) and
+    ``dw`` (B,H,T,D) f32, written through their own strides, and the
+    contiguous ``du`` (H,D) f32, on the current stream.  The spilled chunk
+    states (if any) and du's per-row partials are scratch allocated
+    here."""
     b, h, t, d = r.shape
-    ckpt = torch.empty((b, h, -(-t // BWD_CHUNK), d, d), dtype=torch.float32,
-                       device=r.device)
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
+    dev = r.device
+    words = bwd_scratch_words(t, d, dev.index)
+    hist = (torch.empty(b * h * words, dtype=torch.float32, device=dev)
+            if words else None)
+    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 27)(*(s for x in (r, k, v, w, dy, dr, dk,
+                                                     dv, dw)
+                                         for s in x.stride()[:3]))
     launch("rwkv6_scan_bwd", _BWD_SYMBOL[r.dtype, w.dtype], _BWD_ARGS,
-           ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(dy), ptr(ckpt), ptr(dr),
-           ptr(dk), ptr(dv), ptr(dw), ptr(du_part), ptr(du), b, h, t, d,
-           r.device.index, stream_of(r))
+           ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(dy), ptr(dr), ptr(dk),
+           ptr(dv), ptr(dw), ptr(hist), ptr(du_part), ptr(du), b, h, t, d,
+           ctypes.cast(strides, _P), dev.index, stream_of(r))
