@@ -5,7 +5,7 @@ shape), B = 2, T = 128 (phase 4c's) and B = 1, T = 4096.
 
 Run from the root of a checkout, on a machine with a card::
 
-    python3 benchmarks_torch/bench_mamba_scan.py [--src DIR] [--lanes]
+    python3 benchmarks_torch/bench_mamba_scan.py [--src DIR] [--lanes | --bwd]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
 checkout's by default; another commit unpacked beside it times its own
@@ -13,6 +13,14 @@ kernel, through ``selective_scan``, which every version has).  ``--lanes``
 instead times every lane count the kernel has (``launch_mamba_scan``'s
 ``lanes``) at B = 1, 2, 4 and T = 128 .. 4096, the plan's choice marked:
 the reading that ``plan_mamba``'s warp targets and ``LONG_SCAN`` rest on.
+``--bwd`` instead times the backward, ``mamba_scan_bwd`` (which every
+version since the scan trained has), at jamba's training shape (B = 8,
+T = 128) on its three dtype routes (x/dy bf16 with delta f32, as the jamba
+block passes them, then delta bf16 too, then all f32): its bound counts x,
+dy, delta, dx and ddelta once and 18 f32 flops a step, channel and state,
+its error is against autograd of the plain version on the same values in
+f32, each gradient held as phase 2 holds it, and the kernel's gradients
+are compared with a second call's bit for bit.
 Each row: device ms per call (CUDA events around 20 replays of a CUDA
 graph of calls, ``chip_smoke.device_ms``), the byte bound at 3.35 TB/s,
 the special-function unit's floor (one exponential per step, channel and
@@ -35,12 +43,16 @@ ROOT = Path(__file__).resolve().parents[1]
 SHAPES = ((4, 256), (2, 128), (1, 4096))
 #: (B, T) of the lane sweep
 SWEEP = tuple((b, t) for b in (1, 2, 4) for t in (128, 256, 512, 1024, 2048, 4096))
+#: the backward's (B, T) (chip_smoke.py's TRAIN_BATCH, TRAIN_SEQ)
+BWD_SHAPE = (8, 128)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", default=str(ROOT / "src"))
-    parser.add_argument("--lanes", action="store_true")
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument("--lanes", action="store_true")
+    group.add_argument("--bwd", action="store_true")
     args = parser.parse_args()
 
     import torch
@@ -102,6 +114,35 @@ def main() -> int:
     info = common.build_kernels()
     print(f"kernels built in {info['seconds']:.1f} s", flush=True)
     label = Path(args.src).resolve().parent.name
+    if args.bwd:
+        from repro_torch.kernels.mamba_scan.ops import mamba_scan_bwd
+        from repro_torch.kernels.mamba_scan.ref import mamba_scan_bwd_plain
+        b, t = BWD_SHAPE
+        elems = b * t * dm
+        for x_dtype, d_dtype in ((torch.bfloat16, torch.float32),
+                                 (torch.bfloat16, torch.bfloat16),
+                                 (torch.float32, torch.float32)):
+            x, delta, a, bm, cm = inputs(b, t)
+            ins = (x.to(x_dtype), delta.to(d_dtype), a, bm, cm,
+                   normal(b, t, dm).to(x_dtype))
+            got = mamba_scan_bwd(*ins)
+            again = mamba_scan_bwd(*ins)
+            want = mamba_scan_bwd_plain(*(z.float() for z in ins))
+            want = [w.to(g.dtype) for g, w in zip(got, want)]
+            nbytes = elems * (3 * x_dtype.itemsize + 2 * d_dtype.itemsize) + 8.0 * (
+                dm * n + 2 * b * t * n)
+            print(json.dumps({
+                "kernel": label, "route": f"x {str(x_dtype)[6:]}, delta "
+                f"{str(d_dtype)[6:]}", "B": b, "T": t, "Dm": dm, "N": n,
+                "ms": device_ms(torch, lambda: mamba_scan_bwd(*ins), 10),
+                "bound_ms": bound(nbytes, 18.0 * elems * n)[0],
+                "sfu_floor_ms": elems * n / (SFU_PER_CLK_PER_SM * sms * clock_hz) * 1e3,
+                "err_over_tol": max(error([g], [w]) for g, w in zip(got, want)),
+                "second_call_bits_equal": all(torch.equal(g, h) for g, h in
+                                              zip(got, again))}), flush=True)
+            del ins, got, again, want
+            torch.cuda.empty_cache()
+        return 0
     for b, t in SWEEP if args.lanes else SHAPES:
         ins = inputs(b, t)
         want = mamba_scan_plain(*ins)

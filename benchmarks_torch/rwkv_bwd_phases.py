@@ -3,9 +3,9 @@
 A copy of ``src/repro_torch/csrc/rwkv6_scan_bwd.cu`` is instrumented: at
 every barrier of ``rwkv6_bwd_kernel`` thread 0 of each block reads
 ``clock64()`` and adds the cycles since its last reading to that phase's
-counter (one ``atomicAdd`` a barrier, a ``__device__`` array).  The copy is
-built with the library's own ``nvcc`` flags into ``build/repro_torch/``
-beside the library and called through its C entry point at rwkv6-3b's
+counter (``_kernel_copy.py``).  The copy is built with the library's own
+``nvcc`` flags into ``build/repro_torch/`` beside the library and called
+through the library's wrapper (``ops.rwkv6_scan_bwd``) at rwkv6-3b's
 training shape (B 8, H 40, T 128, D 64, r/k/v/dy bf16, w f32, numpy seed
 0), once to check it against the plain backward and once counted; the
 uninstrumented kernel's device ms (``chip_smoke.device_ms``) is printed
@@ -21,14 +21,14 @@ mean cycles a block by phase with each phase's share.  Needs the card.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from . import _kernel_copy as kc
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -53,11 +53,7 @@ def instrument(src: str) -> str:
     body = src[head:end]
 
     def mark(phase: str) -> str:
-        k = PHASES.index(phase)
-        return ("__syncthreads(); if (threadIdx.x == 0) { long long now_ = "
-                f"clock64(); atomicAdd(reinterpret_cast<unsigned long long*>("
-                f"&g_phase_cycles[{k}]), static_cast<unsigned long long>("
-                f"now_ - last_)); last_ = now_; }}")
+        return "__syncthreads(); " + kc.mark(PHASES.index(phase))
 
     parts = body.split("__syncthreads();")
     if len(parts) - 1 != len(BARRIER_PHASES):
@@ -68,64 +64,16 @@ def instrument(src: str) -> str:
     body = body.replace(CARRY_MARK, "    " + mark("backward: the carry") + "\n"
                         + CARRY_MARK, 1)
     body = body.replace("extern __shared__ __align__(16) float sm[];",
-                        "extern __shared__ __align__(16) float sm[];\n"
-                        "  long long last_ = clock64();", 1)
-    out = src[:head] + body + src[end:]
-    out = out.replace("namespace {\n", f"__device__ long long g_phase_cycles"
-                      f"[{len(PHASES)}];\nnamespace {{\n", 1)
-    n = len(PHASES)
-    return out + (
-        "\nREPRO_API int repro_phase_cycles(long long* out, int reset) {\n"
-        "  if (reset) {\n"
-        f"    long long z[{n}] = {{0}};\n"
-        "    return static_cast<int>(cudaMemcpyToSymbol(g_phase_cycles, z, sizeof(z)));\n"
-        "  }\n"
-        "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_cycles, "
-        f"{n} * sizeof(long long)));\n"
-        "}\n")
-
-
-def build() -> ctypes.CDLL:
-    from repro_torch.kernels import common
-    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = common.BUILD_DIR / "rwkv6_scan_bwd_phases.cu"
-    cu.write_text(instrument((common.CSRC_DIR / "rwkv6_scan_bwd.cu").read_text()))
-    so = cu.with_suffix(".so")
-    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-shared", "-I",
-                    str(common.CSRC_DIR), "-o", str(so), str(cu)], check=True)
-    return ctypes.CDLL(str(so))
-
-
-def launch(lib, r, k, v, w, u, dy):
-    """The instrumented copy's entry, called as the wrapper calls the
-    library's -> (dr, dk, dv, dw, du)."""
-    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import bwd_scratch_words
-    b, h, t, d = r.shape
-    words = bwd_scratch_words(t, d, r.device.index or 0)
-    hist = torch.empty(b * h * words, device=r.device) if words else None
-    dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
-    dw = torch.empty_like(w, dtype=torch.float32)
-    du = torch.empty((h, d), device=r.device)
-    du_part = torch.empty((b, h, d), device=r.device)
-    strides = (ctypes.c_longlong * 27)(*(s for x in (r, k, v, w, dy, dr, dk,
-                                                     dv, dw)
-                                         for s in x.stride()[:3]))
-    fn = lib.repro_rwkv6_scan_bwd_bf16
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 13 + [I] * 4 + [P, I, P]
-    fn.restype = I
-    p = lambda x: P(None if x is None else x.data_ptr())  # noqa: E731
-    err = fn(p(r), p(k), p(v), p(w), p(u), p(dy), p(dr), p(dk), p(dv), p(dw),
-             p(hist), p(du_part), p(du), b, h, t, d, ctypes.cast(strides, P),
-             r.device.index or 0, P(torch.cuda.current_stream().cuda_stream))
-    if err:
-        raise RuntimeError(f"the instrumented kernel failed: CUDA error {err}")
-    return dr, dk, dv, dw, du
+                        "extern __shared__ __align__(16) float sm[];\n  "
+                        + kc.CLOCK_START, 1)
+    return kc.with_counters(src[:head] + body + src[end:], len(PHASES))
 
 
 def run() -> dict:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from chip_smoke import device_ms, nvidia_smi
+    from repro_torch.kernels import common
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as rk
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan_bwd
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_plain
     dev = torch.device("cuda")
@@ -140,23 +88,21 @@ def run() -> dict:
     w = torch.exp(-torch.exp(normal(b, h, t, d, sc=0.5) - 1.0))
     u = normal(h, d, sc=0.5)
     dy = normal(b, h, t, d, dtype=torch.bfloat16)
-    lib = build()
-    got = launch(lib, r, k, v, w, u, dy)
-    want = rwkv6_scan_bwd(r, k, v, w, u, dy)
-    plain = rwkv6_scan_bwd_plain(*(z.float() for z in (r, k, v, w, u, dy)))
-    same = all(torch.equal(a, c) for a, c in zip(got, want))
-    lib.repro_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    counts = (ctypes.c_longlong * len(PHASES))()
-    lib.repro_phase_cycles(counts, 1)
-    launch(lib, r, k, v, w, u, dy)
-    torch.cuda.synchronize()
-    lib.repro_phase_cycles(counts, 0)
+    ins = (r, k, v, w, u, dy)
+    want = rwkv6_scan_bwd(*ins)
+    plain = rwkv6_scan_bwd_plain(*(z.float() for z in ins))
+    lib, _ = kc.build(common, "rwkv6_scan_bwd_phases", instrument(
+        (common.CSRC_DIR / "rwkv6_scan_bwd.cu").read_text()))
+    with kc.redirect(rk, lib):
+        got = rwkv6_scan_bwd(*ins)
+        counts = kc.read_cycles(lib, len(PHASES), lambda: rwkv6_scan_bwd(*ins))
+        instrumented_ms = device_ms(torch, lambda: rwkv6_scan_bwd(*ins), 20)
     total = sum(counts)
     return {
         "card": nvidia_smi("name,power.limit"),
-        "kernel_ms": device_ms(torch, lambda: rwkv6_scan_bwd(r, k, v, w, u, dy), 20),
-        "instrumented_ms": device_ms(torch, lambda: launch(lib, r, k, v, w, u, dy), 20),
-        "bits_equal_to_the_kernel": same,
+        "kernel_ms": device_ms(torch, lambda: rwkv6_scan_bwd(*ins), 20),
+        "instrumented_ms": instrumented_ms,
+        "bits_equal_to_the_kernel": all(torch.equal(a, c) for a, c in zip(got, want)),
         "max_err_vs_plain_over_max": max(
             float((a.float() - c.float()).abs().max() / c.float().abs().max())
             for a, c in zip(got, plain)),

@@ -112,7 +112,9 @@ Phases (any failure exits non-zero and prints no result line):
    the model's transposed (B, H, T, D) views read in place (the backward's
    two kernels and no copy in a profiled call, the gradients in the views'
    layout); jamba's (B = 8, T = 128, Dm = 16384, N = 16), ragged Dm =
-   300 and 301 (delta bf16 too), N = 32 and 2; f32 gradients within 1e-5
+   300 and 301 (delta bf16 too), N = 32, 8, 4 and 2, T = 300 (whose
+   chunk states go to a scratch buffer), and b and c on bases off 16 bytes
+   (element loads, bit-equal to aligned b and c); f32 gradients within 1e-5
    of their largest magnitude, bf16 ones within one bf16 ulp more; every
    call bit-equal to a second one; ``rwkv6_scan_bwd`` against the float64
    sequential gradient with w drawn down to 1e-12 (and 5 % of it 0), within
@@ -187,9 +189,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``rwkv6_scan_bwd`` (also on the model's transposed views) and
    ``mamba_scan_bwd`` at the training shapes beside their bounds and plain
    versions (autograd through the plain forward; no library call computes
-   either); the registers and spills of the kernels of ``norm.cu`` and
-   ``rwkv6_scan_bwd.cu`` (``benchmarks_torch/ptxas_report.py``, compiled
-   beside phase 2);
+   either); the registers and spills of the kernels of ``norm.cu``,
+   ``rwkv6_scan_bwd.cu`` and ``mamba_scan_bwd.cu``
+   (``benchmarks_torch/ptxas_report.py``, compiled beside phase 2);
 4. the two main paths, each with the launch counters reset just before and
    read just after:
 
@@ -601,7 +603,7 @@ FLASH_BWD_KERNEL_NAMES = FLASH_BWD_DQ_NAMES + FLASH_BWD_DKDV_NAMES
 # means and torch.var), which no decode step may run
 NORM_KERNEL_NAMES = ("norm_kernel<",)
 # the sources whose kernels' registers and spills phase 3 logs
-PTXAS_SOURCES = ("norm.cu", "rwkv6_scan_bwd.cu")
+PTXAS_SOURCES = ("norm.cu", "rwkv6_scan_bwd.cu", "mamba_scan_bwd.cu")
 NORM_REDUCTIONS = ("MeanOps", "WelfordOps")
 LIBRARY_ATTENTION = ("fmha", "sdpa", "cudnn", "attention", "pytorch_flash",
                      "flash_fwd", "flash_bwd")
@@ -2306,8 +2308,8 @@ def main() -> int:
         from repro_torch.kernels.norm.ops import group_norm, layer_norm, rms_norm
         from repro_torch.kernels.norm.ref import (group_norm_ref,
                                                   layer_norm_ref, rms_norm_ref)
-        from repro_torch.kernels.mamba_scan.mamba_scan import (plan_mamba,
-                                                               rows_16b)
+        from repro_torch.kernels.mamba_scan.mamba_scan import (
+            bwd_scratch_words as mamba_scratch_words, plan_mamba, rows_16b)
         from repro_torch.kernels.mamba_scan.ops import (mamba_scan,
                                                         mamba_scan_bwd,
                                                         selective_scan)
@@ -3503,8 +3505,11 @@ def main() -> int:
         for b_, t_, dm, n_, d_dtype in ((TRAIN_BATCH, TRAIN_SEQ, mb_dm, mb_n, f32),
                                         (2, 100, 300, 16, f32),
                                         (2, 50, 256, 32, f32),
+                                        (2, 37, 200, 8, f32),
+                                        (2, 41, 130, 4, f32),
                                         (1, 7, 64, 2, f32),
-                                        (2, 50, 301, 16, dtype)):
+                                        (2, 50, 301, 16, dtype),
+                                        (1, 300, 96, 16, f32)):
             ins = ssm_inputs(b_, t_, dm, n_, dtype, d_dtype)
             dy_ = normal(b_, t_, dm, dtype=dtype)
             got = twice("mamba_scan_bwd", lambda: mamba_scan_bwd(*ins, dy_))
@@ -3514,6 +3519,22 @@ def main() -> int:
             bwd_err[what] = max(
                 agree(f"{what} {nm}", g_, w0_.to(g_.dtype)) for nm, g_, w0_ in
                 zip(("dx", "ddelta", "da", "db", "dc"), got, want))
+    check(mamba_scratch_words(1, 300, 96, 16) > 0
+          and mamba_scratch_words(TRAIN_BATCH, TRAIN_SEQ, mb_dm, mb_n) == 0,
+          "mamba_scan_bwd: T = 300 should spill its chunk states and the "
+          "training shape keep them in shared memory")
+    # b and c on bases that are not 16-byte aligned: no TMA box takes them,
+    # so the launch takes the element loads, with the bits of aligned b, c
+    ins = ssm_inputs(2, 50, 256, 16, bf16)
+    dy_ = normal(2, 50, 256, dtype=bf16)
+    shifted = tuple(torch.empty(z.numel() + 1, device=dev)[1:].view_as(z)
+                    .copy_(z) for z in ins[3:])
+    check(not rows_16b(shifted[0].data_ptr(), 16, 4),
+          "mamba_scan_bwd: the shifted b should not be 16-byte aligned")
+    got = mamba_scan_bwd(*ins[:3], *shifted, dy_)
+    check(all(torch.equal(g_, w_) for g_, w_ in
+              zip(got, mamba_scan_bwd(*ins, dy_))),
+          "mamba_scan_bwd: b and c on unaligned bases changed the gradients")
     # through autograd, as the model calls them: the forward kernel and the
     # backward kernel once each, the gradients bit-equal to the backward's
     # own; a state0 under autograd is refused (no plain fallback)
@@ -4343,7 +4364,8 @@ def main() -> int:
         f"kernel {fmt(r['ms'])} (the backward and the sums of da, db and dc), "
         f"plain {fmt(r['plain_ms'])} (autograd through the plain forward), "
         f"library none; bound {b_ms:.6f} ms ({b_by}), SFU floor "
-        f"{sfu_ms:.6f} ms; kernel {r['ms'] / b_ms:.2f}x its bound, "
+        f"{sfu_ms:.6f} ms (the design's two exponentials a step, channel and "
+        f"state: {2 * sfu_ms:.6f}); kernel {r['ms'] / b_ms:.2f}x its bound, "
         f"{r['ms'] / sfu_ms:.2f}x the SFU floor; the forward kernel at this "
         f"shape {fwd_ms:.6f} ms")
 

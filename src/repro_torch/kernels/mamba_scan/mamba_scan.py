@@ -15,10 +15,15 @@ kernel does.
 
 ``csrc/mamba_scan_bwd.cu`` is the scan's gradient (no state in, no gradient
 into the final state), which replaces no TPU kernel: the JAX package takes
-it from ``jax.grad`` of its XLA path.  One thread a channel of one batch
-row, 128 a block whatever B is (:func:`bwd_blocks`); it recomputes h from
-checkpoints it writes every 8 steps with the forward's own exponentials,
-and sums b's and c's gradients over channels in a fixed order.
+it from ``jax.grad`` of its XLA path.  :func:`plan_mamba_bwd` splits a
+channel's N states over lanes (at most :data:`BWD_MAX_STATES` a thread,
+:data:`BWD_THREADS` threads of one batch row a block, whatever B is).  A
+sweep keeps each thread's state at the start of every chunk of
+:data:`BWD_CHUNK` steps (in shared memory, or a scratch buffer whose size
+:func:`bwd_scratch_words` asks the library for); then each chunk, from the
+last, runs forward again with the forward's own exponentials, keeping
+every h and exponential in registers for the reverse walk, which takes
+none.  b's and c's gradients are summed over channels in a fixed order.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..common import cdiv, launch, ptr, stream_of
+from ..common import cdiv, kernel_library, launch, ptr, stream_of
 
 #: state sizes the kernel is compiled for (the state lives in registers)
 COMPILED_N = (2, 4, 8, 16, 32)
@@ -66,13 +71,14 @@ _SYMBOL = {(torch.float32, torch.float32): "repro_mamba_scan_f32",
            (torch.bfloat16, torch.float32): "repro_mamba_scan_bf16",
            (torch.bfloat16, torch.bfloat16): "repro_mamba_scan_bf16d"}
 DTYPES = tuple(_SYMBOL)
-_BWD_ARGS = [_P] * 15 + [_I] * 5 + [_P]
+_BWD_ARGS = [_P] * 15 + [_I] * 7 + [_P]
 _BWD_SYMBOL = {key: name.replace("scan", "scan_bwd")
                for key, name in _SYMBOL.items()}
-#: the backward kernel's channels a block and steps between the states it
-#: checkpoints (csrc/mamba_scan_bwd.cu: kThreads, kC)
-BWD_CHANNELS = 128
+#: the backward kernel's threads a block, steps a chunk and most states a
+#: thread (csrc/mamba_scan_bwd.cu: kThreads, kC, kMaxStates)
+BWD_THREADS = 256
 BWD_CHUNK = 8
+BWD_MAX_STATES = 4
 
 
 class MambaPlan(NamedTuple):
@@ -154,10 +160,47 @@ def launch_mamba_scan(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
            x.device.index, stream_of(x))
 
 
-def bwd_blocks(dm: int) -> int:
-    """Blocks of one batch row in the backward kernel (128 channels each):
-    a channel's sums never depend on B."""
-    return cdiv(dm, BWD_CHANNELS)
+class MambaBwdPlan(NamedTuple):
+    lanes: int        # threads that share a channel's N states
+    states: int       # states a thread (N / lanes)
+    channels: int     # channels a block (BWD_THREADS // lanes)
+    blocks: int       # blocks of one batch row
+    chunk: int        # steps between the kept states (BWD_CHUNK)
+
+
+def plan_mamba_bwd(dm: int, n: int) -> MambaBwdPlan:
+    """The backward kernel's launch for Dm = ``dm`` channels of state size
+    ``n``: ``min(n,`` :data:`BWD_MAX_STATES` ``)`` states a thread, so
+    ``n / states`` lanes a channel, and ``ceil(dm / channels)`` blocks a
+    batch row.
+
+    A pure function of its arguments, with no B and no SM count: a
+    channel's sums over its states and the order of db's and dc's sums over
+    channels (lanes in a warp, the block's warps, then the blocks) are the
+    same in a batch of any size.
+    """
+    if n not in COMPILED_N or dm < 1:
+        raise ValueError(f"the mamba_scan backward kernel is compiled for N in "
+                         f"{COMPILED_N} and Dm >= 1; got N={n}, Dm={dm}")
+    states = min(n, BWD_MAX_STATES)
+    lanes = n // states
+    channels = BWD_THREADS // lanes
+    return MambaBwdPlan(lanes, states, channels, cdiv(dm, channels), BWD_CHUNK)
+
+
+def bwd_scratch_words(b: int, t: int, dm: int, n: int) -> int:
+    """f32 words of scratch the backward kernel needs for its chunk states
+    at these sizes: 0 where they stay in shared memory (T <= 136 at N =
+    16), else B (ceil(T / 8) - 1) Dm N with Dm rounded up to a block."""
+    fn = kernel_library().repro_mamba_scan_bwd_scratch
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, _I, _I]
+        fn.restype = ctypes.c_longlong
+    words = fn(b, t, dm, n)
+    if words < 0:
+        raise RuntimeError(f"repro_mamba_scan_bwd_scratch failed for B={b}, "
+                           f"T={t}, Dm={dm}, N={n}")
+    return words
 
 
 def launch_mamba_scan_bwd(x: torch.Tensor, delta: torch.Tensor,
@@ -168,17 +211,26 @@ def launch_mamba_scan_bwd(x: torch.Tensor, delta: torch.Tensor,
     """Launch the backward on contiguous CUDA tensors x/delta/dy (B,T,Dm),
     T >= 1, f32 a (Dm,N) and b/c (B,T,N), into the contiguous ``dx`` (x's
     dtype), ``ddelta`` (delta's dtype), f32 ``da`` (Dm,N), ``db`` and ``dc``
-    (B,T,N), on the current stream.  The state checkpoints and the partial
-    sums are scratch allocated here."""
+    (B,T,N), on the current stream, with :func:`plan_mamba_bwd`'s plan.
+    The spilled chunk states (if any) and the partial sums are scratch
+    allocated here."""
     bsz, t, dm = x.shape
     n = a.shape[1]
+    plan = plan_mamba_bwd(dm, n)
     f32, dev = torch.float32, x.device
-    ckpt = torch.empty((bsz, cdiv(t, BWD_CHUNK), dm, n), dtype=f32, device=dev)
+    words = bwd_scratch_words(bsz, t, dm, n)
+    ckpt = torch.empty(words, dtype=f32, device=dev) if words else None
     da_part = torch.empty((bsz, dm, n), dtype=f32, device=dev)
-    db_part, dc_part = (torch.empty((bsz, bwd_blocks(dm), t, n), dtype=f32,
+    db_part, dc_part = (torch.empty((bsz, plan.blocks, t, n), dtype=f32,
                                     device=dev) for _ in range(2))
+    # b's and c's rows are whole 16 bytes from N = 4 on: they then come by
+    # TMA too, and need 16-byte aligned bases for it
+    copy16 = (all(rows_16b(z.data_ptr(), dm, z.element_size())
+                  for z in (x, delta, dy))
+              and (n * 4 % 16 != 0
+                   or all(rows_16b(z.data_ptr(), n, 4) for z in (b, c))))
     launch("mamba_scan_bwd", _BWD_SYMBOL[x.dtype, delta.dtype], _BWD_ARGS,
            ptr(x), ptr(delta), ptr(a), ptr(b), ptr(c), ptr(dy), ptr(ckpt),
            ptr(dx), ptr(ddelta), ptr(da_part), ptr(db_part), ptr(dc_part),
-           ptr(da), ptr(db), ptr(dc), bsz, t, dm, n, dev.index,
-           stream_of(x))
+           ptr(da), ptr(db), ptr(dc), bsz, t, dm, n, plan.blocks,
+           int(copy16), dev.index, stream_of(x))
