@@ -122,7 +122,16 @@ Phases (any failure exits non-zero and prints no result line):
    dw is no yardstick there, and is logged beside); through autograd
    (``rwkv6_scan``, ``selective_scan`` with inputs requiring grad) one
    forward and one backward launch, the gradients bit-equal to the
-   backward's own, and a ``state0`` refused;
+   backward's own, and a ``state0`` refused; the modes the sharded paths
+   give two kernels (``cp_and_t_split``): the context-parallel shard
+   (``flash_attention`` at a ``q_offset``) at paligemma's heads, S_local = 512 of T =
+   8192 at ``q_offset`` 0, 512 x 7 and 512 x 15, bf16 and f32, forward and
+   backward kernels against the plain version at that offset; the T-split
+   decode step (``decode_max``, ``decode_partial``, ``combine_shards``) at
+   qwen's step cut into 4 T-blocks, one holding no key, against the
+   unsplit ``lengths`` call and the plain two-pass version; then their
+   device times beside bounds (the shard's backward also beside SDPA's
+   backward with the shard's mask);
    2b. the four TinyBio kernels with a leading batch axis, for B = 1, 2,
    4, 8: ``fir`` (f32 and Q15 int16), ``delineate`` (with extrema at every
    row's edges), ``power_spectrum`` on (B, 128, 512) and ``svm`` on
@@ -434,15 +443,27 @@ Phases (any failure exits non-zero and prints no result line):
    read); the ~86M example model's tree distributed under
    ``TRAIN_FSDP_RULES``, gathered, saved and restored with
    ``restore_sharded`` onto the mesh, every leaf's bits kept; the group
-   destroyed at the end of the phase;
+   destroyed at the end of the phase.  12c: the models under the sharding
+   rules on ``make_host_mesh()`` (NCCL, world 1), every tensor a DTensor
+   and every kernel reached through ``distributed.sharding.on_blocks``:
+   one stablelm-1.6b step (phase 11a's model whole, batch 8 x 128) under
+   ``TRAIN_FSDP_RULES`` from the seed's state, bit-equal in loss, every
+   parameter and both moments to the unsharded step from a copy of that
+   state (the counters reset just before the sharded step and read just
+   after: flash_attention and flash_attention_bwd once a layer, norm at
+   every norm); then qwen2.5-3b at full depth in bf16 under
+   ``SERVE_RULES``: phase 5's prefill and 15 decode steps, the counters
+   read as phase 5's, the prefill's and every step's logits and the greedy
+   tokens bit-equal to phase 5's; both walls beside the unsharded ones;
 
 13. one ``{"kernels": [...]}`` line for all thirteen kernels (launches: phase
    4's main paths, plus phase 4d's, phase 7's and phase 12's for the GeMM
-   and TinyBio kernels, phases 8's, 9's, 10's and 11's for ``flash_attention``, 11's
-   for ``flash_attention_bwd``, 8's and 11h's for ``rwkv6_scan``, 10's
+   and TinyBio kernels, phases 8's, 9's, 10's, 11's and 12c's for
+   ``flash_attention``, 11's and 12c's for ``flash_attention_bwd``, 8's and 11h's for ``rwkv6_scan``, 10's
    and 11i's for ``mamba_scan``, 11h's and 11i's for ``rwkv6_scan_bwd``
-   and ``mamba_scan_bwd``, phases 5's, 8's, 9's and 10's for ``decode_attention``
-   (after 4c's registry launches) and phases 5, 6 and 8-11 for ``norm``),
+   and ``mamba_scan_bwd``, phases 5's, 8's, 9's, 10's and 12c's for
+   ``decode_attention`` (after 4c's registry launches) and phases 5, 6,
+   8-11 and 12c for ``norm``),
    then, last, ``{"ok": true, "device": {...}}``.  Each phase logs its
    wall time.
 
@@ -768,6 +789,33 @@ def profiler_marker(torch) -> None:
     torch.cuda.synchronize()
 
 
+def traced(torch, body):
+    """``body()`` under ``torch.profiler`` between marker kernels, in one
+    window: -> (the profile, body's result).  A trace's last device event
+    is lost on the card machines (a window came back with its leading
+    marker and without the one kernel ``body`` ran; with one trailing
+    marker, that marker was lost in most windows of a full run), so two
+    markers follow ``body`` to take the loss.  A trace that kept neither of
+    them may have lost a kernel of ``body``: it fails the run, and is never
+    read (no window of a full run with two trailing markers has lost
+    both)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import common
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiler_marker(torch)
+        out = body()
+        for _ in range(2):
+            launch_floor(common)(1, 32)
+        torch.cuda.synchronize()
+    floors = sum(ev.device_type == DeviceType.CUDA
+                 and "launch_floor_kernel" in ev.name for ev in prof.events())
+    check(floors >= 2, f"a profiler window's trace lost {3 - floors} of its 3 "
+          f"marker kernels (both trailing ones): the window is not read")
+    return prof, out
+
+
 def device_profile(torch, fn, counts=None):
     """Run ``fn`` once under ``torch.profiler``: (host wall s, device busy
     s, device microseconds by kernel name).  Only device-side events
@@ -775,13 +823,14 @@ def device_profile(torch, fn, counts=None):
     time a second time — and busy time is the union of their intervals.
     A ``counts`` dict receives the number of device events by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_marker(torch)
+
+    def body():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    prof, wall_s = traced(torch, body)
     per_kernel = {}
     spans = []
     for ev in prof.events():
@@ -839,14 +888,15 @@ def device_kernels(torch, fn, calls: int):
     """Names of the device kernels that ``calls`` calls of ``fn`` ran, from
     a ``torch.profiler`` trace (copies and memsets included)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiler_marker(torch)
+
+    def body():
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+
+    prof, _ = traced(torch, body)
     return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA
             and not any(m in ev.name for m in MARKER_KERNELS)]
 
@@ -2003,6 +2053,366 @@ def modeled_report(rep) -> dict:
     measured = ("wall_s", "requests_per_s", "goodput_per_s")
     return {k: v for k, v in dataclasses.asdict(rep).items()
             if k not in measured}
+
+
+def cp_and_t_split(torch, np, dev, card) -> None:
+    """Phase 2's check of the two modes the sharded paths give the kernels,
+    at full-width shapes, and their device times.
+
+    * The context-parallel shard (``flash_attention(causal=True,
+      q_offset=)``, the call each shard of the model's path makes): paligemma-3b's
+      heads (B 1, 8 over one kv head of 256), q of S_local = 512 rows
+      against T = 8192 keys at ``q_offset`` 0, 512 x 7 and 512 x 15 (a
+      16-way model axis over S = 8192), bf16 and f32: the forward kernel
+      against ``flash_attention_plain`` at that offset, the backward
+      kernels (through the autograd call) against autograd of the plain
+      version in f32, each with phase 2's tolerances (1e-5 of max, plus a
+      bf16 ulp of each value in bf16).
+    * The T-split decode (``decode_max``, ``decode_partial``,
+      ``combine_shards``): qwen's step (B 4, H 16 over 2 kv heads of 128,
+      T 512, lengths 257 .. 272, bf16) split into 4 T-blocks, the last of
+      which holds no key of any row: its max is the sentinel and its
+      partial zero; the combined step against the unsplit ``lengths`` call
+      (within 1e-5 of max |v| plus 2^-9 of it for the bf16 weights and a
+      bf16 ulp of each output) and against the plain two-pass version
+      (``decode_max_ref``, ``decode_partial_ref``) to the same tolerance;
+      the passes each one launch.
+
+    Then device times (CUDA graphs): the shard's backward at 512 x 15
+    (bf16) beside its bound and SDPA's backward with an explicit mask of
+    the same visibility, and the two decode passes over one T-block beside
+    their byte bounds (no library call computes them)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get as get_arch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention.ops import (
+        combine_shards, decode_attention, decode_max, decode_partial)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_masked_ref, decode_max_ref, decode_partial_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        _card_forward, flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    bf16 = torch.bfloat16
+    pali = get_arch("paligemma-3b")
+    h, kvh, d = pali.n_heads, pali.n_kv_heads, pali.head_dim
+    s_local, t = 512, 8192
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max().item())
+
+    def within(got, want, dtype, what):
+        g, w = got.float(), want.float()
+        tol = 1e-5 * float(w.abs().max())
+        if dtype == bf16:
+            tol = tol + 2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+        check(bool(((g - w).abs() <= tol).all())
+              and bool(torch.isfinite(g).all()), f"{what}: error {err(got, want)}")
+        return err(got, want)
+
+    cp_err = {}
+    offsets = (0, s_local * 7, s_local * 15)
+    for dtype in (bf16, torch.float32):
+        q = normal(1, h, s_local, d, dtype=dtype)
+        k = normal(1, kvh, t, d, dtype=dtype)
+        v = normal(1, kvh, t, d, dtype=dtype)
+        dout = normal(1, h, s_local, d, dtype=dtype)
+        for off in offsets:
+            what = f"context-parallel shard {str(dtype)[6:]} q_offset {off}"
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            before = dict(common.LAUNCHES)
+            out = flash_attention(*leaves, causal=True, scale=d ** -0.5,
+                                  q_offset=off)
+            got = torch.autograd.grad(out, leaves, dout)
+            torch.cuda.synchronize()
+            check(common.LAUNCHES["flash_attention"] == before[
+                "flash_attention"] + 1 and common.LAUNCHES[
+                "flash_attention_bwd"] == before["flash_attention_bwd"] + 1,
+                f"{what}: the forward and backward kernels did not launch "
+                f"once each")
+            want = flash_attention_plain(q, k, v, causal=True, q_offset=off)
+            cp_err[what + " out"] = within(out.detach(), want, dtype,
+                                           what + " out")
+            want_g = flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), dout.float(), causal=True,
+                q_offset=off)
+            for name, g, w in zip("qkv", got, want_g):
+                check(g.dtype == dtype and g.shape == w.shape,
+                      f"{what}: d{name} dtype or shape")
+                cp_err[f"{what} d{name}"] = within(g, w, dtype,
+                                                   f"{what} d{name}")
+    log("phase 2: context-parallel flash (q_offset) ok, forward and backward "
+        "kernels against the plain version at paligemma's heads (B=1 H=8 "
+        "KVH=1 D=256), S_local=512 of T=8192: max abs err "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in cp_err.items()))
+
+    # the shard's backward at q_offset 512 x 15, bf16: device time, bound,
+    # SDPA's backward with the shard's mask
+    off = offsets[-1]
+    q, k, v, dout = (x.contiguous() for x in (
+        normal(1, h, s_local, d, dtype=bf16), normal(1, kvh, t, d, dtype=bf16),
+        normal(1, kvh, t, d, dtype=bf16), normal(1, h, s_local, d, dtype=bf16)))
+    _, lse = _card_forward(q, k, v, True, d ** -0.5, off, s_local, 512,
+                           with_lse=True)
+    pairs = sum(min(t, off + i + 1) for i in range(s_local))
+    nbytes = 2.0 * (2 * h * s_local * d * 2 + 2 * kvh * t * d * 2)
+    cp_bound = bound(nbytes, 2.0 * h * pairs * 5 * d, PEAK_BF16_FLOPS)
+    mask = (off + torch.arange(s_local, device=dev)[:, None]
+            >= torch.arange(t, device=dev)[None])
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    lib_fb = device_ms(torch, sdpa_fwd_bwd, 5)
+    lib_f = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), 5)
+    cp_ms = device_ms(torch, lambda: flash_attention_bwd(
+        q, k, v, dout, lse, q_offset=off), 10)
+    plain_ms = device_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, dout, q_offset=off), 1, replays=3)
+    log(f"phase 2: flash_attention_bwd at q_offset {off} (context-parallel "
+        f"shard, paligemma heads B=1 H={h} KVH={kvh} S_local={s_local} "
+        f"T={t} D={d} bf16) on {card}: kernel {cp_ms:.6f} ms, plain "
+        f"{plain_ms:.6f} ms, library (SDPA backward with the shard's mask: "
+        f"forward + backward {lib_fb:.6f} less forward {lib_f:.6f}) "
+        f"{lib_fb - lib_f:.6f} ms; bound {cp_bound[0]:.6f} ms "
+        f"({cp_bound[1]}: {pairs} visible pairs a head); kernel "
+        f"{cp_ms / cp_bound[0]:.1f}x its bound")
+
+    # the T-split decode step: qwen's, 4 blocks of 128 keys
+    lm = get_arch(LM_ARCH)
+    b, hq, hk, d2 = LM_BATCH, lm.n_heads, lm.n_kv_heads, lm.head_dim
+    tt, n = LM_MAX_LEN, 4
+    q = normal(b, hq, d2, dtype=bf16)
+    k = normal(b, hk, tt, d2, dtype=bf16)
+    v = normal(b, hk, tt, d2, dtype=bf16)
+    lens = torch.tensor([257, 262, 267, 272][:b], device=dev)
+    tl = tt // n
+    blocks = [(k[:, :, i * tl:(i + 1) * tl], v[:, :, i * tl:(i + 1) * tl],
+               (lens - i * tl).clamp(0, tl)) for i in range(n)]
+    before = common.LAUNCHES["decode_attention"]
+    maxima = [decode_max(q, kb, lb) for kb, _, lb in blocks]
+    m = torch.stack(maxima).amax(0)
+    parts = [decode_partial(q, kb, vb, lb, m) for kb, vb, lb in blocks]
+    got = combine_shards(parts, bf16)
+    torch.cuda.synchronize()
+    check(common.LAUNCHES["decode_attention"] == before + 2 * n,
+          "T-split decode: each pass did not launch once a block")
+    check(bool((maxima[-1] == -1e30).all()) and bool(
+        (parts[-1][1] == 0).all()) and bool((parts[-1][0] == 0).all()),
+          "T-split decode: the block past every row's length does not give "
+          "the sentinel max and a zero partial")
+    plain_m = torch.stack([decode_max_ref(q, kb, lb)
+                           for kb, _, lb in blocks]).amax(0)
+    plain = combine_shards([decode_partial_ref(q, kb, vb, lb, plain_m)
+                            for kb, vb, lb in blocks], bf16)
+    unsplit = decode_attention(q, k, v, lengths=lens)
+    vmax = float(v.float().abs().max())
+    t_err = {}
+    for what, want in (("unsplit lengths call", unsplit),
+                       ("plain two-pass", plain),
+                       ("masked plain", decode_attention_masked_ref(
+                           q, k, v, lens))):
+        tol = (1e-5 + 2.0 ** -9) * vmax + 2.0 ** -7 * torch.maximum(
+            got.float().abs(), want.float().abs())
+        t_err[what] = err(got, want)
+        check(bool(((got.float() - want.float()).abs() <= tol).all()),
+              f"T-split decode against the {what}: error {t_err[what]}")
+    check(err(m, plain_m) <= 1e-5 * float(plain_m.abs().max()),
+          f"T-split decode: the row maxima differ from the plain pass's by "
+          f"{err(m, plain_m)}")
+    log(f"phase 2: T-split decode ok (qwen's step B={b} H={hq} KVH={hk} "
+        f"T={tt} D={d2} bf16, lengths {lens.tolist()}, 4 blocks of {tl}, the "
+        f"last holding no key: sentinel max, zero partial; the row maxima "
+        f"within {err(m, plain_m):.3g} of the plain pass's; max abs err "
+        + ", ".join(f"vs the {k_} {v_:.3g}" for k_, v_ in t_err.items()) + ")")
+    kb, vb, lb = blocks[2]                  # keys 256 .. 383: every row has some
+    n_keys = int(lb.sum())
+    m_bound = bound(2.0 * (n_keys * hk * d2 + b * hq * d2), 2.0 * n_keys
+                    * hq * d2, PEAK_BF16_FLOPS)
+    p_bound = bound(2.0 * (2 * n_keys * hk * d2 + b * hq * d2) + 4.0 * (
+        b * hq * (d2 + 2)), 2.0 * n_keys * hq * 2 * d2, PEAK_BF16_FLOPS)
+    max_ms = device_ms(torch, lambda: decode_max(q, kb, lb), 100)
+    part_ms = device_ms(torch, lambda: decode_partial(q, kb, vb, lb, m), 100)
+    max_plain = device_ms(torch, lambda: decode_max_ref(q, kb, lb), 10)
+    part_plain = device_ms(torch, lambda: decode_partial_ref(q, kb, vb, lb, m),
+                           10)
+    log(f"phase 2: T-split decode passes over one block (keys 256 .. 383, "
+        f"lengths {lb.tolist()}) on {card}: max pass kernel {max_ms:.6f} ms, "
+        f"plain {max_plain:.6f} ms, bound {m_bound[0]:.6f} ms ({m_bound[1]}); "
+        f"partial pass kernel {part_ms:.6f} ms, plain {part_plain:.6f} ms, "
+        f"bound {p_bound[0]:.6f} ms ({p_bound[1]}); library: none computes "
+        f"either pass")
+
+
+def sharded_models(torch, np, dev, card, lm_ref) -> dict:
+    """Phase 12c: the models under sharding rules on ``make_host_mesh()``
+    (NCCL, world 1), every tensor a DTensor and every kernel reached through
+    ``sharding.on_blocks``.
+
+    * stablelm-1.6b whole (phase 11a's model, batch 8 x 128, f32 masters,
+      bf16 compute and moments, remat "none"): one step under
+      TRAIN_FSDP_RULES (the state placed by ``param_shardings``, the FSDP
+      gather in every layer) from the seed's state, against the unsharded
+      step from a copy of that state: loss, every parameter and both
+      moments bit-equal; the launch counts reset just before and read just
+      after the sharded step (flash_attention and flash_attention_bwd once
+      a layer, norm at every norm); both walls (first step on each state).
+    * qwen2.5-3b at full depth, bf16 (phase 5's model from seed 0):
+      prefill of phase 5's 4 x 256 prompt and 15 decode steps under
+      SERVE_RULES, the launch counts read as phase 5's; the prefill logits,
+      every step's logits and the greedy tokens bit-equal to phase 5's; the
+      prefill and mean step walls beside phase 5's.
+
+    -> the sharded runs' launches by kernel."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed.sharding import (SERVE_RULES,
+                                                  TRAIN_FSDP_RULES, activate,
+                                                  distribute_tree,
+                                                  param_shardings,
+                                                  placements_for, spec_for)
+    from repro_torch.kernels import common
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import init_params, leaves_with_path
+    from repro_torch.models.transformer import Transformer, model_spec
+    from repro_torch.optim.schedule import constant_schedule
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    from repro_torch.train.step import (TrainConfig, clone_train_state,
+                                        init_train_state, make_train_step)
+    from torch.distributed.tensor import Replicate
+    mesh = make_host_mesh()
+    moved = {name: 0 for name in KERNELS}
+
+    def bits(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def place_batch(batch, rules):
+        return {k_: distribute_tree(v_, placements_for(spec_for(
+            ("batch", None), rules, mesh, tuple(v_.shape)), mesh), mesh)
+            for k_, v_ in batch.items()}
+
+    # -- the stablelm step under TRAIN_FSDP_RULES
+    cfg = get_arch(TRAIN_ARCH)
+    spec = model_spec(cfg)
+    tcfg = TrainConfig(remat="none", microbatches=1)
+    state = init_train_state(cfg, tcfg, 0, device=dev)
+    ref = clone_train_state(state)
+    batch = {k_: torch.from_numpy(v_).to(dev) for k_, v_ in SyntheticLMData(
+        DataConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0),
+        cfg).batch_at(0).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_metrics = make_train_step(cfg, tcfg, constant_schedule(3e-4))(
+        ref, batch)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    psh = param_shardings(spec, TRAIN_FSDP_RULES, mesh)
+    opt = state["opt"]
+    placed = {"params": distribute_tree(state["params"], psh, mesh),
+              "opt": {"m": distribute_tree(opt["m"], psh, mesh),
+                      "v": distribute_tree(opt["v"], psh, mesh),
+                      "step": distribute_tree(opt["step"],
+                                              (Replicate(),) * 2, mesh)}}
+    pbatch = place_batch(batch, TRAIN_FSDP_RULES)
+    with activate(TRAIN_FSDP_RULES, mesh):
+        step = make_train_step(cfg, tcfg, constant_schedule(3e-4))
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        placed, metrics = step(placed, pbatch)
+        torch.cuda.synchronize()
+        sh_wall = time.perf_counter() - t0
+    counts = dict(common.LAUNCHES)
+    check_train_launches(counts, f"phase 12c {cfg.name} sharded step", cfg, 1)
+    for name in KERNELS:
+        moved[name] += counts[name]
+    check(torch.equal(bits(metrics["loss"]), bits(ref_metrics["loss"])),
+          f"phase 12c: the sharded step's loss {float(metrics['loss'].to_local())} "
+          f"differs from the unsharded {float(ref_metrics['loss'])}")
+    same = {}
+    for part, got, want in (
+            ("params", placed["params"], ref["params"]),
+            ("m", placed["opt"]["m"], ref["opt"]["m"]),
+            ("v", placed["opt"]["v"], ref["opt"]["v"])):
+        bad = [p for (p, a), (_, b_) in zip(leaves_with_path(got),
+                                             leaves_with_path(want))
+               if not torch.equal(bits(a), bits(b_))]
+        check(not bad, f"phase 12c: {part} leaves differ from the unsharded "
+              f"step's: {bad[:4]}")
+        same[part] = len(list(leaves_with_path(got)))
+    log(f"phase 12c: {cfg.name} one train step under {TRAIN_FSDP_RULES.name} "
+        f"on make_host_mesh() (NCCL, world 1, DTensor state) bit-equal to the "
+        f"unsharded step: loss {float(ref_metrics['loss']):.6f}, "
+        f"{same['params']} parameter leaves, {same['m']} + {same['v']} "
+        f"moment leaves; "
+        f"launches {counts}; step wall {sh_wall * 1e3:.3f} ms sharded vs "
+        f"{ref_wall * 1e3:.3f} ms unsharded (first step on each state, "
+        f"{card})")
+    del state, ref, placed, metrics, ref_metrics, pbatch, batch, step
+    torch.cuda.empty_cache()
+
+    # -- qwen serving under SERVE_RULES
+    lm = get_arch(LM_ARCH)
+    spec = model_spec(lm)
+    tree = init_params(spec, 0, device=dev)
+    with activate(SERVE_RULES, mesh):
+        model = Transformer(lm, distribute_tree(tree, param_shardings(
+            spec, SERVE_RULES, mesh), mesh))
+        del tree
+        prefill_step = make_prefill_step(lm, LM_MAX_LEN)
+        decode_fn = make_decode_step(lm)
+        prompt = place_batch({"tokens": lm_ref["prompt"].to(dev)},
+                             SERVE_RULES)
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(model, prompt)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        steps, step_logits = [tok], []
+        t0 = time.perf_counter()
+        for i in range(LM_NEW - 1):
+            tok, lg, cache = decode_fn(model, cache, tok, LM_PROMPT + i)
+            steps.append(tok)
+            step_logits.append(lg)
+        torch.cuda.synchronize()
+        d_wall = (time.perf_counter() - t0) / (LM_NEW - 1)
+    counts = dict(common.LAUNCHES)
+    want = model_launches(lm, 1, LM_NEW - 1, flash_attention=lm.n_layers)
+    for name in KERNELS:
+        check(counts[name] == want.get(name, 0), f"phase 12c {lm.name} "
+              f"sharded serving launched {name} {counts[name]} times, "
+              f"expected {want.get(name, 0)}")
+        moved[name] += counts[name]
+    check(torch.equal(bits(logits).cpu(), bits(lm_ref["prefill"])),
+          "phase 12c: the sharded prefill's logits differ from phase 5's")
+    check(all(torch.equal(bits(a).cpu(), b_) for a, b_ in zip(
+        step_logits, lm_ref["steps"])),
+          "phase 12c: a sharded decode step's logits differ from phase 5's")
+    tokens = torch.stack([bits(x) for x in steps], 1).cpu()
+    check(torch.equal(tokens, lm_ref["tokens"]),
+          "phase 12c: the sharded greedy tokens differ from phase 5's")
+    log(f"phase 12c: {lm.name} ({lm.n_layers} layers, bf16) under "
+        f"{SERVE_RULES.name} on make_host_mesh(): prefill of "
+        f"{LM_BATCH} x {LM_PROMPT} and {LM_NEW - 1} decode steps, logits of "
+        f"the prefill and of every step and the greedy tokens bit-equal to "
+        f"phase 5's; launches {counts}; prefill wall {p_wall * 1e3:.3f} ms "
+        f"sharded vs {lm_ref['prefill_wall'] * 1e3:.3f} ms in phase 5, decode "
+        f"step wall {d_wall * 1e3:.3f} ms vs {lm_ref['decode_wall'] * 1e3:.3f} "
+        f"ms (mean of {LM_NEW - 1}, {card})")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return moved
 
 
 def serve_sharded(torch, np, dev, card) -> dict:
@@ -3586,6 +3996,10 @@ def main() -> int:
         + "; through autograd one forward and one backward launch each, "
         "bits equal; state0 under autograd refused")
 
+    # the modes the sharded paths give flash_attention_bwd (q_offset) and
+    # decode_attention (the T-split passes), at full-width shapes
+    cp_and_t_split(torch, np, dev, card)
+
     # -- 2b. the four TinyBio kernels with a leading batch axis ---------------
     phase_done("2b")
     # Serving lifts each stage over a batch (torch.func.vmap); each card
@@ -4802,13 +5216,21 @@ def main() -> int:
           "prefill logits: shape, finiteness or padding columns")
     tok = torch.argmax(logits, -1).to(torch.int32)
     steps = [tok]
+    # kept for phase 12c, which serves the same model under the sharding
+    # rules and must give these bits
+    lm_ref = {"prompt": ptoks["tokens"].cpu(), "prefill": logits.cpu(),
+              "steps": [], "prefill_wall": prefill_wall}
     before = dict(common.LAUNCHES)
     t0 = time.perf_counter()
     for i in range(LM_NEW - 1):
-        tok, _, cache = decode_fn(model, cache, tok, LM_PROMPT + i)
+        tok, step_logits, cache = decode_fn(model, cache, tok, LM_PROMPT + i)
         steps.append(tok)
+        lm_ref["steps"].append(step_logits)
     torch.cuda.synchronize()
     decode_wall = (time.perf_counter() - t0) / (LM_NEW - 1)
+    lm_ref["steps"] = [x.cpu() for x in lm_ref["steps"]]
+    lm_ref["tokens"] = torch.stack(steps, 1).cpu()
+    lm_ref["decode_wall"] = decode_wall
     want = model_launches(lm_cfg, 0, LM_NEW - 1)
     check(all(common.LAUNCHES[k_] - before[k_] == want.get(k_, 0)
               for k_ in KERNELS),
@@ -5309,6 +5731,13 @@ def main() -> int:
     launches.update({name: launches[name] + moved[name]
                      for name in TINYBIO_KERNELS})
     collective_layer(torch, np, dev, card)
+
+    # -- 12c. the models under the sharding rules on a world-1 NCCL mesh --------
+    phase_done("12c")
+    moved = sharded_models(torch, np, dev, card, lm_ref)
+    for name in ("flash_attention", "flash_attention_bwd", "norm",
+                 "decode_attention"):
+        launches[name] += moved[name]
 
     # -- 13. summary --------------------------------------------------------------
     phase_done()

@@ -73,6 +73,17 @@
 // parted from the CPU's by 2^-9 of a weight, enough to flip an MoE
 // routing near-tie.
 //
+// The T-sharded step (a cache whose T is split over the model axis, the
+// JAX model's GSPMD partial reductions) takes the same route in two passes
+// over a shard's keys, with the row lengths local to the shard (0 where the
+// shard holds none of a row's keys): repro_decode_max_* runs
+// decode_max_kernel and decode_rowmax_kernel, which reduces the splits'
+// maxima to each row's shard max (the sentinel where it has no key); the
+// model all-reduces those to the global max; repro_decode_partial_* then
+// runs the split kernel (and the combine kernel) with that global max
+// given (gmax), and returns the f32 acc and l of the shard's keys (the
+// weights rounded as above), which the model adds in shard order.
+//
 // Arithmetic per tile, as the TPU kernel orders it: s = (q . k) * scale in
 // f32, m_new = max(m, max s), p = exp(s - m_new), alpha = exp(m - m_new),
 // l = l * alpha + sum p, acc = acc * alpha + p @ v; out = acc / l with
@@ -134,6 +145,8 @@ struct Args {
   const long long* lengths;   // (B,): keys [0, lengths[b]) of row b, or null (all T)
   float* mx_s;      // (n_splits, B, H) f32: each split's max score, or null;
                     // non-null: the model's weights (see decode_max_kernel)
+  const float* gmax;  // (B, H) f32: each row's max given (the T-sharded
+                      // step's partial pass: the model's weights), or null
   int b, h, kvh, t, dk, dv;
   long long q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   float scale;
@@ -447,7 +460,10 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
     // the model's weights (mx_s): every weight from the row's global max,
     // the max over the splits' maxima (exact, so its order does not matter)
     float m_run = kNegInf, l_run = 0.f, acc[HB][DPL];
-    if (a.mx_s != nullptr) {
+    const bool fixed_max = a.mx_s != nullptr || a.gmax != nullptr;
+    if (a.gmax != nullptr) {
+      m_run = h_own < nh ? a.gmax[static_cast<long long>(b) * a.h + head0 + h_own] : 0.f;
+    } else if (a.mx_s != nullptr) {
       // this grid is a programmatic dependent of decode_max_kernel: its
       // producer streams keys already; the maxima are read once it is done
       asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -492,8 +508,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
       const float sv = valid ? part[0] * a.scale : kNegInf;
       float mx = fmaxf(sv, __shfl_xor_sync(0xffffffffu, sv, 8));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-      const float m_new = a.mx_s != nullptr ? m_run : fmaxf(m_run, mx);
-      const float alpha = a.mx_s != nullptr ? 1.f : expf(m_run - m_new);
+      const float m_new = fixed_max ? m_run : fmaxf(m_run, mx);
+      const float alpha = fixed_max ? 1.f : expf(m_run - m_new);
       const float p = valid ? expf(sv - m_new) : 0.f;
       float ps = p + __shfl_xor_sync(0xffffffffu, p, 8);
       ps += __shfl_xor_sync(0xffffffffu, ps, 16);
@@ -501,7 +517,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(Args a) {
       m_run = m_new;
       // the weight of p @ v: p itself, or (the model's) p rounded to the
       // cache dtype, while l sums p unrounded
-      if (lane % R == 0) pw[key_own * HB + h_own] = a.mx_s != nullptr ? round_as(p, T()) : p;
+      if (lane % R == 0) pw[key_own * HB + h_own] = fixed_max ? round_as(p, T()) : p;
       if (lane < HB * R && lane % R == 0) pw[kKeysPerWarp * HB + h_own] = alpha;
       __syncwarp();
 
@@ -700,6 +716,18 @@ __global__ void __launch_bounds__(kMaxThreads) decode_max_kernel(Args a) {
   }
 }
 
+// The T-sharded step's max pass: each row's max over the splits' maxima
+// (exact, in any order) into m_out (B, H).
+__global__ void __launch_bounds__(kCombineThreads) decode_rowmax_kernel(Args a) {
+  const long long bh = static_cast<long long>(a.b) * a.h;
+  for (long long row = static_cast<long long>(blockIdx.x) * kCombineThreads + threadIdx.x;
+       row < bh; row += static_cast<long long>(gridDim.x) * kCombineThreads) {
+    float m = kNegInf;
+    for (int sp = 0; sp < a.n_splits; ++sp) m = fmaxf(m, a.mx_s[sp * bh + row]);
+    a.m_out[row] = m;
+  }
+}
+
 template <typename T, int DPL, int HB>
 int launch_split(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(stages<T, DPL>(), HB, DPL, a.dv, sizeof(T));
@@ -759,6 +787,37 @@ bool aligned16(const void* p, long long a_, long long b_, long long c_, int es) 
          (b_ * es) % 16 == 0 && (c_ * es) % 16 == 0;
 }
 
+// A plan the kernels cannot run (a nonzero error), or 0.
+int bad_plan(int h, int kvh, int t, int dk, int dv, int n_splits, int kps, bool scratch) {
+  const bool bad = kvh <= 0 || h % kvh != 0 || t <= 0 || dk <= 0 || dk > 256 || dv <= 0 ||
+                   dv > 256 || n_splits <= 0 || kps <= 0 || kps % kTile != 0 ||
+                   static_cast<long long>(n_splits) * kps < t ||
+                   static_cast<long long>(n_splits - 1) * kps >= t ||
+                   (n_splits > 1 && (!scratch || n_splits > 4096));
+  return bad ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+template <typename T>
+int run_decode(const void* q, const void* k, const void* v, void* o, float* m_out,
+               float* l_out, float* acc_s, float* m_s, float* l_s, const long long* lengths,
+               float* mx_s, const float* gmax, int b, int h, int kvh, int t, int dk, int dv,
+               const long long* strides, float scale, int partial, int out_f32, int n_splits,
+               int kps, cudaStream_t st) {
+  constexpr int es = sizeof(T);
+  const int vec = (dk * es) % 16 == 0 && (dv * es) % 16 == 0 &&
+                  aligned16(k, strides[2], strides[3], strides[4], es) &&
+                  aligned16(v, strides[5], strides[6], strides[7], es);
+  Args a{q, k, v, o, m_out, l_out, acc_s, m_s, l_s, lengths, mx_s, gmax, b, h, kvh, t, dk,
+         dv, strides[0], strides[1], strides[2], strides[3], strides[4],
+         strides[5], strides[6], strides[7], scale, partial, n_splits, kps,
+         out_f32, vec};
+  const int d = dk > dv ? dk : dv;
+  if (d <= 32) return launch_dpl<T, 1>(a, st);
+  if (d <= 64) return launch_dpl<T, 2>(a, st);
+  if (d <= 128) return launch_dpl<T, 4>(a, st);
+  return launch_dpl<T, 8>(a, st);
+}
+
 template <typename T>
 int decode_entry(const void* q, const void* k, const void* v, void* o,
                  float* m_out, float* l_out, float* acc_s, float* m_s,
@@ -768,27 +827,51 @@ int decode_entry(const void* q, const void* k, const void* v, void* o,
                  void* stream) {
   REPRO_SET_DEVICE(device);
   if (b <= 0 || h <= 0) return 0;
-  constexpr int es = sizeof(T);
-  if (kvh <= 0 || h % kvh != 0 || t <= 0 || dk <= 0 || dk > 256 || dv <= 0 ||
-      dv > 256 || n_splits <= 0 || kps <= 0 || kps % kTile != 0 ||
-      static_cast<long long>(n_splits) * kps < t ||
-      static_cast<long long>(n_splits - 1) * kps >= t ||
-      (n_splits > 1 && (!acc_s || !m_s || !l_s || n_splits > 4096)) ||
-      (mx_s != nullptr && (partial || dk > 8 * 32)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = (dk * es) % 16 == 0 && (dv * es) % 16 == 0 &&
-                  aligned16(k, strides[2], strides[3], strides[4], es) &&
-                  aligned16(v, strides[5], strides[6], strides[7], es);
-  Args a{q, k, v, o, m_out, l_out, acc_s, m_s, l_s, lengths, mx_s, b, h, kvh, t, dk, dv,
-         strides[0], strides[1], strides[2], strides[3], strides[4],
-         strides[5], strides[6], strides[7], scale, partial, n_splits, kps,
-         out_f32, vec};
+  if (const int e = bad_plan(h, kvh, t, dk, dv, n_splits, kps, acc_s && m_s && l_s)) return e;
+  if (mx_s != nullptr && (partial || dk > 8 * 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return run_decode<T>(q, k, v, o, m_out, l_out, acc_s, m_s, l_s, lengths, mx_s, nullptr, b,
+                       h, kvh, t, dk, dv, strides, scale, partial, out_f32, n_splits, kps,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The T-sharded step's max pass: decode_max_kernel over the shard's
+// splits into mx_s, then decode_rowmax_kernel into m_out.
+template <typename T>
+int max_entry(const void* q, const void* k, const long long* lengths, float* mx_s,
+              float* m_out, int b, int h, int kvh, int t, int dk, const long long* strides,
+              float scale, int n_splits, int kps, int device, void* stream) {
+  REPRO_SET_DEVICE(device);
+  if (b <= 0 || h <= 0) return 0;
+  if (const int e = bad_plan(h, kvh, t, dk, dk, n_splits, kps, true)) return e;
+  if (!lengths || !mx_s || !m_out) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k, k, nullptr, m_out, nullptr, nullptr, nullptr, nullptr, lengths, mx_s, nullptr,
+         b, h, kvh, t, dk, dk, strides[0], strides[1], strides[2], strides[3], strides[4],
+         strides[2], strides[3], strides[4], scale, 0, n_splits, kps, 0, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d = dk > dv ? dk : dv;
-  if (d <= 32) return launch_dpl<T, 1>(a, st);
-  if (d <= 64) return launch_dpl<T, 2>(a, st);
-  if (d <= 128) return launch_dpl<T, 4>(a, st);
-  return launch_dpl<T, 8>(a, st);
+  decode_max_kernel<T><<<dim3(n_splits, kvh, b), kMaxThreads, 0, st>>>(a);
+  const int e = REPRO_LAUNCH_STATUS();
+  if (e != 0) return e;
+  const long long rows = static_cast<long long>(b) * h;
+  const int blocks = static_cast<int>((rows + kCombineThreads - 1) / kCombineThreads);
+  decode_rowmax_kernel<<<blocks < 4096 ? blocks : 4096, kCombineThreads, 0, st>>>(a);
+  return REPRO_LAUNCH_STATUS();
+}
+
+// The T-sharded step's partial pass: the split (and combine) kernels with
+// each row's global max given, partial.
+template <typename T>
+int partial_entry(const void* q, const void* k, const void* v, float* acc, float* m_out,
+                  float* l_out, float* acc_s, float* m_s, float* l_s,
+                  const long long* lengths, const float* gmax, int b, int h, int kvh, int t,
+                  int dk, int dv, const long long* strides, float scale, int n_splits,
+                  int kps, int device, void* stream) {
+  REPRO_SET_DEVICE(device);
+  if (b <= 0 || h <= 0) return 0;
+  if (const int e = bad_plan(h, kvh, t, dk, dv, n_splits, kps, acc_s && m_s && l_s)) return e;
+  if (!lengths || !gmax || !m_out || !l_out) return static_cast<int>(cudaErrorInvalidValue);
+  return run_decode<T>(q, k, v, acc, m_out, l_out, acc_s, m_s, l_s, lengths, nullptr, gmax, b,
+                       h, kvh, t, dk, dv, strides, scale, 1, 0, n_splits, kps,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -825,4 +908,50 @@ REPRO_API int repro_decode_attention_bf16(
                                      mx_s, b, h, kvh, t, dk, dv, strides, scale,
                                      partial, out_f32, n_splits, kps, device,
                                      stream);
+}
+
+// The T-sharded step's two passes over one shard's keys (see the note at
+// the top).  lengths (B,) int64: row b's keys of this shard, [0,
+// lengths[b]) (0 allowed); n_splits and kps as above.  max: q (B, H, Dk),
+// k (B, KVH, T, Dk), strides the 5 of q (batch, head) and k (batch, head,
+// time); mx_s (n_splits, B, H) f32 scratch; m_out (B, H) f32 receives each
+// row's max scaled score over its keys here (-1e30 where it has none).
+REPRO_API int repro_decode_max_f32(const void* q, const void* k, const long long* lengths,
+                                   float* mx_s, float* m_out, int b, int h, int kvh, int t,
+                                   int dk, const long long* strides, float scale,
+                                   int n_splits, int kps, int device, void* stream) {
+  return max_entry<float>(q, k, lengths, mx_s, m_out, b, h, kvh, t, dk, strides, scale,
+                          n_splits, kps, device, stream);
+}
+
+REPRO_API int repro_decode_max_bf16(const void* q, const void* k, const long long* lengths,
+                                    float* mx_s, float* m_out, int b, int h, int kvh, int t,
+                                    int dk, const long long* strides, float scale,
+                                    int n_splits, int kps, int device, void* stream) {
+  return max_entry<__nv_bfloat16>(q, k, lengths, mx_s, m_out, b, h, kvh, t, dk, strides,
+                                  scale, n_splits, kps, device, stream);
+}
+
+// partial: gmax (B, H) f32, each row's global max; acc (B, H, Dv), m_out
+// and l_out (B, H) f32 receive the shard's sum of p v (p = exp(s - gmax)
+// rounded to the cache dtype), gmax again, and the sum of p (unrounded);
+// acc_s, m_s, l_s and strides as for repro_decode_attention_*.
+REPRO_API int repro_decode_partial_f32(
+    const void* q, const void* k, const void* v, float* acc, float* m_out, float* l_out,
+    float* acc_s, float* m_s, float* l_s, const long long* lengths, const float* gmax, int b,
+    int h, int kvh, int t, int dk, int dv, const long long* strides, float scale,
+    int n_splits, int kps, int device, void* stream) {
+  return partial_entry<float>(q, k, v, acc, m_out, l_out, acc_s, m_s, l_s, lengths, gmax, b,
+                              h, kvh, t, dk, dv, strides, scale, n_splits, kps, device,
+                              stream);
+}
+
+REPRO_API int repro_decode_partial_bf16(
+    const void* q, const void* k, const void* v, float* acc, float* m_out, float* l_out,
+    float* acc_s, float* m_s, float* l_s, const long long* lengths, const float* gmax, int b,
+    int h, int kvh, int t, int dk, int dv, const long long* strides, float scale,
+    int n_splits, int kps, int device, void* stream) {
+  return partial_entry<__nv_bfloat16>(q, k, v, acc, m_out, l_out, acc_s, m_s, l_s, lengths,
+                                      gmax, b, h, kvh, t, dk, dv, strides, scale, n_splits,
+                                      kps, device, stream);
 }

@@ -1,4 +1,4 @@
-// FlashAttention-2 backward (GQA, causal with q_offset 0 or non-causal), for
+// FlashAttention-2 backward (GQA, causal with a q_offset >= 0 or non-causal), for
 // float32 and bfloat16 q/k/v at the (Dk, Dv) pairs (32, 32), (64, 64),
 // (80, 80), (96, 96), (128, 128), MLA's (192, 128) and paligemma's (256,
 // 256); the gradients take the inputs' dtype, every sum is f32.
@@ -15,6 +15,13 @@
 //   D_i  = sum_j P_ij dP_ij          (= sum_d dO_id O_id in exact arithmetic)
 //   dS   = P o (dP - D)
 //   dQ   = scale dS K,   dK = scale dS^T Q,   dV = P^T dO
+//
+// Causal masking keeps q_offset + i >= j, as the forward's (q_offset the
+// absolute position of q's first row: a context-parallel shard's rows,
+// models/attention.py): the dQ kernels stop at the last key a tile's rows
+// see, and the dK/dV kernels start at the first q tile that sees the kv
+// tile, so a kv tile past every row (T > q_offset + S) writes zeros.  With
+// q_offset >= 0 every row sees key 0; the wrapper refuses a negative one.
 //
 // Q, K, dQ and dK are Dk wide; V, dO and dV are Dv wide.  D is summed from
 // P and dP here, not from the saved output: in bfloat16 the output is
@@ -97,6 +104,7 @@ struct BwdArgs {
   int b, h, kvh, s, t;
   float scale;
   int causal;
+  int q_offset;       // absolute position of q row 0 (causal masking)
   float* part;        // null, or the tensor-core route's f32 dK/dV partials of
                       // each head of a GQA group: [group][B][KVH][T][Dk], then
                       // [group][B][KVH][T][Dv]
@@ -218,7 +226,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 __device__ __forceinline__ bool visible(const BwdArgs& a, int qi, int kj) {
-  return qi < a.s && kj < a.t && (!a.causal || qi >= kj);
+  return qi < a.s && kj < a.t && (!a.causal || a.q_offset + qi >= kj);
 }
 
 // Q and dO resident, K and V streamed, and the dS tile.
@@ -266,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
     lse[i] = row < a.s ? a.lse[qrow + row] : 0.f;
     dsum[i] = 0.f;
   }
-  const int kv_end = a.causal ? min(a.t, min(q0 + kDqRows, a.s)) : a.t;
+  const int kv_end = a.causal ? min(a.t, a.q_offset + min(q0 + kDqRows, a.s)) : a.t;
   const int n_tiles = (kv_end + kDqCols - 1) / kDqCols;
 
   // P and dP of the tile at k0 for this thread's (row, column) pairs
@@ -352,8 +360,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < CV::kPer; ++c) dv[i][c] = 0.f;
   }
-  // causal: q rows below k0 see none of the tile
-  const int q_start = a.causal ? (k0 / kKvCols) * kKvCols : 0;
+  // causal: q rows i with q_offset + i < k0 see none of the tile
+  const int q_start = a.causal ? (max(0, k0 - a.q_offset) / kKvCols) * kKvCols : 0;
 
   for (int g = 0; g < group; ++g) {
     const int hh = kvh * group + g;
@@ -619,7 +627,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int h = blockIdx.y, b = blockIdx.z;
   const int kv_head = h / (a.h / a.kvh);
   const int q0 = q_tile * kMmaRows;
-  const int kv_end = a.causal ? min(a.t, min(q0 + kMmaRows, a.s)) : a.t;
+  const int kv_end = a.causal ? min(a.t, a.q_offset + min(q0 + kMmaRows, a.s)) : a.t;
   const int n_tiles = (kv_end + kMmaRows - 1) / kMmaRows;
   mma_init_barriers(res_full, full, empty);
 
@@ -683,7 +691,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + nt * 8 + 2 * t4 + (e & 1);
         const int qi = e < 2 ? r0 : r1;
-        const bool vis = qi < a.s && kj < a.t && (!a.causal || qi >= kj);
+        const bool vis = qi < a.s && kj < a.t && (!a.causal || a.q_offset + qi >= kj);
         float& p = sc[4 * nt + e];
         p = vis ? expf(p * a.scale - lse[e / 2]) : 0.f;
       }
@@ -759,7 +767,7 @@ __device__ __forceinline__ void dkdv_tile(float (&dv)[mma_n<DV>() / 2],
       const int c = 2 * nt + (e & 1);
       const int qi = q0 + nt * 8 + 2 * t4 + (e & 1);
       const int kj = e < 2 ? j0 : j1;
-      const bool vis = qi < a.s && kj < a.t && (!a.causal || qi >= kj);
+      const bool vis = qi < a.s && kj < a.t && (!a.causal || a.q_offset + qi >= kj);
       const float p = vis ? expf(sc[4 * nt + e] * a.scale - lq[c]) : 0.f;
       sc[4 * nt + e] = p;                                                  // P^T
       if constexpr (WANT_DK) dp[4 * nt + e] = p * (dp[4 * nt + e] - dl[c]);  // dS^T
@@ -808,8 +816,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int kvh = split ? blockIdx.y / group : blockIdx.y, b = blockIdx.z;
   const int head0 = kvh * group + (split ? blockIdx.y % group : 0);
   const int k0 = kv_tile * kMmaRows;
-  // q tiles that see the kv tile: causal, those from its diagonal on
-  const int first_q = a.causal ? kv_tile : 0;
+  // q tiles that see the kv tile: causal, those from the row at position
+  // k0 on (none when k0 - q_offset >= S: the tile's dK and dV are zeros)
+  const int first_q = a.causal ? max(0, k0 - a.q_offset) / kMmaRows : 0;
   const int q_tiles = max(0, (a.s + kMmaRows - 1) / kMmaRows - first_q);
   const int n_tiles = (split ? 1 : group) * q_tiles;       // (Q, dO) tiles a pass
   mma_init_barriers(res_full, full, empty);
@@ -1001,12 +1010,13 @@ template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int b,
                int h, int kvh, int s, int t, int d_k, int d_v, float scale, int causal,
-               int wgmma, float* part, int device, void* stream) {
+               int q_offset, int wgmma, float* part, int device, void* stream) {
   REPRO_SET_DEVICE(device);
-  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || s <= 0 || t <= 0)
+  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || s <= 0 || t <= 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (part != nullptr && (!wgmma || h == kvh)) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, scale, causal, part};
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t,
+                  scale, causal, q_offset, part};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto is = [&](int x, int y) { return d_k == x && d_v == y; };
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
@@ -1037,25 +1047,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 // q, dout, dq (B, H, S, Dk / Dv / Dk); k, v, dk, dv (B, KVH, T, Dk / Dv /
 // Dk / Dv), all contiguous; lse and delta (B, H, S) f32, delta scratch that
 // the first kernel writes; wgmma: 1 for the tensor-core route (bfloat16 at
-// the pairs above); part: null, or on that route with a GQA group (H > KVH)
+// the pairs above); q_offset >= 0: the absolute position of q's row 0 for
+// causal masking (0 for a whole sequence); part: null, or on that route with a GQA group (H > KVH)
 // f32 scratch of H * B * T * (Dk + Dv) floats for each head's dK and dV
 // partials.
 REPRO_API int repro_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             float* delta, void* dq, void* dk, void* dv,
                                             int b, int h, int kvh, int s, int t, int d_k,
-                                            int d_v, float scale, int causal, int wgmma,
-                                            float* part, int device, void* stream) {
+                                            int d_v, float scale, int causal, int q_offset,
+                                            int wgmma, float* part, int device, void* stream) {
   return launch_bwd<float>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t, d_k, d_v,
-                           scale, causal, wgmma, part, device, stream);
+                           scale, causal, q_offset, wgmma, part, device, stream);
 }
 
 REPRO_API int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              float* delta, void* dq, void* dk, void* dv,
                                              int b, int h, int kvh, int s, int t, int d_k,
-                                             int d_v, float scale, int causal, int wgmma,
-                                             float* part, int device, void* stream) {
+                                             int d_v, float scale, int causal, int q_offset,
+                                             int wgmma, float* part, int device, void* stream) {
   return launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, b, h, kvh, s, t,
-                                   d_k, d_v, scale, causal, wgmma, part, device, stream);
+                                   d_k, d_v, scale, causal, q_offset, wgmma, part, device,
+                                   stream);
 }

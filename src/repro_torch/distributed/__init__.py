@@ -6,7 +6,9 @@ Tiny-OpenCL scheduler of the scaled-up system, as GSPMD is there.
 
 * :mod:`.sharding` — logical-axis -> mesh-axis rules (DP/FSDP/TP/EP/SP),
   parameter PartitionSpecs with the divisibility fallback, and the DTensor
-  placements they give (:func:`~.sharding.placements_for`);
+  placements they give (:func:`~.sharding.placements_for`), the models'
+  ``constrain`` hook and :func:`~.sharding.on_blocks`, by which a kernel
+  wrapper handed DTensors runs on each rank's blocks;
 * :mod:`.compression` — int8 gradient compression with error feedback,
   around the DP reduction, on a mesh dim's process group;
 * :mod:`.elastic` — cross-mesh resharding used by checkpoint restore when

@@ -46,6 +46,12 @@ mesh dims in mesh order; where the two orders differ, the mesh dim that
 comes earlier in the mesh than in the spec takes a ``_StridedShard`` whose
 split factor is the size of the spec's axes before it that DTensor has not
 split yet, which gives each position JAX's block.
+
+Sharded execution: under :func:`activate` on a ``DeviceMesh`` the models'
+tensors are DTensors (parameters placed by :func:`distribute_tree`), their
+PyTorch ops run as DTensor ops, :func:`constrain` redistributes at the JAX
+package's hook sites, and every kernel wrapper handed a DTensor runs on
+each rank's blocks through :func:`on_blocks` (DTensor's ``local_map``).
 """
 
 from __future__ import annotations
@@ -61,6 +67,11 @@ import torch
 from ..models.params import ParamSpec
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
+
+#: the shortest causal sequence the context-parallel attention path takes
+#: (the JAX package's ``models/attention.py:CP_MIN_SEQ``; the port's own
+#: copy, which ``models/attention.py`` reads at each call)
+CP_MIN_SEQ = 8192
 
 
 class PartitionSpec(tuple):
@@ -378,6 +389,137 @@ def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         return x
     spec = spec_for(logical_axes, shape=tuple(x.shape))
     return x.redistribute(mesh, placements_for(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Kernels on each rank's blocks
+# ---------------------------------------------------------------------------
+def is_dtensor(*xs: Any) -> bool:
+    """True when any of ``xs`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in xs)
+
+
+def whole_on(placements: Sequence[Any], *dims: int) -> Tuple[Any, ...]:
+    """``placements`` with every shard of tensor dims ``dims``, and every
+    pending partial sum, replaced by ``Replicate()``: the layout of an input
+    whose kernel reduces or scans along those dims (and of its output), the
+    rest kept as it comes."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Replicate() if getattr(pl, "dim", None) in dims
+                 or isinstance(pl, Partial) else pl for pl in placements)
+
+
+def remap(placements: Sequence[Any], dims: Dict[int, int]) -> Tuple[Any, ...]:
+    """The placements of another tensor that shares some dims with the one
+    ``placements`` lay out: a shard of dim ``d`` in ``dims`` becomes the
+    same shard of dim ``dims[d]``, every other mesh dim ``Replicate()``
+    (a kernel's weights and states follow its main input's layout)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pl in placements:
+        d = getattr(pl, "dim", None)
+        if d not in dims:
+            out.append(Replicate())
+        elif type(pl) is Shard:
+            out.append(Shard(dims[d]))
+        else:                                     # a _StridedShard
+            out.append(type(pl)(dims[d], split_factor=pl.split_factor))
+    return tuple(out)
+
+
+def block_of(mesh: Any, placements: Sequence[Any], dim: int
+             ) -> Tuple[int, int]:
+    """(this rank's block index, the number of blocks) of tensor dim
+    ``dim`` under ``placements``: the dim's mesh axes in mesh order, the
+    first major (plain ``Shard`` placements)."""
+    coord = mesh.get_coordinate()
+    sizes = tuple(mesh.mesh.shape)
+    idx, parts = 0, 1
+    for i, pl in enumerate(placements):
+        if getattr(pl, "dim", None) == dim:
+            idx, parts = idx * sizes[i] + coord[i], parts * sizes[i]
+    return idx, parts
+
+
+#: when True, :func:`replicated` checks that every rank made the same
+#: tensor (a gather over each mesh dim a call; the rank tests set it)
+CHECK_REPLICATED = False
+
+
+def replicated(x: torch.Tensor, like: Any) -> torch.Tensor:
+    """``x``, a plain tensor that every rank makes alike (a constant built
+    from shapes or host integers: positions, a row index, a mask), as a
+    DTensor replicated on the mesh of the DTensor ``like``; ``x`` as it is
+    when ``like`` is not a DTensor or ``x`` already is one.  The one way a
+    plain tensor joins DTensors, named at the site that makes it: DTensor
+    refuses an op that mixes the two.  Under :data:`CHECK_REPLICATED` it
+    raises ``ValueError`` where the ranks' tensors differ."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(like, DTensor) or isinstance(x, DTensor):
+        return x
+    mesh = like.device_mesh
+    if CHECK_REPLICATED:
+        import torch.distributed as dist
+        t = x.detach().contiguous()
+        t = t.to(torch.uint8) if t.dtype == torch.bool else t
+        for d in range(mesh.ndim):
+            got = [torch.empty_like(t) for _ in range(mesh.size(d))]
+            dist.all_gather(got, t, group=mesh.get_group(d))
+            if not all(torch.equal(g, t) for g in got):
+                raise ValueError(f"replicated: the ranks along mesh dim {d} "
+                                 f"hold different tensors of shape "
+                                 f"{tuple(x.shape)}")
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def on_blocks(fn, args: Sequence[Any], in_placements: Sequence[Any],
+              out_placements: Any):
+    """``fn(*args)`` on each rank's blocks, through DTensor's ``local_map``:
+    every tensor argument is first redistributed to its entry of
+    ``in_placements`` (None for an argument that is not a tensor; a
+    ``Partial`` entry is read ``Replicate``: a pending sum is reduced
+    first), ``fn`` runs on the local tensors (a kernel wrapper: the
+    hand-written kernel on the card, its plain version on the CPU), and its
+    outputs come back as DTensors under ``out_placements`` (one tuple, or a
+    tuple of them for a tuple of outputs).  A tensor argument with
+    placements must be a DTensor (a constant the caller made goes through
+    :func:`replicated` first): a plain one raises ``TypeError``.  Gradients
+    flow back through it: an input replicated on a mesh dim where an output
+    is sharded gets a partial gradient there (each rank's block of the
+    output reaches only its own share of the input's gradient), sharded
+    inputs their own layout.
+
+    The one route by which a kernel reaches a DTensor: the launch itself
+    (``kernels/common.py:ptr``) refuses one."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    # a kernel reads values: a pending partial sum is reduced first
+    in_placements = tuple(
+        None if pls is None else tuple(
+            Replicate() if isinstance(pl, Partial) else pl for pl in pls)
+        for pls in in_placements)
+    for i, (a, pls) in enumerate(zip(args, in_placements)):
+        if pls is not None and not isinstance(a, DTensor):
+            raise TypeError(f"on_blocks: argument {i} has placements but is "
+                            f"a {type(a).__name__}, not a DTensor (make a "
+                            f"constant with sharding.replicated)")
+    outs = (out_placements if out_placements and isinstance(
+        out_placements[0], (tuple, list)) else (out_placements,))
+    sharded = {i for o in outs for i, pl in enumerate(o)
+               if not isinstance(pl, Replicate)}
+    grads = tuple(
+        None if pls is None else tuple(
+            Partial() if isinstance(pl, Replicate) and i in sharded else pl
+            for i, pl in enumerate(pls))
+        for pls in in_placements)
+    # local_map reads a tuple as one entry an output, a list as one output
+    return local_map(fn, out_placements=tuple(list(o) for o in outs),
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------

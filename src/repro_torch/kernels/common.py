@@ -112,7 +112,14 @@ def check_contiguous(what: str, *tensors: torch.Tensor) -> None:
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    """A tensor's device pointer for ctypes (NULL for None)."""
+    """A tensor's device pointer for ctypes (NULL for None).  A DTensor
+    raises ``TypeError``: a kernel takes a rank's block only through
+    :func:`repro_torch.distributed.sharding.on_blocks`, which places it
+    first; its local tensor is never taken here."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        raise TypeError("a kernel was handed a DTensor: kernel wrappers run "
+                        "on each rank's block through sharding.on_blocks")
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 

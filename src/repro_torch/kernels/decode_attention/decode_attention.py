@@ -107,3 +107,63 @@ def launch_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            ctypes.cast(strides, _P),
            float(scale), int(partial), int(out_f32), n_splits, kps,
            q.device.index, stream_of(q))
+
+
+_MAX_ARGS = [_P] * 5 + [_I] * 5 + [_P, ctypes.c_float, _I, _I, _I, _P]
+_MAX_SYMBOL = {torch.float32: "repro_decode_max_f32",
+               torch.bfloat16: "repro_decode_max_bf16"}
+_PART_ARGS = [_P] * 11 + [_I] * 6 + [_P, ctypes.c_float, _I, _I, _I, _P]
+_PART_SYMBOL = {torch.float32: "repro_decode_partial_f32",
+                torch.bfloat16: "repro_decode_partial_bf16"}
+
+
+def launch_decode_max(q: torch.Tensor, k: torch.Tensor,
+                      lengths: torch.Tensor, m: torch.Tensor, *,
+                      scale: float) -> None:
+    """The T-sharded step's max pass over one shard's keys: q (B,H,Dk) and
+    k (B,KVH,T,Dk) CUDA tensors of one dtype with a contiguous last axis,
+    ``lengths`` a contiguous (B,) int64 CUDA tensor (0 allowed), into the
+    contiguous f32 ``m`` (B,H): ``decode_max_kernel`` over the plan's
+    splits, then one kernel that takes each row's max over them.  Counts
+    one launch of ``decode_attention``."""
+    b, h, dk = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_splits, kps = plan_decode_splits(kvh, t, sms)
+    mx_s = torch.empty((n_splits, b, h), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 5)(*q.stride()[:2], *k.stride()[:3])
+    launch("decode_attention", _MAX_SYMBOL[q.dtype], _MAX_ARGS, ptr(q),
+           ptr(k), ptr(lengths), ptr(mx_s), ptr(m), b, h, kvh, t, dk,
+           ctypes.cast(strides, _P), float(scale), n_splits, kps,
+           q.device.index, stream_of(q))
+
+
+def launch_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: torch.Tensor, gmax: torch.Tensor,
+                          acc: torch.Tensor, l: torch.Tensor, *,
+                          scale: float) -> None:
+    """The T-sharded step's partial pass over one shard's keys, given each
+    row's global max ``gmax`` (contiguous f32 (B,H)): the split kernel (and
+    the combine kernel over the plan's splits, in order) with that max
+    fixed, into the contiguous f32 ``acc`` (B,H,Dv) and ``l`` (B,H).
+    Tensors as :func:`launch_decode_attention` takes them.  Counts one
+    launch of ``decode_attention``."""
+    b, h, dk = q.shape
+    kvh, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_splits, kps = plan_decode_splits(kvh, t, sms)
+    acc_s = m_s = l_s = None
+    if n_splits > 1:
+        acc_s = torch.empty((n_splits, b, h, dv), dtype=torch.float32,
+                            device=q.device)
+        m_s = torch.empty((n_splits, b, h), dtype=torch.float32,
+                          device=q.device)
+        l_s = torch.empty_like(m_s)
+    m_out = torch.empty_like(l)
+    strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *k.stride()[:3],
+                                      *v.stride()[:3])
+    launch("decode_attention", _PART_SYMBOL[q.dtype], _PART_ARGS, ptr(q),
+           ptr(k), ptr(v), ptr(acc), ptr(m_out), ptr(l), ptr(acc_s),
+           ptr(m_s), ptr(l_s), ptr(lengths), ptr(gmax), b, h, kvh, t, dk, dv,
+           ctypes.cast(strides, _P), float(scale), n_splits, kps,
+           q.device.index, stream_of(q))

@@ -24,15 +24,19 @@ from ...core.device import EGPU_16T, EGPUConfig
 from ...core.program import kernel_family
 from ...core.runtime import Kernel
 from ..common import check_dtype, on_card
-from .decode_attention import DTYPES, MAX_HEAD_DIM, launch_decode_attention
-from .ref import (combine_partials, counts, decode_attention_masked_ref,
-                  decode_attention_partial_ref, decode_attention_ref,
-                  decode_attention_split_ref)
+from ...distributed.sharding import is_dtensor, on_blocks, remap, whole_on
+from .decode_attention import (DTYPES, MAX_HEAD_DIM, launch_decode_attention,
+                               launch_decode_max, launch_decode_partial)
+from .ref import (combine_partials, combine_shards, counts,
+                  decode_attention_masked_ref, decode_attention_partial_ref,
+                  decode_attention_ref, decode_attention_split_ref,
+                  decode_max_ref, decode_partial_ref)
 
-__all__ = ["decode_attention", "combine_partials", "counts",
+__all__ = ["decode_attention", "decode_max", "decode_partial",
+           "combine_partials", "combine_shards", "counts",
            "decode_attention_masked_ref", "decode_attention_partial_ref",
            "decode_attention_ref", "decode_attention_split_ref",
-           "build_kernel"]
+           "decode_max_ref", "decode_partial_ref", "build_kernel"]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,6 +80,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if tuple(lengths.shape) != (b,):
             raise ValueError(f"decode_attention: lengths "
                              f"{tuple(lengths.shape)} for a batch of {b}")
+    if is_dtensor(q, k, v, lengths):
+        # each rank's rows: every head of q, the cache whole but on batch
+        pq = whole_on(q.placements, 1, 2)
+        pk = remap(pq, {0: 0})
+        return on_blocks(
+            lambda *x: decode_attention(*x[:3], scale=scale, partial=partial,
+                                        lengths=x[3], out_dtype=out_dtype),
+            (q, k, v, lengths), (pq, pk, pk, None if lengths is None else pk),
+            (pq, pq, pq) if partial else pq)
     if not on_card(q, k, v, *(() if lengths is None else (lengths,))):
         if lengths is not None:
             return decode_attention_masked_ref(q, k, v, lengths, scale=scale,
@@ -110,6 +123,72 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         launch_decode_attention(q, k, v, out, m, l, scale=scale,
                                 partial=partial, lengths=lengths)
     return (out, m, l) if partial else out
+
+
+def _check_pass(q, k, lengths, what):
+    b, h, dk = q.shape
+    kvh = k.shape[1]
+    if (k.dim() != 4 or k.shape[0] != b or kvh == 0 or h % kvh
+            or tuple(lengths.shape) != (b,)):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"lengths {tuple(lengths.shape)} do not fit")
+
+
+def _card_pass(q, k, v, what):
+    check_dtype(f"{what} q", q, DTYPES)
+    if any(x.dtype != q.dtype for x in (k, v)):
+        raise TypeError(f"{what} inputs must share a dtype")
+    if max(q.shape[2], v.shape[3]) > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dims up to {MAX_HEAD_DIM}")
+    if any(x.stride(-1) != 1 for x in (q, k, v)):
+        raise ValueError(f"{what}: the kernel takes a contiguous last axis")
+
+
+def decode_max(q: torch.Tensor, k: torch.Tensor, lengths: torch.Tensor, *,
+               scale: float | None = None) -> torch.Tensor:
+    """The first pass of the T-sharded decode step over one shard's cache:
+    each row's max scaled score over its keys ``[0, lengths[b])`` of the
+    shard (B, H) f32, the sentinel -1e30 where a row has none (a length of
+    0).  q (B,H,Dk), k (B,KVH,T,Dk) in the cache dtype, ``lengths`` (B,)
+    integers local to the shard.  On the card one launch of the
+    decode-attention route's max kernels; on the CPU
+    :func:`decode_max_ref`."""
+    _check_pass(q, k, lengths, "decode_max")
+    scale = (q.shape[2] ** -0.5) if scale is None else scale
+    if not on_card(q, k, lengths):
+        return decode_max_ref(q, k, lengths, scale=scale)
+    _card_pass(q, k, k, "decode_max")
+    m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if m.numel():
+        launch_decode_max(q, k, lengths.to(torch.int64).contiguous(), m,
+                          scale=scale)
+    return m
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lengths: torch.Tensor, m: torch.Tensor, *,
+                   scale: float | None = None):
+    """The second pass of the T-sharded decode step over one shard's
+    cache, given each row's global max ``m`` (B, H) f32 (the all-reduced
+    :func:`decode_max`): (acc (B,H,Dv) f32, l (B,H) f32), the sums over the
+    row's keys of the shard of ``p v`` with ``p = exp(s - m)`` rounded to
+    the cache dtype, and of ``p``; :func:`combine_shards` adds the shards'
+    in order.  On the card one launch of the decode-attention route (split
+    and combine kernels, the max fixed); on the CPU
+    :func:`decode_partial_ref`."""
+    _check_pass(q, k, lengths, "decode_partial")
+    scale = (q.shape[2] ** -0.5) if scale is None else scale
+    if not on_card(q, k, v, lengths, m):
+        return decode_partial_ref(q, k, v, lengths, m, scale=scale)
+    _card_pass(q, k, v, "decode_partial")
+    b, h, _ = q.shape
+    acc = torch.empty((b, h, v.shape[3]), dtype=torch.float32,
+                      device=q.device)
+    l = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    if l.numel():
+        launch_decode_partial(q, k, v, lengths.to(torch.int64).contiguous(),
+                              m.float().contiguous(), acc, l, scale=scale)
+    return acc, l
 
 
 @kernel_family("decode_attention")

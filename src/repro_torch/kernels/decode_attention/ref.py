@@ -48,6 +48,18 @@ def decode_attention_partial_ref(q, k, v, *, scale=None):
 NEG_INF = -1e30
 
 
+def _masked_scores(q, k, lengths, scale):
+    """(B, KVH, G, T) f32 scaled scores of each row's keys ``[0,
+    lengths[b])``, the sentinel elsewhere."""
+    b, h, dk = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    scale = (dk ** -0.5) if scale is None else scale
+    qd = q.reshape(b, kvh, h // kvh, dk)
+    s = torch.matmul(qd.float(), k.float().transpose(-1, -2)) * scale
+    valid = torch.arange(t, device=q.device) < lengths[:, None]   # (B, T)
+    return torch.where(valid[:, None, None], s, NEG_INF)
+
+
 def decode_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, lengths: torch.Tensor, *,
                                 scale: float | None = None,
@@ -60,19 +72,50 @@ def decode_attention_masked_ref(q: torch.Tensor, k: torch.Tensor,
     f32 (a product of two bf16 values is exact in f32), and the softmax
     weights are rounded to the cache dtype before the weighted sum.
     Returns out (B,H,Dv) in ``out_dtype`` (default q's dtype)."""
-    b, h, dk = q.shape
-    kvh, t = k.shape[1], k.shape[2]
-    group = h // kvh
-    scale = (dk ** -0.5) if scale is None else scale
-    qd = q.reshape(b, kvh, group, dk)
-    s = torch.matmul(qd.float(), k.float().transpose(-1, -2)) * scale
-    valid = torch.arange(t, device=q.device) < lengths[:, None]   # (B, T)
-    s = torch.where(valid[:, None, None], s, NEG_INF)             # (B,KVH,G,T)
+    b, h, _ = q.shape
+    s = _masked_scores(q, k, lengths, scale)                  # (B,KVH,G,T)
     m = s.amax(-1, keepdim=True)
     pexp = torch.exp(s - m)
     l = pexp.sum(-1, keepdim=True)
     o = torch.matmul(pexp.to(k.dtype).float(), v.float()) / l
     return o.reshape(b, h, v.shape[3]).to(out_dtype or q.dtype)
+
+
+def decode_max_ref(q: torch.Tensor, k: torch.Tensor, lengths: torch.Tensor,
+                   *, scale: float | None = None) -> torch.Tensor:
+    """The T-sharded step's first pass over one shard's keys: each row's
+    max scaled score ``(q . k) * scale`` over its keys ``[0, lengths[b])``
+    of this shard, (B, H) f32, the sentinel -1e30 where it has none (a
+    length of 0).  The scores are :func:`decode_attention_masked_ref`'s."""
+    return _masked_scores(q, k, lengths, scale).amax(-1).reshape(
+        q.shape[0], q.shape[1])
+
+
+def decode_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor, m: torch.Tensor, *,
+                       scale: float | None = None):
+    """The T-sharded step's second pass over one shard's keys, given each
+    row's global max ``m`` (B, H) f32: ``p = exp(s - m)`` over the row's
+    keys of the shard, -> (acc (B, H, Dv) f32, the sum of p rounded to the
+    cache dtype times v; l (B, H) f32, the sum of p unrounded), as
+    :func:`decode_attention_masked_ref` forms them.  A row with no key here
+    gives zeros."""
+    b, h, _ = q.shape
+    kvh = k.shape[1]
+    s = _masked_scores(q, k, lengths, scale)                  # (B,KVH,G,T)
+    pexp = torch.exp(s - m.reshape(b, kvh, h // kvh, 1))
+    acc = torch.matmul(pexp.to(k.dtype).float(), v.float())
+    return acc.reshape(b, h, v.shape[3]), pexp.sum(-1).reshape(b, h)
+
+
+def combine_shards(parts, out_dtype: torch.dtype) -> torch.Tensor:
+    """The T-sharded step's combine: the shards' (acc, l) of
+    :func:`decode_partial_ref` added in shard order, then ``acc / l``, in
+    ``out_dtype``."""
+    acc, l = parts[0]
+    for acc2, l2 in parts[1:]:
+        acc, l = acc + acc2, l + l2
+    return (acc / l[..., None]).to(out_dtype)
 
 
 def merge_partials(parts):

@@ -73,7 +73,7 @@ _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
          _I, _I, _I, _I, _I, _P]
 _SYMBOL = {torch.float32: "repro_flash_attention_f32",
            torch.bfloat16: "repro_flash_attention_bf16"}
-_BWD_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _P, _I, _P]
+_BWD_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _I, _P, _I, _P]
 _BWD_SYMBOL = {torch.float32: "repro_flash_attention_bwd_f32",
                torch.bfloat16: "repro_flash_attention_bwd_bf16"}
 
@@ -148,12 +148,14 @@ def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                lse: torch.Tensor, delta: torch.Tensor,
                                dq: torch.Tensor, dk: torch.Tensor,
                                dv: torch.Tensor, *, causal: bool,
-                               scale: float) -> None:
+                               scale: float, q_offset: int = 0) -> None:
     """Launch ``csrc/flash_attention_bwd.cu`` (its two kernels of the route
     :func:`bwd_route` picks, one count) on contiguous CUDA tensors of one
     dtype: q, dq (B,H,S,Dk), dout (B,H,S,Dv), k, dk (B,KVH,T,Dk), v, dv
     (B,KVH,T,Dv), (Dk, Dv) in :data:`BWD_PAIRS`; ``lse`` the forward's f32
-    (B,H,S) and ``delta`` f32 (B,H,S) scratch.  On the tensor-core route q,
+    (B,H,S) and ``delta`` f32 (B,H,S) scratch; ``q_offset >= 0`` the
+    absolute position of q's first row (causal masking keeps
+    ``q_offset + i >= j``).  On the tensor-core route q,
     k, v and dout must be 16-byte aligned (:func:`tma_view`), and a GQA
     group (H > KVH) takes one block a head for dK and dV, into f32 partials
     allocated here, which a third kernel adds in head order."""
@@ -166,4 +168,4 @@ def launch_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
     launch("flash_attention_bwd", _BWD_SYMBOL[q.dtype], _BWD_ARGS, ptr(q),
            ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq), ptr(dk),
            ptr(dv), b, h, kvh, s, t, d_k, d_v, float(scale), int(causal),
-           int(wgmma), ptr(part), q.device.index, stream_of(q))
+           int(q_offset), int(wgmma), ptr(part), q.device.index, stream_of(q))

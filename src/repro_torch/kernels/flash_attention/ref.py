@@ -186,13 +186,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True, scale: float | None = None
+                              causal: bool = True, scale: float | None = None,
+                              q_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """(dq, dk, dv) of :func:`flash_attention_plain` (q_offset 0) for the
-    output's gradient ``dout``, by autograd through it: the JAX package's
-    gradient of its XLA path, and the backward kernel's plain version."""
+    """(dq, dk, dv) of :func:`flash_attention_plain` (at ``q_offset``) for
+    the output's gradient ``dout``, by autograd through it: the JAX
+    package's gradient of its XLA path, and the backward kernel's plain
+    version."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        out = flash_attention_plain(*leaves, causal=causal, scale=scale)
+        out = flash_attention_plain(*leaves, causal=causal, scale=scale,
+                                    q_offset=q_offset)
         return torch.autograd.grad(out, leaves, dout)

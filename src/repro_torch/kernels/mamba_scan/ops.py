@@ -22,6 +22,7 @@ import torch
 from ...core.device import EGPU_16T, EGPUConfig
 from ...core.program import kernel_family
 from ...core.runtime import Kernel
+from ...distributed.sharding import is_dtensor, on_blocks, remap, whole_on
 from ..common import check_contiguous, on_card
 from .mamba_scan import (COMPILED_N, DTYPES, launch_mamba_scan,
                          launch_mamba_scan_bwd)
@@ -155,6 +156,16 @@ def mamba_scan(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
             f"mamba_scan shapes do not fit: x {tuple(x.shape)}, delta "
             f"{tuple(delta.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}, "
             f"c {tuple(c.shape)}, d {tuple(d.shape)}")
+    if is_dtensor(x, delta, a, b, c, d, state0):
+        # each rank's (batch, channel) blocks, whole along T and N
+        px = whole_on(x.placements, 1)
+        pb, pd = remap(px, {0: 0}), remap(px, {2: 0})
+        ps = remap(px, {0: 0, 2: 1})
+        return on_blocks(
+            lambda *z: mamba_scan(*z, chunk=chunk),
+            (x, delta, a, b, c, d, state0),
+            (px, px, pd, pb, pb, pd, None if state0 is None else ps),
+            (px, ps))
     y, h = selective_scan(x, delta, a, b, c, state0, chunk=chunk)
     y = y + (x.float() * d[None, None].float()).to(y.dtype)
     return y, h

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...distributed.sharding import is_dtensor, on_blocks, remap, whole_on
 from ..common import check_dtype, on_card
 from .norm import DTYPES, launch_norm, row_stride
 from .ref import group_norm_ref, layer_norm_ref, rms_norm_ref
@@ -33,6 +34,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, in f32,
     cast back to x's dtype."""
+    if is_dtensor(x, scale):
+        return _on_blocks(rms_norm, x, (scale,), eps)
     if not on_card(x, scale):
         return rms_norm_ref(x, scale, eps)
     return _card(x, scale, None, x.shape[-1], eps, layer=False)
@@ -42,6 +45,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LayerNorm over the last axis (population variance), in f32, then
     ``* scale + bias``, cast back to x's dtype."""
+    if is_dtensor(x, scale, bias):
+        return _on_blocks(layer_norm, x, (scale, bias), eps)
     if not on_card(x, scale, bias):
         return layer_norm_ref(x, scale, bias, eps)
     return _card(x, scale, bias, x.shape[-1], eps, layer=True)
@@ -58,9 +63,21 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"group_norm: a group of {group} does not divide "
                          f"the last axis of {d}")
     extra = () if bias is None else (bias,)
+    if is_dtensor(x, scale, *extra):
+        return _on_blocks(group_norm, x, (scale, bias), group, eps)
     if not on_card(x, scale, *extra):
         return group_norm_ref(x, scale, bias, group, eps)
     return _card(x, scale, bias, group, eps, layer=True)
+
+
+def _on_blocks(fn, x, params, *rest):
+    """``fn`` on each rank's rows: x whole along its last axis, sharded
+    elsewhere as it comes; the parameters (None allowed) whole."""
+    px = whole_on(x.placements, x.dim() - 1)
+    pw = remap(px, {})
+    args = (x,) + tuple(params) + rest
+    return on_blocks(fn, args, (px,) + tuple(
+        None if t is None else pw for t in params) + (None,) * len(rest), px)
 
 
 def _card(x, scale, bias, group, eps, *, layer):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ...distributed.sharding import is_dtensor, on_blocks, remap, whole_on
 from ..common import on_card
 from .ref import (counts, rwkv6_scan_bwd_plain, rwkv6_scan_plain,
                   rwkv6_scan_ref, rwkv6_step_ref)
@@ -55,6 +56,14 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(u.shape)}, state0 "
             f"{None if state0 is None else tuple(state0.shape)}")
     tensors = (r, k, v, w, u) + (() if state0 is None else (state0,))
+    if is_dtensor(*tensors):
+        # each rank's (batch, head) blocks, whole along T and D
+        pr = whole_on(r.placements, 2, 3)
+        ps = remap(pr, {0: 0, 1: 1})
+        return on_blocks(
+            lambda *a: rwkv6_scan(*a, chunk=chunk), (r, k, v, w, u, state0),
+            (pr, pr, pr, pr, remap(pr, {1: 0}),
+             None if state0 is None else ps), (pr, ps))
     if not on_card(*tensors):
         return rwkv6_scan_plain(r, k, v, w, u, state0, chunk=chunk)
     if (k.dtype != r.dtype or v.dtype != r.dtype

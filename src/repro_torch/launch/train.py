@@ -16,9 +16,12 @@ The JAX package's ``launch/train.py`` for one device, on the card unless
 The distribution layer (``repro_torch.distributed``: sharding rules as
 DTensor placements, the int8 compressed all-reduce; elastic restore through
 ``checkpoint.restore_sharded``; ``launch.mesh``, ``launch.straggler``) is
-ported.  Sharded training through the models — their ``constrain`` hooks
-and the context-parallel attention — waits for the next slice
-(``ROADMAP.md`` queue 1).
+ported, and so is sharded execution through the models: a step made by
+``make_train_step`` and run under ``distributed.sharding.activate(rules,
+mesh)`` on a state placed by ``param_shardings`` / ``distribute_tree``
+trains with the models' ``constrain`` hooks, the FSDP weight gather and
+the context-parallel attention (``tests/test_torch_mini_mesh.py`` runs it
+on 8 gloo ranks).  This launcher itself runs one process on one device.
 """
 
 from __future__ import annotations

@@ -23,6 +23,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (is_dtensor, on_blocks, remap, replicated,
+                                    whole_on)
 from ..kernels.norm.ops import layer_norm, rms_norm
 from .config import ModelConfig
 from .params import ParamSpec, dense_spec
@@ -90,7 +92,12 @@ def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     at some shapes (on an H100 in bf16: MoE routers, jamba's ``x_proj``
     16384 -> 544 and kv projections 8192 -> 1024) a token's bits would
     depend on how many rows share its product; products of one shape give
-    it the same bits in any batch."""
+    it the same bits in any batch.  DTensors run on each rank's rows (the
+    weight whole there): cutting a sharded row axis into chunks would
+    gather it first."""
+    if is_dtensor(x, w):
+        px = whole_on(x.placements, x.dim() - 1)
+        return on_blocks(rows_matmul, (x, w), (px, remap(px, {})), px)
     lead = x.shape[:-1]
     rows = x.reshape(-1, x.shape[-1])
     n = rows.shape[0]
@@ -164,9 +171,10 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if rd == 0:
         return x
     xr, xp = x[..., :rd], x[..., rd:]
-    freqs = rope_frequencies(rd, theta, x.device)             # (rd/2,)
+    freqs = replicated(rope_frequencies(rd, theta, x.device),  # (rd/2,)
+                       positions)
     ang = positions[..., None].float() * freqs                # (..., S, rd/2)
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = (replicated(c, x) for c in (torch.cos(ang), torch.sin(ang)))
     while cos.dim() < xr.dim():                               # add head axis
         cos, sin = cos.unsqueeze(-3), sin.unsqueeze(-3)
     x1, x2 = xr[..., : rd // 2], xr[..., rd // 2:]
@@ -209,7 +217,14 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     n_rows = emb.shape[0]
     ids = tokens.long()
     ids = torch.where(ids < 0, ids + n_rows, ids).clamp(0, n_rows - 1)
-    x = emb.to(cdtype(cfg))[ids]
+    table = emb.to(cdtype(cfg))
+    if is_dtensor(table, ids):
+        # each rank gathers its tokens' rows from the whole table
+        pi = whole_on(ids.placements)
+        x = on_blocks(lambda t, i: t[i], (table, ids),
+                      (remap(pi, {}), pi), remap(pi, {0: 0, 1: 1}))
+    else:
+        x = table[ids]
     return mul_scalar(x, cfg.scale_emb)
 
 
@@ -222,8 +237,14 @@ def logits_from_hidden(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         logits = logits / (cfg.d_model / cfg.logit_scale_base)
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, NEG_INF)
+        logits = logits.masked_fill(replicated(pad, logits), NEG_INF)
     return logits
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's logsumexp minus its gold logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -231,9 +252,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy, logsumexp minus the gold logit; logits f32
     (B, S, Vp), labels (B, S); with a mask, the masked mean over
     ``max(mask.sum(), 1)`` tokens."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    if is_dtensor(logits, labels):
+        # each rank's tokens, every logit of a token on its rank
+        pl = whole_on(logits.placements, logits.dim() - 1)
+        nll = on_blocks(_nll, (logits, labels), (pl, remap(pl, {0: 0, 1: 1})),
+                        remap(pl, {0: 0, 1: 1}))
+    else:
+        nll = _nll(logits, labels)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)

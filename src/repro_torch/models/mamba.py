@@ -26,6 +26,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.sharding import (constrain, is_dtensor, on_blocks, remap,
+                                    whole_on)
 from ..kernels.mamba_scan.ops import mamba_scan, mamba_step_ref
 from .config import ModelConfig
 from .layers import cdtype, matmul, rows_matmul, silu
@@ -69,7 +71,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                    ) -> torch.Tensor:
     """Depthwise causal conv: x (B, T, Di), w (K, Di) -> (B, T, Di), the K
-    taps added one after another from a zero start, as the JAX block does."""
+    taps added one after another from a zero start, as the JAX block does.
+    DTensors run on each rank's (batch, channel) blocks, whole along T (the
+    padding has no DTensor strategy in every torch version)."""
+    if is_dtensor(x, w, b):
+        px = whole_on(x.placements, 1)
+        pw = remap(px, {2: 1})
+        return on_blocks(_conv1d_causal, (x, w, b),
+                         (px, pw, remap(px, {2: 0})), px)
     k, t = w.shape[0], x.shape[1]
     xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)
@@ -100,6 +109,7 @@ def mamba_full(p, x: torch.Tensor, cfg: ModelConfig, *,
     dt = cdtype(cfg)
     xz = matmul(x, p["in_proj"], cfg)
     xs, z = xz.chunk(2, dim=-1)
+    xs = constrain(xs, "batch", "seq", "mlp")
     xc = silu(_conv1d_causal(xs, p["conv_w"].to(dt), p["conv_b"].to(dt)))
     delta, bmat, cmat = _ssm_inputs(p, xc, cfg)
     a = -torch.exp(p["a_log"].float())

@@ -28,8 +28,9 @@ from typing import Dict, Optional
 
 import torch
 
+from ..distributed.sharding import constrain, is_dtensor, replicated
 from ..kernels.flash_attention.ops import flash_attention
-from .attention import _row_positions
+from .attention import _row_positions, merge_heads, pad_rows, write_at
 from .config import ModelConfig
 from .layers import NEG_INF, apply_rotary, cdtype, rms_norm_1d
 from .params import ParamSpec, dense_spec, state_device
@@ -117,8 +118,9 @@ def mla_full(p, x: torch.Tensor, cfg: ModelConfig, *,
 
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, h, s, rope)], dim=-1)
+    q = constrain(q, "batch", "heads", "seq", None)
     out = flash_attention(q, k, v, causal=True, scale=(nope + rope) ** -0.5)
-    out = out.transpose(1, 2).reshape(b, s, h * vd)
+    out = merge_heads(out.transpose(1, 2))
     y = torch.matmul(out.to(dt), p["wo"].to(dt))
     if return_cache:
         return y, (c_kv, k_rope[:, 0])
@@ -151,8 +153,13 @@ def mla_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
 def mla_cache_from_prefill(cfg: ModelConfig, c_kv: torch.Tensor,
                            k_rope: torch.Tensor, max_len: int,
                            dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Pad the prefill's latents (B, S, ·) out to ``max_len`` cache rows."""
+    """Pad the prefill's latents (B, S, ·) out to ``max_len`` cache rows
+    (under sharding rules, split on T as the decode step places them)."""
     b, s, _ = c_kv.shape
+    if is_dtensor(c_kv, k_rope):
+        return {name: constrain(pad_rows(x.to(dtype), 1, max_len),
+                                "batch", "kv_seq", None)
+                for name, x in (("c_kv", c_kv), ("k_rope", k_rope))}
     cache = init_mla_cache(cfg, b, max_len, dtype, c_kv.device)
     cache["c_kv"][:, :s] = c_kv
     cache["k_rope"][:, :s] = k_rope
@@ -180,18 +187,20 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
     nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     kvl = cfg.kv_lora_rank
     dt = cdtype(cfg)
-    pos = _row_positions(pos, b, x.device)                      # (B,)
+    pos = replicated(_row_positions(pos, b, x.device), x)       # (B,)
 
     q_nope, q_rope = _queries(p, x, cfg, pos[:, None])          # (B,H,1,·)
     c_new, k_rope_new = _latents(p, x, cfg, pos[:, None])
 
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    # written in place: the JAX package's constraints (after its write)
+    # come first, a no-op on a cache the prefill placed
+    c_kv = constrain(cache["c_kv"], "batch", "kv_seq", None)
+    k_rope = constrain(cache["k_rope"], "batch", "kv_seq", None)
     dtype = c_kv.dtype
     t = c_kv.shape[1]
-    rows = torch.arange(b, device=x.device)
     at = pos.clamp(0, t - 1)
-    c_kv[rows, at] = c_new[:, 0].to(dtype)
-    k_rope[rows, at] = k_rope_new[:, 0, 0].to(dtype)
+    write_at(c_kv, c_new[:, 0].to(dtype), at, 1)
+    write_at(k_rope, k_rope_new[:, 0, 0].to(dtype), at, 1)
 
     # the absorbed attention runs one row at a time: every product and
     # reduction below has a shape that no batch size changes (the library
@@ -200,7 +209,7 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
     wk_b = p["wk_b"].float().reshape(kvl, h, nope)
     wv_b = p["wv_b"].float().reshape(kvl, h, vd)
     scale = (nope + rope) ** -0.5
-    keys = torch.arange(t, device=x.device)
+    keys = replicated(torch.arange(t, device=x.device), x)
     rows_o = []
     for i in range(b):
         # absorb W_UK into the query: q_lat (H, kvl), in f32
@@ -219,4 +228,4 @@ def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
         rows_o.append(torch.einsum("hk,khd->hd", o_lat, wv_b))
     o = torch.stack(rows_o).reshape(b, 1, h * vd)
     y = torch.matmul(o.to(dt), p["wo"].to(dt))
-    return y, cache
+    return y, dict(cache, c_kv=c_kv, k_rope=k_rope)

@@ -1,7 +1,11 @@
 """Mixture-of-Experts layer: top-k routing, sort-based capacity dispatch.
 
-The JAX package's ``models/moe.py`` in PyTorch, for one device (the
-sharding constraints of the JAX layer are no-ops there and are left out):
+The JAX package's ``models/moe.py`` in PyTorch, with its three sharding
+constraints at its sites (groups on batch; the expert-major buffer and the
+experts' outputs on ``"expert"``, the all-to-all boundary), which act under
+sharding rules on DTensors and are no-ops on one device; there the routing,
+dispatch and combine, all local to a group, run on each rank's groups
+(``distributed.sharding.on_blocks``):
 
 1. tokens are viewed as (groups, g, D), one routing group of ``g`` tokens
    each (a sequence in a prefill; one token per sequence in a decode step
@@ -48,6 +52,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import constrain, is_dtensor, on_blocks, whole_on
 from .config import ModelConfig
 from .layers import PRODUCT_ROWS, act_fn, cdtype, rows_matmul
 from .params import ParamSpec, dense_spec
@@ -202,18 +207,39 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"{b * s} tokens do not split into groups of {g}")
     c = capacity(cfg, g)
 
-    xg = x.reshape(n, g, d).to(dt)
+    xg = constrain(x.reshape(n, g, d), "batch", None, None).to(dt)
     logits = router_logits(xg, p["router"].to(dt))                # (n, g, E)
-    slot, weight, aux = route(logits, cfg, c, with_aux=with_aux)
-    buf = dispatch(xg, slot, e * c, cfg.top_k)                    # (n, E·c, D)
+
+    def route_dispatch(xg, logits):
+        slot, weight, aux = route(logits, cfg, c, with_aux=with_aux)
+        buf = dispatch(xg, slot, e * c, cfg.top_k)                # (n, E·c, D)
+        return (buf, slot, weight) + ((aux,) if with_aux else ())
+
+    if is_dtensor(xg, logits):
+        # every index is local to its group: each rank routes its groups
+        pg = whole_on(xg.placements, 1, 2)
+        out = on_blocks(route_dispatch, (xg, logits), (pg, pg),
+                        (pg,) * (4 if with_aux else 3))
+    else:
+        out = route_dispatch(xg, logits)
+    buf, slot, weight = out[:3]
+    aux = out[3] if with_aux else None
     # expert-major: (E, n·c, D), each expert's rows of every group together
-    he = buf.reshape(n, e, c, d).transpose(0, 1).reshape(e, n * c, d)
+    he = constrain(buf.reshape(n, e, c, d), "batch", "expert", None, None)
+    he = he.transpose(0, 1).reshape(e, n * c, d)
     act = act_fn(cfg)
     hidden = act(torch.matmul(he, p["wg"].to(dt)))
     hidden = hidden * torch.matmul(he, p["wi"].to(dt))
     y_exp = torch.matmul(hidden, p["wo"].to(dt))                  # (E, n·c, D)
-    y_exp = y_exp.reshape(e, n, c, d).transpose(0, 1).reshape(n, e * c, d)
-    y = combine(y_exp, slot, weight, cfg.top_k).reshape(b, s, d)
+    y_exp = constrain(y_exp.reshape(e, n, c, d).transpose(0, 1), "batch",
+                      "expert", None, None).reshape(n, e * c, d)
+    if is_dtensor(y_exp):
+        pg = whole_on(slot.placements, 1)          # groups as routed
+        y = on_blocks(lambda *a: combine(*a, cfg.top_k),
+                      (y_exp, slot, weight), (pg, pg, pg), pg)
+    else:
+        y = combine(y_exp, slot, weight, cfg.top_k)
+    y = y.reshape(b, s, d)
 
     if cfg.n_shared_experts:
         sp = p["shared"]

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.sharding import constrain
 from ..kernels.norm.ops import group_norm
 from ..kernels.rwkv6_scan.ops import rwkv6_scan
 from .config import ModelConfig
@@ -126,6 +127,7 @@ def rwkv_time_mix(p, x: torch.Tensor, cfg: ModelConfig, *,
     xx = _shift(x, last_x) - x
     r, k, v, w, g = _mix_inputs(p, x, xx, cfg)
     rh, kh, vh, wh = (_heads(z, h, hd) for z in (r, k, v, w))
+    rh = constrain(rh, "batch", "heads", "seq", None)
     y, wkv = rwkv6_scan(rh, kh, vh, wh.float(), p["u_bonus"].float(),
                         state0=wkv0)
     y = y.transpose(1, 2).reshape(b, s, d)

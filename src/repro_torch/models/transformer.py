@@ -13,7 +13,17 @@ frontend.
 The JAX package stacks each block position's weights over ``n_groups`` and
 scans them; here :class:`Transformer` unstacks them into one
 ``nn.ModuleDict`` per layer and runs a Python loop (deepseek's dense first
-layer, ``layer0``, runs before it).  Its parameter names
+layer, ``layer0``, runs before it).  The JAX package's sharding hooks sit
+at its sites (``constrain`` on the residual stream; under
+``cfg.fsdp_gather_weights`` the explicit FSDP gather of each layer's weights,
+:func:`_gather_group_params`): they place the DTensors of a sharded run
+(``distributed.sharding.activate``), and move nothing on one device.  The
+gather's cast is not a no-op there: in a bf16 compute dtype each f32
+master of two or more dims is read rounded to bf16 (mamba's ``a_log``,
+rwkv's ``u_bonus`` and MLA's ``wk_b`` / ``wv_b`` too, which the blocks
+then widen to f32), and its gradient comes back through the cast, as in
+the JAX package.  Its
+parameter names
 follow the JAX tree (``embed.embedding``, ``layers[i].block.wq``, ...), so
 the functions of ``layers`` and ``attention`` read a layer exactly as they
 read a dict of the JAX package's tensors.
@@ -48,6 +58,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .attention import (attend_decode, attend_full, attn_spec,
                         cache_from_prefill, init_kv_cache)
+from ..distributed.sharding import constrain, replicated
 from .config import ModelConfig
 from .frontends import F32_LEAVES as FRONTEND_F32_LEAVES
 from .frontends import embed_audio, embed_vision, frontend_spec
@@ -322,7 +333,8 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         x = x + mul_scalar(rwkv_time_mix(p["block"], h, cfg), rs)
         h2 = apply_norm(p["norm2"], x, cfg)
         x = x + mul_scalar(rwkv_channel_mix(p["block"], h2, cfg), rs)
-        return x, torch.zeros(2, dtype=torch.float32, device=x.device)
+        return x, replicated(torch.zeros(2, dtype=torch.float32,
+                                         device=x.device), x)
     if kind == "rwkv":
         # the JAX prefill seeds every layer with init_rwkv_state's zeros;
         # None is the same state (the kernel starts from zeros)
@@ -368,9 +380,11 @@ def _apply_position(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                with_aux=train)
     else:
         m_out = apply_mlp(p["mlp"], h2, cfg)
-        aux = (torch.zeros(2, dtype=torch.float32, device=x.device)
+        aux = (replicated(torch.zeros(2, dtype=torch.float32,
+                                      device=x.device), x)
                if train else None)
     x = x + mul_scalar(m_out, rs)
+    x = constrain(x, "batch", "seq", None)
     return x, (aux if train else new_cache)
 
 
@@ -520,7 +534,7 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], max_len: int,
     cfg = model.cfg
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no prefill/decode")
-    x = embed_inputs(model, inputs)
+    x = constrain(embed_inputs(model, inputs), "batch", "seq", None)
     cache: Dict[str, Any] = {}
     if cfg.first_layer_dense:
         kind0 = cfg.block_pattern[0]
@@ -562,7 +576,8 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
     cfg = model.cfg
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    x = embed_tokens(model.embed, tokens[:, None], cfg)
+    x = constrain(embed_tokens(model.embed, tokens[:, None], cfg),
+                  "batch", None, None)
     new_cache: Dict[str, Any] = {}
     if cfg.first_layer_dense:
         x, new_cache["layer0"] = _apply_position(
@@ -607,8 +622,41 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _gather_group_params(p, cfg: ModelConfig, kind: str, mlp_kind: str
+                         ) -> Dict[str, Any]:
+    """Explicit FSDP unshard of one layer's weights (the JAX package's, for
+    a scan group; the port unstacks layers, so a leaf's axes lose their
+    leading ``"layers"``): every weight constrained to drop its ``"embed"``
+    (data-axis) sharding, one all-gather a weight a layer whose gradient is
+    the reduce-scatter back to the master's placement; a f32 matrix is cast
+    to the compute dtype *before* the gather (half the bytes); expert
+    weights stay where they are (weight-stationary expert parallelism).
+    Unsharded too, the cast rounds those masters to the compute dtype
+    before the layer reads them, as the JAX package's gather does.
+    -> the layer's tensors as nested dicts, read as the layer is."""
+    dt = cdtype(cfg)
+
+    def unshard(arr, ax):
+        if "expert" in ax:
+            return arr
+        ax = tuple(None if name == "embed" else name for name in ax)
+        if (arr.dim() >= 2 and arr.dtype == torch.float32
+                and cfg.dtype != "float32"):
+            arr = arr.to(dt)
+        return constrain(arr, *ax)
+
+    def walk(sub, spec):
+        return {name: (walk(sub[name], sp) if isinstance(sp, dict)
+                       else unshard(sub[name], sp.axes))
+                for name, sp in spec.items()}
+
+    return walk(p, _position_spec(cfg, kind, mlp_kind, 0))
+
+
 def _layer(p, x: torch.Tensor, cfg: ModelConfig, kind: str, mlp_kind: str
            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.fsdp_gather_weights:
+        p = _gather_group_params(p, cfg, kind, mlp_kind)
     return _apply_position(p, x, cfg, kind, mlp_kind, mode="train")
 
 
@@ -652,17 +700,18 @@ def forward(model_or_tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig
     ``_apply_layer0``, outside the remat policy and with no aux; then each
     scanned layer under ``cfg.remat``.  The aux losses are the layers'
     [load_balance, router_z] summed in layer order from zero, as the JAX
-    scan carries them: zeros for a stack without an MoE layer.  The JAX
-    package's FSDP weight gathers (``cfg.fsdp_gather_weights``) are the
-    distribution slice's; on one device there is nothing to gather, and the
-    flag is not read."""
+    scan carries them: zeros for a stack without an MoE layer.  With
+    ``cfg.fsdp_gather_weights`` each scanned layer first gathers its
+    weights (:func:`_gather_group_params`, inside the remat policy as the
+    JAX group's gather is): a no-op on one device, the FSDP all-gather
+    under sharding rules."""
     check_trainable(cfg)
     model = _as_model(model_or_tree, cfg)
-    x = embed_inputs(model, inputs)
+    x = constrain(embed_inputs(model, inputs), "batch", "seq", None)
     if cfg.first_layer_dense:
         x, _ = _apply_position(model.layer0, x, cfg, cfg.block_pattern[0],
                                "dense", mode="train")
-    aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+    aux = replicated(torch.zeros(2, dtype=torch.float32, device=x.device), x)
     for layer, p in enumerate(model.layers):
         x, a = _remat_layer(p, x, cfg, *_layer_kinds(cfg, layer))
         aux = aux + a

@@ -135,7 +135,7 @@ def test_no_grad_call_is_unchanged():
 
 
 @pytest.mark.parametrize("dk,dv,q_offset", [(160, 160, 0), (192, 192, 0),
-                                             (64, 64, 5), (48, 48, 0)])
+                                             (64, 64, -5), (48, 48, 0)])
 def test_backward_kernel_refuses_other_shapes(dk, dv, q_offset):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 6"):
         check_backward(dk, dv, q_offset)
@@ -158,18 +158,20 @@ def test_the_card_path_is_an_autograd_function(monkeypatch):
 
     def fake_forward(q, k, v, out, *, causal, scale, q_offset, bq, bk,
                      lse=None):
-        out.copy_(flash_attention_plain(q, k, v, causal=causal, scale=scale))
+        out.copy_(flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                        q_offset=q_offset))
         if lse is not None:
             assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
             lse.zero_()
         calls.append(("forward", lse is not None))
 
     def fake_backward(q, k, v, dout, lse, delta, dq, dk, dv, *, causal,
-                      scale):
+                      scale, q_offset):
         assert all(x.is_contiguous() for x in (q, k, v, dout, lse))
         assert delta.shape == lse.shape
         for out, g in zip((dq, dk, dv), flash_attention_bwd_plain(
-                q, k, v, dout, causal=causal, scale=scale)):
+                q, k, v, dout, causal=causal, scale=scale,
+                q_offset=q_offset)):
             out.copy_(g)
         calls.append("backward")
 
@@ -190,5 +192,13 @@ def test_the_card_path_is_an_autograd_function(monkeypatch):
     with torch.no_grad():
         ops.flash_attention(*leaves)
     assert calls == [("forward", False)]
+    # a context-parallel shard's rows: the backward takes their offset
+    calls.clear()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.flash_attention(*leaves, q_offset=4).backward(dout)
+    assert calls == [("forward", True), "backward"]
+    for leaf, want in zip(leaves, flash_attention_bwd_plain(
+            q, k, v, dout, q_offset=4)):
+        assert torch.equal(leaf.grad, want)
     with pytest.raises(ValueError, match="queue 2 item 6"):
-        ops.flash_attention(*leaves, q_offset=4)
+        ops.flash_attention(*leaves, q_offset=-4)

@@ -56,8 +56,11 @@ def test_unported_shapes_are_refused_naming_the_roadmap(dk, dv):
 
 
 def test_a_suffix_q_offset_is_refused():
+    """A context-parallel shard's rows (q_offset >= 0) have a backward;
+    rows before key 0 (a negative offset) have none."""
+    check_backward(64, 64, 16)
     with pytest.raises(ValueError, match="q_offset"):
-        check_backward(64, 64, 16)
+        check_backward(64, 64, -16)
 
 
 @pytest.mark.parametrize("dtype,d,route", [
@@ -78,10 +81,11 @@ def test_the_launch_passes_the_route(monkeypatch, dtype, d, route):
     assert args[0] == "flash_attention_bwd"
     assert args[1] == {torch.bfloat16: "repro_flash_attention_bwd_bf16",
                        torch.float32: "repro_flash_attention_bwd_f32"}[dtype]
-    # ..., b, h, kvh, s, t, dk, dv, scale, causal, wgmma, part, device, stream
-    assert args[12:22] == (b, h, kvh, s, t, d, d, 0.125, 1, route)
+    # ..., b, h, kvh, s, t, dk, dv, scale, causal, q_offset, wgmma, part,
+    # device, stream
+    assert args[12:23] == (b, h, kvh, s, t, d, d, 0.125, 1, 0, route)
     # the GQA group's f32 dK/dV partials on the tensor-core route only
-    assert (args[22].value is not None) == bool(route)
+    assert (args[23].value is not None) == bool(route)
     assert len(args[2]) == len(args) - 3          # one ctypes type an argument
 
 
@@ -94,7 +98,7 @@ def test_an_mha_call_takes_no_partials(monkeypatch):
     lse = torch.zeros(2, 4, 5)
     fa.launch_flash_attention_bwd(q, q, q, q, lse, lse, q, q, q, causal=True,
                                   scale=0.125)
-    assert calls[0][21] == 1 and calls[0][22].value is None
+    assert calls[0][22] == 1 and calls[0][23].value is None
 
 
 def test_the_cpu_gradient_is_the_plain_versions():

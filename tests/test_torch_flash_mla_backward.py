@@ -121,7 +121,7 @@ def test_mla_pair_routes_and_is_the_forwards():
 @pytest.mark.parametrize("dk,dv,q_offset", [
     (256, 128, 0),                 # paligemma's Dk against another Dv
     (48, 32, 0), (128, 192, 0), (192, 64, 0),   # Dk != Dv outside the list
-    (192, 128, 16), (192, 128, -4)])
+    (192, 128, -16), (192, 128, -4)])
 def test_other_pairs_and_offsets_are_refused(dk, dv, q_offset):
     with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 6"):
         check_backward(dk, dv, q_offset)
@@ -146,12 +146,13 @@ def test_the_launch_passes_both_head_dims(monkeypatch, dtype, route, h, kvh):
     fa.launch_flash_attention_bwd(q, k, v, dout, lse, lse, q, k, v,
                                   causal=True, scale=192 ** -0.5)
     (args,) = calls
-    # ..., b, h, kvh, s, t, dk, dv, scale, causal, wgmma, part, device, stream
+    # ..., b, h, kvh, s, t, dk, dv, scale, causal, q_offset, wgmma, part,
+    # device, stream
     assert args[12:19] == (b, h, kvh, s, t, 192, 128)
-    assert args[20:22] == (1, route)
+    assert args[20:23] == (1, 0, route)
     # the GQA group's f32 partials: H * B * T * (Dk + Dv) floats, dK's then
     # dV's, on the tensor-core route only
-    assert (args[22].value is not None) == (route == 1 and h > kvh)
+    assert (args[23].value is not None) == (route == 1 and h > kvh)
     assert len(args[2]) == len(args) - 3          # one ctypes type an argument
 
 

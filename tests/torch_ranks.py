@@ -137,11 +137,14 @@ def start_groups(tmp_path, groups, timeout: float = 180.0):
                         f"group {g} rank {rank} failed:\n{value}")
                 got[(g, rank)] = value
         finally:
+            # one 30 s grace for all ranks, not each: after a failure the
+            # others may wait in a collective that never completes
+            stop = time.monotonic() + 30
             for p in procs:
-                if p.pid is None:                # never started
-                    continue
-                p.join(timeout=30)
-                if p.is_alive():
+                if p.pid is not None:            # started
+                    p.join(timeout=max(0.0, stop - time.monotonic()))
+            for p in procs:
+                if p.pid is not None and p.is_alive():
                     p.kill()
                     p.join(timeout=10)
         assert all(p.pid is not None and not p.is_alive() for p in procs)
@@ -167,7 +170,11 @@ def run(world: int, tmp_path, fn_name: str, *args, timeout: float = 180.0):
 # rank functions
 # ---------------------------------------------------------------------------
 def _mesh(shape, names):
+    """A gloo ``DeviceMesh``; every constant the models make replicated on
+    it is checked to be alike on all ranks (``sharding.CHECK_REPLICATED``)."""
     from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import sharding
+    sharding.CHECK_REPLICATED = True
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
 
 
@@ -363,3 +370,256 @@ def elastic(rank, world, mesh_shape, read_path, write_path, write_first):
         _bits(a.full_tensor()) == _bits(whole[p])
         for p, a in leaves_with_path(back))
     return report
+
+
+# ---------------------------------------------------------------------------
+# sharded execution through the models
+# ---------------------------------------------------------------------------
+def _reduced(arch, **over):
+    """An arch's reduced config in f32 (MoE capacity 8: no drops, so a
+    sharded step routes as the unsharded one), as the JAX package's
+    mini-mesh test builds it."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(arch).reduced()
+    kw = {"dtype": "float32", **over}
+    if cfg.n_experts:
+        kw.setdefault("capacity_factor", 8.0)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _placed_state(state, spec, rules, mesh):
+    """A train state placed as the JAX test's ``state_sh``: params, m and v
+    by ``param_shardings``, the step replicated."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  param_shardings)
+    psh = param_shardings(spec, rules, mesh)
+    opt = state["opt"]
+    return {"params": distribute_tree(state["params"], psh, mesh),
+            "opt": {"m": distribute_tree(opt["m"], psh, mesh),
+                    "v": distribute_tree(opt["v"], psh, mesh),
+                    "step": distribute_tree(opt["step"],
+                                            (Replicate(),) * mesh.ndim,
+                                            mesh)}}
+
+
+def _placed_batch(batch, rules, mesh):
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  placements_for, spec_for)
+    return {k: distribute_tree(v, placements_for(spec_for(
+        ("batch", None), rules, mesh, tuple(v.shape)), mesh), mesh)
+        for k, v in batch.items()}
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _train_pair(arch, rules, mesh, ref=True, **over):
+    """One step of ``arch`` (reduced, batch 8 x 32) under ``rules`` on
+    ``mesh`` from a placed copy of the seed's state, and (``ref``) the same
+    step unsharded from the same state: -> ((metrics, state) sharded
+    gathered, (metrics, state) unsharded or None, the placed state), the
+    metrics the loss and the gradient's global norm, the sharded leaves as
+    whole tensors."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.distributed.sharding import activate
+    from repro_torch.models.params import map_tree
+    from repro_torch.models.transformer import model_spec
+    from repro_torch.optim.schedule import constant_schedule
+    from repro_torch.train.step import (TrainConfig, clone_train_state,
+                                        init_train_state, make_train_step)
+    cfg = _reduced(arch, **over)
+    spec = model_spec(cfg)
+    tcfg = TrainConfig(remat="none", microbatches=1)
+    state = init_train_state(cfg, tcfg, 0, device="cpu")
+    state_ref = clone_train_state(state)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMData(
+        DataConfig(8, 32, cfg.vocab, seed=0), cfg).batch_at(0).items()}
+    placed = _placed_state(state, spec, rules, mesh)
+    with activate(rules, mesh):
+        step = make_train_step(cfg, tcfg, constant_schedule(1e-3))
+        placed, metrics = step(placed, _placed_batch(batch, rules, mesh))
+    got = ({k: _full(metrics[k]) for k in ("loss", "grad_norm")},
+           map_tree(_full, placed))
+    if not ref:
+        return got, None, placed
+    state, ref_metrics = make_train_step(cfg, tcfg, constant_schedule(1e-3))(
+        state_ref, batch)
+    return got, ({k: ref_metrics[k] for k in ("loss", "grad_norm")},
+                 state), placed
+
+
+def sharded_train(rank, world, arch, shape=(2, 4), names=("data", "model")):
+    """The JAX package's mini-mesh train check on a (data=2, model=4)
+    mesh (or ``shape`` over ``names``) under TRAIN_FSDP_RULES: -> on rank 0
+    the sharded and unsharded losses and gradient norms, every parameter
+    and both moments of every parameter (part -> path -> (sharded,
+    unsharded; the bf16 moments as f32); after one AdamW step m is 0.1 g
+    and v 0.001 g^2, each rounded to bf16, so a
+    gradient summed over too many ranks shows in them, where the
+    parameter's sign-like first step hides it), whether the placed state
+    was sharded at all and the batch's placements (by type name); None
+    elsewhere."""
+    from repro_torch.distributed.sharding import (TRAIN_FSDP_RULES,
+                                                  placements_for, spec_for)
+    from repro_torch.models.params import leaves_with_path
+    mesh = _mesh(shape, names)
+    (metrics, state), pair, placed = _train_pair(arch, TRAIN_FSDP_RULES,
+                                                 mesh, ref=rank == 0)
+    if rank:
+        return None
+    ref_metrics, ref = pair
+    trees = {"params": (state["params"], ref["params"]),
+             "m": (state["opt"]["m"], ref["opt"]["m"]),
+             "v": (state["opt"]["v"], ref["opt"]["v"])}
+    out = {}
+    for part, (got, want) in trees.items():
+        want = dict(leaves_with_path(want))
+        out[part] = {p: (t.float().numpy(), want[p].float().numpy())
+                     for p, t in leaves_with_path(got)}
+    return {**{k: float(metrics[k]) for k in ("loss", "grad_norm")},
+            **{"ref_" + k: float(ref_metrics[k])
+               for k in ("loss", "grad_norm")},
+            **out,
+            "sharded": any(t.to_local().numel() < t.numel()
+                           for _, t in leaves_with_path(placed["params"])),
+            "batch": [type(pl).__name__ for pl in placements_for(spec_for(
+                ("batch", None), TRAIN_FSDP_RULES, mesh, (8, 32)), mesh)]}
+
+
+def _serve_pair(arch, rules, mesh, cache_dtype, ref=True, **over):
+    """Prefill (batch 8 x 16, max_len 20) and one greedy decode step of
+    ``arch`` (reduced) under ``rules`` on ``mesh`` on a placed copy of the
+    seed's tree, and (``ref``) the same unsharded: -> (logits, step
+    logits, cache) sharded, (logits, step logits) unsharded or None."""
+    from repro_torch.distributed.sharding import (activate, distribute_tree,
+                                                  param_shardings)
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import (Transformer, decode_step,
+                                                model_spec, prefill)
+    cfg = _reduced(arch, **over)
+    spec = model_spec(cfg)
+    tree = init_params(spec, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (8, 16))).to(torch.int32)
+    placed = distribute_tree(tree, param_shardings(spec, rules, mesh), mesh)
+    with activate(rules, mesh):
+        model = Transformer(cfg, placed)
+        t = _placed_batch({"tokens": toks}, rules, mesh)["tokens"]
+        logits, cache = prefill(model, {"tokens": t}, 20,
+                                cache_dtype=cache_dtype)
+        l2, cache = decode_step(model, cache, logits.argmax(-1), 16)
+    got = (_full(logits), _full(l2), cache)
+    if not ref:
+        return got, None
+    ref_model = Transformer(cfg, tree)
+    rl, rc = prefill(ref_model, {"tokens": toks}, 20, cache_dtype=cache_dtype)
+    rl2, _ = decode_step(ref_model, rc, rl.argmax(-1), 16)
+    return got, (rl, rl2)
+
+
+def sharded_serve(rank, world, arch):
+    """The JAX package's mini-mesh serving check on a (data=2, model=4)
+    mesh under SERVE_RULES (f32 cache): -> on rank 0 both runs' prefill
+    and decode logits and the attention cache's layout: its placements
+    name a shard of the T axis, and this rank's block holds fewer than
+    max_len positions."""
+    from repro_torch.distributed.sharding import SERVE_RULES
+    mesh = _mesh((2, 4), ("data", "model"))
+    (logits, l2, cache), pair = _serve_pair(arch, SERVE_RULES, mesh,
+                                            torch.float32, ref=rank == 0)
+    k = cache["pos0"]["k"]                   # (G, B, KVH, max_len, hd)
+    if rank:
+        return None
+    rl, rl2 = pair
+    return {"logits": (logits.numpy(), rl.numpy()),
+            "step": (l2.numpy(), rl2.numpy()),
+            "t_split": any(getattr(pl, "dim", None) == 3
+                           for pl in k.placements),
+            "local_t": int(k.to_local().shape[3])}
+
+
+def world_one(rank, world, arch):
+    """On a world-1 (data=1, model=1) mesh, the reduced ``arch`` with the
+    card's bf16 compute dtype (f32 masters, so the FSDP gather casts before
+    it gathers): one step under TRAIN_FSDP_RULES and a prefill + decode
+    step under SERVE_RULES (bf16 cache), each against the unsharded run:
+    -> whether every loss, parameter, moment and logit is equal bit for
+    bit.  (In an f32 compute dtype a norm's plain version reads its input
+    several times, and autograd adds those gradient terms at the leaf
+    together with the residual's in its own order, where on each rank's
+    block they are added first: the steps then part by an ulp.)"""
+    from repro_torch.distributed.sharding import SERVE_RULES, TRAIN_FSDP_RULES
+    from repro_torch.models.params import leaves_with_path
+    mesh = _mesh((1, 1), ("data", "model"))
+    (metrics, state), (ref_metrics, ref), _ = _train_pair(
+        arch, TRAIN_FSDP_RULES, mesh, dtype="bfloat16")
+    out = {k: _bits(metrics[k]) == _bits(ref_metrics[k])
+           for k in ("loss", "grad_norm")}
+    for part in ("params", "m", "v"):
+        got = state["params"] if part == "params" else state["opt"][part]
+        want = ref["params"] if part == "params" else ref["opt"][part]
+        out[part] = all(_bits(a) == _bits(b) for (_, a), (_, b) in zip(
+            leaves_with_path(got), leaves_with_path(want)))
+    (logits, l2, _), (rl, rl2) = _serve_pair(arch, SERVE_RULES, mesh,
+                                             torch.bfloat16, dtype="bfloat16")
+    out["prefill"] = _bits(logits) == _bits(rl)
+    out["decode"] = _bits(l2) == _bits(rl2)
+    return out
+
+
+def context_parallel(rank, world, seq, cp_min_seq):
+    """Causal attention of a reduced config with 6 heads (which the model
+    axis of 4 does not divide) on a (data=1, model=4) mesh under
+    TRAIN_RULES with the port's ``CP_MIN_SEQ`` set to ``cp_min_seq``
+    (this process's copy): -> on rank 0 whether the context-parallel path
+    ran, and the output and the gradients of x and of every weight, each
+    as (sharded, unsharded)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import (TRAIN_RULES, activate,
+                                                  distribute_tree,
+                                                  param_shardings)
+    from repro_torch.models import attention
+    from repro_torch.models.attention import attend_full, attn_spec
+    from repro_torch.models.params import init_params
+    sharding.CP_MIN_SEQ = cp_min_seq
+    taken = []
+    cp = attention._context_parallel_attention
+
+    def recorded(*a):
+        taken.append(a[0].shape[2])
+        return cp(*a)
+
+    attention._context_parallel_attention = recorded
+    mesh = _mesh((1, 4), ("data", "model"))
+    cfg = _reduced("qwen2.5-3b", n_heads=6, n_kv_heads=2)
+    spec = attn_spec(cfg)
+    tree = init_params(spec, 0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, seq, cfg.d_model, generator=g)
+    dy = torch.randn(2, seq, cfg.d_model, generator=g)
+
+    def run(p, xx):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xx = xx.detach().requires_grad_()
+        y = attend_full(leaves, xx, cfg)
+        (y * sharding.replicated(dy, y)).sum().backward()
+        return y, xx.grad, {k: v.grad for k, v in leaves.items()}
+
+    ref = run(tree, x)
+    with activate(TRAIN_RULES, mesh):
+        placed = distribute_tree(tree, param_shardings(spec, TRAIN_RULES,
+                                                       mesh), mesh)
+        xs = _placed_batch({"x": x}, TRAIN_RULES, mesh)["x"]
+        got = run(placed, xs)
+    full = (_full(got[0]), _full(got[1]),
+            {k: _full(v) for k, v in got[2].items()})
+    if rank:
+        return None
+    return {"taken": taken,
+            "y": (full[0].detach().numpy(), ref[0].detach().numpy()),
+            "dx": (full[1].numpy(), ref[1].numpy()),
+            "dw": {k: (full[2][k].numpy(), ref[2][k].numpy())
+                   for k in ref[2]}}
